@@ -1,0 +1,413 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/H100 port (cloudtik_tpu_torch).
+
+    python3 chip_smoke.py
+
+Runs on one CUDA card and drives the port only (no JAX, nothing of
+cloudtik_tpu).  Phases, each printed as one JSON line; any failure ends the
+run with a non-zero exit:
+
+  device   card name, count, `nvidia-smi` name and power limit
+  build    builds every kernel from csrc/ (one nvcc per source, in parallel)
+  kernel   each kernel against its plain PyTorch version on the card, at the
+           main path's shape and a few others, with the tolerance; kernel,
+           plain and library (yardstick) times beside the bound
+  serve    the main path, part 2: `tik-serve`'s backend at tpu_1b width
+           answering /v1/generate; greedy answers equal a direct `generate`
+  forward  the main path, part 1: tpu_1b `forward` at B=4, S=2048 in bf16,
+           held against the same forward on the reference attention
+
+Launch counts are zeroed just before the main path (forward, then serve)
+and read just after it.  The last lines are the `nvidia-smi` name/power
+line, a `{"kernels": [...]}` summary and `{"ok": true, "device": ...}`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+import urllib.error
+import urllib.request
+
+# Published dense peaks of one H100 SXM (NVIDIA data sheet) for the bound.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of fn() over `iters` runs, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ------------------------------------------------------------------ kernel --
+
+@dataclasses.dataclass(frozen=True)
+class AttnCase:
+    name: str
+    B: int
+    H: int
+    Hkv: int
+    S: int
+    D: int
+    causal: bool
+    dtype: str = "bfloat16"
+    # "bshd": [B,S,H,D] tensors transposed to BHSD, as the model hands them
+    layout: str = "bhsd"
+
+
+# The first case is the shape and layout `forward` gives the kernel.
+ATTN_CASES = (
+    AttnCase("forward_b4", 4, 16, 16, 2048, 128, True, layout="bshd"),
+    AttnCase("tpu_1b_b1", 1, 16, 16, 2048, 128, True),
+    AttnCase("gqa_noncausal", 2, 16, 4, 1024, 64, False),
+    AttnCase("ragged_causal", 1, 16, 16, 1000, 128, True),
+    AttnCase("fp16_causal", 1, 8, 8, 512, 128, True, dtype="float16"),
+)
+# bf16/fp16 output: p and o are rounded to 8/11 mantissa bits at different
+# points in the kernel (per 64-column tile) and the plain version (per row)
+O_ATOL, O_RTOL = 1e-2, 1e-2
+# lse stays in f32; only the summation order differs
+LSE_ATOL = 1e-3
+
+
+def attention_bound(c: AttnCase, elem_bytes: int = 2):
+    """Least time for the work the inputs need: unmasked (q, kv) pairs
+    only, each input read once, each output written once."""
+    if c.causal:   # absolute positions: row s sees min(s + 1, Skv) keys
+        pairs = c.S * (c.S + 1) // 2
+    else:
+        pairs = c.S * c.S
+    flops = 4 * c.B * c.H * pairs * c.D
+    nbytes = (elem_bytes * (2 * c.B * c.H * c.S * c.D
+                            + 2 * c.B * c.Hkv * c.S * c.D)
+              + 4 * c.B * c.H * c.S)
+    t_ops = flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, bound_by, flops, nbytes
+
+
+def make_qkv(c: AttnCase, gen):
+    import torch
+
+    dtype = getattr(torch, c.dtype)
+
+    def rand(heads):
+        shape = (c.B, c.S, heads, c.D) if c.layout == "bshd" \
+            else (c.B, heads, c.S, c.D)
+        t = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return t.transpose(1, 2) if c.layout == "bshd" else t
+
+    return rand(c.H), rand(c.Hkv), rand(c.Hkv)
+
+
+def phase_kernel() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from cloudtik_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = []
+    for c in ATTN_CASES:
+        q, k, v = make_qkv(c, gen)
+        scale = c.D ** -0.5
+        o, lse = FA.flash_attention_fwd(q, k, v, causal=c.causal,
+                                        sm_scale=scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = FA.flash_attention_reference(
+            q, k, v, causal=c.causal, sm_scale=scale)
+        o_err = (o.float() - o_ref.float()).abs()
+        o_ok = bool((o_err <= O_ATOL + O_RTOL * o_ref.float().abs()).all())
+        lse_err = (lse - lse_ref).abs().max().item()
+        require(o.shape == q.shape and lse.shape == (c.B, c.H, c.S, 1),
+                f"{c.name}: output shapes {tuple(o.shape)}, "
+                f"{tuple(lse.shape)}")
+        require(bool(torch.isfinite(o).all()), f"{c.name}: non-finite o")
+        require(o_ok, f"{c.name}: o differs from the plain version "
+                      f"(max abs {o_err.max().item()})")
+        require(lse_err <= LSE_ATOL,
+                f"{c.name}: lse differs by {lse_err}")
+        kernel_ms = time_ms(lambda: FA.flash_attention_fwd(
+            q, k, v, causal=c.causal, sm_scale=scale))
+        plain_ms = time_ms(lambda: FA.flash_attention_reference(
+            q, k, v, causal=c.causal, sm_scale=scale), iters=3)
+        gqa = {"enable_gqa": True} if c.H != c.Hkv else {}
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=c.causal, scale=scale, **gqa))
+        bound_ms, bound_by, flops, nbytes = attention_bound(c)
+        row = {
+            "case": c.name, "shape_q": list(q.shape), "hkv": c.Hkv,
+            "causal": c.causal, "dtype": c.dtype, "layout": c.layout,
+            "o_max_abs_err": o_err.max().item(), "lse_max_abs_err": lse_err,
+            "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
+                          "lse_atol": LSE_ATOL},
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            "tflops_per_s": flops / kernel_ms / 1e9,
+        }
+        emit("kernel", **row)
+        results.append(row)
+        del q, k, v, o, lse, o_ref, lse_ref, o_err
+        torch.cuda.empty_cache()
+    return {r["case"]: r for r in results}
+
+
+# ----------------------------------------------------------------- serving --
+
+def _http(url: str, payload=None):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def phase_serve(model: str = "tpu_1b", device: str = "cuda") -> dict:
+    import numpy as np
+    import torch
+
+    from cloudtik_tpu_torch.models import generate as G
+    from cloudtik_tpu_torch.serve.server import ServeServer, \
+        transformer_backend
+
+    backend = transformer_backend(model, device=device)
+    cfg, params = backend.cfg, backend.params
+    V = cfg.vocab_size
+    server = ServeServer([backend], host="127.0.0.1", port=0)
+    server.start()
+    base = f"http://127.0.0.1:{server.port}"
+    rng = np.random.default_rng(0)
+    out = {}
+    try:
+        require(_http(base + "/healthz") == (200, {"status": "ok"}),
+                "healthz")
+        require(_http(base + "/v1/models")[1]["models"]
+                == [f"transformer:{model}"], "models")
+        # warm-up: first cuBLAS/allocator use, not timed
+        status, _ = _http(base + "/v1/generate",
+                          {"tokens": [[1, 2, 3]], "max_new_tokens": 2})
+        require(status == 200, f"warm-up status {status}")
+
+        for name, batch, plen, new in (("greedy_b1", 1, 128, 32),
+                                       ("greedy_b2", 2, 64, 16)):
+            prompt = rng.integers(0, V, (batch, plen)).tolist()
+            t0 = time.perf_counter()
+            status, body = _http(base + "/v1/generate",
+                                 {"tokens": prompt, "max_new_tokens": new})
+            wall = time.perf_counter() - t0
+            require(status == 200, f"{name}: status {status} {body}")
+            toks = np.asarray(body["tokens"])
+            require(toks.shape == (batch, new), f"{name}: shape {toks.shape}")
+            require(bool(((toks >= 0) & (toks < V)).all()), f"{name}: ids")
+            direct = G.generate(
+                params, torch.tensor(prompt, device=device), cfg,
+                max_new_tokens=new).cpu().numpy()
+            require(bool((direct == toks).all()),
+                    f"{name}: served tokens differ from direct generate")
+            out[name] = {"batch": batch, "prompt": plen, "new": new,
+                         "wall_s": wall,
+                         "tokens_per_s": batch * new / wall,
+                         "equals_direct_generate": True}
+
+        prompt = rng.integers(0, V, (1, 16)).tolist()
+        topk = {"tokens": prompt, "max_new_tokens": 8, "temperature": 1.0,
+                "top_k": 40, "seed": 7}
+        s1, b1 = _http(base + "/v1/generate", topk)
+        s2, b2 = _http(base + "/v1/generate", topk)
+        require(s1 == s2 == 200, f"top-k status {s1} {s2}")
+        require(b1 == b2, "top-k: same seed gave different tokens")
+        direct = G.generate(
+            params, torch.tensor(prompt, device=device), cfg,
+            max_new_tokens=8, temperature=1.0, top_k=40,
+            generator=torch.Generator(device=device).manual_seed(7))
+        require(direct.cpu().tolist() == b1["tokens"],
+                "top-k: served tokens differ from direct generate")
+        out["topk_seeded"] = {"tokens": b1["tokens"], "repeatable": True}
+
+        bad = [_http(base + "/v1/generate", p)[0] for p in (
+            {"tokens": [[V]]}, {"tokens": "abc"}, {"max_new_tokens": 2})]
+        require(bad == [400, 400, 400], f"400 path gave {bad}")
+        require(_http(base + "/nope")[0] == 404, "404 path")
+        require(server.drain(grace_s=5.0), "drain")
+        status, _ = _http(base + "/v1/generate",
+                          {"tokens": [[1]], "max_new_tokens": 1})
+        require(status == 503, f"drained server answered {status}")
+        out["error_paths"] = {"bad_request": bad, "not_found": 404,
+                              "draining": status}
+    finally:
+        server.stop()
+    emit("serve", **out)
+    del backend, params
+    return out
+
+
+# ----------------------------------------------------------------- forward --
+
+# bf16 rounding of the whole model: on a reduced-width CPU proxy both
+# attention paths sat as far from an f32 model as from each other
+# (max |diff| 0.06 at 8 layers, |logits| <= 4.7, relative L2 1.1%).
+LOGITS_MAX_ABS = 0.5
+LOGITS_REL_L2 = 0.05
+
+
+def forward_main(model: str = "tpu_1b", B: int = 4, S: int = 2048,
+                 device: str = "cuda"):
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+
+    cfg = T.config(model)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = T.init_params(gen, cfg, device)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=device)
+    with torch.no_grad():
+        logits = T.forward(params, tokens, cfg)
+    logits.cpu()   # waits for the device
+    return cfg, params, tokens, logits
+
+
+def phase_forward(cfg, params, tokens, logits, launches: int) -> dict:
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+
+    B, S = tokens.shape
+    require(tuple(logits.shape) == (B, S, cfg.vocab_size),
+            f"logits shape {tuple(logits.shape)}")
+    require(logits.dtype == torch.float32, f"logits dtype {logits.dtype}")
+    require(bool(torch.isfinite(logits).all()), "non-finite logits")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T.forward(params, tokens, cfg)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = T.forward(params, tokens, ref_cfg)
+        torch.cuda.synchronize()
+        ref_ms = (time.perf_counter() - t0) * 1e3
+    diff = (logits - ref).abs().max().item()
+    rel = ((logits - ref).norm() / ref.norm()).item()
+    out = {"model": "tpu_1b", "batch": B, "seq": S, "dtype": "bfloat16",
+           "flash_launches": launches, "ms_per_forward": ms,
+           "reference_attention_ms": ref_ms,
+           "tokens_per_s": B * S / (min(ms) / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "logits_max_abs": ref.abs().max().item(),
+           "logits_max_abs_diff_vs_reference": diff,
+           "logits_rel_l2_vs_reference": rel,
+           "tolerance": {"max_abs": LOGITS_MAX_ABS, "rel_l2": LOGITS_REL_L2}}
+    emit("forward", **out)
+    require(diff <= LOGITS_MAX_ABS and rel <= LOGITS_REL_L2,
+            f"forward logits differ from the reference path: max {diff}, "
+            f"rel {rel}")
+    return out
+
+
+# -------------------------------------------------------------------- main --
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke runs on the "
+              "card", file=sys.stderr)
+        return 1
+    from cloudtik_tpu_torch.ops import _kernels
+    from cloudtik_tpu_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    emit("device", name=kind, count=torch.cuda.device_count(),
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    logs = _kernels.build_all()
+    ptxas = [line.strip() for log in logs.values()
+             for line in log.splitlines()
+             if "registers" in line or "spill" in line]
+    emit("build", seconds=time.perf_counter() - t0, built=sorted(logs),
+         ptxas=ptxas)
+
+    kernel = phase_kernel()
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    FA.LAUNCHES = 0
+    cfg, params, tokens, logits = forward_main()
+    forward_launches = FA.LAUNCHES
+    phase_serve()
+    launches = FA.LAUNCHES
+    require(forward_launches == cfg.n_layers,
+            f"forward launched the flash kernel {forward_launches} times, "
+            f"expected {cfg.n_layers}")
+    require(launches >= 1, "the main path never launched the flash kernel")
+
+    phase_forward(cfg, params, tokens, logits, forward_launches)
+    del params, logits
+    torch.cuda.empty_cache()
+
+    main_case = kernel[ATTN_CASES[0].name]
+    summary = {"kernels": [{
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "cloudtik_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "cloudtik_tpu/ops/flash_attention.py:54",
+        "launches": launches,
+        "max_abs_err": max(r["o_max_abs_err"] for r in kernel.values()),
+        "ms": main_case["kernel_ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+    }]}
+    print(smi, flush=True)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
