@@ -9,23 +9,37 @@ run with a non-zero exit:
 
   device   card name, count, `nvidia-smi` name and power limit
   build    builds every kernel from csrc/ (one nvcc per source, in parallel)
-  kernel   each kernel against its plain PyTorch version on the card, at the
-           main path's shape and a few others, with the tolerance; kernel,
-           plain and library (yardstick) times beside the bound
-  serve    the main path, part 2: `tik-serve`'s backend at tpu_1b width
-           answering /v1/generate; greedy answers equal a direct `generate`
-  forward  the main path, part 1: tpu_1b `forward` at B=4, S=2048 in bf16,
-           held against the same forward on the reference attention
+  kernel   the forward kernel against its plain PyTorch version on the
+           card, at the main path's shape and a few others, with the
+           tolerance; kernel, plain and library (yardstick) times beside the
+           bound
+  kernel_bwd  the dq and dk/dv kernels against the plain backward, at the
+           training path's shape and the same others, likewise; the
+           forward's o and lse they read are held first
+  serve    the inference path, part 2: `tik-serve`'s backend at tpu_1b
+           width answering /v1/generate; greedy answers equal a direct
+           `generate`
+  forward  the inference path, part 1: tpu_1b `forward` at B=4, S=2048 in
+           bf16, held against the same forward on the reference attention
+  train    the training path: `Trainer.fit` on tpu_1b at full width and
+           depth, B=8, S=2048, bf16 params and moments, save_attn remat: 2
+           warm-up steps, then 5 measured steps with 16 launches of each
+           kernel per step; ms/step, tokens/s, MFU, peak memory
+  train_grads  tpu_1b width with 2 layers: the flash path's gradients
+           against the reference attention path's, and the loss falling
+           over 10 steps on one repeated batch
 
-Launch counts are zeroed just before the main path (forward, then serve)
-and read just after it.  The last lines are the `nvidia-smi` name/power
-line, a `{"kernels": [...]}` summary and `{"ok": true, "device": ...}`.
+Launch counts are zeroed just before each path (forward then serve; the
+measured train steps) and read just after it.  The last lines are the
+`nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
+`{"ok": true, "device": ...}`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -111,18 +125,42 @@ def attention_bound(c: AttnCase, elem_bytes: int = 2):
     return max(t_ops, t_bytes) * 1e3, bound_by, flops, nbytes
 
 
-def make_qkv(c: AttnCase, gen):
+def _rand_heads(c: AttnCase, gen, heads: int):
     import torch
 
-    dtype = getattr(torch, c.dtype)
+    shape = (c.B, c.S, heads, c.D) if c.layout == "bshd" \
+        else (c.B, heads, c.S, c.D)
+    t = torch.randn(shape, generator=gen, device="cuda").to(
+        getattr(torch, c.dtype))
+    return t.transpose(1, 2) if c.layout == "bshd" else t
 
-    def rand(heads):
-        shape = (c.B, c.S, heads, c.D) if c.layout == "bshd" \
-            else (c.B, heads, c.S, c.D)
-        t = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        return t.transpose(1, 2) if c.layout == "bshd" else t
 
-    return rand(c.H), rand(c.Hkv), rand(c.Hkv)
+def make_qkv(c: AttnCase, gen):
+    return (_rand_heads(c, gen, c.H), _rand_heads(c, gen, c.Hkv),
+            _rand_heads(c, gen, c.Hkv))
+
+
+def check_fwd(c: AttnCase, q, k, v, o, lse, scale: float) -> dict:
+    """Hold the forward kernel's (o, lse) against the plain version on the
+    same inputs; returns the largest errors."""
+    import torch
+
+    from cloudtik_tpu_torch.ops import flash_attention as FA
+
+    if q.is_cuda:
+        torch.cuda.synchronize()
+    o_ref, lse_ref = FA.flash_attention_reference(
+        q, k, v, causal=c.causal, sm_scale=scale)
+    o_err = (o.float() - o_ref.float()).abs()
+    o_ok = bool((o_err <= O_ATOL + O_RTOL * o_ref.float().abs()).all())
+    lse_err = (lse - lse_ref).abs().max().item()
+    require(o.shape == q.shape and lse.shape == (c.B, c.H, c.S, 1),
+            f"{c.name}: output shapes {tuple(o.shape)}, {tuple(lse.shape)}")
+    require(bool(torch.isfinite(o).all()), f"{c.name}: non-finite o")
+    require(o_ok, f"{c.name}: o differs from the plain version "
+                  f"(max abs {o_err.max().item()})")
+    require(lse_err <= LSE_ATOL, f"{c.name}: lse differs by {lse_err}")
+    return {"o_max_abs_err": o_err.max().item(), "lse_max_abs_err": lse_err}
 
 
 def phase_kernel() -> dict:
@@ -138,20 +176,7 @@ def phase_kernel() -> dict:
         scale = c.D ** -0.5
         o, lse = FA.flash_attention_fwd(q, k, v, causal=c.causal,
                                         sm_scale=scale)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = FA.flash_attention_reference(
-            q, k, v, causal=c.causal, sm_scale=scale)
-        o_err = (o.float() - o_ref.float()).abs()
-        o_ok = bool((o_err <= O_ATOL + O_RTOL * o_ref.float().abs()).all())
-        lse_err = (lse - lse_ref).abs().max().item()
-        require(o.shape == q.shape and lse.shape == (c.B, c.H, c.S, 1),
-                f"{c.name}: output shapes {tuple(o.shape)}, "
-                f"{tuple(lse.shape)}")
-        require(bool(torch.isfinite(o).all()), f"{c.name}: non-finite o")
-        require(o_ok, f"{c.name}: o differs from the plain version "
-                      f"(max abs {o_err.max().item()})")
-        require(lse_err <= LSE_ATOL,
-                f"{c.name}: lse differs by {lse_err}")
+        fwd_errors = check_fwd(c, q, k, v, o, lse, scale)
         kernel_ms = time_ms(lambda: FA.flash_attention_fwd(
             q, k, v, causal=c.causal, sm_scale=scale))
         plain_ms = time_ms(lambda: FA.flash_attention_reference(
@@ -163,7 +188,7 @@ def phase_kernel() -> dict:
         row = {
             "case": c.name, "shape_q": list(q.shape), "hkv": c.Hkv,
             "causal": c.causal, "dtype": c.dtype, "layout": c.layout,
-            "o_max_abs_err": o_err.max().item(), "lse_max_abs_err": lse_err,
+            **fwd_errors,
             "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
                           "lse_atol": LSE_ATOL},
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
@@ -173,7 +198,142 @@ def phase_kernel() -> dict:
         }
         emit("kernel", **row)
         results.append(row)
-        del q, k, v, o, lse, o_ref, lse_ref, o_err
+        del q, k, v, o, lse
+        torch.cuda.empty_cache()
+    return {r["case"]: r for r in results}
+
+
+# -------------------------------------------------------------- kernel_bwd --
+
+# The first case is the shape and layout the training path gives the
+# kernels (tpu_1b at B=8, S=2048; do arrives in o's layout).
+BWD_CASES = (
+    AttnCase("train_b8", 8, 16, 16, 2048, 128, True, layout="bshd"),
+) + ATTN_CASES[1:]
+# bf16/fp16 gradients: p and ds are rounded to 8/11 mantissa bits before
+# their products in both versions, but from f32 scores summed in another
+# order, so a rounding may flip; dk/dv sum up to S such terms.  Held per
+# element at 2e-2 + 2e-2 |ref| and as a whole at 1e-2 relative L2.
+GRAD_ATOL, GRAD_RTOL, GRAD_REL_L2 = 2e-2, 2e-2, 1e-2
+
+
+def attention_bwd_bound(c: AttnCase, elem_bytes: int = 2) -> dict:
+    """Least time of each backward kernel for the work its inputs need:
+    unmasked (q, kv) pairs only (dq: 3 products, 6 * pairs * D flops per
+    (b, h); dk/dv: 4 products, 8 * pairs * D), each input read once (q,
+    k, v, do, and lse and delta in f32), each output written once."""
+    pairs = c.S * (c.S + 1) // 2 if c.causal else c.S * c.S
+    q_elems = c.B * c.H * c.S * c.D
+    kv_elems = c.B * c.Hkv * c.S * c.D
+    stats = 2 * 4 * c.B * c.H * c.S
+    inputs = elem_bytes * (2 * q_elems + 2 * kv_elems) + stats
+    out = {}
+    for name, per_pair, written in (("dq", 6, q_elems),
+                                    ("dkv", 8, 2 * kv_elems)):
+        flops = per_pair * c.B * c.H * pairs * c.D
+        nbytes = inputs + elem_bytes * written
+        t_ops = flops / PEAK_BF16_FLOPS
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        out[name] = {"bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "flops": flops, "bytes": nbytes}
+    return out
+
+
+def _grad_errors(got, want) -> dict:
+    err = (got.float() - want.float())
+    ref = want.float()
+    return {"max_abs": err.abs().max().item(),
+            "rel_l2": (err.norm() / ref.norm()).item(),
+            "within": bool((err.abs() <= GRAD_ATOL
+                            + GRAD_RTOL * ref.abs()).all()),
+            "finite": bool(_all_finite(got))}
+
+
+def _all_finite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t).all())
+
+
+def phase_kernel_bwd() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from cloudtik_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results = []
+    for c in BWD_CASES:
+        q, k, v = make_qkv(c, gen)
+        do = _rand_heads(c, gen, c.H)
+        scale = c.D ** -0.5
+        o, lse = FA.flash_attention_fwd(q, k, v, causal=c.causal,
+                                        sm_scale=scale)
+        # the backward reads the forward's o and lse: hold them first
+        fwd_errors = check_fwd(c, q, k, v, o, lse, scale)
+        dq, dk, dv = FA.flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=c.causal, sm_scale=scale)
+        torch.cuda.synchronize()
+        want = FA.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, causal=c.causal, sm_scale=scale)
+        errors = {n: _grad_errors(g, w)
+                  for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+        del want
+        for n, e in errors.items():
+            require(e["finite"], f"{c.name}: non-finite {n}")
+            require(e["within"] and e["rel_l2"] <= GRAD_REL_L2,
+                    f"{c.name}: {n} differs from the plain version {e}")
+        require(dq.shape == q.shape and dk.shape == k.shape
+                and dv.shape == v.shape, f"{c.name}: gradient shapes")
+        delta = FA._bwd_delta(o, do)
+        dq_ms = time_ms(lambda: FA._launch_dq(
+            q, k, v, do, lse, delta, c.causal, scale))
+        dkv_ms = time_ms(lambda: FA._launch_dkv(
+            q, k, v, do, lse, delta, c.causal, scale))
+        bwd_ms = time_ms(lambda: FA.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=c.causal, sm_scale=scale))
+        plain_ms = time_ms(lambda: FA.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, causal=c.causal, sm_scale=scale), iters=3)
+        # yardstick: SDPA forward+backward minus SDPA forward
+        gqa = {"enable_gqa": True} if c.H != c.Hkv else {}
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=c.causal, scale=scale,
+                **gqa).backward(do)
+
+        with torch.no_grad():
+            sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=c.causal, scale=scale, **gqa))
+        sdpa_bwd_ms = time_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
+        bound = attention_bwd_bound(c)
+        row = {
+            "case": c.name, "shape_q": list(q.shape), "hkv": c.Hkv,
+            "causal": c.causal, "dtype": c.dtype, "layout": c.layout,
+            "errors": errors, "fwd_errors": fwd_errors,
+            "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
+                          "lse_atol": LSE_ATOL,
+                          "atol": GRAD_ATOL, "rtol": GRAD_RTOL,
+                          "rel_l2": GRAD_REL_L2, "why": (
+                              "p and ds rounded to the input type before "
+                              "their products in both versions, from f32 "
+                              "scores summed in another order")},
+            "dq": {"kernel_ms": dq_ms, **bound["dq"],
+                   "tflops_per_s": bound["dq"]["flops"] / dq_ms / 1e9},
+            "dkv": {"kernel_ms": dkv_ms, **bound["dkv"],
+                    "tflops_per_s": bound["dkv"]["flops"] / dkv_ms / 1e9},
+            "bwd_ms": bwd_ms,
+            "plain_ms": plain_ms,
+            "plain_is": "flash_attention_bwd_reference: dq, dk, dv together",
+            "library_ms": sdpa_bwd_ms,
+            "library_is": "SDPA forward+backward minus SDPA forward "
+                          "(dq, dk, dv together)",
+        }
+        emit("kernel_bwd", **row)
+        results.append(row)
+        del q, k, v, do, o, lse, dq, dk, dv, qs, ks, vs, delta
         torch.cuda.empty_cache()
     return {r["case"]: r for r in results}
 
@@ -339,6 +499,142 @@ def phase_forward(cfg, params, tokens, logits, launches: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------------- train --
+
+def _launch_counts() -> dict:
+    from cloudtik_tpu_torch.ops import flash_attention as FA
+
+    return {"flash_fwd": FA.LAUNCHES, "flash_bwd_dq": FA.LAUNCHES_DQ,
+            "flash_bwd_dkv": FA.LAUNCHES_DKV}
+
+
+def _zero_launch_counts() -> None:
+    from cloudtik_tpu_torch.ops import flash_attention as FA
+
+    FA.LAUNCHES = FA.LAUNCHES_DQ = FA.LAUNCHES_DKV = 0
+
+
+def phase_train(model: str = "tpu_1b", B: int = 8, S: int = 2048,
+                device: str = "cuda", warmup: int = 2,
+                steps: int = 5) -> dict:
+    """bench.py's training configuration on the port: `warmup` steps, then
+    the counts zeroed, `steps` measured steps, the counts read."""
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.train.data import synthetic_lm_batches
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.train.trainer import (
+        Trainer, TrainerConfig, transformer_spec)
+
+    cfg = T.config(model, max_seq_len=S, param_dtype=torch.bfloat16)
+    trainer = Trainer(transformer_spec(cfg), TrainerConfig(
+        global_batch_size=B, seq_len=S,
+        optimizer=OptimizerConfig(moment_dtype="bfloat16"),
+        log_every=steps), device=device)
+    trainer.init_state(torch.Generator(device=device).manual_seed(0))
+    data = synthetic_lm_batches(B, S, cfg.vocab_size)
+    t0 = time.perf_counter()
+    trainer.fit(data, warmup)
+    warmup_s = time.perf_counter() - t0
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # ---- the training path: counts zeroed just before, read just after --
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.fit(data, steps)     # ends in float() of the metrics
+    wall_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    entry = out["history"][-1]
+    result = {
+        "model": model, "batch": B, "seq": S, "param_dtype": "bfloat16",
+        "moment_dtype": "bfloat16", "remat_policy": cfg.remat_policy,
+        "warmup_steps": warmup, "measured_steps": steps,
+        "warmup_s": warmup_s, "ms_per_step": wall_s / steps * 1e3,
+        "tokens_per_s": entry["tokens_per_sec"], "mfu": entry.get("mfu"),
+        "flops_per_token": cfg.flops_per_token(),
+        "loss": entry["loss"], "grad_norm": entry["grad_norm"],
+        "launches": launches,
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None),
+    }
+    emit("train", **result)
+    require(math.isfinite(entry["loss"]), f"train loss {entry['loss']}")
+    return result
+
+
+# Gradients of the flash path against the reference attention path, tpu_1b
+# width with 2 layers, bf16 compute on f32 params: the two paths round p
+# and o to bf16 at different places, which moves each gradient leaf by
+# about 1e-2 relative L2; 5e-2 holds that with room and fails on any wrong
+# kernel term.
+GRADS_REL_L2 = 5e-2
+
+
+def phase_train_grads(model: str = "tpu_1b", n_layers: int = 2, B: int = 2,
+                      S: int = 2048, device: str = "cuda",
+                      loss_steps: int = 10) -> dict:
+    import dataclasses
+
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.train.data import synthetic_lm_batches
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.train.trainer import (
+        Trainer, TrainerConfig, transformer_spec)
+    from cloudtik_tpu_torch.tree import tree_leaves
+
+    cfg = T.config(model, n_layers=n_layers, max_seq_len=S)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = T.init_params(gen, cfg, device)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    batch = next(synthetic_lm_batches(B, S, cfg.vocab_size, seed=1))
+    batch = {k: torch.as_tensor(v).to(device, torch.long)
+             for k, v in batch.items()}
+    names = [f"{top}.{k}" if isinstance(v, dict) else top
+             for top, v in params.items()
+             for k in (v if isinstance(v, dict) else [None])]
+    grads = {}
+    for impl in ("flash", "reference"):
+        icfg = dataclasses.replace(cfg, attention_impl=impl)
+        loss, _ = T.loss_fn(params, batch, icfg)
+        grads[impl] = (loss.item(), torch.autograd.grad(
+            loss, tree_leaves(params)))
+    rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+           for n, a, b in zip(names, grads["flash"][1],
+                              grads["reference"][1])}
+    finite = all(_all_finite(g) for g in grads["flash"][1])
+    del grads["flash"], grads["reference"]
+
+    trainer = Trainer(transformer_spec(cfg), TrainerConfig(
+        global_batch_size=B, seq_len=S, log_every=1,
+        optimizer=OptimizerConfig(learning_rate=1e-3, warmup_steps=1,
+                                  schedule="constant")), device=device)
+    trainer.init_state(params=params)
+    host_batch = next(synthetic_lm_batches(B, S, cfg.vocab_size, seed=1))
+    history = trainer.fit(iter([host_batch] * loss_steps),
+                          loss_steps)["history"]
+    losses = [h["loss"] for h in history]
+    out = {"model": model, "n_layers": n_layers, "batch": B, "seq": S,
+           "grad_rel_l2_flash_vs_reference": rel,
+           "tolerance_rel_l2": GRADS_REL_L2, "grads_finite": finite,
+           "repeated_batch_losses": losses}
+    emit("train_grads", **out)
+    require(finite, "non-finite gradients on the flash path")
+    worst = max(rel.values())
+    require(worst <= GRADS_REL_L2,
+            f"flash-path gradients differ from the reference path's: {rel}")
+    require(all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0] - 0.1,
+            f"loss did not fall on a repeated batch: {losses}")
+    return out
+
+
 # -------------------------------------------------------------------- main --
 
 def main() -> int:
@@ -371,36 +667,76 @@ def main() -> int:
          ptxas=ptxas)
 
     kernel = phase_kernel()
+    kernel_bwd = phase_kernel_bwd()
 
-    # ---- the main path: counts zeroed just before, read just after ----
-    FA.LAUNCHES = 0
+    # ---- the inference path: counts zeroed just before, read just after --
+    _zero_launch_counts()
     cfg, params, tokens, logits = forward_main()
     forward_launches = FA.LAUNCHES
     phase_serve()
-    launches = FA.LAUNCHES
+    inference = _launch_counts()
     require(forward_launches == cfg.n_layers,
             f"forward launched the flash kernel {forward_launches} times, "
             f"expected {cfg.n_layers}")
-    require(launches >= 1, "the main path never launched the flash kernel")
+    require(inference["flash_fwd"] >= 1,
+            "the inference path never launched the flash kernel")
 
     phase_forward(cfg, params, tokens, logits, forward_launches)
     del params, logits
     torch.cuda.empty_cache()
 
+    # ---- the training path (counts zeroed and read inside) ----
+    train = phase_train()
+    per_step = train["launches_per_step"]
+    require(per_step == {"flash_fwd": cfg.n_layers,
+                         "flash_bwd_dq": cfg.n_layers,
+                         "flash_bwd_dkv": cfg.n_layers},
+            f"train step launches {per_step}, expected {cfg.n_layers} of "
+            "each kernel (save_attn must never re-run the forward)")
+    torch.cuda.empty_cache()
+    phase_train_grads()
+    torch.cuda.empty_cache()
+
     main_case = kernel[ATTN_CASES[0].name]
+    train_case = kernel_bwd[BWD_CASES[0].name]
+    launches = {k: inference[k] + train["launches"][k] for k in inference}
+
+    def bwd_err(grads):
+        return max(r["errors"][g]["max_abs"] for r in kernel_bwd.values()
+                   for g in grads)
+
     summary = {"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "cloudtik_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "cloudtik_tpu/ops/flash_attention.py:54",
-        "launches": launches,
-        "max_abs_err": max(r["o_max_abs_err"] for r in kernel.values()),
+        "launches": launches["flash_fwd"],
+        "max_abs_err": max(
+            [r["o_max_abs_err"] for r in kernel.values()]
+            + [r["fwd_errors"]["o_max_abs_err"]
+               for r in kernel_bwd.values()]),
         "ms": main_case["kernel_ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "cloudtik_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": bwd_err(grads),
+        "ms": train_case[part]["kernel_ms"],
+        "plain_ms": train_case["plain_ms"],
+        "bound_ms": train_case[part]["bound_ms"],
+        "bound_by": train_case[part]["bound_by"],
+        "library_ms": train_case["library_ms"],
+    } for name, part, grads, replaces in (
+        ("flash_bwd_dq", "dq", ("dq",),
+         "cloudtik_tpu/ops/flash_attention.py:150"),
+        ("flash_bwd_dkv", "dkv", ("dk", "dv"),
+         "cloudtik_tpu/ops/flash_attention.py:191"))]}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

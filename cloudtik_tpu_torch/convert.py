@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
+from cloudtik_tpu_torch.tree import tree_map
 
 
 def _leaf_to_torch(a: Any, device: torch.device,
@@ -28,18 +29,12 @@ def _leaf_to_torch(a: Any, device: torch.device,
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def _map(tree: Any, fn) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_jax(tree: Any, device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dict of numpy arrays -> the same nested dict of tensors on
     `device` (cast to `dtype` when given, else each leaf's own dtype)."""
     dev = resolve_device(device)
-    return _map(tree, lambda a: _leaf_to_torch(a, dev, dtype))
+    return tree_map(lambda a: _leaf_to_torch(a, dev, dtype), tree)
 
 
 def params_to_numpy(tree: Any) -> Any:
@@ -51,4 +46,4 @@ def params_to_numpy(tree: Any) -> Any:
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()
-    return _map(tree, leaf)
+    return tree_map(leaf, tree)

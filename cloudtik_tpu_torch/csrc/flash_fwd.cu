@@ -30,32 +30,20 @@
 // and rows 16-byte aligned (the Python wrapper checks).  Rows past S and Skv
 // are zero-filled on load and masked, so S and Skv need not be multiples of 64.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 using namespace nvcuda;
+using tik_flash::align128;
+using tik_flash::from_float;
 
 namespace {
 
-constexpr int kBlockQ = 64;    // q rows per CTA
-constexpr int kBlockK = 64;    // kv rows per tile of the inner loop
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBlockQ = tik_flash::kTileRows;  // q rows per CTA
+constexpr int kBlockK = tik_flash::kTileRows;  // kv rows per inner tile
+constexpr int kThreads = tik_flash::kThreads;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's _NEG_INF
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half(x);
-}
-
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
 // Shared-memory plan.  Leading dimensions are padded so that the 16-row
 // fragment loads of wmma do not all land on one bank; every segment and
@@ -77,25 +65,12 @@ struct Plan {
   static constexpr size_t kBytes = kL + align128(kBlockQ * 4);
 };
 
-// Copy rows [row0, row0 + 64) of a strided [rows, D] slab into a padded
-// shared tile, 16 bytes per thread per step; rows at or past `nrows` are
-// zero so that masked columns multiply finite values.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           long long row_stride, int row0,
                                           int nrows) {
-  constexpr int kVec = 8;  // 8 x 16-bit = 16 bytes
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < kBlockK * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) *
-                                                      row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Plan<D>::kLdT + c) = val;
-  }
+  tik_flash::load_tile<T, D, Plan<D>::kLdT>(dst, src, row_stride, row0,
+                                            nrows);
 }
 
 template <typename T, int D>

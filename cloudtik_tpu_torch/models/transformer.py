@@ -1,24 +1,27 @@
-"""Decoder-only transformer (Llama-family), dense inference path, in PyTorch.
+"""Decoder-only transformer (Llama-family), dense, in PyTorch: forward,
+remat and the chunked training loss.
 
 Counterpart of `cloudtik_tpu/models/transformer.py`.  Parameters are the
 same nested dict with the same stacked `[L, ...]` layer layout and key
 names as the JAX `init_params` (so `convert.params_from_jax` is a plain
 copy); the layers run as a Python loop over that stack.  Attention
-dispatches to the Hopper flash kernel on the card (ops/attention.py).
+dispatches to the Hopper flash kernels on the card (ops/attention.py).
 Matmuls take bf16 operands; RMSNorm, RoPE and the softmax run in f32.
 
 Not here yet: MoE (`n_experts > 1`) and the pipeline come with the
-parallel slice, remat and `loss_fn` with training.  JAX's sharding
-constraints and checkpoint names have no counterpart on one card.
+parallel slice.  JAX's sharding constraints have no counterpart on one
+card; its checkpoint names become the layer split of `_remat_layer`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.ops.attention import attention
@@ -41,11 +44,11 @@ class TransformerConfig:
     param_dtype: torch.dtype = torch.float32   # master param dtype
     tie_embeddings: bool = False
     # Fields marked "(not read)" are kept so that the presets and their
-    # overrides carry over from the JAX package; the inference path of this
-    # slice does not read them (remat and the scan are training-side, MoE
-    # and the pipeline come with the parallel slice).
-    remat: bool = True                 # (not read)
-    remat_policy: str = "save_attn"    # (not read)
+    # overrides carry over from the JAX package; the port does not read
+    # them (the layers are a Python loop, not a scan; MoE and the pipeline
+    # come with the parallel slice).
+    remat: bool = True                 # recompute layers in the backward
+    remat_policy: str = "save_attn"    # "save_attn" | "full" | "dots"
     scan_unroll: int = 1               # (not read)
     attention_impl: Optional[str] = None  # None=auto, "flash", "reference"
     n_experts: int = 1                 # > 1 (MoE) raises
@@ -228,21 +231,74 @@ def _mlp(h: torch.Tensor, layer: Params,
     return _proj(F.silu(gate) * up, layer["w_down"], cfg)
 
 
-def _layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
-           positions: torch.Tensor) -> torch.Tensor:
-    B, S, d = x.shape
+def _attn_inputs(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The layer up to attention: post-RoPE q, k, v, [B, S, heads, Dh]."""
     h = _rms_norm(x, layer["ln_attn"], cfg.norm_eps)
     q = _rope(_proj(h, layer["wq"], cfg), positions, cfg.rope_theta)
     k = _rope(_proj(h, layer["wk"], cfg), positions, cfg.rope_theta)
     v = _proj(h, layer["wv"], cfg)
+    return q, k, v
+
+
+def _attend(cfg: TransformerConfig, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
     # BHSD views for the kernel, which takes the strides as they are
     o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                   causal=True, implementation=cfg.attention_impl)
-    o = o.transpose(1, 2)  # back to [B, S, H, Dh]
+    return o.transpose(1, 2)  # back to [B, S, H, Dh]
+
+
+def _layer_out(cfg: TransformerConfig, x: torch.Tensor, o: torch.Tensor,
+               layer: Params) -> torch.Tensor:
+    """The layer after attention: output projection, residual, MLP."""
+    B, S, d = x.shape
     wo = layer["wo"].to(cfg.dtype)
     x = x + o.reshape(B, S, -1) @ wo.reshape(-1, d)
     h = _rms_norm(x, layer["ln_mlp"], cfg.norm_eps)
     return x + _mlp(h, layer, cfg)
+
+
+def _layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
+           positions: torch.Tensor) -> torch.Tensor:
+    q, k, v = _attn_inputs(cfg, x, layer, positions)
+    return _layer_out(cfg, x, _attend(cfg, q, k, v), layer)
+
+
+def _checkpoint(fn, *args):
+    # the layers draw no random numbers: no RNG state to keep
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _remat_layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One layer under `cfg.remat_policy` (JAX: `_remat_policy`).
+
+    save_attn: keeps the post-RoPE q, k, v, o and lse (JAX's names
+      attn_qkv / attn_out / attn_lse) and recomputes the rest.  The layer
+      runs as two checkpointed parts around an attention call that sits
+      outside any checkpoint, so its autograd Function saves (q, k, v, o,
+      lse) and the backward pass never re-runs the forward kernel; the
+      checkpoints also keep their inputs (the layer input x, and o).
+    full: recomputes the whole layer, the attention forward included.
+    dots: no recomputation.  It saves more than JAX's "dots with no batch
+      dims" policy (every activation, not only the matmul outputs); the
+      gradients are the same.
+    """
+    policy = cfg.remat_policy
+    if policy == "save_attn":
+        q, k, v = _checkpoint(functools.partial(_attn_inputs, cfg), x,
+                              layer, positions)
+        o = _attend(cfg, q, k, v)
+        return _checkpoint(functools.partial(_layer_out, cfg), x, o, layer)
+    if policy == "full":
+        return _checkpoint(functools.partial(_layer, cfg), x, layer,
+                           positions)
+    if policy == "dots":
+        return _layer(cfg, x, layer, positions)
+    raise ValueError(f"unknown remat_policy {policy!r}")
 
 
 def hidden_states(
@@ -258,8 +314,10 @@ def hidden_states(
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = _embed_lookup(params["embed"], tokens, cfg)
+    layer_fn = _remat_layer if cfg.remat and torch.is_grad_enabled() \
+        else _layer
     for i in range(cfg.n_layers):
-        x = _layer(cfg, x, layer_params(params, i), positions)
+        x = layer_fn(cfg, x, layer_params(params, i), positions)
     return _rms_norm(x, params["final_norm"], cfg.norm_eps), {}
 
 
@@ -291,3 +349,67 @@ def forward(
     if return_aux:
         return logits, aux
     return logits
+
+
+def _chunk_size(S: int, target: int = 512) -> int:
+    """Largest divisor of S that is <= target (sequence-chunked loss).
+
+    Falls back to a single chunk when S has no divisor of at least 64, as
+    the JAX package does."""
+    if S <= target:
+        return S
+    for c in range(target, 63, -1):
+        if S % c == 0:
+            return c
+    return S
+
+
+def _chunk_stats(x: torch.Tensor, labels: torch.Tensor, head: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(summed nll, valid tokens, correct tokens) of one sequence chunk.
+    head: the lm head rounded to cfg.dtype, held in f32 (`logits_f32`)."""
+    logits = x.float() @ head
+    valid = labels != -100
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits, dim=-1)
+    token_logp = logp.gather(-1, safe[..., None].long())[..., 0]
+    correct = (logits.argmax(dim=-1) == labels) & valid
+    return -(token_logp * valid).sum(), valid.sum(), correct.sum()
+
+
+def loss_fn(
+    params: Params,
+    batch: Dict[str, torch.Tensor],
+    cfg: TransformerConfig,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal LM loss.  batch: tokens [B, S], labels [B, S] (-100 = ignore),
+    on the parameters' device.  Returns (loss, {"loss", "n_tokens",
+    "accuracy"}), the metrics detached.
+
+    The cross entropy runs over sequence chunks (`_chunk_size`), each under
+    a checkpoint, so the full [B, S, vocab] f32 logits are never resident
+    (2 GB at B=8, S=2048) and each chunk's logits are recomputed in the
+    backward pass, as in the JAX package.
+    """
+    x, _ = hidden_states(params, batch["tokens"], cfg)
+    head = _lm_head(params, cfg).to(cfg.dtype).float()
+    labels = batch["labels"]
+    S = x.shape[1]
+    C = _chunk_size(S)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_valid = torch.zeros((), dtype=torch.int64, device=x.device)
+    n_correct = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c0 in range(0, S, C):
+        args = (x[:, c0:c0 + C], labels[:, c0:c0 + C], head)
+        if torch.is_grad_enabled():
+            nll, nv, nc = _checkpoint(_chunk_stats, *args)
+        else:
+            nll, nv, nc = _chunk_stats(*args)
+        loss_sum = loss_sum + nll
+        n_valid = n_valid + nv
+        n_correct = n_correct + nc
+    n_valid = torch.clamp(n_valid, min=1)
+    loss = loss_sum / n_valid
+    metrics = {"loss": loss.detach(), "n_tokens": n_valid,
+               "accuracy": n_correct / n_valid}
+    return loss, metrics

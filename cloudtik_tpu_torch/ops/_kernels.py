@@ -35,6 +35,13 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
                            _P, _P, _P, _P, _F, _I, _P], _I),
         "tik_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "flash_bwd": {
+        "tik_flash_bwd_dq": ([_I, _I] + [_P] * 7 + [_I] * 5 + [_P] * 5
+                             + [_F, _I, _P], _I),
+        "tik_flash_bwd_dkv": ([_I, _I] + [_P] * 8 + [_I] * 5 + [_P] * 6
+                              + [_F, _I, _P], _I),
+        "tik_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _lock = threading.Lock()

@@ -96,7 +96,11 @@ def attention(
     with the parallel slice.
 
     return_residuals=True returns (out, lse_or_None): the flash path's
-    logsumexp, None on the reference path.
+    logsumexp (a statistic with no gradient), None on the reference path.
+
+    Both paths are differentiable: "flash" through its autograd Function,
+    whose backward runs the dq and dk/dv kernels on the card (their plain
+    version on the CPU); "reference" through plain autograd.
     """
     impl = implementation
     if impl is None:

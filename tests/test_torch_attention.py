@@ -16,7 +16,9 @@ from cloudtik_tpu_torch.ops import flash_attention as FA
 from cloudtik_tpu_torch.ops.attention import (
     attention, reference_attention, use_flash_kernel)
 
-torch.set_num_threads(2)
+# one intra-op thread: a first multi-threaded CPU f32 exp can be off by
+# ~1e-4 in one thread's chunk (tools/repro_torch_cpu_exp.py)
+torch.set_num_threads(1)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

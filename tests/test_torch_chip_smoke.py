@@ -1,6 +1,7 @@
-"""`chip_smoke.py` rehearsed on the CPU: its serve and forward phases run
-end to end at `tiny` size on the plain kernel versions, its bound
-arithmetic is pinned, and without a card it fails and prints no result."""
+"""`chip_smoke.py` rehearsed on the CPU: its serve, forward and training
+phases run end to end at `tiny` size on the plain kernel versions, its
+bound arithmetic is pinned, and without a card it fails and prints no
+result."""
 
 import shutil
 import subprocess
@@ -13,7 +14,9 @@ import torch
 import chip_smoke
 from cloudtik_tpu_torch.ops import flash_attention as FA
 
-torch.set_num_threads(2)
+# one intra-op thread: a first multi-threaded CPU f32 exp can be off by
+# ~1e-4 in one thread's chunk (tools/repro_torch_cpu_exp.py)
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -61,3 +64,69 @@ def test_attention_bound_at_the_main_shape():
     ragged = next(c for c in chip_smoke.ATTN_CASES
                   if c.name == "ragged_causal")
     assert chip_smoke.attention_bound(ragged)[1] == "bytes"
+
+
+def test_train_phase_rehearsal_takes_no_kernel_on_cpu():
+    out = chip_smoke.phase_train("tiny", 2, 16, "cpu", warmup=1, steps=2)
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    assert out["mfu"] is None and out["peak_mem_gb"] is None
+    assert out["measured_steps"] == 2 and out["remat_policy"] == "save_attn"
+    assert out["tokens_per_s"] > 0
+
+
+def test_train_grads_rehearsal():
+    out = chip_smoke.phase_train_grads("tiny", 2, 2, 32, "cpu",
+                                       loss_steps=10)
+    rel = out["grad_rel_l2_flash_vs_reference"]
+    assert len(rel) == 12 and "layers.wq" in rel and "lm_head" in rel
+    assert max(rel.values()) <= chip_smoke.GRADS_REL_L2
+    losses = out["repeated_batch_losses"]
+    assert len(losses) == 10 and losses[-1] < losses[0] - 0.1
+
+
+def test_attention_bwd_bound_at_the_training_shape():
+    main = chip_smoke.BWD_CASES[0]
+    assert (main.B, main.H, main.Hkv, main.S, main.D, main.causal,
+            main.layout) == (8, 16, 16, 2048, 128, True, "bshd")
+    bound = chip_smoke.attention_bwd_bound(main)
+    pairs = 2048 * 2049 // 2                      # 2,098,176 per head
+    assert bound["dq"]["flops"] == 6 * 8 * 16 * pairs * 128    # 206 GFLOP
+    assert bound["dkv"]["flops"] == 8 * 8 * 16 * pairs * 128   # 275 GFLOP
+    elems = 8 * 16 * 2048 * 128
+    stats = 2 * 4 * 8 * 16 * 2048
+    assert bound["dq"]["bytes"] == 2 * 5 * elems + stats
+    assert bound["dkv"]["bytes"] == 2 * 6 * elems + stats
+    for name in ("dq", "dkv"):
+        assert bound[name]["bound_by"] == "operations"
+        assert bound[name]["bound_ms"] == pytest.approx(
+            bound[name]["flops"] / 989e12 * 1e3)
+    assert bound["dq"]["bound_ms"] == pytest.approx(0.2085, abs=1e-4)
+    assert bound["dkv"]["bound_ms"] == pytest.approx(0.2780, abs=1e-4)
+    assert [c.name for c in chip_smoke.BWD_CASES[1:]] == \
+        [c.name for c in chip_smoke.ATTN_CASES[1:]]
+
+
+@pytest.mark.parametrize("fault", [None, "o", "lse"])
+def test_check_fwd_holds_o_and_lse(fault):
+    """The forward check `kernel` and `kernel_bwd` run at every shape: it
+    passes the plain version's own output and fails one bf16 step off."""
+    c = chip_smoke.AttnCase("small", 2, 4, 2, 96, 64, True, layout="bshd")
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(c.B, c.S, h, c.D, generator=gen)
+               .to(torch.bfloat16).transpose(1, 2) for h in (c.H, c.Hkv,
+                                                             c.Hkv))
+    o, lse = FA.flash_attention_reference(q, k, v, causal=True,
+                                          sm_scale=c.D ** -0.5)
+    if fault is None:
+        errors = chip_smoke.check_fwd(c, q, k, v, o, lse, c.D ** -0.5)
+        assert errors == {"o_max_abs_err": 0.0, "lse_max_abs_err": 0.0}
+        return
+    if fault == "o":
+        o = o.clone()
+        o[1, 3, 95, 7] += 0.25
+    else:
+        lse = lse.clone()
+        lse[1, 3, 95, 0] += 2 * chip_smoke.LSE_ATOL
+    with pytest.raises(SystemExit, match=f"{fault} differs"):
+        chip_smoke.check_fwd(c, q, k, v, o, lse, c.D ** -0.5)

@@ -18,7 +18,9 @@ from cloudtik_tpu_torch import convert
 from cloudtik_tpu_torch.models import generate as TG
 from cloudtik_tpu_torch.models import transformer as TT
 
-torch.set_num_threads(2)
+# one intra-op thread: a first multi-threaded CPU f32 exp can be off by
+# ~1e-4 in one thread's chunk (tools/repro_torch_cpu_exp.py)
+torch.set_num_threads(1)
 
 JCFG = JT.config("tiny", dtype=jnp.float32)
 TCFG = TT.config("tiny", dtype=torch.float32)

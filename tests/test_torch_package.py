@@ -16,13 +16,17 @@ from cloudtik_tpu_torch.device import resolve_device
 from cloudtik_tpu_torch.models import generate as TG
 from cloudtik_tpu_torch.models import transformer as TT
 from cloudtik_tpu_torch.serve import server as TS
+from cloudtik_tpu_torch.train import trainer as TTR
 
-torch.set_num_threads(2)
+# one intra-op thread: a first multi-threaded CPU f32 exp can be off by
+# ~1e-4 in one thread's chunk (tools/repro_torch_cpu_exp.py)
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "cloudtik_tpu_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_inference.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_inference.py",
+    ROOT / "tools" / "profile_torch_train.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
     .replace(".__init__", "") for p in PORT.rglob("*.py"))
@@ -78,8 +82,10 @@ def test_resolve_device(no_cuda):
     lambda: TG.init_cache(TT.config("tiny"), 1, 4),
     lambda: convert.params_from_jax({"w": np.zeros(2, np.float32)}),
     lambda: TS.transformer_backend("tiny"),
+    lambda: TTR.Trainer(TTR.transformer_spec(TT.config("tiny")),
+                        TTR.TrainerConfig()),
 ], ids=["init_params", "init_cache", "params_from_jax",
-        "transformer_backend"])
+        "transformer_backend", "Trainer"])
 def test_entry_points_without_device_raise_off_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()
@@ -92,5 +98,6 @@ def test_server_main_defaults_to_the_card(no_cuda):
 
 def test_kernel_sources_ship_with_the_package():
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
+    assert (PORT / "csrc" / "flash_bwd.cu").is_file()
     text = (ROOT / "pyproject.toml").read_text()
     assert 'cloudtik_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text

@@ -22,7 +22,9 @@ from cloudtik_tpu.serve.server import transformer_backend as jax_backend
 from cloudtik_tpu_torch.serve.server import (
     BackendError, ModelBackend, ServeServer, transformer_backend)
 
-torch.set_num_threads(2)
+# one intra-op thread: a first multi-threaded CPU f32 exp can be off by
+# ~1e-4 in one thread's chunk (tools/repro_torch_cpu_exp.py)
+torch.set_num_threads(1)
 
 
 def _http(url, payload=None):

@@ -19,7 +19,9 @@ from cloudtik_tpu.models import transformer as JT
 from cloudtik_tpu_torch import convert
 from cloudtik_tpu_torch.models import transformer as TT
 
-torch.set_num_threads(2)
+# one intra-op thread: a first multi-threaded CPU f32 exp can be off by
+# ~1e-4 in one thread's chunk (tools/repro_torch_cpu_exp.py)
+torch.set_num_threads(1)
 
 _DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
