@@ -25,12 +25,24 @@ run with a non-zero exit:
            depth, B=8, S=2048, bf16 params and moments, save_attn remat: 2
            warm-up steps, then 5 measured steps with 16 launches of each
            kernel per step; ms/step, tokens/s, MFU, peak memory
+  kernel_det  the NMS and ROIAlign kernels against their plain versions:
+           NMS keep lists equal at the detect path's shapes, all-zero
+           scores, fewer boxes than outputs and degenerate boxes; ROIAlign
+           within 1e-5 at Mask R-CNN's shapes, sampling 2 at scale 0.25,
+           ROIs partly outside the map and under a pixel; kernel and plain
+           times beside the bound (no single PyTorch call computes either)
   train_grads  tpu_1b width with 2 layers: the flash path's gradients
            against the reference attention path's, and the loss falling
            over 10 steps on one repeated batch
+  detect   the detection path: `detect` of maskrcnn_resnet50 at B=8 x 512
+           (2 ROIAlign launches and 1 NMS launch per call) and of
+           ssd_resnet34 at B=8 x 300 (1 NMS launch over 3,000 anchors per
+           call), bf16: ms per call, images/s, peak memory; outputs checked,
+           each call's NMS and pooling held against the plain versions
 
 Launch counts are zeroed just before each path (forward then serve; the
-measured train steps) and read just after it.  The last lines are the
+measured train steps; the measured detect calls of each model) and read
+just after it.  The last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
 """
@@ -635,6 +647,344 @@ def phase_train_grads(model: str = "tpu_1b", n_layers: int = 2, B: int = 2,
     return out
 
 
+# -------------------------------------------------------------- kernel_det --
+
+# FP32 rate outside the tensor cores (NVIDIA data sheet), for NMS's bound.
+PEAK_F32_FLOPS = 67e12
+
+
+@dataclasses.dataclass(frozen=True)
+class NmsCase:
+    name: str
+    B: int
+    N: int
+    K: int
+    iou_threshold: float = 0.5
+    scores: str = "softmax"   # "softmax" (max foreground prob) or "zero"
+    degenerate: bool = False  # zero-area, duplicate and inverted boxes
+
+
+# The first two are the shapes `detect` gives the kernel: Mask R-CNN (8
+# images of 128 proposals, 50 kept) and SSD (8 images of 3,000 anchors, 100
+# kept).  Keep lists must equal the plain version's exactly.
+NMS_CASES = (
+    NmsCase("maskrcnn_b8", 8, 128, 50),
+    NmsCase("ssd_b8", 8, 3000, 100),
+    NmsCase("all_zero_scores", 8, 3000, 100, scores="zero"),
+    NmsCase("fewer_than_k", 4, 60, 100, iou_threshold=0.3),
+    NmsCase("degenerate", 4, 512, 64, iou_threshold=0.3, degenerate=True),
+)
+# flops per (kept box, box): one argmax compare and the IoU (2 min, 2 max,
+# 2 sub, 2 clamps, mul, add, sub, max, div, compare)
+NMS_FLOPS_PER_PAIR = 16
+
+
+def make_nms_inputs(c: NmsCase, gen, device: str):
+    """Normalized xyxy boxes [B, N, 4] and scores [B, N], as `detect`
+    hands them to NMS."""
+    import torch
+
+    xy = torch.rand((c.B, c.N, 2), generator=gen, device=device) * 0.8
+    wh = torch.rand((c.B, c.N, 2), generator=gen, device=device) * 0.3 + 0.01
+    boxes = torch.cat([xy, (xy + wh).clamp(max=1.0)], dim=-1)
+    if c.scores == "zero":
+        scores = torch.zeros((c.B, c.N), device=device)
+    else:
+        logits = torch.randn((c.B, c.N, 81), generator=gen,
+                             device=device) * 3
+        scores = torch.softmax(logits, dim=-1)[..., 1:].max(dim=-1).values
+    if c.degenerate:
+        q = c.N // 4
+        boxes[:, :q, 2:] = boxes[:, :q, :2]               # zero area
+        boxes[:, q:2 * q] = boxes[:, 2 * q:3 * q]         # duplicates ...
+        scores[:, q:2 * q] = scores[:, 2 * q:3 * q]       # ... tied
+        boxes[:, 3 * q:] = boxes[:, 3 * q:][..., [2, 3, 0, 1]]  # inverted
+    return boxes.contiguous(), scores.contiguous()
+
+
+def nms_bound(c: NmsCase, kept: int):
+    """Least time for the work these inputs need: each box (20 bytes) read
+    once, each keep index written once; `kept` greedy steps over N boxes."""
+    flops = NMS_FLOPS_PER_PAIR * kept * c.N
+    nbytes = 20 * c.B * c.N + 4 * c.B * c.K
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class RoiCase:
+    name: str
+    B: int
+    R: int
+    C: int
+    H: int
+    P: int
+    sampling: int
+    scale: float = 1.0
+    dtype: str = "bfloat16"
+    # "nhwc": the detect path's [B, H, W, C] map permuted to [B, C, H, W]
+    layout: str = "nhwc"
+    rois: str = "proposals"   # "proposals", "outside" or "subpixel"
+
+
+# The first two are the shapes Mask R-CNN's `roi_heads` gives the kernel: 8
+# images x 128 proposals on the [8, 32, 32, 1024] bf16 C4 map, pooled to 7x7
+# and 14x14 with sampling 1.
+ROI_CASES = (
+    RoiCase("maskrcnn_7", 8, 128, 1024, 32, 7, 1),
+    RoiCase("maskrcnn_14", 8, 128, 1024, 32, 14, 1),
+    RoiCase("sampling2_scale025", 2, 64, 256, 64, 7, 2, scale=0.25,
+            dtype="float32", layout="nchw"),
+    RoiCase("partly_outside", 2, 64, 256, 32, 7, 2, rois="outside"),
+    RoiCase("subpixel", 2, 64, 96, 32, 7, 2, dtype="float32",
+            rois="subpixel"),
+)
+# f32 outputs from the same (widened) inputs; only the order of the sums
+# and the contraction of the bilinear weights differ
+ROI_ATOL = ROI_RTOL = 1e-5
+ROI_FLOPS_PER_SAMPLE = 16   # 4 taps: weights, products, sum
+
+
+def make_roi_inputs(c: RoiCase, gen, device: str):
+    import torch
+
+    dtype = getattr(torch, c.dtype)
+    if c.layout == "nhwc":
+        feats = torch.randn((c.B, c.H, c.H, c.C), generator=gen,
+                            device=device).to(dtype).permute(0, 3, 1, 2)
+    else:
+        feats = torch.randn((c.B, c.C, c.H, c.H), generator=gen,
+                            device=device).to(dtype)
+    extent = c.H / c.scale           # input coordinates
+    u = torch.rand((c.B, c.R, 4), generator=gen, device=device)
+    if c.rois == "proposals":        # normalized boxes times the map size
+        x1y1 = u[..., :2] * 0.9
+        x2y2 = (x1y1 + 0.02 + u[..., 2:] * 0.5).clamp(max=1.0)
+    elif c.rois == "outside":
+        x1y1 = u[..., :2] - 0.5
+        x2y2 = x1y1 + 0.3 + u[..., 2:] * 0.9
+    else:                            # under a pixel: clamped to size 1
+        x1y1 = u[..., :2]
+        x2y2 = x1y1 + u[..., 2:] * 0.5 * c.scale
+    return feats, (torch.cat([x1y1, x2y2], dim=-1) * extent).contiguous()
+
+
+def roi_bound(c: RoiCase):
+    """Least time: the map read once, rois read once, the f32 output
+    written once; bilinear arithmetic on every sample."""
+    elem = 2 if c.dtype == "bfloat16" else 4
+    out = c.B * c.R * c.C * c.P * c.P
+    flops = ROI_FLOPS_PER_SAMPLE * out * c.sampling ** 2
+    nbytes = elem * c.B * c.C * c.H * c.H + 16 * c.B * c.R + 4 * out
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def roi_errors(got, want) -> dict:
+    err = (got - want).abs()
+    return {"max_abs_err": err.max().item(),
+            "within": bool((err <= ROI_ATOL + ROI_RTOL * want.abs()).all()),
+            "finite": _all_finite(got)}
+
+
+def phase_kernel_det(device: str = "cuda", nms_cases=NMS_CASES,
+                     roi_cases=ROI_CASES) -> dict:
+    """B4 and B5 against their plain versions on the same inputs; times on
+    the card only."""
+    import torch
+
+    from cloudtik_tpu_torch.ops import detection as D
+
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device).manual_seed(2)
+    out = {"nms": {}, "roi_align": {}}
+    for c in nms_cases:
+        boxes, scores = make_nms_inputs(c, gen, device)
+        kw = {"iou_threshold": c.iou_threshold, "max_output": c.K}
+        keep = D.nms_batched(boxes, scores, **kw)
+        want = D.nms_reference_batched(boxes, scores, **kw)
+        require(keep.shape == (c.B, c.K) and keep.dtype == torch.int32,
+                f"nms {c.name}: keep {tuple(keep.shape)} {keep.dtype}")
+        diff = (keep - want).abs().max().item()
+        require(diff == 0, f"nms {c.name}: keep differs from the plain "
+                           f"version in {int((keep != want).sum())} places")
+        kept = int((keep >= 0).sum())
+        if c.N < c.K:
+            require(bool((keep[:, c.N:] == -1).all()),
+                    f"nms {c.name}: no -1 padding")
+        if c.scores == "zero":
+            require(bool((keep[:, 0] == 0).all()),
+                    f"nms {c.name}: ties not taken by lowest index")
+        bound_ms, bound_by, flops, nbytes = nms_bound(c, kept)
+        row = {"case": c.name, "B": c.B, "N": c.N, "K": c.K,
+               "iou_threshold": c.iou_threshold, "kept": kept,
+               "max_abs_err": diff, "equal": True, "bound_ms": bound_ms,
+               "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+        if on_card:
+            row["kernel_ms"] = time_ms(lambda: D.nms_batched(
+                boxes, scores, **kw))
+            row["plain_ms"] = time_ms(lambda: D.nms_reference_batched(
+                boxes, scores, **kw), iters=3, warmup=1)
+        emit("kernel_det", kernel="nms", **row)
+        out["nms"][c.name] = row
+    for c in roi_cases:
+        feats, rois = make_roi_inputs(c, gen, device)
+        kw = {"pooled_size": c.P, "sampling_ratio": c.sampling,
+              "spatial_scale": c.scale}
+        got = D.roi_align_batched(feats, rois, **kw)
+        want = D.roi_align_reference_batched(feats, rois, **kw)
+        require(got.shape == (c.B, c.R, c.C, c.P, c.P)
+                and got.dtype == torch.float32,
+                f"roi_align {c.name}: output {tuple(got.shape)} {got.dtype}")
+        errors = roi_errors(got, want)
+        require(errors["finite"], f"roi_align {c.name}: non-finite output")
+        require(errors["within"], f"roi_align {c.name}: differs from the "
+                                  f"plain version {errors}")
+        del got, want
+        bound_ms, bound_by, flops, nbytes = roi_bound(c)
+        row = {"case": c.name, "B": c.B, "R": c.R, "C": c.C, "H": c.H,
+               "P": c.P, "sampling": c.sampling, "scale": c.scale,
+               "dtype": c.dtype, "layout": c.layout, "rois": c.rois,
+               "max_abs_err": errors["max_abs_err"],
+               "tolerance": {"atol": ROI_ATOL, "rtol": ROI_RTOL},
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes}
+        if on_card:
+            row["kernel_ms"] = time_ms(lambda: D.roi_align_batched(
+                feats, rois, **kw))
+            row["plain_ms"] = time_ms(lambda: D.roi_align_reference_batched(
+                feats, rois, **kw), iters=3, warmup=1)
+            torch.cuda.empty_cache()
+        emit("kernel_det", kernel="roi_align", **row)
+        out["roi_align"][c.name] = row
+    return out
+
+
+# ------------------------------------------------------------------ detect --
+
+def _det_launch_counts() -> dict:
+    from cloudtik_tpu_torch.ops import detection as D
+
+    return {"nms": D.LAUNCHES_NMS, "roi_align": D.LAUNCHES_ROI_ALIGN}
+
+
+def _zero_det_launch_counts() -> None:
+    from cloudtik_tpu_torch.ops import detection as D
+
+    D.LAUNCHES_NMS = D.LAUNCHES_ROI_ALIGN = 0
+
+
+def _timed_call(fn, on_card: bool):
+    """(result, ms) of one call: CUDA events on the card, else the host
+    clock."""
+    import torch
+
+    if not on_card:
+        t0 = time.perf_counter()
+        result = fn()
+        return result, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    end.synchronize()
+    return result, start.elapsed_time(end)
+
+
+def phase_detect(kind: str, name: str, B: int = 8, device: str = "cuda",
+                 warmup: int = 1, iters: int = 5) -> dict:
+    """`detect` of a repo preset at full width (bf16 compute, f32 params,
+    random weights from seed 0): `warmup` calls, then the detection counts
+    zeroed, `iters` measured calls, the counts read.  Then the last call's
+    outputs are checked, and its NMS and ROIAlign inputs are held against
+    the plain versions (launches made for that come after the counts)."""
+    import torch
+
+    from cloudtik_tpu_torch.models import maskrcnn as MR
+    from cloudtik_tpu_torch.models import ssd as SD
+    from cloudtik_tpu_torch.ops import detection as D
+
+    M = {"maskrcnn": MR, "ssd": SD}[kind]
+    cfg = M.config(name)
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = M.init_params(gen, cfg, device)
+    S = cfg.image_size
+    images = torch.randn((B, S, S, 3), generator=gen, device=device)
+
+    def call():
+        return M.detect(params, images, cfg, device=device)
+
+    for _ in range(warmup):
+        call()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # ---- the detection path: counts zeroed just before, read just after --
+    _zero_det_launch_counts()
+    ms = []
+    for _ in range(iters):
+        out, t = _timed_call(call, on_card)
+        ms.append(t)
+    launches = _det_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    K = out["keep"].shape[1]
+    valid = out["keep"] >= 0
+    labels = out["labels"]
+    require(out["boxes"].shape == (B, K, 4) and out["scores"].shape == (B, K),
+            f"{name}: output shapes")
+    for key in ("boxes", "scores", "nms_boxes", "nms_scores"):
+        require(_all_finite(out[key]), f"{name}: non-finite {key}")
+    require(bool(((labels >= 1) & (labels < cfg.num_classes))[valid].all())
+            and bool((labels[~valid] == 0).all()),
+            f"{name}: labels outside [1, {cfg.num_classes})")
+    boxes = out["boxes"][valid]
+    require(bool((boxes[:, 2:] >= boxes[:, :2]).all()),
+            f"{name}: a kept box with x2 < x1 or y2 < y1")
+    want_keep = D.nms_reference_batched(
+        out["nms_boxes"], out["nms_scores"], iou_threshold=0.5,
+        max_output=K)
+    require(bool((out["keep"] == want_keep).all()),
+            f"{name}: NMS keep differs from the plain version on the "
+            "call's own boxes and scores")
+    result = {"model": name, "batch": B, "image_size": S,
+              "dtype": "bfloat16", "warmup_calls": warmup,
+              "measured_calls": iters, "ms_per_call": ms,
+              "mean_ms": sum(ms) / len(ms),
+              "images_per_s": B / (sum(ms) / len(ms) / 1e3),
+              "peak_mem_gb": peak, "launches": launches,
+              "kept_per_image": valid.sum(dim=1).tolist(),
+              "nms_equal": True}
+    if kind == "maskrcnn":
+        # Mask R-CNN clips its boxes; SSD's decode is unclipped, as in JAX
+        require(bool(((boxes >= 0) & (boxes <= 1)).all()),
+                f"{name}: boxes outside [0, 1]")
+        require(_all_finite(out["mask_logits"]), f"{name}: mask logits")
+        feat = out["feature"].permute(0, 3, 1, 2)
+        rois = out["proposals"] * out["feature"].shape[1]
+        errs = {}
+        for P in (cfg.roi_pool, cfg.mask_pool):
+            kw = {"pooled_size": P, "sampling_ratio": 1,
+                  "spatial_scale": 1.0}
+            e = roi_errors(D.roi_align_batched(feat, rois, **kw),
+                           D.roi_align_reference_batched(
+                               feat, rois, **kw))
+            require(e["within"] and e["finite"],
+                    f"{name}: pooled {P}x{P} differ from the plain "
+                    f"ROIAlign {e}")
+            errs[f"pooled_{P}"] = e["max_abs_err"]
+        result["roi_align_max_abs_err"] = errs
+    emit("detect", **result)
+    del params, out
+    if on_card:
+        torch.cuda.empty_cache()
+    return result
+
+
 # -------------------------------------------------------------------- main --
 
 def main() -> int:
@@ -668,6 +1018,7 @@ def main() -> int:
 
     kernel = phase_kernel()
     kernel_bwd = phase_kernel_bwd()
+    kernel_det = phase_kernel_det()
 
     # ---- the inference path: counts zeroed just before, read just after --
     _zero_launch_counts()
@@ -696,6 +1047,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_grads()
     torch.cuda.empty_cache()
+
+    # ---- the detection path (counts zeroed and read inside) ----
+    detect = {"maskrcnn": phase_detect("maskrcnn", "maskrcnn_resnet50"),
+              "ssd": phase_detect("ssd", "ssd_resnet34")}
+    for model, per_call in (("maskrcnn", {"nms": 1, "roi_align": 2}),
+                            ("ssd", {"nms": 1, "roi_align": 0})):
+        r = detect[model]
+        want = {k: n * r["measured_calls"] for k, n in per_call.items()}
+        require(r["launches"] == want,
+                f"{r['model']} detect launches {r['launches']}, expected "
+                f"{want} ({per_call} per call)")
+    det_launches = {k: detect["maskrcnn"]["launches"][k]
+                    + detect["ssd"]["launches"][k]
+                    for k in ("nms", "roi_align")}
 
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]
@@ -737,6 +1102,40 @@ def main() -> int:
          "cloudtik_tpu/ops/flash_attention.py:150"),
         ("flash_bwd_dkv", "dkv", ("dk", "dv"),
          "cloudtik_tpu/ops/flash_attention.py:191"))]}
+    # B4 at SSD's shape (the larger of the two detect shapes); B5 as one
+    # Mask R-CNN call runs it, the 7x7 and the 14x14 launch together
+    nms_main = kernel_det["nms"][NMS_CASES[1].name]
+    roi_main = [kernel_det["roi_align"][c.name] for c in ROI_CASES[:2]]
+    summary["kernels"] += [{
+        "name": "nms",
+        "route": "cuda",
+        "source": "cloudtik_tpu_torch/csrc/nms.cu",
+        "replaces": "cloudtik_tpu/ops/detection.py:100",
+        "launches": det_launches["nms"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in kernel_det["nms"].values()),
+        "ms": nms_main["kernel_ms"],
+        "plain_ms": nms_main["plain_ms"],
+        "bound_ms": nms_main["bound_ms"],
+        "bound_by": nms_main["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "roi_align",
+        "route": "cuda",
+        "source": "cloudtik_tpu_torch/csrc/roi_align.cu",
+        "replaces": "cloudtik_tpu/ops/detection.py:203",
+        "launches": det_launches["roi_align"],
+        "max_abs_err": max(
+            [r["max_abs_err"] for r in kernel_det["roi_align"].values()]
+            + list(detect["maskrcnn"]["roi_align_max_abs_err"].values())),
+        "ms": sum(r["kernel_ms"] for r in roi_main),
+        "plain_ms": sum(r["plain_ms"] for r in roi_main),
+        "bound_ms": sum(r["bound_ms"] for r in roi_main),
+        "bound_by": "bytes",
+        "library_ms": None,
+    }]
+    require(all(r["bound_by"] == "bytes" for r in roi_main),
+            "roi_align's main shapes are not bound by bytes")
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,14 +31,14 @@ def _leaf_to_torch(a: Any, device: torch.device,
 
 def params_from_jax(tree: Any, device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> Any:
-    """Nested dict of numpy arrays -> the same nested dict of tensors on
-    `device` (cast to `dtype` when given, else each leaf's own dtype)."""
+    """Nested dicts and lists of numpy arrays -> the same tree of tensors
+    on `device` (cast to `dtype` when given, else each leaf's own dtype)."""
     dev = resolve_device(device)
     return tree_map(lambda a: _leaf_to_torch(a, dev, dtype), tree)
 
 
 def params_to_numpy(tree: Any) -> Any:
-    """The inverse: nested dict of tensors -> nested dict of numpy arrays
+    """The inverse: a tree of tensors -> the same tree of numpy arrays
     (`jax.tree.map(jnp.asarray, ...)` takes it back to JAX).  numpy has no
     bfloat16 of its own, so bf16 leaves come back as float32, exactly."""
     def leaf(t: torch.Tensor) -> np.ndarray:

@@ -42,6 +42,15 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
                               + [_F, _I, _P], _I),
         "tik_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "nms": {
+        "tik_nms": ([_P, _P, _P, _I, _I, _I, _F, _P], _I),
+        "tik_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "roi_align": {
+        "tik_roi_align": ([_I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I,
+                           _F, _P], _I),
+        "tik_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _lock = threading.Lock()

@@ -31,7 +31,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from cloudtik_tpu_torch.tree import Tree, tree_leaves, tree_map
+from cloudtik_tpu_torch.tree import (Tree, tree_leaves, tree_map,
+                                     tree_unflatten)
 
 Schedule = Callable[[int], float]
 
@@ -168,8 +169,10 @@ class AdamW:
             u = _c(-lr, u) * u
             return u, (mu.to(self.mu_dtype) if self.mu_dtype else mu), nu
 
-        out = tree_map(leaf, grads, state["mu"], state["nu"], params)
-        updates, mu, nu = (tree_map(lambda t: t[i], out) for i in range(3))
+        out = [leaf(*a) for a in zip(*(tree_leaves(t) for t in (
+            grads, state["mu"], state["nu"], params)))]
+        updates, mu, nu = (tree_unflatten(grads, [t[i] for t in out])
+                           for i in range(3))
         return updates, {"count": count, "mu": mu, "nu": nu}, g_norm
 
 

@@ -26,7 +26,7 @@ from torch.profiler import record_function
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.train.optim import OptimizerConfig, make_optimizer
-from cloudtik_tpu_torch.tree import tree_leaves, tree_map
+from cloudtik_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 # Dense bf16 tensor-core peaks by `torch.cuda.get_device_name` (NVIDIA's
 # data sheets), for MFU.  An unknown card or the CPU gives no MFU.
@@ -106,8 +106,8 @@ class Trainer:
     def _grads(self, batch: Dict[str, torch.Tensor]):
         loss, metrics = self.spec.loss_fn(self.params, batch)
         leaves = tree_leaves(self.params)
-        grads = iter(torch.autograd.grad(loss, leaves))
-        return tree_map(lambda _: next(grads), self.params), metrics
+        grads = torch.autograd.grad(loss, leaves)
+        return tree_unflatten(self.params, list(grads)), metrics
 
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:

@@ -1,8 +1,9 @@
-"""`chip_smoke.py` rehearsed on the CPU: its serve, forward and training
-phases run end to end at `tiny` size on the plain kernel versions, its
-bound arithmetic is pinned, and without a card it fails and prints no
-result."""
+"""`chip_smoke.py` rehearsed on the CPU: its serve, forward, training and
+detection phases run end to end at `tiny` size on the plain kernel
+versions, its kernel_det case list at CPU size, its bound arithmetic is
+pinned, and without a card it fails and prints no result."""
 
+import dataclasses
 import shutil
 import subprocess
 import sys
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 import chip_smoke
+from cloudtik_tpu_torch.ops import detection as D
 from cloudtik_tpu_torch.ops import flash_attention as FA
 
 # one intra-op thread: a first multi-threaded CPU f32 exp can be off by
@@ -130,3 +132,68 @@ def test_check_fwd_holds_o_and_lse(fault):
         lse[1, 3, 95, 0] += 2 * chip_smoke.LSE_ATOL
     with pytest.raises(SystemExit, match=f"{fault} differs"):
         chip_smoke.check_fwd(c, q, k, v, o, lse, c.D ** -0.5)
+
+
+def _small(cases, **sizes):
+    """The smoke's case list at CPU size: every case, its kind of input
+    kept, its batch and widths cut."""
+    return [dataclasses.replace(c, **{k: min(getattr(c, k), v)
+                                      for k, v in sizes.items()})
+            for c in cases]
+
+
+def test_kernel_det_rehearsal_runs_every_case_on_the_plain_path():
+    before = (D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN)
+    out = chip_smoke.phase_kernel_det(
+        "cpu", _small(chip_smoke.NMS_CASES, B=2, N=300),
+        _small(chip_smoke.ROI_CASES, B=2, R=16, C=64))
+    assert (D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN) == before
+    assert list(out["nms"]) == [c.name for c in chip_smoke.NMS_CASES]
+    assert list(out["roi_align"]) == [c.name for c in chip_smoke.ROI_CASES]
+    assert all(r["equal"] and r["max_abs_err"] == 0
+               for r in out["nms"].values())
+    assert out["nms"]["fewer_than_k"]["kept"] < 2 * 100
+    assert all(r["bound_by"] == "bytes" for r in out["roi_align"].values())
+
+
+def test_kernel_det_cases_cover_the_detect_shapes():
+    mr, ssd = chip_smoke.NMS_CASES[:2]
+    assert (mr.B, mr.N, mr.K) == (8, 128, 50)
+    assert (ssd.B, ssd.N, ssd.K) == (8, 3000, 100)
+    r7, r14 = chip_smoke.ROI_CASES[:2]
+    assert [(c.B * c.R, c.C, c.H, c.P, c.sampling, c.dtype, c.layout)
+            for c in (r7, r14)] == [(1024, 1024, 32, 7, 1, "bfloat16",
+                                     "nhwc"),
+                                    (1024, 1024, 32, 14, 1, "bfloat16",
+                                     "nhwc")]
+
+
+def test_roi_bound_at_the_maskrcnn_shapes():
+    """Bytes written bound B5: 205.5 MB (7x7) and 822.1 MB (14x14) of f32
+    against a 16.8 MB bf16 map."""
+    for c, out_bytes, ms in ((chip_smoke.ROI_CASES[0], 205_520_896, 0.0664),
+                             (chip_smoke.ROI_CASES[1], 822_083_584, 0.2504)):
+        bound_ms, bound_by, _, nbytes = chip_smoke.roi_bound(c)
+        assert nbytes == out_bytes + 2 * 8 * 1024 * 32 * 32 + 16 * 8 * 128
+        assert bound_by == "bytes"
+        assert bound_ms == pytest.approx(ms, abs=1e-4)
+
+
+def test_nms_bound_counts_the_kept_steps():
+    c = chip_smoke.NMS_CASES[1]
+    bound_ms, bound_by, flops, nbytes = chip_smoke.nms_bound(c, kept=800)
+    assert flops == 16 * 800 * 3000
+    assert nbytes == 20 * 8 * 3000 + 4 * 8 * 100
+    assert bound_by == "operations"
+    assert bound_ms == pytest.approx(flops / 67e12 * 1e3)
+
+
+@pytest.mark.parametrize("kind", ["maskrcnn", "ssd"])
+def test_detect_phase_rehearsal_takes_no_kernel_on_cpu(kind):
+    out = chip_smoke.phase_detect(kind, "tiny", B=2, device="cpu",
+                                  iters=2)
+    assert out["launches"] == {"nms": 0, "roi_align": 0}
+    assert out["nms_equal"] and out["measured_calls"] == 2
+    assert out["peak_mem_gb"] is None and out["images_per_s"] > 0
+    if kind == "maskrcnn":
+        assert out["roi_align_max_abs_err"] == {"pooled_7": 0.0}

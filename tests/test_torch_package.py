@@ -14,6 +14,9 @@ import torch
 from cloudtik_tpu_torch import convert
 from cloudtik_tpu_torch.device import resolve_device
 from cloudtik_tpu_torch.models import generate as TG
+from cloudtik_tpu_torch.models import maskrcnn as TMR
+from cloudtik_tpu_torch.models import resnet as TRN
+from cloudtik_tpu_torch.models import ssd as TSD
 from cloudtik_tpu_torch.models import transformer as TT
 from cloudtik_tpu_torch.serve import server as TS
 from cloudtik_tpu_torch.train import trainer as TTR
@@ -26,7 +29,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "cloudtik_tpu_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_inference.py",
-    ROOT / "tools" / "profile_torch_train.py"]
+    ROOT / "tools" / "profile_torch_train.py",
+    ROOT / "tools" / "profile_torch_detect.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
     .replace(".__init__", "") for p in PORT.rglob("*.py"))
@@ -84,8 +88,17 @@ def test_resolve_device(no_cuda):
     lambda: TS.transformer_backend("tiny"),
     lambda: TTR.Trainer(TTR.transformer_spec(TT.config("tiny")),
                         TTR.TrainerConfig()),
+    lambda: TRN.init_params(torch.Generator(), TRN.config("tiny")),
+    lambda: TSD.init_params(torch.Generator(), TSD.config("tiny")),
+    lambda: TMR.init_params(torch.Generator(), TMR.config("tiny")),
+    lambda: TSD.detect({}, np.zeros((1, 64, 64, 3), np.float32),
+                       TSD.config("tiny")),
+    lambda: TMR.detect({}, np.zeros((1, 64, 64, 3), np.float32),
+                       TMR.config("tiny")),
 ], ids=["init_params", "init_cache", "params_from_jax",
-        "transformer_backend", "Trainer"])
+        "transformer_backend", "Trainer", "resnet.init_params",
+        "ssd.init_params", "maskrcnn.init_params", "ssd.detect",
+        "maskrcnn.detect"])
 def test_entry_points_without_device_raise_off_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()
@@ -99,5 +112,7 @@ def test_server_main_defaults_to_the_card(no_cuda):
 def test_kernel_sources_ship_with_the_package():
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
     assert (PORT / "csrc" / "flash_bwd.cu").is_file()
+    assert (PORT / "csrc" / "nms.cu").is_file()
+    assert (PORT / "csrc" / "roi_align.cu").is_file()
     text = (ROOT / "pyproject.toml").read_text()
     assert 'cloudtik_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text

@@ -43,7 +43,9 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile(fn, label: str, **extra) -> dict:
+def profile(fn, label: str, kind=_kind, **extra) -> dict:
+    """Profile one warm call of fn(); device time grouped by `kind(name)`.
+    """
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -65,8 +67,8 @@ def profile(fn, label: str, **extra) -> dict:
         if us <= 0:
             continue
         launches += evt.count
-        kind = _kind(evt.key)
-        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+        k = kind(evt.key)
+        by_kind[k] = by_kind.get(k, 0.0) + us / 1e3
         kernels.append((us / 1e3, evt.count, evt.key[:90]))
     kernels.sort(reverse=True)
     device_ms = sum(by_kind.values())
