@@ -8,7 +8,9 @@ cloudtik_tpu).  Phases, each printed as one JSON line; any failure ends the
 run with a non-zero exit:
 
   device   card name, count, `nvidia-smi` name and power limit
-  build    builds every kernel from csrc/ (one nvcc per source, in parallel)
+  build    builds every kernel from csrc/ (one nvcc per source, in parallel);
+           registers and spills of each kernel from ptxas, and no spill
+           in the main paths' bf16 D=128 flash kernels
   kernel   the forward kernel against its plain PyTorch version on the
            card, at the main path's shape and a few others, with the
            tolerance; kernel, plain and library (yardstick) times beside the
@@ -52,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -89,6 +92,53 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+# ------------------------------------------------------------------- build --
+
+def ptxas_report(logs: dict) -> list:
+    """Registers and spills of every kernel in nvcc's `-Xptxas -v` logs
+    ({source: log}): one row per kernel, named `name<type, D>` where the
+    mangled name allows."""
+    rows = []
+    for source, log in sorted(logs.items()):
+        kernel = None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                kernel = {"source": source,
+                          "kernel": _kernel_name(m.group(1))}
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and kernel is not None:
+                kernel["spill_stores"] = int(m.group(1))
+                kernel["spill_loads"] = int(m.group(2))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel is not None:
+                kernel["registers"] = int(m.group(1))
+                rows.append(kernel)
+                kernel = None
+    return rows
+
+
+def _kernel_name(mangled: str) -> str:
+    """`flash_fwd_kernel<__nv_bfloat16, 128>` from its mangled name, whose
+    identifiers are length-prefixed (`20flash_bwd_dkv_kernel`)."""
+    for m in re.finditer(r"(?=(\d{1,3})([A-Za-z_]\w*?_kernel))", mangled):
+        if int(m.group(1)) != len(m.group(2)):
+            continue
+        rest = mangled[m.start() + len(m.group(1)) + len(m.group(2)):]
+        t = re.match(r"I\d+(__nv_bfloat16|__half)Li(\d+)E", rest)
+        return f"{m.group(2)}<{t.group(1)}, {t.group(2)}>" if t \
+            else m.group(2)
+    return mangled
+
+
+# The main paths' flash kernels must not spill (bf16, D = 128).
+NO_SPILL = tuple(f"{k}<__nv_bfloat16, 128>" for k in (
+    "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+
+
 # ------------------------------------------------------------------ kernel --
 
 @dataclasses.dataclass(frozen=True)
@@ -103,15 +153,30 @@ class AttnCase:
     dtype: str = "bfloat16"
     # "bshd": [B,S,H,D] tensors transposed to BHSD, as the model hands them
     layout: str = "bhsd"
+    # kv length, S when 0.  Causal with S != Skv is the kernels' absolute
+    # mask (q_pos >= kv_pos), which the model reaches only through an
+    # explicit implementation="flash"
+    Skv: int = 0
+
+    def __post_init__(self):
+        if not self.Skv:
+            object.__setattr__(self, "Skv", self.S)
 
 
-# The first case is the shape and layout `forward` gives the kernel.
+# The first case is the shape and layout `forward` gives the kernel.  The
+# others cover what the kernels tile: 128-row q tiles and 64-row kv tiles
+# (forward), 128-row kv tiles and 64-row q tiles (dk/dv), ragged ends, GQA,
+# D = 64 and fp16.
 ATTN_CASES = (
     AttnCase("forward_b4", 4, 16, 16, 2048, 128, True, layout="bshd"),
     AttnCase("tpu_1b_b1", 1, 16, 16, 2048, 128, True),
     AttnCase("gqa_noncausal", 2, 16, 4, 1024, 64, False),
     AttnCase("ragged_causal", 1, 16, 16, 1000, 128, True),
     AttnCase("fp16_causal", 1, 8, 8, 512, 128, True, dtype="float16"),
+    AttnCase("cross_causal", 2, 16, 16, 384, 128, True, Skv=1024),
+    AttnCase("d64_causal", 2, 16, 16, 2048, 64, True),
+    AttnCase("gqa_causal", 2, 16, 4, 1024, 128, True, layout="bshd"),
+    AttnCase("s1088_causal", 2, 16, 16, 1088, 128, True),
 )
 # bf16/fp16 output: p and o are rounded to 8/11 mantissa bits at different
 # points in the kernel (per 64-column tile) and the plain version (per row)
@@ -120,16 +185,21 @@ O_ATOL, O_RTOL = 1e-2, 1e-2
 LSE_ATOL = 1e-3
 
 
+def live_pairs(c: AttnCase) -> int:
+    """Unmasked (q, kv) pairs of one head: causal under absolute positions,
+    row q sees min(q + 1, Skv) keys."""
+    if not c.causal:
+        return c.S * c.Skv
+    n = min(c.S, c.Skv)
+    return n * (n + 1) // 2 + max(c.S - c.Skv, 0) * c.Skv
+
+
 def attention_bound(c: AttnCase, elem_bytes: int = 2):
     """Least time for the work the inputs need: unmasked (q, kv) pairs
     only, each input read once, each output written once."""
-    if c.causal:   # absolute positions: row s sees min(s + 1, Skv) keys
-        pairs = c.S * (c.S + 1) // 2
-    else:
-        pairs = c.S * c.S
-    flops = 4 * c.B * c.H * pairs * c.D
+    flops = 4 * c.B * c.H * live_pairs(c) * c.D
     nbytes = (elem_bytes * (2 * c.B * c.H * c.S * c.D
-                            + 2 * c.B * c.Hkv * c.S * c.D)
+                            + 2 * c.B * c.Hkv * c.Skv * c.D)
               + 4 * c.B * c.H * c.S)
     t_ops = flops / PEAK_BF16_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -137,19 +207,20 @@ def attention_bound(c: AttnCase, elem_bytes: int = 2):
     return max(t_ops, t_bytes) * 1e3, bound_by, flops, nbytes
 
 
-def _rand_heads(c: AttnCase, gen, heads: int):
+def _rand_heads(c: AttnCase, gen, heads: int, seq: int):
     import torch
 
-    shape = (c.B, c.S, heads, c.D) if c.layout == "bshd" \
-        else (c.B, heads, c.S, c.D)
+    shape = (c.B, seq, heads, c.D) if c.layout == "bshd" \
+        else (c.B, heads, seq, c.D)
     t = torch.randn(shape, generator=gen, device="cuda").to(
         getattr(torch, c.dtype))
     return t.transpose(1, 2) if c.layout == "bshd" else t
 
 
 def make_qkv(c: AttnCase, gen):
-    return (_rand_heads(c, gen, c.H), _rand_heads(c, gen, c.Hkv),
-            _rand_heads(c, gen, c.Hkv))
+    return (_rand_heads(c, gen, c.H, c.S),
+            _rand_heads(c, gen, c.Hkv, c.Skv),
+            _rand_heads(c, gen, c.Hkv, c.Skv))
 
 
 def check_fwd(c: AttnCase, q, k, v, o, lse, scale: float) -> dict:
@@ -199,8 +270,8 @@ def phase_kernel() -> dict:
         bound_ms, bound_by, flops, nbytes = attention_bound(c)
         row = {
             "case": c.name, "shape_q": list(q.shape), "hkv": c.Hkv,
-            "causal": c.causal, "dtype": c.dtype, "layout": c.layout,
-            **fwd_errors,
+            "skv": c.Skv, "causal": c.causal, "dtype": c.dtype,
+            "layout": c.layout, **fwd_errors,
             "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
                           "lse_atol": LSE_ATOL},
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
@@ -234,9 +305,9 @@ def attention_bwd_bound(c: AttnCase, elem_bytes: int = 2) -> dict:
     unmasked (q, kv) pairs only (dq: 3 products, 6 * pairs * D flops per
     (b, h); dk/dv: 4 products, 8 * pairs * D), each input read once (q,
     k, v, do, and lse and delta in f32), each output written once."""
-    pairs = c.S * (c.S + 1) // 2 if c.causal else c.S * c.S
+    pairs = live_pairs(c)
     q_elems = c.B * c.H * c.S * c.D
-    kv_elems = c.B * c.Hkv * c.S * c.D
+    kv_elems = c.B * c.Hkv * c.Skv * c.D
     stats = 2 * 4 * c.B * c.H * c.S
     inputs = elem_bytes * (2 * q_elems + 2 * kv_elems) + stats
     out = {}
@@ -278,7 +349,7 @@ def phase_kernel_bwd() -> dict:
     results = []
     for c in BWD_CASES:
         q, k, v = make_qkv(c, gen)
-        do = _rand_heads(c, gen, c.H)
+        do = _rand_heads(c, gen, c.H, c.S)
         scale = c.D ** -0.5
         o, lse = FA.flash_attention_fwd(q, k, v, causal=c.causal,
                                         sm_scale=scale)
@@ -323,8 +394,8 @@ def phase_kernel_bwd() -> dict:
         bound = attention_bwd_bound(c)
         row = {
             "case": c.name, "shape_q": list(q.shape), "hkv": c.Hkv,
-            "causal": c.causal, "dtype": c.dtype, "layout": c.layout,
-            "errors": errors, "fwd_errors": fwd_errors,
+            "skv": c.Skv, "causal": c.causal, "dtype": c.dtype,
+            "layout": c.layout, "errors": errors, "fwd_errors": fwd_errors,
             "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
                           "lse_atol": LSE_ATOL,
                           "atol": GRAD_ATOL, "rtol": GRAD_RTOL,
@@ -1009,12 +1080,14 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    logs = _kernels.build_all()
-    ptxas = [line.strip() for log in logs.values()
-             for line in log.splitlines()
-             if "registers" in line or "spill" in line]
-    emit("build", seconds=time.perf_counter() - t0, built=sorted(logs),
+    built = _kernels.build_all()
+    ptxas = ptxas_report(_kernels.build_logs())
+    emit("build", seconds=time.perf_counter() - t0, built=sorted(built),
          ptxas=ptxas)
+    for name in NO_SPILL:
+        row = next((r for r in ptxas if r["kernel"] == name), None)
+        require(row is not None and row["spill_stores"] == 0,
+                f"{name} spills or is missing from the build log: {row}")
 
     kernel = phase_kernel()
     kernel_bwd = phase_kernel_bwd()

@@ -23,39 +23,64 @@
 // outputs each: ~600-800 flops per byte, above the H100's ~295 bf16 flops per
 // byte, so the tensor cores set the bound (0.21 ms and 0.28 ms at 989
 // TFLOP/s).
-// What the design does about it: every product runs on the tensor cores
-// (nvcuda::wmma 16x16x16, f32 accumulate); the dq, dk and dv accumulators stay
-// in registers as wmma fragments for the whole loop (no rescaling is needed in
-// the backward pass, unlike the forward); each block reads its own q (or k/v)
-// tile once and streams the other side's tiles; dead causal tiles are skipped
-// as the TPU kernels skip them.  The f32 dp tile is staged 16 columns at a
-// time, so a block needs ~109 KB of shared memory at D = 128 and two blocks
-// fit on an SM.  This first version is simple rather than fast: no wgmma, no
-// TMA, no double buffering, and the probabilities make a round trip through
-// shared memory.
 //
-// One block of 4 warps for each (64-row q tile, head, batch row) in the dq
-// kernel and each (64-row kv tile, kv head, batch row) in the dk/dv kernel.
-// Warp w owns rows [16w, 16w + 16) of its block's own tile: its scores,
-// probabilities, ds rows and accumulators are touched by no other warp, so
-// only the shared streamed tiles need block-wide barriers.  Inputs and outputs
-// are strided (the model hands in [B,S,H,D] transposed to [B,H,S,D]); the
-// last dimension must be contiguous and rows 16-byte aligned (the Python
-// wrapper checks).  lse and delta are contiguous [B, H, S] f32.  Rows past S
-// and Skv are zero-filled on load and their probabilities forced to 0 (lse is
-// undefined there), so S and Skv need not be multiples of 64.
+// The dk/dv kernel: one block of 8 warps for each (128-row kv tile, kv head,
+// batch row); warp w owns kv rows [16w, 16w + 16).  Its dk and dv
+// accumulators (2 x 64 registers a thread at D = 128) stay in registers for
+// the whole walk; K and V sit in shared memory and give the A fragments of
+// s^T = K q^T and dp^T = V do^T.  The (q, do, lse, delta) tiles of 64 q rows
+// stream through a two-stage cp.async ring, so the copy of step t+1 is in
+// flight while step t computes, with one block barrier per step.  Each q
+// tile is taken in two halves of 32 columns, so p^T and dp^T take 16
+// registers each and D = 128 does not spill; every product is mma.sync
+// m16n8k16 on register fragments (flash_common.cuh): p^T and ds^T, rounded
+// to 16 bits, are the A operands of dv += p^T do and dk += ds^T q, with do
+// and q by ldmatrix.trans.  Only halves that cross the causal diagonal or a
+// ragged end are masked element by element; a warp skips the halves wholly
+// below its rows, and blocks take the kv tiles with the most live q tiles
+// first (tik_flash::tile_order).  Measured on an H100 SXM (700 W): ~1.07 ms
+// at q [8,16,2048,128] bf16 causal, ~255 TFLOP/s, a quarter of the bound.
+// mma.sync reaches a fraction of Hopper's wgmma rate: wgmma with TMA is the
+// next step.
+//
+// The dq kernel is still the first, simple design: nvcuda::wmma 16x16x16, one
+// block of 4 warps for each (64-row q tile, head, batch row), the dq
+// accumulator in wmma fragments, p and ds through shared memory, K/V tiles
+// loaded synchronously; ~109 KB of shared memory at D = 128, two blocks an
+// SM.  Warp w owns rows [16w, 16w + 16) of the q tile.
+//
+// Inputs and outputs are strided (the model hands in [B,S,H,D] transposed to
+// [B,H,S,D]); the last dimension must be contiguous and rows 16-byte aligned
+// (the Python wrapper checks).  lse and delta are contiguous [B, H, S] f32.
+// Rows past S and Skv are zero-filled on load and their probabilities forced
+// to 0 (lse is undefined there), so S and Skv need not be multiples of 64.
 
+#include <limits.h>
 #include <mma.h>
 
 #include "flash_common.cuh"
 
 using namespace nvcuda;
 using tik_flash::align128;
+using tik_flash::cp_async_4;
+using tik_flash::cp_async_commit;
+using tik_flash::cp_async_tile;
+using tik_flash::cp_async_wait;
 using tik_flash::from_float;
+using tik_flash::kLog2e;
+using tik_flash::lane_off_a;
+using tik_flash::lane_off_b;
+using tik_flash::ldmatrix_x4;
+using tik_flash::ldmatrix_x4_trans;
+using tik_flash::mma_16816;
+using tik_flash::pack2;
+using tik_flash::pack_a;
+using tik_flash::smem_addr;
+using tik_flash::tile_order;
 
 namespace {
 
-constexpr int kBlock = tik_flash::kTileRows;  // rows of every q / kv tile
+constexpr int kBlock = tik_flash::kTileRows;  // rows of the dq kernel's tiles
 constexpr int kThreads = tik_flash::kThreads;
 constexpr int kWarps = kThreads / 32;
 
@@ -67,7 +92,7 @@ template <typename T>
 using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// Shared-memory plan, one for both kernels.  Leading dimensions are padded so
+// Shared-memory plan of the dq kernel.  Leading dimensions are padded so
 // that wmma's 16-row fragment loads spread over the banks; every segment and
 // fragment pointer stays 32-byte aligned as wmma requires.
 template <int D>
@@ -141,14 +166,12 @@ __device__ __forceinline__ void acc_nn(FragC (&acc)[D / 16], const T* a,
 }
 
 // The warp's rows of ds = p * (dp - delta) * sm_scale, dp = a . b^T staged
-// 16 columns at a time.  p: the warp's rows of the f32 [64, 64] tile;
-// delta_by_row picks delta by row (dq: rows are queries) or by column (dk/dv:
-// columns are queries).
+// 16 columns at a time.  p: the warp's rows of the f32 [64, 64] tile; rows
+// are queries, so delta is taken by row.
 template <typename T, int D>
 __device__ __forceinline__ void make_ds(T* sds, const float* sp,
                                         const T* a, const T* b, float* stage,
-                                        const float* sdelta,
-                                        bool delta_by_row, int r0,
+                                        const float* sdelta, int r0,
                                         float sm_scale) {
   using P = Plan<D>;
   const int lane = threadIdx.x % 32;
@@ -161,7 +184,7 @@ __device__ __forceinline__ void make_ds(T* sds, const float* sp,
     for (int e = lane; e < 256; e += 32) {
       const int row = r0 + e / 16;
       const int col = n * 16 + e % 16;
-      const float delta = sdelta[delta_by_row ? row : col];
+      const float delta = sdelta[row];
       const float p = sp[row * P::kLdS + col];
       sds[row * P::kLdP + col] =
           from_float<T>(p * (stage[(e / 16) * P::kLdG + e % 16] - delta) *
@@ -279,7 +302,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();
 
     // ds = p (do . v^T - delta) scale, then dq += ds . k.
-    make_ds<T, D>(sds, sp, sdo + r0 * P::kLdT, sv, stage, sdelta, true, r0,
+    make_ds<T, D>(sds, sp, sdo + r0 * P::kLdT, sv, stage, sdelta, r0,
                   sm_scale);
     acc_nn<T, D>(acc, sds + r0 * P::kLdP, sk);
   }
@@ -287,11 +310,165 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dq + b * dqsb + h * dqsh, dqss, q0 + r0, S, acc, stage);
 }
 
-// dk and dv for one (64-row kv tile, kv head, batch row); replaces
-// `_dkv_kernel`.  Works on the transposed problem: rows are kv positions,
-// columns query positions.
+// ------------------------------------------------------------ dk / dv --
+
+constexpr int kDkvBlockN = 128;  // kv rows per block, 16 per warp
+constexpr int kDkvBlockM = 64;   // q rows per streamed tile
+constexpr int kDkvCols = 32;     // q columns per register step
+constexpr int kDkvThreads = kDkvBlockN / 16 * 32;
+
+// Shared-memory plan of the dk/dv kernel: the block's K and V tiles (reused
+// at the end to stage dk and dv), then two stages of (Q, dO, lse, delta).
+// Rows are padded to D + 8 (flash_common.cuh).
+template <int D>
+struct DkvPlan {
+  static constexpr int kLd = D + 8;
+  static constexpr size_t kKV = align128(kDkvBlockN * kLd * 2);
+  static constexpr size_t kIn = align128(kDkvBlockM * kLd * 2);
+  static constexpr size_t kStat = align128(kDkvBlockM * 4);
+  static constexpr size_t kStage0 = 2 * kKV;
+  static constexpr size_t kStage = 2 * kIn + 2 * kStat;  // Q, dO, lse, delta
+  static constexpr size_t kBytes = kStage0 + 2 * kStage;
+};
+
+// Products against 32 q columns [col0, col0 + 32) of a staged tile for this
+// warp's 16 kv rows: acc = X_w . Y^T, X_w the warp's rows of K or V (A
+// fragments), Y the staged Q or dO rows (B fragments, no transpose).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void dot_rows(float (&acc)[kDkvCols / 8][4],
+                                         uint32_t xw, uint32_t y,
+                                         uint32_t off_a, uint32_t off_b) {
+  constexpr int kLd = DkvPlan<D>::kLd;
+#pragma unroll
+  for (int nt = 0; nt < kDkvCols / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  }
+  // Unrolled by 2, not fully: with the whole loop unrolled ptxas hoists
+  // every ldmatrix of the product and, beside the 128 registers of dk and
+  // dv, spills at the 255-register cap (D = 128).
+#pragma unroll 2
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, xw + kk * 16 * 2 + off_a);
+#pragma unroll
+    for (int np = 0; np < kDkvCols / 16; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, y + (np * 16 * kLd + kk * 16) * 2 + off_b);
+      mma_16816<T>(acc[2 * np], a, b[0], b[1]);
+      mma_16816<T>(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc += A . Y: A the 16 x 32 register tile `x` (rounded to 16 bits as it
+// is packed), Y 32 staged rows [col0, col0 + 32) by ldmatrix.trans.
+template <typename T, int D>
+__device__ __forceinline__ void acc_rows(float (&acc)[D / 8][4],
+                                         const float (&x)[kDkvCols / 8][4],
+                                         uint32_t y, uint32_t off_a) {
+  constexpr int kLd = DkvPlan<D>::kLd;
+#pragma unroll
+  for (int kk = 0; kk < kDkvCols / 16; ++kk) {
+    uint32_t a[4];
+    pack_a<T>(a, x[2 * kk], x[2 * kk + 1]);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, y + (kk * 16 * kLd + dp * 16) * 2 + off_a);
+      mma_16816<T>(acc[2 * dp], a, b[0], b[1]);
+      mma_16816<T>(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// One half (32 q columns) of a streamed q tile for this warp's 16 kv rows,
+// on the transposed problem: p^T, dv += p^T . do, dp^T, ds^T, dk += ds^T . q,
+// all in registers.  `kv0` is this lane's first kv row (the second is
+// kv0 + 8), `qc0` the absolute q position of column col0; entries that are
+// not live (q_pos >= S, kv_pos >= Skv, causal q_pos < kv_pos) get p = 0 only
+// when kMask.
+template <typename T, int D, bool kMask>
+__device__ __forceinline__ void dkv_half(
+    float (&dk_acc)[D / 8][4], float (&dv_acc)[D / 8][4], uint32_t kw,
+    uint32_t vw, uint32_t sq, uint32_t sdo, const float* slse,
+    const float* sdelta, uint32_t off_a, uint32_t off_b, float sm_scale,
+    float scale_log2, int kv0, int qc0, int S, int Skv, int causal) {
+  const int lane = threadIdx.x % 32;
+  const int c2 = 2 * (lane & 3);
+
+  // p^T = exp(s^T * scale - lse[q]) in f32
+  float p[kDkvCols / 8][4];
+  dot_rows<T, D>(p, kw, sq, off_a, off_b);
+#pragma unroll
+  for (int nt = 0; nt < kDkvCols / 8; ++nt) {
+    const float2 l2 = *reinterpret_cast<const float2*>(slse + nt * 8 + c2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float l = (e & 1) ? l2.y : l2.x;
+      float x = exp2f(p[nt][e] * scale_log2 - l * kLog2e);
+      if (kMask) {
+        const int q_pos = qc0 + nt * 8 + c2 + (e & 1);
+        const int kv_pos = kv0 + (e >> 1) * 8;
+        if (q_pos >= S || kv_pos >= Skv || (causal && q_pos < kv_pos)) {
+          x = 0.f;
+        }
+      }
+      p[nt][e] = x;
+    }
+  }
+  // dv += p^T . do, p rounded to do's type
+  acc_rows<T, D>(dv_acc, p, sdo, off_a);
+
+  // ds^T = p^T (do . v^T - delta[q])^T * scale, ds rounded to q's type
+  float ds[kDkvCols / 8][4];
+  dot_rows<T, D>(ds, vw, sdo, off_a, off_b);
+#pragma unroll
+  for (int nt = 0; nt < kDkvCols / 8; ++nt) {
+    const float2 d2 = *reinterpret_cast<const float2*>(sdelta + nt * 8 + c2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float delta = (e & 1) ? d2.y : d2.x;
+      ds[nt][e] = p[nt][e] * (ds[nt][e] - delta) * sm_scale;
+    }
+  }
+  acc_rows<T, D>(dk_acc, ds, sq, off_a);
+}
+
+// Start the copies of streamed step t: (Q, dO) rows of q tile
+// i0 + t % per_head of head hk * group + t / per_head, and its lse and delta.
+template <typename T, int D>
+__device__ __forceinline__ void dkv_load_step(
+    unsigned char* stage, const T* q, const T* dout, const float* lse,
+    const float* delta, int t, int per_head, int i0, int b, int hk, int H,
+    int group, int S, long long qsb, long long qsh, long long qss,
+    long long dsb, long long dsh, long long dss) {
+  using P = DkvPlan<D>;
+  const int h = hk * group + t / per_head;
+  const int qt0 = (i0 + t % per_head) * kDkvBlockM;
+  cp_async_tile<T, D, kDkvBlockM, kDkvThreads, P::kLd>(
+      reinterpret_cast<T*>(stage), q + b * qsb + h * qsh, qss, qt0, S);
+  cp_async_tile<T, D, kDkvBlockM, kDkvThreads, P::kLd>(
+      reinterpret_cast<T*>(stage + P::kIn), dout + b * dsb + h * dsh, dss,
+      qt0, S);
+  const int i = threadIdx.x % kDkvBlockM;
+  if (threadIdx.x < 2 * kDkvBlockM) {
+    const bool is_lse = threadIdx.x < kDkvBlockM;
+    const float* src = (is_lse ? lse : delta) + ((long long)b * H + h) * S;
+    float* dst = reinterpret_cast<float*>(stage + 2 * P::kIn +
+                                          (is_lse ? 0 : P::kStat));
+    const bool valid = qt0 + i < S;
+    cp_async_4(smem_addr(dst + i), src + (valid ? qt0 + i : 0), valid);
+  }
+}
+
+// dk and dv for one (128-row kv tile, kv head, batch row); replaces
+// `_dkv_kernel`.  Works on the transposed problem: rows are kv positions,
+// columns query positions.  Warp w owns kv rows [16w, 16w + 16): its dk and
+// dv accumulators stay in registers for the whole walk over the group's
+// (head, q tile) steps, which stream through a two-stage cp.async ring.
+template <typename T, int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -304,90 +481,133 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      long long dksb, long long dksh, long long dkss,
                      long long dvsb, long long dvsh, long long dvss,
                      float sm_scale, int causal) {
-  using P = Plan<D>;
+  using P = DkvPlan<D>;
+  constexpr int kLd = P::kLd;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sk = reinterpret_cast<T*>(smem);
-  T* sv = reinterpret_cast<T*>(smem + P::kTile);
-  T* sq = reinterpret_cast<T*>(smem + 2 * P::kTile);
-  T* sdo = reinterpret_cast<T*>(smem + 3 * P::kTile);
-  float* sp = reinterpret_cast<float*>(smem + P::kS);
-  T* spt = reinterpret_cast<T*>(smem + P::kP);
-  T* sds = reinterpret_cast<T*>(smem + P::kDS);
-  float* slse = reinterpret_cast<float*>(smem + P::kLse);
-  float* sdelta = reinterpret_cast<float*>(smem + P::kDelta);
+  T* sv = reinterpret_cast<T*>(smem + P::kKV);
 
-  const int k0 = blockIdx.x * kBlock;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  const int n_kt = (Skv + kDkvBlockN - 1) / kDkvBlockN;
+  int head, rank;
+  tile_order(blockIdx.x, gridDim.x / n_kt, n_kt, head, rank);
+  const int Hkv = H / group;
+  const int k0 = rank * kDkvBlockN;  // the first kv tile is heaviest
+  const int b = head / Hkv;
+  const int hk = head % Hkv;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  float* stage = reinterpret_cast<float*>(smem + P::kG) + warp * 16 * P::kLdG;
-
-  load_tile<T, D>(sk, k + b * ksb + hk * ksh, kss, k0, Skv);
-  load_tile<T, D>(sv, v + b * vsb + hk * vsh, vss, k0, Skv);
-
-  FragC dk_acc[D / 16];
-  FragC dv_acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
+  const int wk0 = k0 + warp * 16;  // this warp's first kv row
+  const uint32_t off_a = lane_off_a<kLd>(lane);
+  const uint32_t off_b = lane_off_b<kLd>(lane);
+  const uint32_t kw = smem_addr(sk + warp * 16 * kLd);
+  const uint32_t vw = smem_addr(sv + warp * 16 * kLd);
 
   // q tile i is live iff i*bq + bq - 1 >= k0 (the TPU kernel's test).
-  const int nq = (S + kBlock - 1) / kBlock;
-  const int i0 = causal ? k0 / kBlock : 0;
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const long long stat0 = ((long long)b * H + h) * S;
-    const T* qb = q + b * qsb + h * qsh;
-    const T* dob = dout + b * dsb + h * dsh;
-    for (int i = i0; i < nq; ++i) {
-      const int qt0 = i * kBlock;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile<T, D>(sq, qb, qss, qt0, S);
-      load_tile<T, D>(sdo, dob, dss, qt0, S);
-      load_stats(slse, sdelta, lse + stat0, delta + stat0, qt0, S);
-      __syncthreads();
+  const int nq = (S + kDkvBlockM - 1) / kDkvBlockM;
+  const int i0 = causal ? min(k0 / kDkvBlockM, nq) : 0;
+  const int per_head = nq - i0;
+  const int n_steps = group * per_head;
 
-      // p^T = exp(s^T - lse) for this warp's 16 kv rows x 64 q columns, in
-      // f32 (for ds) and in the input type (for dv).
+  cp_async_tile<T, D, kDkvBlockN, kDkvThreads, kLd>(
+      sk, k + b * ksb + hk * ksh, kss, k0, Skv);
+  cp_async_tile<T, D, kDkvBlockN, kDkvThreads, kLd>(
+      sv, v + b * vsb + hk * vsh, vss, k0, Skv);
+  if (n_steps > 0) {
+    dkv_load_step<T, D>(smem + P::kStage0, q, dout, lse, delta, 0, per_head,
+                        i0, b, hk, H, group, S, qsb, qsh, qss, dsb, dsh, dss);
+  }
+  cp_async_commit();
+
+  float dk_acc[D / 8][4];
+  float dv_acc[D / 8][4];
 #pragma unroll
-      for (int n = 0; n < kBlock / 16; ++n) {
-        FragC s;
-        dot_nt<T, D>(s, sk + r0 * P::kLdT, sq + n * 16 * P::kLdT);
-        wmma::store_matrix_sync(sp + r0 * P::kLdS + n * 16, s, P::kLdS,
-                                wmma::mem_row_major);
-      }
-      __syncwarp();
-      for (int r = 0; r < 16; ++r) {
-        const int row = r0 + r;
-        const int kv_pos = k0 + row;
-        for (int c = lane; c < kBlock; c += 32) {
-          const int q_pos = qt0 + c;
-          const bool live = q_pos < S && kv_pos < Skv &&
-                            (!causal || q_pos >= kv_pos);
-          float* s = sp + row * P::kLdS + c;
-          const float p = live ? expf(*s * sm_scale - slse[c]) : 0.f;
-          *s = p;
-          spt[row * P::kLdP + c] = from_float<T>(p);
-        }
-      }
-      __syncwarp();
+  for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk_acc[nt][e] = 0.f;
+      dv_acc[nt][e] = 0.f;
+    }
+  }
+  const float scale_log2 = sm_scale * kLog2e;
+  const int kv0 = wk0 + lane / 4;
 
-      // ds^T = p^T (v . do^T - delta) scale; dv += p^T . do; dk += ds^T . q.
-      make_ds<T, D>(sds, sp, sv + r0 * P::kLdT, sdo, stage, sdelta, false,
-                    r0, sm_scale);
-      acc_nn<T, D>(dv_acc, spt + r0 * P::kLdP, sdo);
-      acc_nn<T, D>(dk_acc, sds + r0 * P::kLdP, sq);
+  for (int t = 0; t < n_steps; ++t) {
+    // Step t has landed for this thread; the barrier makes every thread's
+    // part visible and tells that every warp is done with step t - 1, whose
+    // stage the next copy overwrites.
+    cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < n_steps) {
+      dkv_load_step<T, D>(smem + P::kStage0 + ((t + 1) & 1) * P::kStage, q,
+                          dout, lse, delta, t + 1, per_head, i0, b, hk, H,
+                          group, S, qsb, qsh, qss, dsb, dsh, dss);
+      cp_async_commit();
+    }
+    unsigned char* stage = smem + P::kStage0 + (t & 1) * P::kStage;
+    const uint32_t sq = smem_addr(stage);
+    const uint32_t sdo = smem_addr(stage + P::kIn);
+    const float* slse = reinterpret_cast<const float*>(stage + 2 * P::kIn);
+    const float* sdelta = slse + P::kStat / 4;
+    const int qt0 = (i0 + t % per_head) * kDkvBlockM;
+#pragma unroll
+    for (int half = 0; half < kDkvBlockM / kDkvCols; ++half) {
+      const int col0 = half * kDkvCols;
+      const int qc0 = qt0 + col0;
+      // every q of this half before every kv row of the warp: all masked
+      if (causal && qc0 + kDkvCols - 1 < wk0) continue;
+      const bool masked = (causal && qc0 < wk0 + 15) ||
+                          qc0 + kDkvCols > S || wk0 + 16 > Skv;
+      const uint32_t yq = sq + col0 * kLd * 2;
+      const uint32_t ydo = sdo + col0 * kLd * 2;
+      if (masked) {
+        dkv_half<T, D, true>(dk_acc, dv_acc, kw, vw, yq, ydo, slse + col0,
+                             sdelta + col0, off_a, off_b, sm_scale,
+                             scale_log2, kv0, qc0, S, Skv, causal);
+      } else {
+        dkv_half<T, D, false>(dk_acc, dv_acc, kw, vw, yq, ydo, slse + col0,
+                              sdelta + col0, off_a, off_b, sm_scale,
+                              scale_log2, kv0, qc0, S, Skv, causal);
+      }
     }
   }
 
-  store_rows<T, D>(dk + b * dksb + hk * dksh, dkss, k0 + r0, Skv, dk_acc,
-                   stage);
-  store_rows<T, D>(dv + b * dvsb + hk * dvsh, dvss, k0 + r0, Skv, dv_acc,
-                   stage);
+  // dk and dv go through this warp's own 16 rows of the K and V tiles (only
+  // it read them), so the strided rows leave as 16-byte stores.  With no
+  // live step the K/V copies may still be in flight: wait for them first.
+  cp_async_wait<0>();
+  __syncthreads();
+  const int g = lane / 4;
+  const int c = lane % 4;
+  T* skw = sk + warp * 16 * kLd;
+  T* svw = sv + warp * 16 * kLd;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int col = nt * 8 + 2 * c;
+    *reinterpret_cast<uint32_t*>(skw + g * kLd + col) =
+        pack2<T>(dk_acc[nt][0], dk_acc[nt][1]);
+    *reinterpret_cast<uint32_t*>(skw + (g + 8) * kLd + col) =
+        pack2<T>(dk_acc[nt][2], dk_acc[nt][3]);
+    *reinterpret_cast<uint32_t*>(svw + g * kLd + col) =
+        pack2<T>(dv_acc[nt][0], dv_acc[nt][1]);
+    *reinterpret_cast<uint32_t*>(svw + (g + 8) * kLd + col) =
+        pack2<T>(dv_acc[nt][2], dv_acc[nt][3]);
+  }
+  __syncwarp();
+  T* dkb = dk + b * dksb + hk * dksh;
+  T* dvb = dv + b * dvsb + hk * dvsh;
+  constexpr int kPerRow = D / 8;
+#pragma unroll
+  for (int it = 0; it < 16 * kPerRow / 32; ++it) {
+    const int i = lane + it * 32;
+    const int r = i / kPerRow;
+    const int cc = (i % kPerRow) * 8;
+    if (wk0 + r < Skv) {
+      *reinterpret_cast<uint4*>(dkb + (long long)(wk0 + r) * dkss + cc) =
+          *reinterpret_cast<const uint4*>(skw + r * kLd + cc);
+      *reinterpret_cast<uint4*>(dvb + (long long)(wk0 + r) * dvss + cc) =
+          *reinterpret_cast<const uint4*>(svw + r * kLd + cc);
+    }
+  }
 }
 
 template <typename T, int D>
@@ -423,12 +643,14 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const long long* dvs, float sm_scale, int causal,
                        cudaStream_t stream) {
   auto kernel = flash_bwd_dkv_kernel<T, D>;
-  const int smem = static_cast<int>(Plan<D>::kBytes);
+  const int smem = static_cast<int>(DkvPlan<D>::kBytes);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Skv + kBlock - 1) / kBlock, Hkv, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const long long blocks =
+      (long long)((Skv + kDkvBlockN - 1) / kDkvBlockN) * Hkv * B;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  kernel<<<static_cast<unsigned>(blocks), kDkvThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), H, H / Hkv, S, Skv, qs[0],

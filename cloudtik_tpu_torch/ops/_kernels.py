@@ -125,6 +125,17 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
         return logs
 
 
+def build_logs() -> Dict[str, str]:
+    """{source: nvcc output} of every built library, kept beside it: ptxas
+    prints each kernel's registers and spills there (`-Xptxas -v`)."""
+    logs = {}
+    for name in _SIGNATURES:
+        log = _target(name).with_suffix(".log")
+        if log.exists():
+            logs[name] = log.read_text()
+    return logs
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built on first use."""
     with _lock:

@@ -2,9 +2,10 @@
 
 Counterpart of `cloudtik_tpu/ops/flash_attention.py`.  The forward kernel
 (`csrc/flash_fwd.cu`) replaces the Pallas `_fwd_kernel`: FlashAttention-2
-online softmax with Q/K/V tiles in shared memory and both products on the
-tensor cores, f32 accumulation, outputs `o` (q's dtype) and
-`lse = m + log(l)` ([B, H, S, 1], f32).  The backward kernels
+online softmax with both products on the tensor cores (`mma.sync`) and the
+scores, probabilities and output accumulator in registers, f32
+accumulation, outputs `o` (q's dtype) and `lse = m + log(l)`
+([B, H, S, 1], f32).  The backward kernels
 (`csrc/flash_bwd.cu`) replace `_dq_kernel` and `_dkv_kernel`: both
 recompute p = exp(s - lse) from the saved (q, k, lse), and dk/dv come out
 per kv head.
@@ -338,8 +339,9 @@ def flash_attention(
 
     With return_lse=True also returns the per-row logsumexp [B, H, S, 1]
     (f32), a statistic with no gradient.  `block_q`/`block_k` keep the JAX
-    signature and are ignored: the CUDA kernels tile by 64 rows and take
-    any S and Skv.
+    signature and are ignored: the CUDA kernels choose their own tiles (the
+    forward 128 q rows by 64 kv rows, dk/dv 128 kv rows by 64 q rows, dq 64
+    by 64) and take any S and Skv.
     """
     del block_q, block_k
     if sm_scale is None:

@@ -109,6 +109,80 @@ def test_attention_bwd_bound_at_the_training_shape():
         [c.name for c in chip_smoke.ATTN_CASES[1:]]
 
 
+def test_attention_cases_cover_the_kernels_tiling():
+    """Beyond the main shapes: causal S != Skv under the absolute mask,
+    D = 64, causal GQA of group 4, an S that 64 divides and 128 does not;
+    the backward runs the same cases after its own main shape."""
+    cases = {c.name: c for c in chip_smoke.ATTN_CASES}
+    assert list(cases) == [
+        "forward_b4", "tpu_1b_b1", "gqa_noncausal", "ragged_causal",
+        "fp16_causal", "cross_causal", "d64_causal", "gqa_causal",
+        "s1088_causal"]
+    cross = cases["cross_causal"]
+    assert cross.causal and (cross.S, cross.Skv) == (384, 1024)
+    assert all(c.Skv == c.S for n, c in cases.items() if n != "cross_causal")
+    d64 = cases["d64_causal"]
+    assert (d64.D, d64.dtype, d64.causal) == (64, "bfloat16", True)
+    gqa = cases["gqa_causal"]
+    assert gqa.causal and gqa.H // gqa.Hkv == 4
+    s1088 = cases["s1088_causal"]
+    assert s1088.causal and s1088.S % 64 == 0 and s1088.S % 128 != 0
+    assert [c.name for c in chip_smoke.BWD_CASES] == \
+        ["train_b8"] + list(cases)[1:]
+
+
+@pytest.mark.parametrize("S, Skv", [(384, 1024), (1024, 384), (1000, 1000),
+                                    (1, 7)])
+def test_live_pairs_count_the_absolute_causal_mask(S, Skv):
+    """Row q sees min(q + 1, Skv) keys; the bounds count those pairs."""
+    c = chip_smoke.AttnCase("pairs", 2, 4, 2, S, 64, True, Skv=Skv)
+    pairs = sum(min(q + 1, Skv) for q in range(S))
+    assert chip_smoke.live_pairs(c) == pairs
+    assert chip_smoke.live_pairs(dataclasses.replace(c, causal=False)) == \
+        S * Skv
+    assert chip_smoke.attention_bound(c)[2] == 4 * 2 * 4 * pairs * 64
+    bound = chip_smoke.attention_bwd_bound(c)
+    assert bound["dq"]["flops"] == 6 * 2 * 4 * pairs * 64
+    assert bound["dkv"]["flops"] == 8 * 2 * 4 * pairs * 64
+    kv_bytes = 2 * 2 * 2 * Skv * 64
+    assert bound["dkv"]["bytes"] - bound["dq"]["bytes"] == \
+        2 * kv_bytes - 2 * 2 * 4 * S * 64
+
+
+def test_cross_causal_bound_at_its_shape():
+    c = next(c for c in chip_smoke.ATTN_CASES if c.name == "cross_causal")
+    pairs = 384 * 385 // 2                          # every row sees q + 1
+    assert chip_smoke.live_pairs(c) == pairs == 73_920
+    _, _, flops, nbytes = chip_smoke.attention_bound(c)
+    assert flops == 4 * 2 * 16 * pairs * 128
+    assert nbytes == 2 * (2 * 2 * 16 * 384 * 128 + 2 * 2 * 16 * 1024 * 128) \
+        + 4 * 2 * 16 * 384
+
+
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__9f827cb3_12_flash_bwd_cu_797fbb8020flash_bwd_dkv_kernelI13__nv_bfloat16Li128EEEvPKT_S4_' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__9f827cb3_12_flash_bwd_cu_797fbb8020flash_bwd_dkv_kernelI13__nv_bfloat16Li128EEEvPKT_S4_
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__9f827cb3_12_flash_bwd_cu_797fbb8019flash_bwd_dq_kernelI6__halfLi64EEEvPKT_S4_' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__9f827cb3_12_flash_bwd_cu_797fbb8019flash_bwd_dq_kernelI6__halfLi64EEEvPKT_S4_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers
+"""  # noqa: E501
+
+
+def test_ptxas_report_names_each_kernel_with_its_spills():
+    """The build phase's rows: which kernel, its registers, its spills."""
+    rows = chip_smoke.ptxas_report({"flash_bwd": _PTXAS_LOG})
+    assert rows == [
+        {"source": "flash_bwd",
+         "kernel": "flash_bwd_dkv_kernel<__nv_bfloat16, 128>",
+         "spill_stores": 4, "spill_loads": 4, "registers": 255},
+        {"source": "flash_bwd", "kernel": "flash_bwd_dq_kernel<__half, 64>",
+         "spill_stores": 0, "spill_loads": 0, "registers": 80}]
+    assert "flash_bwd_dkv_kernel<__nv_bfloat16, 128>" in chip_smoke.NO_SPILL
+
+
 @pytest.mark.parametrize("fault", [None, "o", "lse"])
 def test_check_fwd_holds_o_and_lse(fault):
     """The forward check `kernel` and `kernel_bwd` run at every shape: it
