@@ -31,8 +31,10 @@ run with a non-zero exit:
            NMS keep lists equal at the detect path's shapes, all-zero
            scores, fewer boxes than outputs and degenerate boxes; ROIAlign
            within 1e-5 at Mask R-CNN's shapes, sampling 2 at scale 0.25,
-           ROIs partly outside the map and under a pixel; kernel and plain
-           times beside the bound (no single PyTorch call computes either)
+           ROIs partly outside the map and under a pixel, 100 and 72
+           channels, each on the route it must take (vector or strided); kernel and
+           plain times beside the bound (no single PyTorch call computes
+           either)
   train_grads  tpu_1b width with 2 layers: the flash path's gradients
            against the reference attention path's, and the loss falling
            over 10 steps on one repeated batch
@@ -40,7 +42,8 @@ run with a non-zero exit:
            (2 ROIAlign launches and 1 NMS launch per call) and of
            ssd_resnet34 at B=8 x 300 (1 NMS launch over 3,000 anchors per
            call), bf16: ms per call, images/s, peak memory; outputs checked,
-           each call's NMS and pooling held against the plain versions
+           each call's NMS and pooling held against the plain versions, and
+           Mask R-CNN's map pooled on ROIAlign's vector route
 
 Launch counts are zeroed just before each path (forward then serve; the
 measured train steps; the measured detect calls of each model) and read
@@ -165,7 +168,7 @@ class AttnCase:
 
 # The first case is the shape and layout `forward` gives the kernel.  The
 # others cover what the kernels tile: 128-row q tiles and 64-row kv tiles
-# (forward), 128-row kv tiles and 64-row q tiles (dk/dv), ragged ends, GQA,
+# (forward, dq), 128-row kv tiles and 64-row q tiles (dk/dv), ragged ends, GQA,
 # D = 64 and fp16.
 ATTN_CASES = (
     AttnCase("forward_b4", 4, 16, 16, 2048, 128, True, layout="bshd"),
@@ -797,19 +800,28 @@ class RoiCase:
     # "nhwc": the detect path's [B, H, W, C] map permuted to [B, C, H, W]
     layout: str = "nhwc"
     rois: str = "proposals"   # "proposals", "outside" or "subpixel"
+    # the route of csrc/roi_align.cu the kernel must take
+    # (`detection.roi_align_route`): "vector" for a bf16 NHWC map whose C
+    # is a multiple of 8, else "strided"
+    route: str = "vector"
 
 
 # The first two are the shapes Mask R-CNN's `roi_heads` gives the kernel: 8
 # images x 128 proposals on the [8, 32, 32, 1024] bf16 C4 map, pooled to 7x7
-# and 14x14 with sampling 1.
+# and 14x14 with sampling 1.  ragged_channels has a bf16 NHWC map of 100
+# channels: its 200-byte pixel stride and its channel tail take the strided
+# route.  channel_tail's 72 channels take the vector route with a last
+# block of 8 channels.
 ROI_CASES = (
     RoiCase("maskrcnn_7", 8, 128, 1024, 32, 7, 1),
     RoiCase("maskrcnn_14", 8, 128, 1024, 32, 14, 1),
     RoiCase("sampling2_scale025", 2, 64, 256, 64, 7, 2, scale=0.25,
-            dtype="float32", layout="nchw"),
+            dtype="float32", layout="nchw", route="strided"),
     RoiCase("partly_outside", 2, 64, 256, 32, 7, 2, rois="outside"),
     RoiCase("subpixel", 2, 64, 96, 32, 7, 2, dtype="float32",
-            rois="subpixel"),
+            rois="subpixel", route="strided"),
+    RoiCase("ragged_channels", 2, 64, 100, 32, 14, 1, route="strided"),
+    RoiCase("channel_tail", 2, 64, 72, 32, 7, 2),
 )
 # f32 outputs from the same (widened) inputs; only the order of the sums
 # and the contraction of the bilinear weights differ
@@ -904,7 +916,12 @@ def phase_kernel_det(device: str = "cuda", nms_cases=NMS_CASES,
         feats, rois = make_roi_inputs(c, gen, device)
         kw = {"pooled_size": c.P, "sampling_ratio": c.sampling,
               "spatial_scale": c.scale}
+        D.LAST_ROI_ROUTE = None
         got = D.roi_align_batched(feats, rois, **kw)
+        route = D.LAST_ROI_ROUTE       # None on the CPU: no kernel ran
+        require(route == (c.route if on_card else None),
+                f"roi_align {c.name}: took the {route} route, expected "
+                f"{c.route}")
         want = D.roi_align_reference_batched(feats, rois, **kw)
         require(got.shape == (c.B, c.R, c.C, c.P, c.P)
                 and got.dtype == torch.float32,
@@ -918,7 +935,7 @@ def phase_kernel_det(device: str = "cuda", nms_cases=NMS_CASES,
         row = {"case": c.name, "B": c.B, "R": c.R, "C": c.C, "H": c.H,
                "P": c.P, "sampling": c.sampling, "scale": c.scale,
                "dtype": c.dtype, "layout": c.layout, "rois": c.rois,
-               "max_abs_err": errors["max_abs_err"],
+               "route": route, "max_abs_err": errors["max_abs_err"],
                "tolerance": {"atol": ROI_ATOL, "rtol": ROI_RTOL},
                "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
                "bytes": nbytes}
@@ -1037,18 +1054,26 @@ def phase_detect(kind: str, name: str, B: int = 8, device: str = "cuda",
         require(_all_finite(out["mask_logits"]), f"{name}: mask logits")
         feat = out["feature"].permute(0, 3, 1, 2)
         rois = out["proposals"] * out["feature"].shape[1]
-        errs = {}
+        errs, routes = {}, {}
         for P in (cfg.roi_pool, cfg.mask_pool):
             kw = {"pooled_size": P, "sampling_ratio": 1,
                   "spatial_scale": 1.0}
-            e = roi_errors(D.roi_align_batched(feat, rois, **kw),
-                           D.roi_align_reference_batched(
-                               feat, rois, **kw))
+            D.LAST_ROI_ROUTE = None
+            got = D.roi_align_batched(feat, rois, **kw)
+            routes[f"pooled_{P}"] = D.LAST_ROI_ROUTE
+            e = roi_errors(got, D.roi_align_reference_batched(
+                feat, rois, **kw))
             require(e["within"] and e["finite"],
                     f"{name}: pooled {P}x{P} differ from the plain "
                     f"ROIAlign {e}")
             errs[f"pooled_{P}"] = e["max_abs_err"]
         result["roi_align_max_abs_err"] = errs
+        # the same map and rois as the path's two launches
+        result["roi_align_route"] = routes
+        require(all(r == ("vector" if on_card else None)
+                    for r in routes.values()),
+                f"{name}: ROIAlign took the routes {routes}, expected the "
+                "vector route on the card")
     emit("detect", **result)
     del params, out
     if on_card:

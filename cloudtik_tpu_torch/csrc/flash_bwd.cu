@@ -12,9 +12,12 @@
 //   dq = sum_j ds . k        (ds cast to k's type, f32 accumulate)
 //   dv = sum_i p^T . do      (p cast to do's type)
 //   dk = sum_i ds^T . q      (ds cast to q's type)
-// and the outputs are written in the inputs' types.  GQA: the dk/dv kernel
-// walks the `group` query heads of its kv head itself, so dk and dv come out
-// per kv head, summed in f32, with no atomics (deterministic).
+// and the outputs are written in the inputs' types.  The exponentials are
+// exp2 of the scores scaled by sm_scale * log2(e) less lse * log2(e), the
+// same function in another base.  GQA: dq reads kv head h / group; the
+// dk/dv kernel walks the `group` query heads of its kv head itself, so dk
+// and dv come out per kv head, summed in f32, with no atomics
+// (deterministic).
 //
 // What bounds them on this card: at the training path's shape (q
 // [8,16,2048,128] bf16, causal, 2,098,176 live (q, kv) pairs per head) the dq
@@ -24,49 +27,56 @@
 // byte, so the tensor cores set the bound (0.21 ms and 0.28 ms at 989
 // TFLOP/s).
 //
+// What the designs do about it: every product is mma.sync m16n8k16 on
+// register fragments (flash_common.cuh), the scores, probabilities and their
+// gradients never leave the registers, tiles stream through a two-stage
+// cp.async ring with one block barrier per tile, only tiles that cross the
+// causal diagonal or a ragged end are masked element by element, a warp
+// skips the columns wholly past its rows, and blocks take the heaviest
+// causal tiles first (tik_flash::tile_order).
+//
+// The dq kernel: one block of 8 warps for each (128-row q tile, head, batch
+// row); warp w owns q rows [16w, 16w + 16).  Q and dO arrive once by
+// cp.async and their A fragments stay in registers (2 x 32 registers a
+// thread at D = 128) beside the dq accumulator (64); lse (times log2 e) and
+// delta of the lane's two rows are registers too.  K/V tiles of 64 rows
+// stream through the ring.  Each tile is taken in two halves of 32 columns,
+// so s/p and dp/ds take 16 registers each and D = 128 does not spill: s =
+// Q K^T and dp = dO V^T with K's and V's B fragments by ldmatrix, then p
+// and ds in f32, then ds, rounded to 16 bits, is the A operand of dq += ds K
+// with K's B fragments by ldmatrix.trans (as P V in the forward).  dq leaves
+// through the warp's own rows of the Q tile as 16-byte stores.
+//
 // The dk/dv kernel: one block of 8 warps for each (128-row kv tile, kv head,
 // batch row); warp w owns kv rows [16w, 16w + 16).  Its dk and dv
 // accumulators (2 x 64 registers a thread at D = 128) stay in registers for
 // the whole walk; K and V sit in shared memory and give the A fragments of
 // s^T = K q^T and dp^T = V do^T.  The (q, do, lse, delta) tiles of 64 q rows
-// stream through a two-stage cp.async ring, so the copy of step t+1 is in
-// flight while step t computes, with one block barrier per step.  Each q
-// tile is taken in two halves of 32 columns, so p^T and dp^T take 16
-// registers each and D = 128 does not spill; every product is mma.sync
-// m16n8k16 on register fragments (flash_common.cuh): p^T and ds^T, rounded
-// to 16 bits, are the A operands of dv += p^T do and dk += ds^T q, with do
-// and q by ldmatrix.trans.  Only halves that cross the causal diagonal or a
-// ragged end are masked element by element; a warp skips the halves wholly
-// below its rows, and blocks take the kv tiles with the most live q tiles
-// first (tik_flash::tile_order).  Measured on an H100 SXM (700 W): ~1.07 ms
-// at q [8,16,2048,128] bf16 causal, ~255 TFLOP/s, a quarter of the bound.
-// mma.sync reaches a fraction of Hopper's wgmma rate: wgmma with TMA is the
-// next step.
+// stream through the ring, each taken in two halves of 32 columns: p^T and
+// ds^T, rounded to 16 bits, are the A operands of dv += p^T do and dk +=
+// ds^T q, with do and q by ldmatrix.trans.
 //
-// The dq kernel is still the first, simple design: nvcuda::wmma 16x16x16, one
-// block of 4 warps for each (64-row q tile, head, batch row), the dq
-// accumulator in wmma fragments, p and ds through shared memory, K/V tiles
-// loaded synchronously; ~109 KB of shared memory at D = 128, two blocks an
-// SM.  Warp w owns rows [16w, 16w + 16) of the q tile.
+// Measured on an H100 SXM ("NVIDIA H100 80GB HBM3, 700.00 W"), q
+// [8,16,2048,128] bf16 causal: dq 0.69 ms, ~297 TFLOP/s, 30% of its bound;
+// dk/dv ~1.09 ms, ~252 TFLOP/s, a quarter of its bound.  mma.sync reaches a fraction of Hopper's wgmma rate: wgmma with
+// TMA is the next step.
 //
 // Inputs and outputs are strided (the model hands in [B,S,H,D] transposed to
 // [B,H,S,D]); the last dimension must be contiguous and rows 16-byte aligned
 // (the Python wrapper checks).  lse and delta are contiguous [B, H, S] f32.
-// Rows past S and Skv are zero-filled on load and their probabilities forced
-// to 0 (lse is undefined there), so S and Skv need not be multiples of 64.
+// Rows past S and Skv are zero-filled on load; probabilities past Skv are
+// forced to 0 and rows past S are never stored, so S and Skv need not be
+// multiples of 64 or 128.
 
 #include <limits.h>
-#include <mma.h>
 
 #include "flash_common.cuh"
 
-using namespace nvcuda;
 using tik_flash::align128;
 using tik_flash::cp_async_4;
 using tik_flash::cp_async_commit;
 using tik_flash::cp_async_tile;
 using tik_flash::cp_async_wait;
-using tik_flash::from_float;
 using tik_flash::kLog2e;
 using tik_flash::lane_off_a;
 using tik_flash::lane_off_b;
@@ -80,148 +90,100 @@ using tik_flash::tile_order;
 
 namespace {
 
-constexpr int kBlock = tik_flash::kTileRows;  // rows of the dq kernel's tiles
-constexpr int kThreads = tik_flash::kThreads;
-constexpr int kWarps = kThreads / 32;
+// ------------------------------------------------------------------ dq --
 
-template <typename T>
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>;
-template <typename T>
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major>;
-template <typename T>
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int kDqBlockM = 128;  // q rows per block, 16 per warp
+constexpr int kDqBlockN = 64;   // kv rows per streamed tile
+constexpr int kDqCols = 32;     // kv columns per register step
+constexpr int kDqThreads = kDqBlockM / 16 * 32;
 
-// Shared-memory plan of the dq kernel.  Leading dimensions are padded so
-// that wmma's 16-row fragment loads spread over the banks; every segment and
-// fragment pointer stays 32-byte aligned as wmma requires.
+// Shared-memory plan of the dq kernel: the block's Q tile (reused at the end
+// to stage dq) and dO tile, then two stages of (K tile, V tile).  Rows are
+// padded to D + 8 (flash_common.cuh).
 template <int D>
-struct Plan {
-  static constexpr int kLdT = D + 8;        // [64, D] input tiles (16-bit)
-  static constexpr int kLdS = kBlock + 4;   // [64, 64] scores -> p (f32)
-  static constexpr int kLdP = kBlock + 8;   // [64, 64] p and ds (16-bit)
-  static constexpr int kLdG = 16 + 4;       // per-warp 16x16 staging (f32)
-  static constexpr size_t kTile = align128(kBlock * kLdT * 2);
-  static constexpr size_t kS = 4 * kTile;   // after four input tiles
-  static constexpr size_t kP = kS + align128(kBlock * kLdS * 4);
-  static constexpr size_t kDS = kP + align128(kBlock * kLdP * 2);
-  static constexpr size_t kG = kDS + align128(kBlock * kLdP * 2);
-  static constexpr size_t kLse = kG + align128(kWarps * 16 * kLdG * 4);
-  static constexpr size_t kDelta = kLse + align128(kBlock * 4);
-  static constexpr size_t kBytes = kDelta + align128(kBlock * 4);
+struct DqPlan {
+  static constexpr int kLd = D + 8;
+  static constexpr int kTileKV = kDqBlockN * kLd;  // elements of a K or V tile
+  static constexpr size_t kQ = align128(kDqBlockM * kLd * 2);
+  static constexpr size_t kKV0 = 2 * kQ;
+  static constexpr size_t kBytes = kKV0 + 2 * 2 * kTileKV * 2;
 };
 
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long row_stride, int row0,
-                                          int nrows) {
-  tik_flash::load_tile<T, D, Plan<D>::kLdT>(dst, src, row_stride, row0,
-                                            nrows);
-}
+// One half (32 kv columns) of a streamed kv tile for this warp's 16 q rows:
+// s = Q K^T, dp = dO V^T, p, ds and dq += ds K, all in registers.  `sk`,
+// `sv` address the half's first K and V rows; `row0` is the absolute q row
+// of this lane's first accumulator row (its second is row0 + 8), `kc0` the
+// absolute kv position of the half's first column; entries that are not
+// live (kv_pos >= Skv, causal q_pos < kv_pos) get p = 0 only when kMask.
+template <typename T, int D, bool kMask>
+__device__ __forceinline__ void dq_half(
+    const uint32_t (&qf)[D / 16][4], const uint32_t (&dof)[D / 16][4],
+    float (&dq_acc)[D / 8][4], uint32_t sk, uint32_t sv, uint32_t off_a,
+    uint32_t off_b, const float (&lse2)[2], const float (&delta)[2],
+    float sm_scale, float scale_log2, int row0, int kc0, int Skv,
+    int causal) {
+  constexpr int kLd = DqPlan<D>::kLd;
+  const int lane = threadIdx.x % 32;
 
-// lse and delta of rows [row0, row0 + 64); 0 past S (those rows' p is
-// forced to 0, so the value is never used).
-__device__ __forceinline__ void load_stats(float* slse, float* sdelta,
-                                           const float* lse,
-                                           const float* delta, int row0,
-                                           int S) {
-  if (threadIdx.x < kBlock) {
-    const int r = row0 + threadIdx.x;
-    slse[threadIdx.x] = r < S ? lse[r] : 0.f;
-    sdelta[threadIdx.x] = r < S ? delta[r] : 0.f;
+  float s[kDqCols / 8][4];
+  float dp[kDqCols / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < kDqCols / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nt][e] = 0.f;
+      dp[nt][e] = 0.f;
+    }
   }
-}
-
-// c = a[16, D] . b[16, D]^T, both row blocks of padded [64, D] tiles.
-template <typename T, int D>
-__device__ __forceinline__ void dot_nt(FragC& c, const T* a, const T* b) {
-  wmma::fill_fragment(c, 0.f);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    FragA<T> fa;
-    FragBCol<T> fb;
-    wmma::load_matrix_sync(fa, a + kk * 16, Plan<D>::kLdT);
-    wmma::load_matrix_sync(fb, b + kk * 16, Plan<D>::kLdT);
-    wmma::mma_sync(c, fa, fb, c);
-  }
-}
-
-// acc[n] += a[16, 64] . b[64, D] (columns [16n, 16n + 16)); a is a row block
-// of a [64, 64] 16-bit tile (p or ds), b a padded [64, D] input tile.
-template <typename T, int D>
-__device__ __forceinline__ void acc_nn(FragC (&acc)[D / 16], const T* a,
-                                       const T* b) {
 #pragma unroll
-  for (int kk = 0; kk < kBlock / 16; ++kk) {
-    FragA<T> fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, Plan<D>::kLdP);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBRow<T> fb;
-      wmma::load_matrix_sync(fb, b + kk * 16 * Plan<D>::kLdT + n * 16,
-                             Plan<D>::kLdT);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
+    for (int np = 0; np < kDqCols / 16; ++np) {
+      const uint32_t off = (np * 16 * kLd + kk * 16) * 2 + off_b;
+      uint32_t b[4];
+      ldmatrix_x4(b, sk + off);
+      mma_16816<T>(s[2 * np], qf[kk], b[0], b[1]);
+      mma_16816<T>(s[2 * np + 1], qf[kk], b[2], b[3]);
+      ldmatrix_x4(b, sv + off);
+      mma_16816<T>(dp[2 * np], dof[kk], b[0], b[1]);
+      mma_16816<T>(dp[2 * np + 1], dof[kk], b[2], b[3]);
     }
   }
-}
 
-// The warp's rows of ds = p * (dp - delta) * sm_scale, dp = a . b^T staged
-// 16 columns at a time.  p: the warp's rows of the f32 [64, 64] tile; rows
-// are queries, so delta is taken by row.
-template <typename T, int D>
-__device__ __forceinline__ void make_ds(T* sds, const float* sp,
-                                        const T* a, const T* b, float* stage,
-                                        const float* sdelta, int r0,
-                                        float sm_scale) {
-  using P = Plan<D>;
-  const int lane = threadIdx.x % 32;
+  // p = exp2(s * scale * log2e - lse * log2e); ds = p (dp - delta) scale
 #pragma unroll
-  for (int n = 0; n < kBlock / 16; ++n) {
-    FragC dp;
-    dot_nt<T, D>(dp, a, b + n * 16 * P::kLdT);
-    wmma::store_matrix_sync(stage, dp, P::kLdG, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int row = r0 + e / 16;
-      const int col = n * 16 + e % 16;
-      const float delta = sdelta[row];
-      const float p = sp[row * P::kLdS + col];
-      sds[row * P::kLdP + col] =
-          from_float<T>(p * (stage[(e / 16) * P::kLdG + e % 16] - delta) *
-                        sm_scale);
-    }
-    __syncwarp();
-  }
-}
-
-// Write this warp's 16 accumulator rows (absolute rows row0 .. row0 + 15,
-// those below nrows) to a strided output, through its 16x16 staging tile.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, long long row_stride,
-                                           int row0, int nrows,
-                                           FragC (&acc)[D / 16],
-                                           float* stage) {
-  const int lane = threadIdx.x % 32;
+  for (int nt = 0; nt < kDqCols / 8; ++nt) {
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(stage, acc[n], Plan<D>::kLdG,
-                            wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e / 16;
-      const int c = e % 16;
-      if (row0 + r < nrows) {
-        out[(long long)(row0 + r) * row_stride + n * 16 + c] =
-            from_float<T>(stage[r * Plan<D>::kLdG + c]);
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2f(s[nt][e] * scale_log2 - lse2[e >> 1]);
+      if (kMask) {
+        const int col = kc0 + nt * 8 + 2 * (lane & 3) + (e & 1);
+        const int row = row0 + (e >> 1) * 8;
+        if (col >= Skv || (causal && row < col)) p = 0.f;
       }
+      dp[nt][e] = p * (dp[nt][e] - delta[e >> 1]) * sm_scale;
     }
-    __syncwarp();
+  }
+
+  // dq += ds . K: ds rounded to k's type as the A operand, K's B fragments
+  // by ldmatrix.trans.
+#pragma unroll
+  for (int kk = 0; kk < kDqCols / 16; ++kk) {
+    uint32_t a[4];
+    pack_a<T>(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+    for (int dd = 0; dd < D / 16; ++dd) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, sk + (kk * 16 * kLd + dd * 16) * 2 + off_a);
+      mma_16816<T>(dq_acc[2 * dd], a, b[0], b[1]);
+      mma_16816<T>(dq_acc[2 * dd + 1], a, b[2], b[3]);
+    }
   }
 }
 
-// dq for one (64-row q tile, head, batch row); replaces `_dq_kernel`.
+// dq for one (128-row q tile, head, batch row); replaces `_dq_kernel`.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDqThreads, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -233,81 +195,147 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     long long dsb, long long dsh, long long dss,
                     long long dqsb, long long dqsh, long long dqss,
                     float sm_scale, int causal) {
-  using P = Plan<D>;
+  using P = DqPlan<D>;
+  constexpr int kLd = P::kLd;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
-  T* sdo = reinterpret_cast<T*>(smem + P::kTile);
-  T* sk = reinterpret_cast<T*>(smem + 2 * P::kTile);
-  T* sv = reinterpret_cast<T*>(smem + 3 * P::kTile);
-  float* sp = reinterpret_cast<float*>(smem + P::kS);
-  T* sds = reinterpret_cast<T*>(smem + P::kDS);
-  float* slse = reinterpret_cast<float*>(smem + P::kLse);
-  float* sdelta = reinterpret_cast<float*>(smem + P::kDelta);
+  T* sdo = reinterpret_cast<T*>(smem + P::kQ);
+  T* skv = reinterpret_cast<T*>(smem + P::kKV0);
+  const uint32_t skv_u = smem_addr(skv);
 
-  const int q0 = blockIdx.x * kBlock;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int n_qt = (S + kDqBlockM - 1) / kDqBlockM;
+  int head, rank;
+  tile_order(blockIdx.x, gridDim.x / n_qt, n_qt, head, rank);
+  const int q0 = (n_qt - 1 - rank) * kDqBlockM;  // the last q tile is heaviest
+  const int b = head / H;
+  const int h = head % H;
   const int hk = h / group;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  float* stage = reinterpret_cast<float*>(smem + P::kG) + warp * 16 * P::kLdG;
+  const int wq0 = q0 + warp * 16;  // this warp's first q row
+  const uint32_t off_a = lane_off_a<kLd>(lane);
+  const uint32_t off_b = lane_off_b<kLd>(lane);
 
   const T* kb = k + b * ksb + hk * ksh;
   const T* vb = v + b * vsb + hk * vsh;
-  const long long stat0 = ((long long)b * H + h) * S;
-  load_tile<T, D>(sq, q + b * qsb + h * qsh, qss, q0, S);
-  load_tile<T, D>(sdo, dout + b * dsb + h * dsh, dss, q0, S);
-  load_stats(slse, sdelta, lse + stat0, delta + stat0, q0, S);
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
 
   // The causal loop stops at the TPU kernel's live-block test
-  // j*bk <= (last q row of this tile).
-  int n_tiles = (Skv + kBlock - 1) / kBlock;
+  // j*bk <= (last q row of this tile); a warp computes up to its own last
+  // row's tile and skips the rest.
+  int n_tiles = (Skv + kDqBlockN - 1) / kDqBlockN;
+  int warp_tiles = n_tiles;
   if (causal) {
-    const int q_last = min(q0 + kBlock - 1, S - 1);
-    n_tiles = min(n_tiles, q_last / kBlock + 1);
+    n_tiles = min(n_tiles, min(q0 + kDqBlockM - 1, S - 1) / kDqBlockN + 1);
+    warp_tiles = min(n_tiles, min(wq0 + 15, S - 1) / kDqBlockN + 1);
   }
+  if (wq0 >= S) warp_tiles = 0;
+
+  cp_async_tile<T, D, kDqBlockM, kDqThreads, kLd>(sq, q + b * qsb + h * qsh,
+                                                 qss, q0, S);
+  cp_async_tile<T, D, kDqBlockM, kDqThreads, kLd>(
+      sdo, dout + b * dsb + h * dsh, dss, q0, S);
+  cp_async_tile<T, D, kDqBlockN, kDqThreads, kLd>(skv, kb, kss, 0, Skv);
+  cp_async_tile<T, D, kDqBlockN, kDqThreads, kLd>(skv + P::kTileKV, vb, vss,
+                                                 0, Skv);
+  cp_async_commit();
+
+  // lse (times log2 e) and delta of this lane's two rows; 0 past S, where
+  // Q and dO are zero, so ds is 0 there (and never stored).
+  const int row0 = wq0 + lane / 4;
+  const long long stat0 = ((long long)b * H + h) * S;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+    lse2[i] = r < S ? lse[stat0 + r] * kLog2e : 0.f;
+    dlt[i] = r < S ? delta[stat0 + r] : 0.f;
+  }
+
+  uint32_t qf[D / 16][4];
+  uint32_t dof[D / 16][4];
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[nt][e] = 0.f;
+  }
+  const float scale_log2 = sm_scale * kLog2e;
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBlock;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, D>(sk, kb, kss, k0, Skv);
-    load_tile<T, D>(sv, vb, vss, k0, Skv);
+    // Tile j has landed for this thread; the barrier makes every thread's
+    // part visible and tells that every warp is done with tile j - 1, whose
+    // stage the next copy overwrites.
+    cp_async_wait<0>();
     __syncthreads();
-
-    // p = exp(s - lse) for this warp's 16 q rows x 64 kv columns.
-#pragma unroll
-    for (int n = 0; n < kBlock / 16; ++n) {
-      FragC s;
-      dot_nt<T, D>(s, sq + r0 * P::kLdT, sk + n * 16 * P::kLdT);
-      wmma::store_matrix_sync(sp + r0 * P::kLdS + n * 16, s, P::kLdS,
-                              wmma::mem_row_major);
+    if (j + 1 < n_tiles) {
+      T* nxt = skv + ((j + 1) & 1) * 2 * P::kTileKV;
+      const int k1 = (j + 1) * kDqBlockN;
+      cp_async_tile<T, D, kDqBlockN, kDqThreads, kLd>(nxt, kb, kss, k1, Skv);
+      cp_async_tile<T, D, kDqBlockN, kDqThreads, kLd>(nxt + P::kTileKV, vb,
+                                                     vss, k1, Skv);
+      cp_async_commit();
     }
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r;
-      const int q_pos = q0 + row;
-      for (int c = lane; c < kBlock; c += 32) {
-        const int kv_pos = k0 + c;
-        const bool live = q_pos < S && kv_pos < Skv &&
-                          (!causal || q_pos >= kv_pos);
-        float* s = sp + row * P::kLdS + c;
-        *s = live ? expf(*s * sm_scale - slse[row]) : 0.f;
+    if (j == 0) {
+      const uint32_t sqw = smem_addr(sq + warp * 16 * kLd) + off_a;
+      const uint32_t sdow = smem_addr(sdo + warp * 16 * kLd) + off_a;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        ldmatrix_x4(qf[kk], sqw + kk * 16 * 2);
+        ldmatrix_x4(dof[kk], sdow + kk * 16 * 2);
       }
     }
-    __syncwarp();
-
-    // ds = p (do . v^T - delta) scale, then dq += ds . k.
-    make_ds<T, D>(sds, sp, sdo + r0 * P::kLdT, sv, stage, sdelta, r0,
-                  sm_scale);
-    acc_nn<T, D>(acc, sds + r0 * P::kLdP, sk);
+    if (j < warp_tiles) {
+      const uint32_t sk = skv_u + (j & 1) * 2 * P::kTileKV * 2;
+      const uint32_t sv = sk + P::kTileKV * 2;
+#pragma unroll
+      for (int half = 0; half < kDqBlockN / kDqCols; ++half) {
+        const int kc0 = j * kDqBlockN + half * kDqCols;
+        // every kv of this half after every q row of the warp: all masked
+        if (causal && kc0 > wq0 + 15) continue;
+        const bool masked =
+            kc0 + kDqCols > Skv || (causal && kc0 + kDqCols - 1 > wq0);
+        const uint32_t hk_u = sk + half * kDqCols * kLd * 2;
+        const uint32_t hv_u = sv + half * kDqCols * kLd * 2;
+        if (masked) {
+          dq_half<T, D, true>(qf, dof, dq_acc, hk_u, hv_u, off_a, off_b,
+                              lse2, dlt, sm_scale, scale_log2, row0, kc0,
+                              Skv, causal);
+        } else {
+          dq_half<T, D, false>(qf, dof, dq_acc, hk_u, hv_u, off_a, off_b,
+                               lse2, dlt, sm_scale, scale_log2, row0, kc0,
+                               Skv, causal);
+        }
+      }
+    }
   }
 
-  store_rows<T, D>(dq + b * dqsb + h * dqsh, dqss, q0 + r0, S, acc, stage);
+  // dq goes through this warp's own 16 rows of the Q tile (only it read
+  // them, and every copy has landed), so the strided rows leave as 16-byte
+  // stores.
+  const int g = lane / 4;
+  const int c = lane % 4;
+  T* sw = sq + warp * 16 * kLd;
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    *reinterpret_cast<uint32_t*>(sw + g * kLd + nt * 8 + 2 * c) =
+        pack2<T>(dq_acc[nt][0], dq_acc[nt][1]);
+    *reinterpret_cast<uint32_t*>(sw + (g + 8) * kLd + nt * 8 + 2 * c) =
+        pack2<T>(dq_acc[nt][2], dq_acc[nt][3]);
+  }
+  __syncwarp();
+  T* dqb = dq + b * dqsb + h * dqsh;
+  constexpr int kPerRow = D / 8;
+#pragma unroll
+  for (int it = 0; it < 16 * kPerRow / 32; ++it) {
+    const int i = lane + it * 32;
+    const int r = i / kPerRow;
+    const int cc = (i % kPerRow) * 8;
+    if (wq0 + r < S) {
+      *reinterpret_cast<uint4*>(dqb + (long long)(wq0 + r) * dqss + cc) =
+          *reinterpret_cast<const uint4*>(sw + r * kLd + cc);
+    }
+  }
 }
 
 // ------------------------------------------------------------ dk / dv --
@@ -619,12 +647,14 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const long long* dqs, float sm_scale, int causal,
                       cudaStream_t stream) {
   auto kernel = flash_bwd_dq_kernel<T, D>;
-  const int smem = static_cast<int>(Plan<D>::kBytes);
+  const int smem = static_cast<int>(DqPlan<D>::kBytes);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlock - 1) / kBlock, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const long long blocks =
+      (long long)((S + kDqBlockM - 1) / kDqBlockM) * H * B;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  kernel<<<static_cast<unsigned>(blocks), kDqThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), H, H / Hkv, S, Skv, qs[0], qs[1], qs[2], ks[0],

@@ -1,6 +1,7 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): 16-bit conversions, the strided tile loads, the tensor-core
-// building blocks in inline PTX, and the order in which blocks take tiles.
+// flash_bwd.cu): the strided cp.async tile loads, the tensor-core building
+// blocks in inline PTX, 16-bit packing, and the order in which blocks take
+// tiles.
 //
 // Register layouts.  `mma.sync.m16n8k16` (row.col, f32 accumulate) keeps
 // every operand in registers with a documented layout, so the softmax and
@@ -45,45 +46,11 @@
 
 namespace tik_flash {
 
-constexpr int kTileRows = 64;  // rows of every q / kv tile of the dq kernel
-constexpr int kThreads = 128;  // 4 warps per dq block
-
 constexpr float kNegInf = -1e30f;  // the TPU kernels' _NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half(x);
-}
-
 constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-// Copy rows [row0, row0 + 64) of a strided [rows, D] slab into a shared tile
-// with leading dimension LD, 16 bytes per thread per step; rows at or past
-// `nrows` are zero so that masked entries multiply finite values.  (The dq
-// kernel's synchronous load.)
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long row_stride, int row0,
-                                          int nrows) {
-  constexpr int kVec = 8;  // 8 x 16-bit = 16 bytes
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < kTileRows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) *
-                                                      row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
 
 // ------------------------------------------------------------- cp.async --
 

@@ -47,8 +47,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
         "tik_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "roi_align": {
-        "tik_roi_align": ([_I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I,
-                           _F, _P], _I),
+        "tik_roi_align": ([_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I,
+                           _I, _F, _P], _I),
         "tik_cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -4,8 +4,9 @@ kernels, with their plain PyTorch versions.
 Counterpart of `cloudtik_tpu/ops/detection.py`.  `csrc/nms.cu` replaces the
 Pallas `_nms_kernel` (one block per image, boxes and live scores in shared
 memory, a block-wide argmax per kept box); `csrc/roi_align.cu` replaces
-`_roi_align_kernel` (a gather: one thread per output element, threads laid
-over channels so that they read neighbouring addresses of an NHWC map).
+`_roi_align_kernel` (a gather with the ROI's taps in shared memory, by one
+of two routes that `roi_align_route` picks: 16-byte loads of 8 channels of
+a bf16 NHWC map, or scalar loads through any strides).
 
 `nms` / `nms_batched` and `roi_align` / `roi_align_batched` launch the
 kernel on a CUDA tensor and run the plain version (`nms_reference`,
@@ -34,6 +35,9 @@ _NEG_INF = -1e30
 # launch and nowhere else), so a run can show its path went through them.
 LAUNCHES_NMS = 0
 LAUNCHES_ROI_ALIGN = 0
+# The route of the last ROIAlign launch ("vector" or "strided"), so a run
+# can show which form of csrc/roi_align.cu its path took.
+LAST_ROI_ROUTE = None
 
 # csrc/nms.cu holds six f32 values per box in shared memory (x1, y1, x2, y2,
 # area, live score) within the 227 KB a block may use; the TPU kernel
@@ -43,6 +47,11 @@ NMS_MAX_BOXES = 9_600
 # temporaries at full width (4 x 25 MB at Mask R-CNN's 14x14)
 _ROI_CHUNK = 32
 _ROI_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROI_ROUTE_CODES = {"strided": 0, "vector": 1}
+# csrc/roi_align.cu's vector route stages 64 channels x P*P f32 outputs
+# (plus one float in 32) and its tap table within a block's 227 KB
+_ROI_VEC_CHANNELS = 64
+_SMEM_BYTES = 227 * 1024
 
 
 # --------------------------------------------------------------------------
@@ -271,13 +280,34 @@ def roi_align_reference(features: torch.Tensor, rois: torch.Tensor, *,
         sampling_ratio=sampling_ratio, spatial_scale=spatial_scale)[0]
 
 
+def roi_align_route(features: torch.Tensor, pooled_size: int = 7,
+                    sampling_ratio: int = 2) -> str:
+    """Which form of csrc/roi_align.cu takes these features [B, C, H, W]:
+    "vector" for bf16 with channel stride 1, C a multiple of 8, a 16-byte
+    aligned base and strides, offsets within an image in 32 bits and the
+    staged outputs within shared memory (the detect path's NHWC map
+    permuted to [B, C, H, W]); "strided" for anything else."""
+    _, C, H, W = features.shape
+    sb, sc, sh, sw = features.stride()
+    pp = int(pooled_size) ** 2
+    smem = (4 * (_ROI_VEC_CHANNELS * pp + _ROI_VEC_CHANNELS * pp // 32 + 1)
+            + 24 * int(pooled_size) * int(sampling_ratio))
+    vector = (features.dtype == torch.bfloat16 and sc == 1 and C % 8 == 0
+              and features.data_ptr() % 16 == 0
+              and sb % 8 == 0 and sh % 8 == 0 and sw % 8 == 0
+              and (H - 1) * sh + (W - 1) * sw + C <= 2 ** 31 - 1
+              and smem <= _SMEM_BYTES)
+    return "vector" if vector else "strided"
+
+
 def _kernel_roi_align(features: torch.Tensor, rois: torch.Tensor,
                       pooled: int, sampling: int,
                       spatial_scale: float) -> torch.Tensor:
     """Launch csrc/roi_align.cu on CUDA tensors; raise on what it does not
     take.  The features go in through their strides (an NHWC map permuted
-    to [B, C, H, W] is read in place)."""
-    global LAUNCHES_ROI_ALIGN
+    to [B, C, H, W] is read in place), by the route `roi_align_route`
+    picks."""
+    global LAUNCHES_ROI_ALIGN, LAST_ROI_ROUTE
     from cloudtik_tpu_torch.ops import _kernels
 
     if features.dtype not in _ROI_DTYPE_CODES:
@@ -295,15 +325,18 @@ def _kernel_roi_align(features: torch.Tensor, rois: torch.Tensor,
                       device=features.device)
     if out.numel() == 0:
         return out
+    route = roi_align_route(features, pooled, sampling)
     strides = (ctypes.c_longlong * 4)(*features.stride())
     lib = _kernels.library("roi_align")
     err = lib.tik_roi_align(
-        _ROI_DTYPE_CODES[features.dtype], features.data_ptr(),
+        _ROI_DTYPE_CODES[features.dtype], _ROI_ROUTE_CODES[route],
+        features.data_ptr(),
         rois.data_ptr(), out.data_ptr(), B, C, H, W, strides, R, pooled,
         sampling, float(spatial_scale),
         torch.cuda.current_stream(features.device).cuda_stream)
-    _kernels.check(lib, err, "roi_align launch")
+    _kernels.check(lib, err, f"roi_align launch ({route} route)")
     LAUNCHES_ROI_ALIGN += 1
+    LAST_ROI_ROUTE = route
     return out
 
 

@@ -228,6 +228,8 @@ def test_kernel_det_rehearsal_runs_every_case_on_the_plain_path():
                for r in out["nms"].values())
     assert out["nms"]["fewer_than_k"]["kept"] < 2 * 100
     assert all(r["bound_by"] == "bytes" for r in out["roi_align"].values())
+    # no kernel ran on the CPU, so no route was taken
+    assert all(r["route"] is None for r in out["roi_align"].values())
 
 
 def test_kernel_det_cases_cover_the_detect_shapes():
@@ -240,6 +242,38 @@ def test_kernel_det_cases_cover_the_detect_shapes():
                                      "nhwc"),
                                     (1024, 1024, 32, 14, 1, "bfloat16",
                                      "nhwc")]
+
+
+def test_roi_cases_take_their_routes():
+    """Each ROIAlign case's map, made as the smoke makes it, picks the
+    route the case requires on the card: the Mask R-CNN shapes the vector
+    route, the f32 NCHW and the 100-channel maps the strided one."""
+    gen = torch.Generator().manual_seed(2)
+    routes = {}
+    for c in chip_smoke.ROI_CASES:
+        feats, _ = chip_smoke.make_roi_inputs(c, gen, "cpu")
+        routes[c.name] = D.roi_align_route(feats, c.P, c.sampling)
+        del feats
+    assert routes == {c.name: c.route for c in chip_smoke.ROI_CASES}
+    assert routes["maskrcnn_7"] == routes["maskrcnn_14"] == "vector"
+    assert routes["sampling2_scale025"] == "strided"
+    assert routes["ragged_channels"] == "strided"
+    # a vector-route map whose last 64-channel block holds only 8
+    assert routes["channel_tail"] == "vector"
+    assert [c.C % 64 for c in chip_smoke.ROI_CASES
+            if c.name == "channel_tail"] == [8]
+
+
+def test_ragged_channels_case_is_a_bf16_nhwc_map_of_100_channels():
+    c = next(c for c in chip_smoke.ROI_CASES if c.name == "ragged_channels")
+    assert c == chip_smoke.RoiCase("ragged_channels", 2, 64, 100, 32, 14, 1,
+                                   route="strided")
+    feats, rois = chip_smoke.make_roi_inputs(
+        c, torch.Generator().manual_seed(0), "cpu")
+    assert feats.shape == (2, 100, 32, 32) and feats.dtype == torch.bfloat16
+    # channel stride 1, a 200-byte pixel stride: not 16-byte aligned
+    assert feats.stride() == (32 * 32 * 100, 1, 32 * 100, 100)
+    assert rois.shape == (2, 64, 4)
 
 
 def test_roi_bound_at_the_maskrcnn_shapes():

@@ -186,3 +186,33 @@ def test_box_iou_matches_jax():
     got = TD.box_iou(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     want = np.asarray(JD.box_iou(jnp.asarray(a), jnp.asarray(b)))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def _detect_map(C=1024, dtype=torch.bfloat16):
+    """The detect path's layout: an NHWC map permuted to [B, C, H, W]."""
+    return torch.zeros(2, 8, 8, C, dtype=dtype).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("pooled", [7, 14])
+def test_roi_align_route_is_vector_on_the_detect_layout(pooled):
+    feats = _detect_map()
+    assert feats.data_ptr() % 16 == 0 and feats.stride(1) == 1
+    assert TD.roi_align_route(feats, pooled, 1) == "vector"
+
+
+@pytest.mark.parametrize("case", ["f32", "nchw", "c_not_multiple_of_8",
+                                  "unaligned_base", "c100_nhwc"])
+def test_roi_align_route_is_strided_off_the_vector_layout(case):
+    """f32, an NCHW map, a 60-channel slice (aligned strides, C % 8 != 0),
+    a view one channel in (base 2 bytes off 16) and a 100-channel NHWC map
+    (200-byte pixels) take the strided route."""
+    feats = {
+        "f32": lambda: _detect_map(64, torch.float32),
+        "nchw": lambda: torch.zeros(2, 64, 8, 8, dtype=torch.bfloat16),
+        "c_not_multiple_of_8": lambda: _detect_map(64)[:, :60],
+        "unaligned_base": lambda: _detect_map(64)[:, 1:9],
+        "c100_nhwc": lambda: _detect_map(100),
+    }[case]()
+    if case == "unaligned_base":
+        assert feats.data_ptr() % 16 == 2 and feats.shape[1] == 8
+    assert TD.roi_align_route(feats, 14, 1) == "strided"

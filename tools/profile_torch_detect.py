@@ -34,7 +34,7 @@ _GEMM = re.compile(r"gemm|cutlass|xmma|nvjet|cublas|sm90_", re.I)
 def _kind(name: str) -> str:
     if "nms_kernel" in name:
         return "nms"
-    if "roi_align_kernel" in name:
+    if "roi_align_vec_kernel" in name or "roi_align_strided_kernel" in name:
         return "roi_align"
     if _CONV.search(name):
         return "conv"

@@ -4,8 +4,10 @@ profiler's kernel durations.
 
     python3 tools/profile_torch_kernels.py [--iters 20]
 
-At the two main shapes of `chip_smoke.py` -- the forward kernel (B1) at
-`forward_b4`, the dq (B2) and dk/dv (B3) kernels at `train_b8` -- times
+At the main shapes of `chip_smoke.py` -- the forward kernel (B1) at
+`forward_b4`, the dq (B2) and dk/dv (B3) kernels at `train_b8`, ROIAlign
+(B5) at Mask R-CNN's 7x7 and 14x14 poolings (`maskrcnn_7`,
+`maskrcnn_14`) -- times
 `iters` back-to-back launches of each wrapper with CUDA events, as
 `chip_smoke.time_ms` does (event to event, so host gaps between launches
 count), and again under torch.profiler, whose kernel durations are the
@@ -77,6 +79,7 @@ def main(argv=None) -> int:
         print("profile_torch_kernels: needs a CUDA card", file=sys.stderr)
         return 1
     import chip_smoke as cs
+    from cloudtik_tpu_torch.ops import detection as D
     from cloudtik_tpu_torch.ops import flash_attention as FA
 
     smi = subprocess.run(
@@ -101,6 +104,13 @@ def main(argv=None) -> int:
         FA._launch_dq(qb, kb, vb, do, lse, delta, cb.causal, sb))))
     runs.append(("flash_bwd_dkv", "flash_bwd_dkv_kernel", cb, lambda: (
         FA._launch_dkv(qb, kb, vb, do, lse, delta, cb.causal, sb))))
+    for rc in cs.ROI_CASES[:2]:
+        feats, rois = cs.make_roi_inputs(rc, gen, "cuda")
+        kw = {"pooled_size": rc.P, "sampling_ratio": rc.sampling,
+              "spatial_scale": rc.scale}
+        runs.append((f"roi_align_{rc.P}x{rc.P}", "roi_align_", rc,
+                     lambda f=feats, r=rois, kw=kw: D.roi_align_batched(
+                         f, r, **kw)))
     for name, marker, case, fn in runs:
         event_ms = cs.time_ms(fn, iters=args.iters)
         prof_ms, seen = profiled_ms(fn, marker, args.iters)
@@ -111,6 +121,8 @@ def main(argv=None) -> int:
             "event_over_profiler": (event_ms / prof_ms if prof_ms
                                     else None),
             "host_enqueue_ms": enqueue_ms(fn, args.iters),
+            "roi_route": (D.LAST_ROI_ROUTE if name.startswith("roi_align")
+                          else None),
             "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         }), flush=True)
     return 0
