@@ -28,8 +28,12 @@ run with a non-zero exit:
            warm-up steps, then 5 measured steps with 16 launches of each
            kernel per step; ms/step, tokens/s, MFU, peak memory
   kernel_det  the NMS and ROIAlign kernels against their plain versions:
-           NMS keep lists equal at the detect path's shapes, all-zero
-           scores, fewer boxes than outputs and degenerate boxes; ROIAlign
+           NMS keep lists equal to the plain version's and to the JAX
+           `nms_reference`'s (tests/torch_golden/, inputs rebuilt from
+           each case's numpy seed) at the detect paths' shapes (SSD at 300
+           and at 1200: 45,384 boxes an image), all-zero scores, fewer boxes
+           than outputs, degenerate boxes, NaN scores and coordinates,
+           signed zeros, +-inf and absent scores; ROIAlign
            within 1e-5 at Mask R-CNN's shapes, sampling 2 at scale 0.25,
            ROIs partly outside the map and under a pixel, 100 and 72
            channels, each on the route it must take (vector or strided); kernel and
@@ -40,8 +44,9 @@ run with a non-zero exit:
            over 10 steps on one repeated batch
   detect   the detection path: `detect` of maskrcnn_resnet50 at B=8 x 512
            (2 ROIAlign launches and 1 NMS launch per call) and of
-           ssd_resnet34 at B=8 x 300 (1 NMS launch over 3,000 anchors per
-           call), bf16: ms per call, images/s, peak memory; outputs checked,
+           ssd_resnet34 at B=8 x 300 and at B=8 x 1200 (1 NMS launch over
+           3,000 or 45,384 anchors per call), bf16: ms per call, images/s,
+           peak memory; outputs checked,
            each call's NMS and pooling held against the plain versions, and
            Mask R-CNN's map pooled on ROIAlign's vector route
 
@@ -63,6 +68,7 @@ import sys
 import time
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) for the bound.
 PEAK_BF16_FLOPS = 989e12
@@ -733,57 +739,214 @@ class NmsCase:
     B: int
     N: int
     K: int
+    seed: int                 # numpy seed of the boxes and scores
     iou_threshold: float = 0.5
-    scores: str = "softmax"   # "softmax" (max foreground prob) or "zero"
+    scores: str = "uniform"   # "uniform" in [0, 1) or "zero"
     degenerate: bool = False  # zero-area, duplicate and inverted boxes
+    # "nan_score", "nan_box", "signed_zero" or "inf_and_absent": the
+    # reference's NaN, signed-zero and absent-score semantics
+    special: str = ""
 
 
 # The first two are the shapes `detect` gives the kernel: Mask R-CNN (8
 # images of 128 proposals, 50 kept) and SSD (8 images of 3,000 anchors, 100
-# kept).  Keep lists must equal the plain version's exactly.
+# kept); ssd1200_b8 is SSD at MLPerf's 1200 x 1200 input (45,384 anchors an
+# image).  Keep lists must equal the plain version's and the JAX
+# `nms_reference`'s (tests/torch_golden/) exactly.
 NMS_CASES = (
-    NmsCase("maskrcnn_b8", 8, 128, 50),
-    NmsCase("ssd_b8", 8, 3000, 100),
-    NmsCase("all_zero_scores", 8, 3000, 100, scores="zero"),
-    NmsCase("fewer_than_k", 4, 60, 100, iou_threshold=0.3),
-    NmsCase("degenerate", 4, 512, 64, iou_threshold=0.3, degenerate=True),
+    NmsCase("maskrcnn_b8", 8, 128, 50, seed=1),
+    NmsCase("ssd_b8", 8, 3000, 100, seed=2),
+    NmsCase("all_zero_scores", 8, 3000, 100, seed=3, scores="zero"),
+    NmsCase("fewer_than_k", 4, 60, 100, seed=4, iou_threshold=0.3),
+    NmsCase("degenerate", 4, 512, 64, seed=5, iou_threshold=0.3,
+            degenerate=True),
+    NmsCase("ssd1200_b8", 8, 45_384, 100, seed=6),
+    NmsCase("all_zero_ssd1200", 8, 45_384, 100, seed=7, scores="zero"),
+    NmsCase("nan_score", 4, 3000, 100, seed=8, special="nan_score"),
+    NmsCase("nan_box", 4, 512, 64, seed=9, special="nan_box"),
+    NmsCase("signed_zero", 4, 512, 64, seed=10, special="signed_zero"),
+    NmsCase("inf_and_absent", 4, 3000, 100, seed=11,
+            special="inf_and_absent"),
+    # K past half of N: the scan runs through every band of both images
+    NmsCase("many_kept", 2, 3000, 1500, seed=12, iou_threshold=0.9),
 )
-# flops per (kept box, box): one argmax compare and the IoU (2 min, 2 max,
+# the kernel_det cases at the shapes the detect paths give B4
+NMS_DETECT_SHAPES = ("ssd_b8", "maskrcnn_b8", "ssd1200_b8")
+# anchors of ssd_resnet34 at 1200 x 1200 (maps 75/38/19/10/5/3, 6 a cell)
+SSD1200_ANCHORS = 45_384
+# flops per (kept box, candidate): the IoU and its compare (2 min, 2 max,
 # 2 sub, 2 clamps, mul, add, sub, max, div, compare)
 NMS_FLOPS_PER_PAIR = 16
+# The JAX `nms_reference` keep list of each case, made from its seed by
+# tools/export_torch_golden.py
+GOLDEN_DIR = Path(__file__).resolve().parent / "tests" / "torch_golden"
+# what the hand-made first image of nan_box and signed_zero keeps
+NAN_BOX_KEEP = [1, 0, -1]
+SIGNED_ZERO_KEEP = [0, -1, -1]
 
 
-def make_nms_inputs(c: NmsCase, gen, device: str):
-    """Normalized xyxy boxes [B, N, 4] and scores [B, N], as `detect`
-    hands them to NMS."""
-    import torch
+def make_nms_arrays(c: NmsCase):
+    """Normalized xyxy boxes [B, N, 4] and scores [B, N], f32 numpy arrays
+    made from the case's seed with exact float arithmetic only (no
+    transcendental), so that every machine makes the same bits."""
+    import numpy as np
 
-    xy = torch.rand((c.B, c.N, 2), generator=gen, device=device) * 0.8
-    wh = torch.rand((c.B, c.N, 2), generator=gen, device=device) * 0.3 + 0.01
-    boxes = torch.cat([xy, (xy + wh).clamp(max=1.0)], dim=-1)
+    f32 = np.float32
+    rng = np.random.default_rng(c.seed)
+    xy = rng.random((c.B, c.N, 2), dtype=f32) * f32(0.8)
+    wh = rng.random((c.B, c.N, 2), dtype=f32) * f32(0.3) + f32(0.01)
+    boxes = np.concatenate([xy, np.minimum(xy + wh, f32(1.0))], axis=-1)
     if c.scores == "zero":
-        scores = torch.zeros((c.B, c.N), device=device)
+        scores = np.zeros((c.B, c.N), f32)
     else:
-        logits = torch.randn((c.B, c.N, 81), generator=gen,
-                             device=device) * 3
-        scores = torch.softmax(logits, dim=-1)[..., 1:].max(dim=-1).values
+        scores = rng.random((c.B, c.N), dtype=f32)
     if c.degenerate:
         q = c.N // 4
         boxes[:, :q, 2:] = boxes[:, :q, :2]               # zero area
         boxes[:, q:2 * q] = boxes[:, 2 * q:3 * q]         # duplicates ...
         scores[:, q:2 * q] = scores[:, 2 * q:3 * q]       # ... tied
         boxes[:, 3 * q:] = boxes[:, 3 * q:][..., [2, 3, 0, 1]]  # inverted
-    return boxes.contiguous(), scores.contiguous()
+    u = rng.random((c.B, c.N))
+    if c.special == "nan_score":
+        # every image but the last holds one NaN score: it keeps nothing
+        for b in range(c.B - 1):
+            scores[b, (int(rng.integers(c.N)), 0, c.N - 1)[b % 3]] = np.nan
+    elif c.special == "nan_box":
+        # image 0 starts [[0,0,1,1], [NaN,0,1,1], [0,0,1,1]] at scores
+        # [0.5, 0.9, 0.4], every other box absent; in the others one box
+        # in ten has a NaN coordinate
+        coord = rng.integers(0, 4, (c.B, c.N))
+        rows, cols = np.nonzero(u < 0.1)
+        boxes[rows, cols, coord[rows, cols]] = np.nan
+        boxes[0, :3] = [[0, 0, 1, 1], [np.nan, 0, 1, 1], [0, 0, 1, 1]]
+        scores[0] = -np.inf
+        scores[0, :3] = [0.5, 0.9, 0.4]
+    elif c.special == "signed_zero":
+        # image 0 starts with three copies of one box at [-0.0, 0.0, 0.0],
+        # every other box absent; the others hold +-0.0 ties and a tenth
+        # of scores in [-0.5, 0.5)
+        scores[:] = np.where(u < 0.45, f32(-0.0), f32(0.0))
+        scores[u >= 0.9] = ((u[u >= 0.9] - 0.95) * 10).astype(f32)
+        boxes[0, :3] = boxes[0, 0]
+        scores[0] = -np.inf
+        scores[0, :3] = [-0.0, 0.0, 0.0]
+    elif c.special == "inf_and_absent":
+        # +inf, and scores at or below -5e29 (absent) beside -4e29 (not);
+        # the last image holds absent scores only
+        for lo, hi, value in ((0.0, 0.01, np.inf), (0.01, 0.06, -np.inf),
+                              (0.06, 0.11, -1e30), (0.11, 0.16, -5e29),
+                              (0.16, 0.21, -6e29), (0.21, 0.26, -4e29)):
+            scores[(u >= lo) & (u < hi)] = value
+        if c.B > 1:
+            scores[-1] = np.where(u[-1] < 0.5, f32(-np.inf), f32(-5e29))
+    return boxes, scores
 
 
-def nms_bound(c: NmsCase, kept: int):
+def make_nms_inputs(c: NmsCase, device: str):
+    """`make_nms_arrays` as tensors on the device, as `detect` hands them
+    to NMS."""
+    import torch
+
+    boxes, scores = make_nms_arrays(c)
+    return (torch.from_numpy(boxes).to(device),
+            torch.from_numpy(scores).to(device))
+
+
+def golden_keep(c: NmsCase):
+    """The JAX `nms_reference` keep list [B, K] committed for this case, or
+    None when there is none for these inputs (a case cut to CPU size)."""
+    import numpy as np
+
+    path = GOLDEN_DIR / f"nms_{c.name}.npz"
+    if not path.exists():
+        return None
+    g = np.load(path)
+    same = (int(g["seed"]) == c.seed
+            and tuple(int(x) for x in g["shape"]) == (c.B, c.N, c.K)
+            and float(g["iou_threshold"]) == c.iou_threshold)
+    return g["keep"] if same else None
+
+
+def check_nms_case(c: NmsCase, keep, scores) -> None:
+    """What each kind of case states beyond equality, on the keep list
+    [B, K] (numpy) of scores [B, N] (numpy)."""
+    import numpy as np
+
+    if c.N < c.K:
+        require(bool((keep[:, c.N:] == -1).all()),
+                f"nms {c.name}: no -1 padding")
+    if c.scores == "zero" and not c.special:
+        require(bool((keep[:, 0] == 0).all()),
+                f"nms {c.name}: ties not taken by lowest index")
+    if c.special == "nan_score":
+        require(bool((keep[:-1] == -1).all()) and bool((keep[-1] >= 0).any()),
+                f"nms {c.name}: an image with a NaN score kept a box, or "
+                "the clean image kept none")
+    elif c.special == "nan_box":
+        require(keep[0, :3].tolist() == NAN_BOX_KEEP,
+                f"nms {c.name}: kept {keep[0, :3].tolist()}, expected "
+                f"{NAN_BOX_KEEP}")
+    elif c.special == "signed_zero":
+        require(keep[0, :3].tolist() == SIGNED_ZERO_KEEP,
+                f"nms {c.name}: kept {keep[0, :3].tolist()}, expected "
+                f"{SIGNED_ZERO_KEEP}")
+    elif c.special == "inf_and_absent":
+        picked = np.take_along_axis(scores, np.maximum(keep, 0), axis=1)
+        require(bool((picked[keep >= 0] > np.float32(-5e29)).all()),
+                f"nms {c.name}: an absent score was kept")
+        require(c.B == 1 or bool((keep[-1] == -1).all()),
+                f"nms {c.name}: the image of absent scores kept a box")
+        for b in range(c.B):
+            inf = np.nonzero(scores[b] == np.inf)[0]
+            require(len(inf) == 0 or keep[b, 0] == inf[0],
+                    f"nms {c.name}: image {b} did not start at its first "
+                    "+inf score")
+
+
+def nms_scan_work(scores, keep):
+    """What a scan in sorted order must do on these inputs, from the keep
+    list [B, K] (numpy) of scores [B, N] (numpy): the candidates it reaches
+    (through the K-th kept, or all of them) and the IoUs it takes, one for
+    each (kept box, later candidate reached).  An image with a NaN score
+    takes none.  Returns (candidates reached, IoU pairs), summed over the
+    images."""
+    import numpy as np
+
+    K = keep.shape[1]
+    reached = pairs = 0
+    for s, k in zip(scores, keep):
+        if np.isnan(s).any():
+            continue
+        cand = np.nonzero(s > np.float32(-5e29))[0]
+        order = cand[np.lexsort((cand, -s[cand]))]   # -0.0 ties +0.0
+        rank = np.empty(len(s), np.int64)
+        rank[order] = np.arange(len(order))
+        pos = rank[k[k >= 0]]
+        n = int(pos[-1]) + 1 if len(pos) == K else len(order)
+        reached += n
+        pairs += int((n - 1 - pos).sum())
+    return reached, pairs
+
+
+def nms_bound(c: NmsCase, scores, keep):
     """Least time for the work these inputs need: each box (20 bytes) read
-    once, each keep index written once; `kept` greedy steps over N boxes."""
-    flops = NMS_FLOPS_PER_PAIR * kept * c.N
+    once, each keep index written once; one IoU for each (kept box, later
+    candidate) that the scan in sorted order reaches (`nms_scan_work`)."""
+    _, pairs = nms_scan_work(scores, keep)
+    flops = NMS_FLOPS_PER_PAIR * pairs
     nbytes = 20 * c.B * c.N + 4 * c.B * c.K
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def nms_steps_bound_ms(c: NmsCase, kept: int) -> float:
+    """The bound that the rows of the earlier, argmax-loop design gave:
+    `kept` greedy steps over all N boxes, or the bytes if more.  Kept under
+    its own key, so that rows compare across designs."""
+    t_ops = NMS_FLOPS_PER_PAIR * kept * c.N / PEAK_F32_FLOPS
+    t_bytes = (20 * c.B * c.N + 4 * c.B * c.K) / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -884,7 +1047,7 @@ def phase_kernel_det(device: str = "cuda", nms_cases=NMS_CASES,
     gen = torch.Generator(device=device).manual_seed(2)
     out = {"nms": {}, "roi_align": {}}
     for c in nms_cases:
-        boxes, scores = make_nms_inputs(c, gen, device)
+        boxes, scores = make_nms_inputs(c, device)
         kw = {"iou_threshold": c.iou_threshold, "max_output": c.K}
         keep = D.nms_batched(boxes, scores, **kw)
         want = D.nms_reference_batched(boxes, scores, **kw)
@@ -893,18 +1056,26 @@ def phase_kernel_det(device: str = "cuda", nms_cases=NMS_CASES,
         diff = (keep - want).abs().max().item()
         require(diff == 0, f"nms {c.name}: keep differs from the plain "
                            f"version in {int((keep != want).sum())} places")
+        keep_np, scores_np = keep.cpu().numpy(), scores.cpu().numpy()
+        check_nms_case(c, keep_np, scores_np)
+        golden = golden_keep(c)
+        require(golden is not None or not on_card,
+                f"nms {c.name}: no JAX golden keep list for these inputs "
+                f"in {GOLDEN_DIR}")
+        if golden is not None:
+            require(bool((keep_np == golden).all()),
+                    f"nms {c.name}: keep differs from the JAX golden in "
+                    f"{int((keep_np != golden).sum())} places")
         kept = int((keep >= 0).sum())
-        if c.N < c.K:
-            require(bool((keep[:, c.N:] == -1).all()),
-                    f"nms {c.name}: no -1 padding")
-        if c.scores == "zero":
-            require(bool((keep[:, 0] == 0).all()),
-                    f"nms {c.name}: ties not taken by lowest index")
-        bound_ms, bound_by, flops, nbytes = nms_bound(c, kept)
+        bound_ms, bound_by, flops, nbytes = nms_bound(c, scores_np, keep_np)
         row = {"case": c.name, "B": c.B, "N": c.N, "K": c.K,
                "iou_threshold": c.iou_threshold, "kept": kept,
-               "max_abs_err": diff, "equal": True, "bound_ms": bound_ms,
-               "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+               "reached": nms_scan_work(scores_np, keep_np)[0],
+               "max_abs_err": diff, "equal": True,
+               "jax_golden_equal": golden is not None,
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes,
+               "reference_steps_bound_ms": nms_steps_bound_ms(c, kept)}
         if on_card:
             row["kernel_ms"] = time_ms(lambda: D.nms_batched(
                 boxes, scores, **kw))
@@ -983,12 +1154,13 @@ def _timed_call(fn, on_card: bool):
 
 
 def phase_detect(kind: str, name: str, B: int = 8, device: str = "cuda",
-                 warmup: int = 1, iters: int = 5) -> dict:
+                 warmup: int = 1, iters: int = 5, **overrides) -> dict:
     """`detect` of a repo preset at full width (bf16 compute, f32 params,
-    random weights from seed 0): `warmup` calls, then the detection counts
-    zeroed, `iters` measured calls, the counts read.  Then the last call's
-    outputs are checked, and its NMS and ROIAlign inputs are held against
-    the plain versions (launches made for that come after the counts)."""
+    random weights from seed 0), with `overrides` of its config (such as
+    `image_size`): `warmup` calls, then the detection counts zeroed,
+    `iters` measured calls, the counts read.  Then the last call's outputs
+    are checked, and its NMS and ROIAlign inputs are held against the plain
+    versions (launches made for that come after the counts)."""
     import torch
 
     from cloudtik_tpu_torch.models import maskrcnn as MR
@@ -996,7 +1168,7 @@ def phase_detect(kind: str, name: str, B: int = 8, device: str = "cuda",
     from cloudtik_tpu_torch.ops import detection as D
 
     M = {"maskrcnn": MR, "ssd": SD}[kind]
-    cfg = M.config(name)
+    cfg = M.config(name, **overrides)
     on_card = device == "cuda"
     gen = torch.Generator(device=device).manual_seed(0)
     params = M.init_params(gen, cfg, device)
@@ -1040,6 +1212,7 @@ def phase_detect(kind: str, name: str, B: int = 8, device: str = "cuda",
             f"{name}: NMS keep differs from the plain version on the "
             "call's own boxes and scores")
     result = {"model": name, "batch": B, "image_size": S,
+              "nms_boxes_per_image": out["nms_scores"].shape[1],
               "dtype": "bfloat16", "warmup_calls": warmup,
               "measured_calls": iters, "ms_per_call": ms,
               "mean_ms": sum(ms) / len(ms),
@@ -1148,16 +1321,21 @@ def main() -> int:
 
     # ---- the detection path (counts zeroed and read inside) ----
     detect = {"maskrcnn": phase_detect("maskrcnn", "maskrcnn_resnet50"),
-              "ssd": phase_detect("ssd", "ssd_resnet34")}
+              "ssd": phase_detect("ssd", "ssd_resnet34"),
+              "ssd1200": phase_detect("ssd", "ssd_resnet34",
+                                      image_size=1200)}
+    require(detect["ssd1200"]["nms_boxes_per_image"] == SSD1200_ANCHORS,
+            f"ssd_resnet34 at 1200 gave NMS "
+            f"{detect['ssd1200']['nms_boxes_per_image']} boxes an image")
     for model, per_call in (("maskrcnn", {"nms": 1, "roi_align": 2}),
-                            ("ssd", {"nms": 1, "roi_align": 0})):
+                            ("ssd", {"nms": 1, "roi_align": 0}),
+                            ("ssd1200", {"nms": 1, "roi_align": 0})):
         r = detect[model]
         want = {k: n * r["measured_calls"] for k, n in per_call.items()}
         require(r["launches"] == want,
-                f"{r['model']} detect launches {r['launches']}, expected "
-                f"{want} ({per_call} per call)")
-    det_launches = {k: detect["maskrcnn"]["launches"][k]
-                    + detect["ssd"]["launches"][k]
+                f"{r['model']} at {r['image_size']} detect launches "
+                f"{r['launches']}, expected {want} ({per_call} per call)")
+    det_launches = {k: sum(r["launches"][k] for r in detect.values())
                     for k in ("nms", "roi_align")}
 
     main_case = kernel[ATTN_CASES[0].name]
@@ -1200,8 +1378,9 @@ def main() -> int:
          "cloudtik_tpu/ops/flash_attention.py:150"),
         ("flash_bwd_dkv", "dkv", ("dk", "dv"),
          "cloudtik_tpu/ops/flash_attention.py:191"))]}
-    # B4 at SSD's shape (the larger of the two detect shapes); B5 as one
-    # Mask R-CNN call runs it, the 7x7 and the 14x14 launch together
+    # B4 at SSD's shape (the larger of the two detect shapes at the preset
+    # sizes), with every detect shape beside it; B5 as one Mask R-CNN call
+    # runs it, the 7x7 and the 14x14 launch together
     nms_main = kernel_det["nms"][NMS_CASES[1].name]
     roi_main = [kernel_det["roi_align"][c.name] for c in ROI_CASES[:2]]
     summary["kernels"] += [{
@@ -1217,6 +1396,10 @@ def main() -> int:
         "bound_ms": nms_main["bound_ms"],
         "bound_by": nms_main["bound_by"],
         "library_ms": None,
+        "at": {n: {k: kernel_det["nms"][n][k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "kept",
+            "reached", "reference_steps_bound_ms")}
+            for n in NMS_DETECT_SHAPES},
     }, {
         "name": "roi_align",
         "route": "cuda",

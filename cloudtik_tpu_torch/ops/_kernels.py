@@ -43,7 +43,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
         "tik_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "nms": {
-        "tik_nms": ([_P, _P, _P, _I, _I, _I, _F, _P], _I),
+        "tik_nms": ([_P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
         "tik_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "roi_align": {

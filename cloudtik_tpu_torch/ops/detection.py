@@ -2,8 +2,10 @@
 kernels, with their plain PyTorch versions.
 
 Counterpart of `cloudtik_tpu/ops/detection.py`.  `csrc/nms.cu` replaces the
-Pallas `_nms_kernel` (one block per image, boxes and live scores in shared
-memory, a block-wide argmax per kept box); `csrc/roi_align.cu` replaces
+Pallas `_nms_kernel` (one block per image: the greedy argmax loop as a scan
+of the candidates in score order, ordered a band at a time by a radix
+select and a sort of its own, resolved 64 at a time with suppression
+bitmasks; any box count); `csrc/roi_align.cu` replaces
 `_roi_align_kernel` (a gather with the ROI's taps in shared memory, by one
 of two routes that `roi_align_route` picks: 16-byte loads of 8 channels of
 a bf16 NHWC map, or scalar loads through any strides).
@@ -18,9 +20,11 @@ pooled size, over all images.
 The plain NMS is `_nms_select_rows` op for op: areas, intersection and union
 in the JAX order, `iou > thr` strict and in f32 (the threshold is a weak
 Python float in JAX, so f32(thr)), the lowest index winning ties, a score at
-or below -5e29 counting as absent.  Eager torch rounds after each op, as
-XLA does, so nothing is contracted into an FMA.  The kernel keeps the same
-order with round-to-nearest intrinsics, so the two keep lists are equal.
+or below -5e29 counting as absent, NaN propagated as XLA does (a NaN score
+keeps nothing in its image; a box with a NaN coordinate suppresses nothing
+and is never suppressed).  Eager torch rounds after each op, as XLA does, so
+nothing is contracted into an FMA.  The kernel keeps the same order with
+round-to-nearest intrinsics, so the two keep lists are equal.
 """
 
 from __future__ import annotations
@@ -39,10 +43,6 @@ LAUNCHES_ROI_ALIGN = 0
 # can show which form of csrc/roi_align.cu its path took.
 LAST_ROI_ROUTE = None
 
-# csrc/nms.cu holds six f32 values per box in shared memory (x1, y1, x2, y2,
-# area, live score) within the 227 KB a block may use; the TPU kernel
-# likewise holds every box in VMEM.
-NMS_MAX_BOXES = 9_600
 # ROIs the plain ROIAlign gathers at a time: bounds its [R, C, P*s, P*s]
 # temporaries at full width (4 x 25 MB at Mask R-CNN's 14x14)
 _ROI_CHUNK = 32
@@ -140,18 +140,19 @@ def _kernel_nms(boxes: torch.Tensor, scores: torch.Tensor,
     B, N = scores.shape
     if boxes.device != scores.device:
         raise ValueError("boxes and scores must be on the same CUDA device")
-    if N > NMS_MAX_BOXES:
-        raise ValueError(f"nms kernel holds at most {NMS_MAX_BOXES} boxes "
-                         f"per image in shared memory, got {N}")
     if max_output < 1:
         raise ValueError(f"max_output must be positive, got {max_output}")
     boxes = boxes.float().contiguous()
     scores = scores.float().contiguous()
     keep = torch.empty((B, max_output), dtype=torch.int32,
                        device=boxes.device)
+    # the boxes kept so far, which each later candidate is held against
+    kept = torch.empty((B, max_output, 4), dtype=torch.float32,
+                       device=boxes.device)
     lib = _kernels.library("nms")
     err = lib.tik_nms(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
-                      B, N, max_output, float(iou_threshold),
+                      kept.data_ptr(), B, N, max_output,
+                      float(iou_threshold),
                       torch.cuda.current_stream(boxes.device).cuda_stream)
     _kernels.check(lib, err, "nms launch")
     LAUNCHES_NMS += 1

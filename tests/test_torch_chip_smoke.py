@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -227,15 +228,31 @@ def test_kernel_det_rehearsal_runs_every_case_on_the_plain_path():
     assert all(r["equal"] and r["max_abs_err"] == 0
                for r in out["nms"].values())
     assert out["nms"]["fewer_than_k"]["kept"] < 2 * 100
+    # cut to CPU size, no case has the inputs of its JAX golden
+    assert not any(r["jax_golden_equal"] for r in out["nms"].values())
     assert all(r["bound_by"] == "bytes" for r in out["roi_align"].values())
     # no kernel ran on the CPU, so no route was taken
     assert all(r["route"] is None for r in out["roi_align"].values())
 
 
 def test_kernel_det_cases_cover_the_detect_shapes():
-    mr, ssd = chip_smoke.NMS_CASES[:2]
+    from cloudtik_tpu_torch.models import ssd
+
+    cases = {c.name: c for c in chip_smoke.NMS_CASES}
+    mr, ssd300 = chip_smoke.NMS_CASES[:2]
     assert (mr.B, mr.N, mr.K) == (8, 128, 50)
-    assert (ssd.B, ssd.N, ssd.K) == (8, 3000, 100)
+    assert (ssd300.B, ssd300.N, ssd300.K) == (8, 3000, 100)
+    big = cases["ssd1200_b8"]
+    assert (big.B, big.N, big.K) == (8, 45_384, 100)
+    assert big.N == chip_smoke.SSD1200_ANCHORS == ssd.config(
+        "ssd_resnet34", image_size=1200).num_anchors()
+    assert cases["all_zero_ssd1200"].N == big.N
+    assert cases["all_zero_ssd1200"].scores == "zero"
+    assert chip_smoke.NMS_DETECT_SHAPES == ("ssd_b8", "maskrcnn_b8",
+                                            "ssd1200_b8")
+    assert {c.special for c in chip_smoke.NMS_CASES} == {
+        "", "nan_score", "nan_box", "signed_zero", "inf_and_absent"}
+    assert len({c.seed for c in chip_smoke.NMS_CASES}) == len(cases)
     r7, r14 = chip_smoke.ROI_CASES[:2]
     assert [(c.B * c.R, c.C, c.H, c.P, c.sampling, c.dtype, c.layout)
             for c in (r7, r14)] == [(1024, 1024, 32, 7, 1, "bfloat16",
@@ -287,13 +304,82 @@ def test_roi_bound_at_the_maskrcnn_shapes():
         assert bound_ms == pytest.approx(ms, abs=1e-4)
 
 
+def test_nms_scan_work_counts_what_the_sorted_scan_reaches():
+    """Order [0, 2, 3, 1]: with K=2 the scan stops at its second kept box
+    (1 IoU); with one more to keep it reaches every candidate, each later
+    one held against each box kept before it; a NaN image takes nothing."""
+    s = np.array([[0.9, 0.1, 0.5, 0.3]], np.float32)
+    assert chip_smoke.nms_scan_work(s, np.array([[0, 2]])) == (2, 1)
+    assert chip_smoke.nms_scan_work(s, np.array([[0, 2, -1]])) == (4, 5)
+    absent = np.array([[0.9, -1e30, -np.inf, 0.3]], np.float32)
+    assert chip_smoke.nms_scan_work(absent, np.array([[0, 3, -1]])) == (2, 1)
+    nan = np.array([[0.9, np.nan, 0.5, 0.3]], np.float32)
+    assert chip_smoke.nms_scan_work(nan, np.array([[-1, -1]])) == (0, 0)
+    # -0.0 and +0.0 tie, so the lower index comes first
+    zeros = np.array([[0.0, -0.0, 0.0]], np.float32)
+    assert chip_smoke.nms_scan_work(zeros, np.array([[0, 1]])) == (2, 1)
+
+
+def _golden_bound(name):
+    c = next(c for c in chip_smoke.NMS_CASES if c.name == name)
+    _, scores = chip_smoke.make_nms_arrays(c)
+    keep = chip_smoke.golden_keep(c)
+    return c, scores, keep, chip_smoke.nms_bound(c, scores, keep)
+
+
 def test_nms_bound_counts_the_kept_steps():
-    c = chip_smoke.NMS_CASES[1]
-    bound_ms, bound_by, flops, nbytes = chip_smoke.nms_bound(c, kept=800)
-    assert flops == 16 * 800 * 3000
+    """SSD's shape: the scan reaches a few hundred of the 24,000 boxes, so
+    the bytes bound B4; the earlier designs' K x N steps stay beside it."""
+    c, scores, keep, (bound_ms, bound_by, flops, nbytes) = _golden_bound(
+        "ssd_b8")
+    assert c == chip_smoke.NMS_CASES[1]
+    reached, pairs = chip_smoke.nms_scan_work(scores, keep)
+    assert int((keep >= 0).sum()) == 800 and reached < 1000
+    assert flops == 16 * pairs
     assert nbytes == 20 * 8 * 3000 + 4 * 8 * 100
+    assert bound_by == "bytes"
+    assert bound_ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert chip_smoke.nms_steps_bound_ms(c, kept=800) == pytest.approx(
+        16 * 800 * 3000 / 67e12 * 1e3)
+
+
+def test_nms_bound_at_ssd1200():
+    """45,384 boxes an image: 0.0022 ms of bytes; 800 kept over all boxes
+    would be 0.0087 ms of f32 operations."""
+    c, scores, keep, (bound_ms, bound_by, flops, nbytes) = _golden_bound(
+        "ssd1200_b8")
+    assert nbytes == 20 * 8 * 45_384 + 4 * 8 * 100
+    assert bound_by == "bytes"
+    assert bound_ms == pytest.approx(0.0022, abs=1e-4)
+    assert flops < 16 * 800 * 45_384 / 100
+    assert chip_smoke.nms_steps_bound_ms(c, kept=800) == pytest.approx(
+        0.0087, abs=1e-4)
+
+
+def test_nms_bound_of_many_kept_is_operations():
+    """K=1,500 of 3,000: every candidate is held against most kept boxes."""
+    _, _, _, (bound_ms, bound_by, flops, _) = _golden_bound("many_kept")
     assert bound_by == "operations"
     assert bound_ms == pytest.approx(flops / 67e12 * 1e3)
+
+
+def test_nms_path_has_no_box_cap_and_no_library_sort():
+    """The wrapper refuses no box count, and neither it nor the detectors'
+    NMS tail orders anything with a library call: the kernel sorts and
+    selects by itself."""
+    import inspect
+
+    from cloudtik_tpu_torch.models import maskrcnn, ssd
+
+    assert not hasattr(D, "NMS_MAX_BOXES")
+    sources = [inspect.getsource(f) for f in (
+        D.nms, D.nms_batched, D._kernel_nms, D.nms_reference_batched,
+        ssd.select)] + [(ROOT / "cloudtik_tpu_torch" / "csrc" / "nms.cu")
+                        .read_text()]
+    for src in sources:
+        for call in ("sort(", "topk(", "argsort(", "cub::", "thrust::"):
+            assert call not in src
+    assert "S.select(" in inspect.getsource(maskrcnn)   # the same tail
 
 
 @pytest.mark.parametrize("kind", ["maskrcnn", "ssd"])
@@ -305,3 +391,37 @@ def test_detect_phase_rehearsal_takes_no_kernel_on_cpu(kind):
     assert out["peak_mem_gb"] is None and out["images_per_s"] > 0
     if kind == "maskrcnn":
         assert out["roi_align_max_abs_err"] == {"pooled_7": 0.0}
+
+
+def test_detect_phase_rehearsal_takes_an_image_size():
+    """The SSD-1200 call's form at CPU size: the override reaches the
+    config, and the NMS sees every anchor of that size."""
+    from cloudtik_tpu_torch.models import ssd
+
+    out = chip_smoke.phase_detect("ssd", "tiny", B=2, device="cpu",
+                                  iters=1, image_size=96)
+    assert out["image_size"] == 96 and out["nms_equal"]
+    assert out["nms_boxes_per_image"] == ssd.config(
+        "tiny", image_size=96).num_anchors()
+    assert out["nms_boxes_per_image"] > ssd.config("tiny").num_anchors()
+    assert out["launches"] == {"nms": 0, "roi_align": 0}
+
+
+def test_nms_phase_slots_are_the_kernels():
+    """tools/profile_torch_nms_phases.py reads the slots that csrc/nms.cu
+    fills under -DNMS_PHASE_CLOCKS: the same names, in the same order."""
+    import re
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import profile_torch_nms_phases as P
+
+    src = (ROOT / "cloudtik_tpu_torch" / "csrc" / "nms.cu").read_text()
+    enum = re.search(r"enum PhaseSlot \{(.*?)\};", src, re.S).group(1)
+    slots = re.findall(r"kPh(\w+)", enum)
+    assert slots[-1] == "Slots"
+    snake = [re.sub(r"(?<!^)([A-Z])", r"_\1", n).lower() for n in slots[:-1]]
+    assert snake == list(P.PHASES + P.COUNTS)
+    assert f"kPhaseImages = {P.IMAGES};" in src
+    # every slot is marked or counted somewhere in the kernel
+    for n in slots[:-1]:
+        assert re.search(rf"PHASE_(MARK|COUNT)\(kPh{n}\)", src), n

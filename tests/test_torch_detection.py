@@ -117,6 +117,59 @@ def test_nms_batched_is_the_per_image_nms():
             got[i].numpy(), _jax_keeps(b, s, 0.4, 16)[1])
 
 
+def _edge_case(name):
+    """(boxes, scores, iou_threshold, max_output, the keep list where the
+    case states it) of the NaN, signed-zero, infinite-score and large-N
+    cases: the reference's own semantics, which the kernel's sorted scan
+    must keep."""
+    rng = np.random.default_rng(17)
+    unit = [0, 0, 1, 1]
+    if name == "nan_score":      # the max is NaN at every step
+        return [unit, [0, 0, 2, 2], [5, 5, 6, 6]], [0.9, np.nan, 0.5], \
+            0.5, 3, [-1, -1, -1]
+    if name == "nan_box":        # its IoU is NaN: it suppresses nothing
+        return [unit, [np.nan, 0, 1, 1], unit], [0.5, 0.9, 0.4], 0.5, 3, \
+            [1, 0, -1]
+    if name == "signed_zero":    # -0.0 == 0.0: tied, the lower index wins
+        return [unit, unit, unit], [-0.0, 0.0, 0.0], 0.5, 3, [0, -1, -1]
+    if name == "inf_and_absent":
+        boxes, _ = _random_boxes(12, seed=4)
+        scores = [0.5, np.inf, -np.inf, -1e30, -5e29, -4e29, -6e29, np.inf,
+                  0.0, -0.0, -1.0, 0.5]
+        return boxes, scores, 0.3, 12, None
+    if name == "all_absent":
+        boxes, _ = _random_boxes(5, seed=6)
+        return boxes, [-np.inf, -1e30, -5e29, -6e29, -np.inf], 0.5, 4, \
+            [-1] * 4
+    # one SSD-1200 image: 45,384 anchors, most scores thresholded to 0.0
+    n = 45_384
+    xy = rng.uniform(0, 0.9, (n, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(0.01, 0.1, (n, 2))], 1)
+    scores = np.where(rng.uniform(size=n) < 0.01, rng.uniform(0.05, 1, n),
+                      0.0)
+    return boxes, scores, 0.5, 100, None
+
+
+@pytest.mark.parametrize("name", ["nan_score", "nan_box", "signed_zero",
+                                  "inf_and_absent", "all_absent",
+                                  "ssd1200_image"])
+def test_nms_edge_cases_match_jax_exactly(name):
+    """NaN scores and coordinates, -0.0 against +0.0, +-inf and absent
+    scores, and one image of 45,384 boxes (no cap on N): the port's NMS
+    equals `nms_reference` and the Pallas NMS in interpret mode."""
+    boxes, scores, thr, k, stated = _edge_case(name)
+    boxes = np.asarray(boxes, np.float32)
+    scores = np.asarray(scores, np.float32)
+    got = TD.nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                 iou_threshold=thr, max_output=k).numpy()
+    if stated is not None:
+        assert got.tolist() == stated
+    for want in _jax_keeps(boxes, scores, thr, k):
+        np.testing.assert_array_equal(got, want)
+    if name == "ssd1200_image":
+        assert (got >= 0).all() and (scores[got[:5]] > 0).all()
+
+
 def test_nms_rejects_mismatched_shapes():
     with pytest.raises(ValueError):
         TD.nms(torch.zeros(4, 4), torch.zeros(3))

@@ -4,12 +4,13 @@
     python3 tools/profile_torch_detect.py [--batch 8]
 
 Profiles (torch.profiler, CPU + CUDA activity) one `detect` call of
-maskrcnn_resnet50 at [batch, 512, 512, 3] and one of ssd_resnet34 at
-[batch, 300, 300, 3], bf16 compute on f32 params, and prints one JSON line
-for each: wall time, device time summed over kernels, the device's busy
-share of the wall, the launch count, and device time grouped by kind (the
-NMS and ROIAlign kernels, convolutions, matmuls, the rest) with the top
-kernels by name.  Needs a CUDA card; weights are random from seed 0.
+maskrcnn_resnet50 at [batch, 512, 512, 3] and of ssd_resnet34 at
+[batch, 300, 300, 3] and [batch, 1200, 1200, 3] (MLPerf's SSD-ResNet34
+input, 45,384 anchors an image), bf16 compute on f32 params, and prints one
+JSON line for each: wall time, device time summed over kernels, the
+device's busy share of the wall, the launch count, and device time grouped
+by kind (the NMS and ROIAlign kernels, convolutions, matmuls, the rest) with
+the top kernels by name.  Needs a CUDA card; weights are random from seed 0.
 """
 
 from __future__ import annotations
@@ -64,15 +65,18 @@ def main(argv=None) -> int:
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
-    for M, name in ((MR, "maskrcnn_resnet50"), (SD, "ssd_resnet34")):
-        cfg = M.config(name)
+    for M, name, overrides in ((MR, "maskrcnn_resnet50", {}),
+                               (SD, "ssd_resnet34", {}),
+                               (SD, "ssd_resnet34", {"image_size": 1200})):
+        cfg = M.config(name, **overrides)
         gen = torch.Generator(device="cuda").manual_seed(0)
         params = M.init_params(gen, cfg, "cuda")
         S = cfg.image_size
         images = torch.randn((args.batch, S, S, 3), generator=gen,
                              device="cuda")
         profile(lambda: M.detect(params, images, cfg, device="cuda"),
-                f"detect_{name}", kind=_kind, batch=args.batch,
+                f"detect_{name}_{cfg.image_size}", kind=_kind,
+                batch=args.batch,
                 image_size=S)
         del params
         torch.cuda.empty_cache()

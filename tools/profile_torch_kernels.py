@@ -5,15 +5,16 @@ profiler's kernel durations.
     python3 tools/profile_torch_kernels.py [--iters 20]
 
 At the main shapes of `chip_smoke.py` -- the forward kernel (B1) at
-`forward_b4`, the dq (B2) and dk/dv (B3) kernels at `train_b8`, ROIAlign
-(B5) at Mask R-CNN's 7x7 and 14x14 poolings (`maskrcnn_7`,
-`maskrcnn_14`) -- times
+`forward_b4`, the dq (B2) and dk/dv (B3) kernels at `train_b8`, NMS (B4)
+at the detect shapes `ssd_b8`, `maskrcnn_b8` and `ssd1200_b8` and at
+`all_zero_ssd1200`, ROIAlign (B5) at Mask R-CNN's 7x7 and 14x14 poolings
+(`maskrcnn_7`, `maskrcnn_14`) -- times
 `iters` back-to-back launches of each wrapper with CUDA events, as
 `chip_smoke.time_ms` does (event to event, so host gaps between launches
 count), and again under torch.profiler, whose kernel durations are the
 device's alone.  Prints one JSON line per kernel: both means, their ratio,
 and the host's time to enqueue one launch (wrapper, checks, allocation,
-ctypes call).  Needs a CUDA card; inputs random from seed 0.
+ctypes call).  Needs a CUDA card; inputs random from seed 0 (NMS: each case's own seed).
 """
 
 from __future__ import annotations
@@ -104,6 +105,14 @@ def main(argv=None) -> int:
         FA._launch_dq(qb, kb, vb, do, lse, delta, cb.causal, sb))))
     runs.append(("flash_bwd_dkv", "flash_bwd_dkv_kernel", cb, lambda: (
         FA._launch_dkv(qb, kb, vb, do, lse, delta, cb.causal, sb))))
+    nms_cases = {c.name: c for c in cs.NMS_CASES}
+    for name in cs.NMS_DETECT_SHAPES + ("all_zero_ssd1200",):
+        nc = nms_cases[name]
+        boxes, scores = cs.make_nms_inputs(nc, "cuda")
+        kw = {"iou_threshold": nc.iou_threshold, "max_output": nc.K}
+        runs.append(("nms", "nms_kernel", nc,
+                     lambda b=boxes, s=scores, kw=kw: D.nms_batched(
+                         b, s, **kw)))
     for rc in cs.ROI_CASES[:2]:
         feats, rois = cs.make_roi_inputs(rc, gen, "cuda")
         kw = {"pooled_size": rc.P, "sampling_ratio": rc.sampling,
