@@ -21,6 +21,19 @@ run with a non-zero exit:
   serve    the inference path, part 2: `tik-serve`'s backend at tpu_1b
            width answering /v1/generate; greedy answers equal a direct
            `generate`
+  engine   `tik-serve --engine`: the continuous-batching paged decode
+           engine at tpu_1b width (8 slots, 1,024 tokens a request, blocks
+           of 16, bf16) behind ServeServer, 16 concurrent HTTP clients
+           (prompts of 32-700 tokens, half behind one shared 256-token
+           prefix, one stopping at an EOS), every answer held by the
+           tie-aware greedy check and every decode step's logits against
+           a teacher-forced `forward_step`; prefix hits, prefill chunks,
+           413, cancel, a free pool after; then an oversubscribed engine
+           that must preempt, and two engines with a planted fault (block
+           tables or lengths rolled one lane on) that the logits check
+           must catch in every lane.  Tokens/s,
+           TTFT/TPOT p50/p95 from the request ledger, mean decode-step ms
+           with 8 lanes, peak memory; no B1-B5 launch on this path
   forward  the inference path, part 1: tpu_1b `forward` at B=4, S=2048 in
            bf16, held against the same forward on the reference attention
   train    the training path: `Trainer.fit` on tpu_1b at full width and
@@ -51,8 +64,8 @@ run with a non-zero exit:
            Mask R-CNN's map pooled on ROIAlign's vector route
 
 Launch counts are zeroed just before each path (forward then serve; the
-measured train steps; the measured detect calls of each model) and read
-just after it.  The last lines are the
+engine; the measured train steps; the measured detect calls of each model)
+and read just after it.  The last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
 """
@@ -519,6 +532,440 @@ def phase_serve(model: str = "tpu_1b", device: str = "cuda") -> dict:
         server.stop()
     emit("serve", **out)
     del backend, params
+    return out
+
+
+# ------------------------------------------------------------------ engine --
+
+# Tie-aware greedy: each token the engine emits must have a logit within
+# ENGINE_TIE_GAP of the largest at its position, by one teacher-forced
+# `forward_step` over the prompt and the emitted tokens.  cuBLAS picks its
+# kernels by shape, so the engine's B=8 decode and bucketed prefill need not
+# round like `generate` at B=1, and a near tie may go either way; a lane that
+# read another slot's KV shows as gaps of order 1 and more.
+ENGINE_TIE_GAP = 0.1
+# The logits check: every decode step's logits, as the engine computed them,
+# within ENGINE_LOGITS_MAX_ABS of the teacher-forced ones at that position.
+# At random weights the top logits crowd together, so a token that a wrong
+# context chose may still sit within ENGINE_TIE_GAP of the top; this check
+# holds every entry of every row.  On the H100 at tpu_1b the spread was
+# 0.062 (wave and oversubscribed run), while a planted fault's weakest lane
+# differed by 0.46 (lengths rolled; its tie gap only 0.17) and 3.6 (tables
+# rolled): the limit sits 2.4x above the one and 3x below the other.
+ENGINE_LOGITS_MAX_ABS = 0.15
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineLoad:
+    """The engine phase's configuration and traffic.  Request i asks for a
+    prompt of prompt_lens[i % 4] tokens of its own; the even-numbered ones
+    open with one shared prefix_len-token prefix first (a system prompt,
+    cached by the warm-up request before the wave); requests with
+    i % 4 == 1 ask for short_new tokens, the others for new_tokens."""
+    slots: int = 8
+    max_len: int = 1024
+    block_size: int = 16
+    prompt_lens: tuple = (32, 128, 384, 700)
+    prefix_len: int = 256
+    clients: int = 16
+    new_tokens: int = 64
+    short_new: int = 16
+    oversize_prompt: int = 1100
+    # the oversubscribed run: 3 requests' worth of blocks for `slots`
+    # requests whose prompts alone take every block
+    over_prompt: int = 384
+    over_new: int = 64
+    min_full_steps: int = 20
+
+
+ENGINE_LOAD = EngineLoad()
+# the CPU rehearsal at `tiny`: the same traffic at a quarter of the lengths
+REHEARSAL_LOAD = EngineLoad(
+    max_len=256, block_size=8, prompt_lens=(8, 32, 96, 175), prefix_len=64,
+    new_tokens=16, short_new=6, oversize_prompt=300, over_prompt=96,
+    over_new=16, min_full_steps=1)
+
+
+def teacher_logits(params, cfg, prompt, tokens, device):
+    """[len(tokens), vocab] f32: row k is the logits that choose tokens[k],
+    by one teacher-forced forward over prompt + tokens."""
+    import torch
+
+    from cloudtik_tpu_torch.models import generate as G
+
+    seq = list(prompt) + list(tokens[:-1])
+    cache = G.init_cache(cfg, 1, len(seq), device)
+    with torch.no_grad():
+        logits, _ = G.forward_step(
+            params, torch.tensor([seq], device=device), cache, cfg)
+    return logits[0, len(prompt) - 1:]
+
+
+def tie_gaps(params, cfg, prompt, tokens, device, teacher=None) -> list:
+    """For each emitted token, the largest logit at its position less the
+    token's own, teacher-forced."""
+    import torch
+
+    pos = teacher_logits(params, cfg, prompt, tokens, device) \
+        if teacher is None else teacher
+    chosen = pos.gather(-1, torch.tensor(tokens, device=device)[:, None])
+    return (pos.max(-1).values - chosen[:, 0]).tolist()
+
+
+class StepLogits:
+    """Records, while entered, the logits of every decode step of `engine`
+    as its `decode_step` computed them: `rows(request_id)[k]` is the row
+    that chose that request's tokens[k].  `fault` plants a fault for the
+    checks' power run: "tables" or "lengths" hands the step that tensor
+    rolled one lane on, as a lane reading another slot's KV or offset
+    would."""
+
+    FAULTS = ("tables", "lengths")
+
+    def __init__(self, engine, fault: str = None):
+        require(fault in (None,) + self.FAULTS, f"unknown fault {fault}")
+        self.engine, self.fault, self._steps = engine, fault, []
+
+    def __enter__(self):
+        from cloudtik_tpu_torch.serve import engine as E
+
+        self._module, self._orig = E, E.decode_logits
+
+        def decode_logits(params, tokens, kp, vp, tables, lengths, active,
+                          cfg, block_size):
+            if kp is not self.engine._kp:
+                return self._orig(params, tokens, kp, vp, tables, lengths,
+                                  active, cfg, block_size)
+            if self.fault == "tables":
+                tables = tables.roll(1, 0)
+            elif self.fault == "lengths":
+                lengths = lengths.roll(1, 0)
+            out = self._orig(params, tokens, kp, vp, tables, lengths,
+                             active, cfg, block_size)
+            lanes = [(b, s.request.request_id, len(s.request.tokens))
+                     for b, s in enumerate(self.engine._slots)
+                     if s is not None and s.decoding]
+            self._steps.append((out.clone(), lanes))
+            return out
+
+        E.decode_logits = decode_logits
+        return self
+
+    def __exit__(self, *exc):
+        self._module.decode_logits = self._orig
+
+    def rows(self, request_id) -> dict:
+        # a preempted request decodes a position again: the last one counts
+        return {k: logits[b] for logits, lanes in self._steps
+                for b, rid, k in lanes if rid == request_id}
+
+
+def logits_diff(teacher, rows: dict) -> float:
+    """The largest |engine - teacher| over every recorded step's logits."""
+    require(rows, "no decode step was recorded")
+    return max(float((row - teacher[k]).abs().max())
+               for k, row in rows.items())
+
+
+def greedy_margins(params, cfg, prompt, tokens, device) -> list:
+    """Top-1 less top-2 logit at each of `tokens`' positions (the direct
+    greedy path's own tokens), teacher-forced."""
+    import torch
+
+    top = torch.topk(teacher_logits(params, cfg, prompt, tokens, device),
+                     2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def check_tie_aware(name: str, gaps: list) -> float:
+    worst = max(gaps)
+    require(worst <= ENGINE_TIE_GAP,
+            f"{name}: an emitted token's logit is {worst} below the "
+            f"largest at its position (limit {ENGINE_TIE_GAP})")
+    return worst
+
+
+def check_answer(name, params, cfg, prompt, tokens, recorder, request_id,
+                 device) -> tuple:
+    """The tie-aware greedy check and the logits check of one answer;
+    returns (largest tie gap, largest logits difference)."""
+    teacher = teacher_logits(params, cfg, prompt, tokens, device)
+    gap = check_tie_aware(name, tie_gaps(params, cfg, prompt, tokens,
+                                         device, teacher))
+    diff = logits_diff(teacher, recorder.rows(request_id))
+    require(diff <= ENGINE_LOGITS_MAX_ABS,
+            f"{name}: a decode step's logits are {diff} from the "
+            f"teacher-forced ones (limit {ENGINE_LOGITS_MAX_ABS})")
+    return gap, diff
+
+
+def planted_fault(params, cfg, load, prompts, fault: str,
+                  device) -> dict:
+    """The checks' power at the phase's own shape: `load.slots` requests of
+    `prompts` through an engine whose decode step gets its block tables or
+    lengths rolled one lane on (`fault` None: neither).  Returns, over the
+    lanes, the smallest of each lane's largest tie gap and logits
+    difference, and how many lanes each check flags."""
+    from cloudtik_tpu_torch.serve.engine import (
+        DecodeEngine, EngineConfig, Request)
+
+    eng = DecodeEngine(params, cfg, EngineConfig(
+        slots=load.slots, max_len=load.max_len,
+        block_size=load.block_size), device=device)
+    reqs = [eng.submit(Request(p, max_new_tokens=load.short_new))
+            for p in prompts[:load.slots]]
+    with StepLogits(eng, fault) as rec:
+        eng.start()
+        try:
+            outs = [r.wait(timeout=600) for r in reqs]
+        finally:
+            eng.stop()
+    gaps, diffs = [], []
+    for r, toks in zip(reqs, outs):
+        teacher = teacher_logits(params, cfg, r.prompt, toks, device)
+        gaps.append(max(tie_gaps(params, cfg, r.prompt, toks, device,
+                                 teacher)))
+        diffs.append(logits_diff(teacher, rec.rows(r.request_id)))
+    return {"fault": fault, "lanes": len(reqs),
+            "tie_gap_min_lane": min(gaps),
+            "lanes_flagged_by_tie_gap": sum(g > ENGINE_TIE_GAP
+                                            for g in gaps),
+            "logits_diff_min_lane": min(diffs),
+            "lanes_flagged_by_logits": sum(d > ENGINE_LOGITS_MAX_ABS
+                                           for d in diffs)}
+
+
+def _percentiles(values: list) -> dict:
+    import numpy as np
+
+    return {"p50": float(np.percentile(values, 50)),
+            "p95": float(np.percentile(values, 95))}
+
+
+def phase_engine(model: str = "tpu_1b", device: str = "cuda",
+                 load: EngineLoad = ENGINE_LOAD,
+                 nvidia_smi: str = None) -> dict:
+    """`tik-serve --engine`'s backend at `model` width behind ServeServer:
+    one warm-up request, then `load.clients` concurrent HTTP clients; the
+    413 and cancel paths; then an oversubscribed direct DecodeEngine that
+    must preempt.  Every result passes the tie-aware greedy check."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cloudtik_tpu_torch import telemetry
+    from cloudtik_tpu_torch.models import generate as G
+    from cloudtik_tpu_torch.serve import kvcache, reqlog
+    from cloudtik_tpu_torch.serve.engine import (
+        DecodeEngine, EngineConfig, Request, RequestCancelled)
+    from cloudtik_tpu_torch.serve.server import ServeServer, engine_backend
+    from cloudtik_tpu_torch.telemetry import instruments as ti
+
+    on_card = device == "cuda"
+    L = load
+    telemetry.enable()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    backend = engine_backend(model, slots=L.slots, max_len=L.max_len,
+                             block_size=L.block_size, device=device)
+    engine, cfg, params = backend.engine, backend.cfg, backend.params
+    chunk_max = engine._chunk_max
+    V = cfg.vocab_size
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, V, L.prefix_len).tolist()
+    prompts, news = [], []
+    for i in range(L.clients):
+        own = rng.integers(0, V, L.prompt_lens[i % 4]).tolist()
+        prompts.append(prefix + own if i % 2 == 0 else own)
+        news.append(L.short_new if i % 4 == 1 else L.new_tokens)
+    # the direct greedy answers, and the EOS request: the one whose first
+    # five direct tokens lead their runners-up by the most, so its stop
+    # position does not hang on a near tie
+    direct = [G.generate(params, torch.tensor([p], device=device), cfg,
+                         max_new_tokens=n)[0].tolist()
+              for p, n in zip(prompts, news)]
+    margins = [min(greedy_margins(params, cfg, p, d[:5], device))
+               if d[4] not in d[:4] else -1.0
+               for p, d in zip(prompts, direct)]
+    eos_i = int(np.argmax(margins))
+    eos = direct[eos_i][4]
+
+    server = ServeServer([backend], host="127.0.0.1", port=0)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}/v1/generate"
+    out = {"model": model, "dtype": str(cfg.dtype).replace("torch.", ""),
+           "nvidia_smi": nvidia_smi, "slots": L.slots,
+           "max_len": L.max_len, "block_size": L.block_size,
+           "pool_blocks": engine.pool.num_blocks,
+           "pool_gib": 2 * engine._kp.numel() * engine._kp.element_size()
+           / 2 ** 30}
+    try:
+        status, _ = _http(url, {"tokens": [prefix + prompts[1][:8]],
+                                "max_new_tokens": 2})
+        require(status == 200, f"engine warm-up status {status}")
+        hits0 = ti.SERVE_PREFIX_HITS.value()
+        saved0 = ti.SERVE_PREFIX_TOKENS_SAVED.value()
+        telemetry.SPAN_RING.clear()
+        results = [None] * L.clients
+
+        def client(i):
+            payload = {"tokens": [prompts[i]], "max_new_tokens": news[i]}
+            if i == eos_i:
+                payload["eos_id"] = eos
+            results[i] = _http(url, payload)
+
+        with tempfile.TemporaryDirectory() as tmp, \
+                StepLogits(engine) as wave_rec:
+            path = f"{tmp}/requests.jsonl"
+            reqlog.install(path)
+            try:
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(L.clients)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                wall = time.perf_counter() - t0
+            finally:
+                reqlog.uninstall()
+            records = {r["request_id"]: r
+                       for r in reqlog.read_requests(path)}
+        steps = [s["dur"] * 1e3 for s in telemetry.spans()
+                 if s["name"] == "serve.decode_step"
+                 and s["attrs"].get("active") == L.slots]
+
+        require(not any(t.is_alive() for t in threads), "a client hung")
+        toks, gaps, diffs, exact = [], [], [], 0
+        for i, (status, body) in enumerate(results):
+            require(status == 200, f"request {i}: status {status} {body}")
+            got = body["tokens"][0]
+            want = direct[i][:5] if i == eos_i else direct[i]
+            if i == eos_i:
+                require(got[-1] == eos and eos not in got[:-1],
+                        f"request {i} did not stop at its EOS: {got}")
+            else:
+                require(len(got) == news[i],
+                        f"request {i}: {len(got)} tokens, asked {news[i]}")
+            require(all(0 <= t < V for t in got), f"request {i}: ids")
+            gap, diff = check_answer(f"request {i}", params, cfg,
+                                     prompts[i], got, wave_rec,
+                                     body["request_id"], device)
+            gaps.append(gap)
+            diffs.append(diff)
+            exact += got == want
+            toks.append(got)
+        recs = [records[body["request_id"]] for _, body in results]
+        for i, rec in enumerate(recs):
+            if i % 4 == 3:
+                want_chunks = -(-len(prompts[i]) // chunk_max)
+                require(rec["prefill_chunks"] == want_chunks,
+                        f"request {i}: {rec['prefill_chunks']} prefill "
+                        f"chunks, expected {want_chunks}")
+        hits = ti.SERVE_PREFIX_HITS.value() - hits0
+        saved = ti.SERVE_PREFIX_TOKENS_SAVED.value() - saved0
+        n_prefixed = (L.clients + 1) // 2
+        require(hits >= n_prefixed - 1
+                and saved >= (n_prefixed - 1) * L.prefix_len,
+                f"prefix cache: {hits} hits, {saved} tokens saved")
+        require(len(steps) >= L.min_full_steps,
+                f"only {len(steps)} decode steps with {L.slots} lanes")
+
+        status, body = _http(url, {"tokens": [[1] * L.oversize_prompt],
+                                   "max_new_tokens": 1})
+        require(status == 413 and body.get("reason") == "capacity",
+                f"oversize prompt: {status} {body}")
+        cancelled = engine.submit(Request(
+            prompts[1], max_new_tokens=L.max_len - len(prompts[1]) - 1))
+        deadline = time.monotonic() + 300
+        while len(cancelled.tokens) < 2:
+            require(time.monotonic() < deadline
+                    and not cancelled._done.is_set(),
+                    "the request to cancel never decoded")
+            time.sleep(0.001)
+        cancelled.cancel()
+        try:
+            cancelled.wait(timeout=300)
+            require(False, "the cancelled request finished normally")
+        except RequestCancelled:
+            pass
+        while engine.pool.used() and time.monotonic() < deadline:
+            time.sleep(0.001)
+        require(engine.pool.used() == 0
+                and engine.pool.available() == engine.pool.usable_blocks,
+                f"pool after the wave: {engine.pool.used()} used, "
+                f"{engine.pool.available()} available")
+        out["wave"] = {
+            "clients": L.clients, "wall_s": wall,
+            "generated_tokens": sum(map(len, toks)),
+            "tokens_per_s": sum(map(len, toks)) / wall,
+            "ttft_s": _percentiles([r["ttft_s"] for r in recs]),
+            "tpot_s": _percentiles([r["tpot_s"] for r in recs
+                                    if r["tpot_s"] is not None]),
+            "decode_step_ms_full": {
+                "lanes": L.slots, "steps": len(steps),
+                "mean": sum(steps) / len(steps)},
+            "prefill_chunks": [r["prefill_chunks"] for r in recs],
+            "prefix_hits": hits, "prefix_tokens_saved": saved,
+            "eos_request": eos_i, "eos_margin": margins[eos_i],
+            "tie_gap_max": max(gaps), "tie_gap_limit": ENGINE_TIE_GAP,
+            "logits_diff_max": max(diffs),
+            "logits_diff_limit": ENGINE_LOGITS_MAX_ABS,
+            "equal_direct_generate": exact,
+            "oversize": 413, "cancelled": True}
+    finally:
+        server.stop()
+        engine.stop()
+
+    # the oversubscribed run: every prompt's blocks fill the pool, so the
+    # first decode growth preempts the newest request
+    over = DecodeEngine(params, cfg, EngineConfig(
+        slots=L.slots, max_len=L.max_len, block_size=L.block_size,
+        num_blocks=1 + 3 * kvcache.blocks_for(L.max_len, L.block_size)),
+        device=device)
+    reqs = [over.submit(Request(rng.integers(0, V, L.over_prompt).tolist(),
+                                max_new_tokens=L.over_new))
+            for _ in range(L.slots)]
+    t0 = time.perf_counter()
+    with StepLogits(over) as over_rec:
+        over.start()
+        try:
+            outs = [r.wait(timeout=600) for r in reqs]
+            wall = time.perf_counter() - t0
+        finally:
+            over.stop()
+    gaps, diffs = zip(*[
+        check_answer(f"oversubscribed {i}", params, cfg, r.prompt, toks,
+                     over_rec, r.request_id, device)
+        for i, (r, toks) in enumerate(zip(reqs, outs))])
+    preemptions = sum(r.preemptions for r in reqs)
+    require(preemptions >= 1, "the oversubscribed run never preempted")
+    require(all(len(r.tokens) == L.over_new for r in reqs),
+            "oversubscribed: token counts")
+    require(over.pool.used() == 0
+            and over.pool.available() == over.pool.usable_blocks,
+            "oversubscribed: pool not free after stop")
+    out["oversubscribed"] = {
+        "requests": L.slots, "prompt": L.over_prompt, "new": L.over_new,
+        "pool_blocks": over.pool.num_blocks, "preemptions": preemptions,
+        "wall_s": wall, "tie_gap_max": max(gaps),
+        "logits_diff_max": max(diffs)}
+    # the checks' power: a fault planted in the decode step must be caught
+    # by the logits check in every lane
+    out["planted"] = [planted_fault(params, cfg, L, prompts, fault, device)
+                      for fault in StepLogits.FAULTS]
+    for p in out["planted"]:
+        require(p["lanes_flagged_by_logits"] == p["lanes"],
+                f"the logits check missed a planted fault: {p}")
+    out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if on_card else None)
+    emit("engine", **out)
+    del backend, params, engine, over
+    if on_card:
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1306,6 +1753,16 @@ def main() -> int:
     phase_forward(cfg, params, tokens, logits, forward_launches)
     del params, logits
     torch.cuda.empty_cache()
+
+    # ---- the engine path: counts zeroed just before, read just after ----
+    # its attention is the reference's einsums (no Pallas kernel there)
+    _zero_launch_counts()
+    _zero_det_launch_counts()
+    phase_engine(nvidia_smi=smi)
+    engine_launches = {**_launch_counts(), **_det_launch_counts()}
+    emit("engine_path", launches=engine_launches)
+    require(not any(engine_launches.values()),
+            f"the engine path launched {engine_launches}, expected none")
 
     # ---- the training path (counts zeroed and read inside) ----
     train = phase_train()

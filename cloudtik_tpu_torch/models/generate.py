@@ -13,8 +13,12 @@ Counterpart of the static-cache path of `cloudtik_tpu/models/generate.py`:
   `torch.multinomial` with the caller's `torch.Generator` (it cannot
   reproduce jax.random draws; greedy output is bit-comparable).
 
-Not here yet: the LoRA branch and the paged helpers, which come with the
-serving-engine slice, and MoE layers.
+The paged helpers (`init_block_pool`, `gather_paged_cache`,
+`paged_prefill_chunk`, `copy_block`) are the device half of the serving
+engine's block pool (serve/engine.py, serve/kvcache.py); they update the
+pools in place.  Not here yet: the LoRA branch, `paged_verify`,
+`draft_propose` and the block-plane gather/scatter of KV migration (ROADMAP
+A2), and MoE layers.
 """
 
 from __future__ import annotations
@@ -117,6 +121,85 @@ def _sample(logits: torch.Tensor, generator: Optional[torch.Generator],
                              logits)
     probs = F.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator).squeeze(-1)
+
+
+# -- paged KV cache -----------------------------------------------------------
+# The serving engine keeps one pool of fixed-size blocks per layer and a
+# block table per request (serve/kvcache.py holds the host-side
+# bookkeeping).  These helpers are the device half: gather a table into the
+# contiguous layout the attention math expects, run the same forward_step
+# against it, scatter the written blocks back.  Unused table entries point
+# at the reserved null block 0, so every gather/scatter index is valid and
+# the garbage it moves is masked by the causal `t <= position` test.
+
+
+def init_block_pool(cfg: TransformerConfig, num_blocks: int,
+                    block_size: int, device: DeviceLike = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V pools [L, num_blocks, block_size, Hkv, Dh], zeroed.  Zeros, not
+    `torch.empty`: unallocated table slots gather block 0, whose softmax
+    weight is exactly 0, but 0 x NaN is NaN in `probs @ V`, so every block
+    must hold finite values."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            torch.zeros(shape, dtype=cfg.dtype, device=dev))
+
+
+def gather_paged_cache(kp: torch.Tensor, vp: torch.Tensor,
+                       table: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One request's logical KV sequence, gathered contiguous.
+
+    kp/vp [L, N, bs, Hkv, Dh], table [M] int -> k/v [L, 1, M*bs, Hkv, Dh]
+    where logical position p lives at (table[p // bs], p % bs)."""
+    L, _N, bs, H, D = kp.shape
+    M = table.shape[0]
+    return (kp[:, table].reshape(L, 1, M * bs, H, D),
+            vp[:, table].reshape(L, 1, M * bs, H, D))
+
+
+def paged_prefill_chunk(params: Params, kp: torch.Tensor, vp: torch.Tensor,
+                        table: torch.Tensor, tokens: torch.Tensor,
+                        start: int, cfg: TransformerConfig
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run one prompt chunk against a paged pool (chunked prefill).
+
+    tokens [1, C] at absolute positions [start, start+C); earlier positions
+    (a previous chunk, or prefix-cache blocks reused from another request)
+    are read straight out of the pool, which makes chunked prefill and
+    prefix reuse the same code path.  Returns (kp, vp, logits [1, C,
+    vocab]), the pools updated in place.  The scatter writes back every
+    gathered block: blocks outside the chunk's range carry their original
+    values, and duplicate null-block entries race only over garbage.
+
+    The gathered plane carries C tokens of zero scratch beyond the table's
+    capacity: C is the PADDED chunk width, so start+C may overrun the table
+    (a bucket wider than the remaining capacity), and `_layer_step` refuses
+    a write past its cache.  Only padding tokens can sit past the capacity;
+    they land in the scratch, which the write-back drops.
+    """
+    L, _N, bs, H, D = kp.shape
+    M = table.shape[0]
+    C = tokens.shape[1]
+    ck, cv = gather_paged_cache(kp, vp, table)
+    scratch = ck.new_zeros((L, 1, C, H, D))
+    cache = {"k": torch.cat([ck, scratch], dim=2),
+             "v": torch.cat([cv, scratch], dim=2), "length": int(start)}
+    logits, cache = forward_step(params, tokens, cache, cfg)
+    kp[:, table] = cache["k"][:, 0, :M * bs].reshape(L, M, bs, H, D)
+    vp[:, table] = cache["v"][:, 0, :M * bs].reshape(L, M, bs, H, D)
+    return kp, vp, logits
+
+
+def copy_block(kp: torch.Tensor, vp: torch.Tensor, src: int, dst: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Device-side block copy, in place (the copy-on-write half: the pool
+    decides WHEN via needs_copy, this moves the bytes)."""
+    kp[:, dst] = kp[:, src]
+    vp[:, dst] = vp[:, src]
+    return kp, vp
 
 
 @torch.no_grad()

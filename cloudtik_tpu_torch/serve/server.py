@@ -1,19 +1,22 @@
-"""Model-serving HTTP server (`tik-serve`), the non-engine path, on PyTorch.
+"""Model-serving HTTP server (`tik-serve`), on PyTorch.
 
 Counterpart of `cloudtik_tpu/serve/server.py`: one stdlib-threaded HTTP
-server in front of the port's `generate`:
+server in front of the port's `generate` (one request at a time) or, with
+`--engine`, of the continuous-batching `DecodeEngine` (serve/engine.py):
 
   POST /v1/generate  {"tokens": [[...]], "max_new_tokens": 8, ...}
   GET  /healthz                                       liveness
   GET  /v1/models                                     what's loaded
 
-`BackendError`, `ModelBackend` and `ServeServer` (with its graceful drain)
-are this package's own copies of the JAX package's, which this package
-does not import.  Not here yet: the continuous-batching engine
-(`--engine`), the GBDT backend, replica registration, the request ledger
-and trace-context adoption.
+`BackendError`, `ModelBackend` and `ServeServer` (with its graceful drain
+and its adoption of a caller's `traceparent` header) are this package's
+own copies of the JAX package's, which this package does not import.  The
+daemon installs the request ledger (serve/reqlog.py) at boot.  Not here
+yet: the engine's speculative, disaggregated and multi-tenant LoRA modes
+(ROADMAP A2), the GBDT backend and replica registration.
 
     python -m cloudtik_tpu_torch.serve.server --model tpu_1b
+    python -m cloudtik_tpu_torch.serve.server --engine --model tpu_1b
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Optional
+
+from cloudtik_tpu_torch import telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -108,6 +113,114 @@ def transformer_backend(model: str = "tiny",
     return backend
 
 
+def engine_backend(model: str = "tiny",
+                   checkpoint_dir: Optional[str] = None,
+                   slots: int = 4, max_len: int = 512,
+                   block_size: int = 16,
+                   num_blocks: Optional[int] = None,
+                   spec_model: Optional[str] = None,
+                   spec_checkpoint_dir: Optional[str] = None,
+                   disagg: bool = False,
+                   adapters_dir: Optional[str] = None,
+                   admission: str = "fifo",
+                   tenant_weights: Optional[Dict[str, float]] = None,
+                   max_queue_depth: Optional[int] = None,
+                   device=None, params=None,
+                   **config_overrides) -> ModelBackend:
+    """Continuous-batching generation endpoint (serve/engine.py).
+
+    Each HTTP request submits ONE prompt to the shared DecodeEngine and
+    blocks on its result; the ThreadingHTTPServer's concurrency is what
+    fills the engine's decode slots.  ``"tenant"`` tags a request for
+    per-tenant metrics and (with ``admission="wfq"`` + `tenant_weights`)
+    weighted-fair admission; `max_queue_depth` bounds the admission
+    queue (overflow is a 429 + Retry-After).  `params` and `device` as in
+    `transformer_backend`.  The speculative (`spec_model`), disaggregated
+    (`disagg`) and LoRA (`adapters_dir`) modes are not ported yet and
+    raise NotImplementedError; their tuning arguments come with them.
+    The backend keeps `engine` (for stop()), `params` and `cfg` as
+    attributes."""
+    import torch
+
+    from cloudtik_tpu_torch import convert
+    from cloudtik_tpu_torch.device import resolve_device
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.serve.engine import (
+        DecodeEngine, EngineConfig, Request, RequestRejected)
+
+    for flag, value in (("checkpoint_dir", checkpoint_dir),
+                        ("spec_model", spec_model),
+                        ("spec_checkpoint_dir", spec_checkpoint_dir),
+                        ("disagg", disagg),
+                        ("adapters_dir", adapters_dir)):
+        if value:
+            raise NotImplementedError(
+                f"engine_backend({flag}=...) is not supported by the "
+                "PyTorch engine yet (ROADMAP A2; checkpoints come with "
+                "the checkpoint slice)")
+    dev = resolve_device(device)
+    cfg = T.config(model, **config_overrides)
+    if params is None:
+        params = T.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    else:
+        params = convert.params_from_jax(params, dev)
+    engine = DecodeEngine(
+        params, cfg, EngineConfig(
+            slots=slots, max_len=max_len, block_size=block_size,
+            num_blocks=num_blocks, admission=admission,
+            tenant_weights=tenant_weights,
+            max_queue_depth=max_queue_depth),
+        device=dev)
+    engine.start()
+
+    def generate(payload: Dict[str, Any]):
+        tokens = payload["tokens"]
+        prompt = tokens[0] if tokens and isinstance(tokens[0], list) \
+            else tokens
+        req = engine.submit(Request(
+            [int(t) for t in prompt],
+            max_new_tokens=int(payload.get("max_new_tokens", 16)),
+            temperature=float(payload.get("temperature", 0.0)),
+            eos_id=(int(payload["eos_id"])
+                    if "eos_id" in payload else None),
+            tenant=str(payload.get("tenant", "default")),
+            adapter_id=payload.get("adapter")))
+        # the request's identity goes back in response headers, on the
+        # error path too: the client joins its call to the request
+        # ledger (by request_id) and to the trace (by the traceparent)
+        headers = {"x-tik-request-id": str(req.request_id)}
+        if req.traceparent:
+            headers["x-tik-traceparent"] = req.traceparent
+        try:
+            tokens = req.wait(timeout=600)
+        except RequestRejected as e:
+            # submit-time refusal: 413 for a request the pool can never
+            # hold, 429 + Retry-After for a full admission queue, 400
+            # for a malformed one; the machine-readable reason rides
+            # the body
+            if e.reason == "capacity":
+                status = 413
+            elif e.reason == "queue_full":
+                status = 429
+                headers["Retry-After"] = "1"
+            else:
+                status = 400
+            raise BackendError(str(e), headers, status=status,
+                               reason=e.reason) from e
+        except Exception as e:
+            raise BackendError(str(e), headers) from e
+        return ({"tokens": [tokens],
+                 "request_id": req.request_id}, headers)
+
+    backend = ModelBackend(f"transformer-engine:{model}",
+                           {"generate": generate})
+    backend.engine = engine          # exposes stop() for clean shutdown
+    backend.params = params
+    backend.cfg = cfg
+    return backend
+
+
 class ServeServer:
     """Threaded HTTP server over one or more backends.
 
@@ -166,7 +279,11 @@ class ServeServer:
                     length = int(self.headers.get("Content-Length", 0))
                     payload = json.loads(
                         self.rfile.read(length) or b"{}")
-                    result = fn(payload)
+                    # adopt the caller's W3C traceparent header, so the
+                    # served request (engine spans included) is one trace
+                    with telemetry.trace_context(
+                            self.headers.get("traceparent")):
+                        result = fn(payload)
                     # backends may return (payload, headers)
                     if isinstance(result, tuple):
                         obj, extra_headers = result
@@ -235,6 +352,21 @@ class ServeServer:
         self._server.server_close()
 
 
+def drain_and_stop(server: ServeServer, backends,
+                   grace_s: float = 30.0) -> bool:
+    """Graceful shutdown: refuse new submits (503 + Retry-After), let
+    in-flight requests finish for up to `grace_s`, then stop each
+    backend's engine and the server.  Returns whether the server emptied
+    in time."""
+    drained = server.drain(grace_s=grace_s)
+    for backend in backends:
+        engine = getattr(backend, "engine", None)
+        if engine is not None:
+            engine.stop()
+    server.stop()
+    return drained
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -245,6 +377,27 @@ def main(argv=None) -> int:
                    help="not supported yet (checkpoint slice)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
+    p.add_argument("--engine", action="store_true",
+                   help="continuous-batching decode engine (concurrent "
+                        "requests share decode steps)")
+    p.add_argument("--slots", type=int, default=4)
+    p.add_argument("--max-len", type=int, default=512)
+    p.add_argument("--block-size", type=int, default=16,
+                   help="KV cache page size in tokens (engine mode)")
+    p.add_argument("--num-blocks", type=int, default=None,
+                   help="KV pool size in blocks (engine mode; default "
+                        "fully provisions slots x max_len)")
+    p.add_argument("--admission", choices=["fifo", "wfq"],
+                   default="fifo",
+                   help="admission policy: fifo (arrival order) or "
+                        "wfq — weighted-fair across tenants")
+    p.add_argument("--tenant-weight", action="append", default=[],
+                   metavar="TENANT=WEIGHT",
+                   help="wfq share weight for a tenant (repeatable; "
+                        "unlisted tenants weigh 1.0)")
+    p.add_argument("--max-queue-depth", type=int, default=None,
+                   help="admission-queue bound: submits past this "
+                        "many waiting requests get 429 + Retry-After")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8200)
     p.add_argument("--drain-grace-s", type=float, default=30.0,
@@ -252,26 +405,50 @@ def main(argv=None) -> int:
                         "requests finish before exiting")
     args = p.parse_args(argv)
 
-    backends = [transformer_backend(
-        args.model, checkpoint_dir=args.checkpoint_dir, device=args.device)]
+    if args.engine:
+        tenant_weights = {}
+        for entry in args.tenant_weight:
+            name, _, weight = entry.partition("=")
+            try:
+                tenant_weights[name] = float(weight)
+            except ValueError:
+                p.error(f"--tenant-weight {entry!r}: expected "
+                        "TENANT=WEIGHT with a numeric weight")
+        backends = [engine_backend(
+            args.model, checkpoint_dir=args.checkpoint_dir,
+            slots=args.slots, max_len=args.max_len,
+            block_size=args.block_size, num_blocks=args.num_blocks,
+            admission=args.admission,
+            tenant_weights=tenant_weights or None,
+            max_queue_depth=args.max_queue_depth, device=args.device)]
+    else:
+        backends = [transformer_backend(
+            args.model, checkpoint_dir=args.checkpoint_dir,
+            device=args.device)]
+
+    # daemon boot installs the request ledger (libraries never do); the
+    # engine appends one durable record per finished request
+    from cloudtik_tpu_torch.serve import reqlog
+    try:
+        reqlog.install()
+    except OSError:
+        # serve without a ledger rather than refuse to boot — but say so
+        logger.warning("request ledger not installed", exc_info=True)
+
     server = ServeServer(backends, host=args.host, port=args.port)
     server.start()
     print(f"tik-serve listening on {args.host}:{server.port}", flush=True)
 
     stop_event = threading.Event()
-
-    def _drain_and_exit(signum, frame):
-        # refuse new submits (503 + Retry-After), let in-flight finish
-        server.drain(grace_s=args.drain_grace_s)
-        stop_event.set()
-
     import signal
-    signal.signal(signal.SIGTERM, _drain_and_exit)
+    signal.signal(signal.SIGTERM, lambda signum, frame: stop_event.set())
     try:
         stop_event.wait()
     except KeyboardInterrupt:
         pass
-    server.stop()
+    # graceful drain: refuse new submits (503 + Retry-After), let
+    # in-flight finish, then stop the engine and the server
+    drain_and_stop(server, backends, grace_s=args.drain_grace_s)
     return 0
 
 

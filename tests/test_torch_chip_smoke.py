@@ -1,7 +1,8 @@
-"""`chip_smoke.py` rehearsed on the CPU: its serve, forward, training and
-detection phases run end to end at `tiny` size on the plain kernel
-versions, its kernel_det case list at CPU size, its bound arithmetic is
-pinned, and without a card it fails and prints no result."""
+"""`chip_smoke.py` rehearsed on the CPU: its serve, engine, forward,
+training and detection phases run end to end at `tiny` size on the plain
+kernel versions, its kernel_det case list at CPU size, its bound
+arithmetic and its tie-aware greedy check are pinned, and without a card
+it fails and prints no result."""
 
 import dataclasses
 import shutil
@@ -425,3 +426,88 @@ def test_nms_phase_slots_are_the_kernels():
     # every slot is marked or counted somewhere in the kernel
     for n in slots[:-1]:
         assert re.search(rf"PHASE_(MARK|COUNT)\(kPh{n}\)", src), n
+
+
+def test_engine_phase_rehearsal_takes_no_kernel_on_cpu():
+    before = (FA.LAUNCHES, D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN)
+    out = chip_smoke.phase_engine("tiny", "cpu", chip_smoke.REHEARSAL_LOAD)
+    assert (FA.LAUNCHES, D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN) == before
+    load = chip_smoke.REHEARSAL_LOAD
+    wave = out["wave"]
+    assert wave["clients"] == 16 and wave["oversize"] == 413
+    assert wave["prefix_hits"] >= 7
+    assert wave["prefix_tokens_saved"] >= 7 * load.prefix_len
+    assert wave["tie_gap_max"] <= chip_smoke.ENGINE_TIE_GAP
+    assert wave["logits_diff_max"] <= chip_smoke.ENGINE_LOGITS_MAX_ABS
+    assert [p["fault"] for p in out["planted"]] == ["tables", "lengths"]
+    assert all(p["lanes_flagged_by_logits"] == 8 for p in out["planted"])
+    assert wave["decode_step_ms_full"]["lanes"] == 8
+    assert out["oversubscribed"]["preemptions"] >= 1
+    assert out["pool_blocks"] == 8 * (load.max_len // load.block_size) + 1
+    assert out["peak_mem_gb"] is None
+
+
+def test_engine_load_is_the_engine_phase_traffic_at_tpu_1b():
+    load = chip_smoke.ENGINE_LOAD
+    assert (load.slots, load.max_len, load.block_size) == (8, 1024, 16)
+    assert load.prompt_lens == (32, 128, 384, 700) and load.clients == 16
+    # each 700-token prompt takes 3 chunks of at most 256
+    assert -(-700 // 256) == 3
+    # the oversubscribed prompts alone take every block of its pool
+    assert load.slots * load.over_prompt // load.block_size \
+        == 3 * load.max_len // load.block_size
+    assert load.oversize_prompt > load.max_len
+
+
+def test_tie_aware_check_fails_on_a_lane_swapped_result():
+    """Two requests through one engine: each answer passes against its own
+    prompt and fails against the other's, as a lane that read another
+    slot's KV would."""
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.serve.engine import (
+        DecodeEngine, EngineConfig, Request)
+
+    cfg = T.config("tiny", dtype=torch.float32)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    eng = DecodeEngine(params, cfg, EngineConfig(slots=2, max_len=64),
+                       device="cpu")
+    prompts = [[5, 17, 101, 9, 33], [200, 3, 3, 7]]
+    reqs = [eng.submit(Request(p, max_new_tokens=12)) for p in prompts]
+    eng.start()
+    try:
+        outs = [r.wait(timeout=60) for r in reqs]
+    finally:
+        eng.stop()
+    for prompt, toks in zip(prompts, outs):
+        assert chip_smoke.check_tie_aware(
+            "own", chip_smoke.tie_gaps(params, cfg, prompt, toks,
+                                       "cpu")) == 0.0
+    for prompt, toks in zip(prompts, reversed(outs)):
+        with pytest.raises(SystemExit, match="below the largest"):
+            chip_smoke.check_tie_aware(
+                "swapped", chip_smoke.tie_gaps(params, cfg, prompt, toks,
+                                               "cpu"))
+
+
+@pytest.mark.parametrize("fault", [None, "tables", "lengths"])
+def test_logits_check_flags_a_planted_fault(fault):
+    """Every decode step's logits against the teacher-forced ones: an
+    engine's own answers sit at f32 rounding, and a decode step handed its
+    block tables or lengths rolled one lane on is flagged in every lane."""
+    from cloudtik_tpu_torch.models import transformer as T
+
+    cfg = T.config("tiny", dtype=torch.float32)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    load = chip_smoke.EngineLoad(slots=4, max_len=64, block_size=8,
+                                 short_new=6)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 13, 21, 30)]
+    out = chip_smoke.planted_fault(params, cfg, load, prompts, fault, "cpu")
+    assert out["lanes"] == 4
+    if fault is None:
+        assert out["lanes_flagged_by_logits"] == 0
+        assert out["lanes_flagged_by_tie_gap"] == 0
+    else:
+        assert out["lanes_flagged_by_logits"] == 4
+        assert out["logits_diff_min_lane"] > chip_smoke.ENGINE_LOGITS_MAX_ABS

@@ -18,6 +18,7 @@ from cloudtik_tpu_torch.models import maskrcnn as TMR
 from cloudtik_tpu_torch.models import resnet as TRN
 from cloudtik_tpu_torch.models import ssd as TSD
 from cloudtik_tpu_torch.models import transformer as TT
+from cloudtik_tpu_torch.serve import engine as TE
 from cloudtik_tpu_torch.serve import server as TS
 from cloudtik_tpu_torch.train import trainer as TTR
 
@@ -86,6 +87,9 @@ def test_resolve_device(no_cuda):
     lambda: TG.init_cache(TT.config("tiny"), 1, 4),
     lambda: convert.params_from_jax({"w": np.zeros(2, np.float32)}),
     lambda: TS.transformer_backend("tiny"),
+    lambda: TS.engine_backend("tiny"),
+    lambda: TE.DecodeEngine({}, TT.config("tiny")),
+    lambda: TG.init_block_pool(TT.config("tiny"), 3, 4),
     lambda: TTR.Trainer(TTR.transformer_spec(TT.config("tiny")),
                         TTR.TrainerConfig()),
     lambda: TRN.init_params(torch.Generator(), TRN.config("tiny")),
@@ -96,7 +100,8 @@ def test_resolve_device(no_cuda):
     lambda: TMR.detect({}, np.zeros((1, 64, 64, 3), np.float32),
                        TMR.config("tiny")),
 ], ids=["init_params", "init_cache", "params_from_jax",
-        "transformer_backend", "Trainer", "resnet.init_params",
+        "transformer_backend", "engine_backend", "DecodeEngine",
+        "init_block_pool", "Trainer", "resnet.init_params",
         "ssd.init_params", "maskrcnn.init_params", "ssd.detect",
         "maskrcnn.detect"])
 def test_entry_points_without_device_raise_off_the_card(no_cuda, entry):
@@ -107,6 +112,11 @@ def test_entry_points_without_device_raise_off_the_card(no_cuda, entry):
 def test_server_main_defaults_to_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TS.main(["--model", "tiny", "--port", "0"])
+
+
+def test_server_main_engine_defaults_to_the_card(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TS.main(["--engine", "--model", "tiny", "--port", "0"])
 
 
 def test_kernel_sources_ship_with_the_package():

@@ -1,13 +1,18 @@
-"""Port parity: the port's `tik-serve` non-engine server vs the JAX backend.
+"""Port parity: the port's `tik-serve` vs the JAX backends.
 
 The port's server, given parameters converted from the JAX
 `init_params(PRNGKey(0), tiny)`, answers /v1/generate with the tokens of
 the JAX `transformer_backend("tiny")` (both in fp32, greedy), and keeps the
-JAX server's health, model list, error and drain behaviour.
+JAX server's health, model list, error and drain behaviour.  Its
+`engine_backend` (`--engine`) answers concurrent posts with the same
+tokens, maps the engine's refusals to 413, 429 + Retry-After and 400 with
+the reason in the body, returns the request-id headers, and a drain lets
+in-flight requests finish before it stops the engine.
 """
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -20,7 +25,8 @@ import torch
 from cloudtik_tpu.models import transformer as JT
 from cloudtik_tpu.serve.server import transformer_backend as jax_backend
 from cloudtik_tpu_torch.serve.server import (
-    BackendError, ModelBackend, ServeServer, transformer_backend)
+    BackendError, ModelBackend, ServeServer, drain_and_stop, engine_backend,
+    transformer_backend)
 
 # one intra-op thread: a first multi-threaded CPU f32 exp can be off by
 # ~1e-4 in one thread's chunk (tools/repro_torch_cpu_exp.py)
@@ -159,3 +165,126 @@ def test_backend_without_params_inits_from_seed_zero():
     out = a.endpoints["generate"]({"tokens": [[4, 5]],
                                    "max_new_tokens": 3})
     assert np.asarray(out["tokens"]).shape == (1, 3)
+
+
+# -- tik-serve --engine ------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def engine_served():
+    params = jax.tree.map(np.asarray, JT.init_params(
+        jax.random.PRNGKey(0), JT.config("tiny")))
+    backend = engine_backend("tiny", slots=2, max_len=32, block_size=8,
+                             device="cpu", params=params,
+                             dtype=torch.float32)
+    server = ServeServer([backend], host="127.0.0.1", port=0)
+    server.start()
+    try:
+        yield backend, f"http://127.0.0.1:{server.port}"
+    finally:
+        server.stop()
+        backend.engine.stop()
+
+
+def test_engine_backend_serves_concurrent_posts_like_jax(engine_served):
+    backend, base = engine_served
+    prompts = [[1, 2, 3], [9, 9], [200, 17, 5, 4, 3]]
+    results = {}
+
+    def post(i):
+        results[i] = _http(base + "/v1/generate",
+                           {"tokens": [prompts[i]], "max_new_tokens": 4})
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    want = jax_backend("tiny", dtype=jnp.float32).endpoints["generate"]
+    ids = set()
+    for i, prompt in enumerate(prompts):
+        status, body, headers = results[i]
+        assert status == 200
+        assert body["tokens"] == want({"tokens": [prompt],
+                                       "max_new_tokens": 4})["tokens"]
+        assert headers["x-tik-request-id"] == str(body["request_id"])
+        assert headers["x-tik-traceparent"].startswith("00-")
+        ids.add(body["request_id"])
+    assert len(ids) == 3
+    assert _http(base + "/v1/models")[1] == {
+        "models": ["transformer-engine:tiny"]}
+
+
+@pytest.mark.parametrize("payload, status, reason", [
+    ({"tokens": [[1, 2, 3, 4]], "max_new_tokens": 100}, 413, "capacity"),
+    ({"tokens": [[1, 256]], "max_new_tokens": 2}, 400, "token_ids"),
+    ({"tokens": [[]], "max_new_tokens": 2}, 400, "empty_prompt"),
+    ({"tokens": [[1]], "adapter": "prod"}, 400, "adapter"),
+])
+def test_engine_backend_refusals(engine_served, payload, status, reason):
+    _, base = engine_served
+    got, body, headers = _http(base + "/v1/generate", payload)
+    assert (got, body["reason"]) == (status, reason)
+    assert headers["x-tik-request-id"]
+    if reason == "capacity":
+        assert "KV blocks" in body["error"]
+
+
+def test_engine_backend_full_queue_is_429_with_retry_after():
+    backend = engine_backend("tiny", slots=1, max_len=32, device="cpu",
+                             max_queue_depth=0, dtype=torch.float32)
+    server = ServeServer([backend], host="127.0.0.1", port=0)
+    server.start()
+    try:
+        status, body, headers = _http(
+            f"http://127.0.0.1:{server.port}/v1/generate",
+            {"tokens": [[1, 2]], "max_new_tokens": 2})
+    finally:
+        server.stop()
+        backend.engine.stop()
+    assert status == 429 and body["reason"] == "queue_full"
+    assert headers["Retry-After"] == "1"
+    assert headers["x-tik-request-id"]
+
+
+def test_drain_and_stop_finishes_inflight_then_stops_the_engine():
+    backend = engine_backend("tiny", slots=1, max_len=64, device="cpu",
+                             dtype=torch.float32)
+    server = ServeServer([backend], host="127.0.0.1", port=0)
+    server.start()
+    base = f"http://127.0.0.1:{server.port}/v1/generate"
+    engine = backend.engine
+    results = []
+    worker = threading.Thread(target=lambda: results.append(
+        _http(base, {"tokens": [[1, 2, 3]], "max_new_tokens": 40})))
+    worker.start()
+    drained = []
+    try:
+        deadline = time.monotonic() + 60
+        while not any(s is not None for s in engine._slots):
+            assert time.monotonic() < deadline
+            time.sleep(0.002)
+        drainer = threading.Thread(target=lambda: drained.append(
+            drain_and_stop(server, [backend], grace_s=60)))
+        drainer.start()
+        while not server.draining:
+            time.sleep(0.001)
+        assert _http(base, {"tokens": [[1]]})[0] == 503
+        worker.join(60)
+        drainer.join(60)
+        assert not worker.is_alive() and not drainer.is_alive()
+    finally:
+        engine.stop()
+    assert results[0][0] == 200 and len(results[0][1]["tokens"][0]) == 40
+    assert drained == [True]
+    assert not engine._thread.is_alive()
+    assert engine.pool.used() == 0
+
+
+@pytest.mark.parametrize("flag", [
+    {"spec_model": "tiny"}, {"disagg": True}, {"adapters_dir": "/a"},
+    {"checkpoint_dir": "/c"}])
+def test_engine_backend_unported_modes_raise(flag):
+    with pytest.raises(NotImplementedError):
+        engine_backend("tiny", device="cpu", **flag)
