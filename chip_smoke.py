@@ -34,6 +34,30 @@ run with a non-zero exit:
            must catch in every lane.  Tokens/s,
            TTFT/TPOT p50/p95 from the request ledger, mean decode-step ms
            with 8 lanes, peak memory; no B1-B5 launch on this path
+  spec     `tik-serve --engine --spec-model`: `engine_backend(spec_model=,
+           spec_k=4)` at tpu_1b behind ServeServer, 8 concurrent clients
+           (prompts of 32-384 tokens, 32 new tokens; one sampled, which
+           must not speculate; one stopping at an EOS its first round
+           accepts), with a tpu_120m draft (random weights: rejection)
+           and a tpu_1b self-draft (acceptance >= 0.8), beside a plain
+           `--engine` run of the same requests; every greedy answer held
+           by the tie-aware check and every verify row at an accepted or
+           emitted position (and every plain decode step's row) by the
+           logits check; a free pool after; a self-draft engine whose
+           verify runs one position on must be flagged in every request.
+           Tokens/s, TTFT/TPOT, ms per round and its split, acceptance,
+           tokens per verify; no B1-B5 launch on this path
+  lora     multi-tenant LoRA: `DecodeEngine(adapters=AdapterPool(...,
+           capacity=3))` at tpu_1b, 4 rank-16 adapters on wq and wv:
+           12 concurrent requests over the base model and the 4 adapters
+           (gathered steps, an eviction, a wait on a pinned slot), a
+           homogeneous run (merged steps), prefix isolation between
+           adapters, an unknown adapter failing alone, a spec engine with
+           one per-adapter tpu_120m draft; every answer and decode step
+           against a teacher-forced forward over `merge_lora`, whose
+           logits the adapters must move by >= 0.6; adapter indices
+           rolled one lane on must be flagged in every changed lane; no
+           B1-B5 launch on this path
   forward  the inference path, part 1: tpu_1b `forward` at B=4, S=2048 in
            bf16, held against the same forward on the reference attention
   train    the training path: `Trainer.fit` on tpu_1b at full width and
@@ -64,8 +88,8 @@ run with a non-zero exit:
            Mask R-CNN's map pooled on ROIAlign's vector route
 
 Launch counts are zeroed just before each path (forward then serve; the
-engine; the measured train steps; the measured detect calls of each model)
-and read just after it.  The last lines are the
+engine; spec; lora; the measured train steps; the measured detect calls of
+each model) and read just after it.  The last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
 """
@@ -73,6 +97,7 @@ and read just after it.  The last lines are the
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -618,13 +643,17 @@ class StepLogits:
     that chose that request's tokens[k].  `fault` plants a fault for the
     checks' power run: "tables" or "lengths" hands the step that tensor
     rolled one lane on, as a lane reading another slot's KV or offset
-    would."""
+    would; "adapters" rolls a gathered LoRA step's adapter indices one
+    lane on, as a lane decoding under another lane's adapter would, and
+    `changed(request_id)` says whether that moved the request's own."""
 
     FAULTS = ("tables", "lengths")
 
     def __init__(self, engine, fault: str = None):
-        require(fault in (None,) + self.FAULTS, f"unknown fault {fault}")
+        require(fault in (None, "adapters") + self.FAULTS,
+                f"unknown fault {fault}")
         self.engine, self.fault, self._steps = engine, fault, []
+        self._changed = set()
 
     def __enter__(self):
         from cloudtik_tpu_torch.serve import engine as E
@@ -632,19 +661,25 @@ class StepLogits:
         self._module, self._orig = E, E.decode_logits
 
         def decode_logits(params, tokens, kp, vp, tables, lengths, active,
-                          cfg, block_size):
+                          cfg, block_size, lora=None):
             if kp is not self.engine._kp:
                 return self._orig(params, tokens, kp, vp, tables, lengths,
-                                  active, cfg, block_size)
+                                  active, cfg, block_size, lora=lora)
+            lanes = [(b, s.request.request_id, len(s.request.tokens))
+                     for b, s in enumerate(self.engine._slots)
+                     if s is not None and s.decoding]
             if self.fault == "tables":
                 tables = tables.roll(1, 0)
             elif self.fault == "lengths":
                 lengths = lengths.roll(1, 0)
+            elif self.fault == "adapters" and lora is not None:
+                rolled = lora["idx"].roll(1, 0)
+                moved = (lora["idx"] != rolled).tolist()
+                self._changed.update(rid for b, rid, _ in lanes
+                                     if moved[b])
+                lora = dict(lora, idx=rolled)
             out = self._orig(params, tokens, kp, vp, tables, lengths,
-                             active, cfg, block_size)
-            lanes = [(b, s.request.request_id, len(s.request.tokens))
-                     for b, s in enumerate(self.engine._slots)
-                     if s is not None and s.decoding]
+                             active, cfg, block_size, lora=lora)
             self._steps.append((out.clone(), lanes))
             return out
 
@@ -658,6 +693,65 @@ class StepLogits:
         # a preempted request decodes a position again: the last one counts
         return {k: logits[b] for logits, lanes in self._steps
                 for b, rid, k in lanes if rid == request_id}
+
+    def changed(self, request_id) -> bool:
+        return request_id in self._changed
+
+
+class VerifyLogits:
+    """Records, while entered, the logits of every speculative verify of
+    `engine`: `rows(request)[k]` is the verify row that scored the
+    request's tokens[k], for each row whose input was the request's own
+    sequence (the pending token and the proposals accepted before it), so
+    rows after a rejected proposal are left out.  `fault="shift"` runs the
+    verify one position on (`start + 1`), as a verify writing and reading
+    at a wrong cursor would."""
+
+    def __init__(self, engine, fault: str = None):
+        require(fault in (None, "shift"), f"unknown fault {fault}")
+        self.engine, self.fault, self._rounds = engine, fault, []
+
+    def __enter__(self):
+        from cloudtik_tpu_torch.models import generate as G
+
+        self._module, self._orig = G, G.paged_verify
+        spec_step = self.engine._spec_step
+        current = {}
+
+        def tagged_spec_step(slot_id, slot):
+            current["request"] = slot.request
+            return spec_step(slot_id, slot)
+
+        def paged_verify(params, kp, vp, table, tokens, start, cfg):
+            out = self._orig(params, kp, vp, table, tokens,
+                             start + (self.fault == "shift"), cfg)
+            self._rounds.append((current["request"], start,
+                                 tokens[0].tolist(), out[2][0].clone()))
+            return out
+
+        self.engine._spec_step = tagged_spec_step
+        G.paged_verify = paged_verify
+        return self
+
+    def __exit__(self, *exc):
+        self._module.paged_verify = self._orig
+        del self.engine._spec_step
+
+    def rows(self, req) -> dict:
+        out = {}
+        for r, start, inputs, logits in self._rounds:
+            if r is not req:
+                continue
+            k0 = start - len(req.prompt) + 1   # tokens[k0 - 1] is pending
+            for i in range(len(inputs)):
+                if k0 + i >= len(req.tokens) \
+                        or inputs[i] != req.tokens[k0 - 1 + i]:
+                    break
+                out[k0 + i] = logits[i]
+        return out
+
+    def rounds(self, req) -> int:
+        return sum(r is req for r, *_ in self._rounds)
 
 
 def logits_diff(teacher, rows: dict) -> float:
@@ -966,6 +1060,648 @@ def phase_engine(model: str = "tpu_1b", device: str = "cuda",
     del backend, params, engine, over
     if on_card:
         torch.cuda.empty_cache()
+    return out
+
+
+# -------------------------------------------------------------------- spec --
+
+@dataclasses.dataclass(frozen=True)
+class SpecLoad:
+    """The spec phase's configuration and traffic: `clients` concurrent
+    requests, prompt lengths in turn from `prompt_lens`, `new_tokens`
+    each; the last client samples (temperature 0.8), and the greedy
+    request with the widest margins stops at an EOS that its first round
+    accepts.  `drafts` are the `--spec-model` presets: one that disagrees
+    with the target (its own architecture, random weights) and the
+    target's own preset, a self-draft (seed 0 both)."""
+    slots: int = 8
+    max_len: int = 1024
+    block_size: int = 16
+    k: int = 4
+    clients: int = 8
+    prompt_lens: tuple = (32, 128, 256, 384)
+    new_tokens: int = 32
+    drafts: tuple = ("tpu_120m", "tpu_1b")
+    fault_new: int = 16
+
+
+SPEC_LOAD = SpecLoad()
+# the CPU rehearsal at `tiny`: a quarter of the lengths; `tiny` is the only
+# dense preset of its vocabulary, so both runs are self-drafts there
+SPEC_REHEARSAL = SpecLoad(max_len=256, block_size=8,
+                          prompt_lens=(8, 32, 64, 96), new_tokens=12,
+                          drafts=("tiny", "tiny"), fault_new=8)
+# the least acceptance of the self-draft: only bf16 near ties between the
+# draft's [1,1] forwards and the [1,k+1] verify reject one of its proposals
+SPEC_MIN_SELF_ACCEPTANCE = 0.8
+
+
+def _collect(on_card: bool) -> None:
+    """Free what the last run left: a served backend sits in a reference
+    cycle (the server's handler class), so its engine and weights outlive
+    the run until the collector finds them."""
+    gc.collect()
+    if on_card:
+        import torch
+
+        torch.cuda.empty_cache()
+
+
+def spec_round_split(engine, context: int, reps: int = 5) -> dict:
+    """Synchronised host ms of a spec round's parts for one slot at
+    `context` tokens, on a stopped spec engine's weights and pool: one
+    catch-up draft forward, the k-token `draft_propose`, the verify."""
+    import torch
+
+    from cloudtik_tpu_torch.models import generate as G
+
+    dev, k = engine.device, engine._spec.k
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    dcfg, dparams = engine._draft_cfg, engine._draft_params
+    cache = G.init_cache(dcfg, 1, engine._draft_plane, dev)
+    table = torch.arange(1, engine._blocks_per_req + 1, device=dev)
+    tok = torch.zeros((), dtype=torch.long, device=dev)
+    window = torch.zeros((1, k + 1), dtype=torch.long, device=dev)
+
+    def timed(fn) -> float:
+        fn()
+        total = 0.0
+        for _ in range(reps):
+            cache["length"] = context
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            total += time.perf_counter() - t0
+        return total / reps * 1e3
+
+    return {"context": context, "k": k,
+            "catch_up_forward_ms": timed(lambda: G.forward_step(
+                dparams, tok.reshape(1, 1), cache, dcfg)),
+            "draft_propose_ms": timed(lambda: G.draft_propose(
+                dparams, tok, cache, dcfg, k)),
+            "verify_ms": timed(lambda: G.paged_verify(
+                engine._params, engine._kp, engine._vp, table, window,
+                context, engine.cfg))}
+
+
+class _Rows:
+    """The logits rows of one request from several recorders."""
+
+    def __init__(self, step, verify=None):
+        self.step, self.verify = step, verify
+
+    def of(self, req) -> dict:
+        rows = dict(self.step.rows(req.request_id))
+        if self.verify is not None:
+            rows.update(self.verify.rows(req))
+        return rows
+
+
+def check_rows(name, params, cfg, req, rows: dict, device,
+               greedy: bool = True) -> tuple:
+    """The tie-aware check (greedy answers) and the logits check of one
+    finished request over `rows`; returns (largest tie gap or None,
+    largest logits difference)."""
+    teacher = teacher_logits(params, cfg, req.prompt, req.tokens, device)
+    gap = check_tie_aware(name, tie_gaps(params, cfg, req.prompt,
+                                         req.tokens, device, teacher)) \
+        if greedy else None
+    diff = logits_diff(teacher, rows)
+    require(diff <= ENGINE_LOGITS_MAX_ABS,
+            f"{name}: a step's logits are {diff} from the teacher-forced "
+            f"ones (limit {ENGINE_LOGITS_MAX_ABS})")
+    return gap, diff
+
+
+def _serve_wave(engine, url, payloads):
+    """POST `payloads` concurrently; returns (wall seconds, the engine's
+    Request of each, the ledger record of each)."""
+    import tempfile
+    import threading
+
+    from cloudtik_tpu_torch.serve import reqlog
+
+    requests = {}
+    submit = engine.submit
+
+    def tagged_submit(req):
+        requests[len(req.prompt), tuple(req.prompt)] = req
+        return submit(req)
+
+    results = [None] * len(payloads)
+
+    def client(i):
+        results[i] = _http(url, payloads[i])
+
+    engine.submit = tagged_submit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/requests.jsonl"
+        reqlog.install(path)
+        try:
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(payloads))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+        finally:
+            reqlog.uninstall()
+            del engine.submit
+        records = {r["request_id"]: r for r in reqlog.read_requests(path)}
+    require(not any(t.is_alive() for t in threads), "a client hung")
+    reqs, recs = [], []
+    for i, (status, body) in enumerate(results):
+        require(status == 200, f"request {i}: status {status} {body}")
+        prompt = payloads[i]["tokens"][0]
+        req = requests[len(prompt), tuple(prompt)]
+        require(body["tokens"][0] == req.tokens, f"request {i}: body")
+        reqs.append(req)
+        recs.append(records[req.request_id])
+    return wall, reqs, recs
+
+
+def _wave_numbers(wall, reqs, recs, steps_ms=None) -> dict:
+    n = sum(len(r.tokens) for r in reqs)
+    out = {"wall_s": wall, "generated_tokens": n, "tokens_per_s": n / wall,
+           "ttft_s": _percentiles([r["ttft_s"] for r in recs]),
+           "tpot_s": _percentiles([r["tpot_s"] for r in recs
+                                   if r["tpot_s"] is not None])}
+    if steps_ms:
+        out["decode_step_ms"] = {"steps": len(steps_ms),
+                                 "mean": sum(steps_ms) / len(steps_ms)}
+    return out
+
+
+def phase_spec(model: str = "tpu_1b", device: str = "cuda",
+               load: SpecLoad = SPEC_LOAD, nvidia_smi: str = None) -> dict:
+    """`tik-serve --engine --spec-model`: `engine_backend(model,
+    spec_model=draft, spec_k=k)` behind ServeServer for each of
+    `load.drafts`, then a plain `--engine` run of the same requests, then
+    a self-draft engine whose verify runs one position on (planted fault).
+    Every greedy answer passes the tie-aware check; every verify row at an
+    accepted or emitted position, and every plain decode step's row,
+    passes the logits check."""
+    import numpy as np
+    import torch
+
+    from cloudtik_tpu_torch import telemetry
+    from cloudtik_tpu_torch.models import generate as G
+    from cloudtik_tpu_torch.serve.engine import (
+        DecodeEngine, EngineConfig, Request, SpecConfig)
+    from cloudtik_tpu_torch.serve.server import ServeServer, engine_backend
+
+    on_card = device == "cuda"
+    L = load
+    telemetry.enable()
+    _collect(on_card)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    out = {"model": model, "nvidia_smi": nvidia_smi, "slots": L.slots,
+           "max_len": L.max_len, "block_size": L.block_size, "k": L.k,
+           "clients": L.clients, "new_tokens": L.new_tokens, "runs": {}}
+    rng = np.random.default_rng(1)
+    payloads = eos_i = None
+    for run, draft in (("plain", None), ("other_draft", L.drafts[0]),
+                       ("self_draft", L.drafts[1])):
+        backend = engine_backend(
+            model, slots=L.slots, max_len=L.max_len,
+            block_size=L.block_size, spec_model=draft, spec_k=L.k,
+            device=device)
+        engine, cfg, params = backend.engine, backend.cfg, backend.params
+        if payloads is None:
+            V = cfg.vocab_size
+            prompts = [rng.integers(0, V, L.prompt_lens[i % 4]).tolist()
+                       for i in range(L.clients)]
+            # the EOS request: the greedy one whose first direct tokens
+            # lead their runners-up by the most; EOS is its 3rd token, the
+            # 2nd proposal of its first round
+            margins = []
+            for p in prompts[:-1]:
+                d = G.generate(params, torch.tensor([p], device=device),
+                               cfg, max_new_tokens=4)[0].tolist()
+                margins.append((min(greedy_margins(params, cfg, p, d,
+                                                   device))
+                                if d[2] not in d[:2] else -1.0, d[2]))
+            eos_i = int(np.argmax([m for m, _ in margins]))
+            payloads = [{"tokens": [p], "max_new_tokens": L.new_tokens}
+                        for p in prompts]
+            payloads[eos_i]["eos_id"] = margins[eos_i][1]
+            payloads[-1]["temperature"] = 0.8
+        server = ServeServer([backend], host="127.0.0.1", port=0)
+        server.start()
+        url = f"http://127.0.0.1:{server.port}/v1/generate"
+        try:
+            status, _ = _http(url, {"tokens": [[1, 2, 3]],
+                                    "max_new_tokens": 2})
+            require(status == 200, f"spec warm-up status {status}")
+            telemetry.SPAN_RING.clear()
+            with StepLogits(engine) as step_rec, \
+                    VerifyLogits(engine) as verify_rec:
+                wall, reqs, recs = _serve_wave(engine, url, payloads)
+        finally:
+            server.stop()
+            engine.stop()
+        require(engine.pool.used() == 0
+                and engine.pool.available() == engine.pool.usable_blocks,
+                f"{run}: pool not free after stop")
+        rows = _Rows(step_rec, verify_rec if draft else None)
+        gaps, diffs = [], []
+        for i, req in enumerate(reqs):
+            greedy = i != L.clients - 1
+            gap, diff = check_rows(f"{run} request {i}", params, cfg, req,
+                                   rows.of(req), device, greedy)
+            diffs.append(diff)
+            if greedy:
+                gaps.append(gap)
+        eos_req = reqs[eos_i]
+        require(eos_req.tokens[-1] == payloads[eos_i]["eos_id"]
+                and len(eos_req.tokens) == 3,
+                f"{run}: the EOS request gave {eos_req.tokens}")
+        require(all(len(r.tokens) == L.new_tokens
+                    for i, r in enumerate(reqs) if i != eos_i),
+                f"{run}: token counts")
+        spans = telemetry.spans()
+        numbers = _wave_numbers(wall, reqs, recs, [
+            s["dur"] * 1e3 for s in spans
+            if s["name"] == "serve.decode_step"])
+        numbers.update(tie_gap_max=max(gaps), logits_diff_max=max(diffs))
+        if draft:
+            require(recs[-1]["spec_steps"] == 0,
+                    f"{run}: the sampled request speculated")
+            greedy_recs = recs[:-1]
+            drafted = sum(r["draft_tokens"] for r in greedy_recs)
+            accepted = sum(r["accepted_tokens"] for r in greedy_recs)
+            verifies = sum(r["spec_steps"] for r in greedy_recs)
+            per_req = [r["accepted_tokens"] / r["draft_tokens"]
+                       for r in greedy_recs if r["draft_tokens"]]
+            rounds = [s["dur"] * 1e3 for s in spans
+                      if s["name"] == "serve.spec.verify"]
+            require(verifies >= len(greedy_recs) and rounds,
+                    f"{run}: {verifies} verify rounds")
+            require(sum(len(verify_rec.rows(r)) for r in reqs) > 0,
+                    f"{run}: no verify row was recorded")
+            numbers.update(
+                draft=draft, acceptance=accepted / drafted,
+                acceptance_per_request={"min": min(per_req),
+                                        "max": max(per_req)},
+                tokens_per_verify=(accepted + verifies) / verifies,
+                verifies=verifies, spec_round_ms={
+                    "rounds": len(rounds),
+                    "mean": sum(rounds) / len(rounds)},
+                eos_stop_in_first_round=recs[eos_i]["spec_steps"] == 1,
+                round_split=spec_round_split(engine, max(L.prompt_lens)
+                                             + L.new_tokens // 2))
+        out["runs"][run] = numbers
+        if run == "self_draft":
+            self_params, self_draft = params, engine._draft_params
+        del backend, engine, params, server, reqs, step_rec, verify_rec
+        _collect(on_card)
+    self_run = out["runs"]["self_draft"]
+    require(self_run["acceptance"] >= SPEC_MIN_SELF_ACCEPTANCE,
+            f"self-draft acceptance {self_run['acceptance']} (limit "
+            f"{SPEC_MIN_SELF_ACCEPTANCE})")
+    require(self_run["eos_stop_in_first_round"],
+            "the self-draft's EOS request did not stop in its first round")
+
+    # the checks' power: a self-draft engine whose verify runs at start+1
+    # must be flagged by the logits check in every request
+    eng = DecodeEngine(self_params, cfg, EngineConfig(
+        slots=L.slots, max_len=L.max_len, block_size=L.block_size,
+        spec=SpecConfig(k=L.k)), draft=(self_draft, cfg), device=device)
+    reqs = [eng.submit(Request(p["tokens"][0], max_new_tokens=L.fault_new))
+            for p in payloads[:L.slots]]
+    with StepLogits(eng) as step_rec, \
+            VerifyLogits(eng, "shift") as verify_rec:
+        eng.start()
+        try:
+            for r in reqs:
+                r.wait(timeout=600)
+        finally:
+            eng.stop()
+    rows = _Rows(step_rec, verify_rec)
+    diffs, gaps = [], []
+    for r in reqs:
+        require(verify_rec.rounds(r) > 0, "planted: a request never "
+                "reached the verify")
+        teacher = teacher_logits(self_params, cfg, r.prompt, r.tokens,
+                                 device)
+        diffs.append(logits_diff(teacher, rows.of(r)))
+        gaps.append(max(tie_gaps(self_params, cfg, r.prompt, r.tokens,
+                                 device, teacher)))
+    out["planted"] = {
+        "fault": "verify at start + 1", "lanes": len(reqs),
+        "logits_diff_per_lane": diffs,
+        "logits_diff_min_lane": min(diffs),
+        "lanes_flagged_by_logits": sum(d > ENGINE_LOGITS_MAX_ABS
+                                       for d in diffs),
+        "tie_gap_min_lane": min(gaps),
+        "lanes_flagged_by_tie_gap": sum(g > ENGINE_TIE_GAP for g in gaps)}
+    require(out["planted"]["lanes_flagged_by_logits"] == len(reqs),
+            f"the logits check missed the planted verify fault: "
+            f"{out['planted']}")
+    out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if on_card else None)
+    emit("spec", **out)
+    del eng, reqs, self_params, self_draft
+    _collect(on_card)
+    return out
+
+
+# -------------------------------------------------------------------- lora --
+
+@dataclasses.dataclass(frozen=True)
+class LoraLoad:
+    """The lora phase's configuration and traffic.  `adapters` adapters of
+    rank `rank` (alpha `alpha`, targets wq and wv) from the port's
+    `random_lora_params`, `capacity` plane slots.  The mixed run: request
+    i asks for adapter MIXED[i] (None: the base model) with a prompt of
+    prompt_lens[i % 4] tokens; then `homogeneous` requests on one
+    adapter.  `draft` is the preset of the per-adapter draft.  `b_scale`
+    is `random_lora_params`' spread of b (the reference's 0.05)."""
+    slots: int = 8
+    max_len: int = 1024
+    block_size: int = 16
+    rank: int = 16
+    alpha: float = 32.0
+    b_scale: float = 0.05
+    adapters: int = 4
+    capacity: int = 3
+    prompt_lens: tuple = (32, 128, 256, 384)
+    new_tokens: int = 24
+    homogeneous: int = 4
+    draft: str = "tpu_120m"
+    k: int = 4
+
+
+LORA_LOAD = LoraLoad()
+# the CPU rehearsal at `tiny`: its 2 layers compound an adapter's delta
+# less than tpu_1b's 16, so its adapters draw b twice as wide
+LORA_REHEARSAL = LoraLoad(max_len=256, block_size=8,
+                          prompt_lens=(8, 32, 64, 96), new_tokens=8,
+                          draft="tiny", b_scale=0.1)
+# 12 requests: 3 on the base model, 9 over the 4 adapters.  The first 8
+# fill the slots on 3 adapters; a3 then waits until one of them idles, and
+# evicts it
+MIXED = (None, "a0", "a1", "a2", None, "a0", "a1", "a2", "a3", "a3", None,
+         "a3")
+# the adapters must move the teacher's logits well past the logits check's
+# limit, or the check could not tell a lane on the wrong adapter
+LORA_MIN_ADAPTER_EFFECT = 4 * ENGINE_LOGITS_MAX_ABS
+
+
+def phase_lora(model: str = "tpu_1b", device: str = "cuda",
+               load: LoraLoad = LORA_LOAD, nvidia_smi: str = None) -> dict:
+    """Multi-tenant LoRA on `DecodeEngine(adapters=AdapterPool(...))`:
+    a mixed run of 12 concurrent greedy requests over 4 adapters and the
+    base model with 3 plane slots (gathered steps, evictions, a wait on a
+    pinned slot), a homogeneous run (merged steps), tenant isolation of
+    the prefix cache, an unknown adapter, a spec engine with one
+    per-adapter draft, and a planted fault (adapter indices rolled one
+    lane on).  Every answer passes the tie-aware check and every decode
+    step's logits the logits check against a teacher-forced forward over
+    `merge_lora(base, adapter)`."""
+    import numpy as np
+    import torch
+
+    from cloudtik_tpu_torch import telemetry
+    from cloudtik_tpu_torch.models import generate as G
+    from cloudtik_tpu_torch.models import lora as LO
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.serve.adapters import (
+        AdapterLoadError, AdapterPool, AdapterSlotsExhausted)
+    from cloudtik_tpu_torch.serve.engine import (
+        DecodeEngine, EngineConfig, Request, SpecConfig)
+    from cloudtik_tpu_torch.telemetry import instruments as ti
+
+    on_card = device == "cuda"
+    L = load
+    telemetry.enable()
+    _collect(on_card)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = T.config(model)
+    params = T.init_params(torch.Generator(device=device).manual_seed(0),
+                           cfg, device)
+    lora_cfg = LO.LoRAConfig(rank=L.rank, alpha=L.alpha)
+    bank = {f"a{i}": LO.random_lora_params(
+        torch.Generator(device=device).manual_seed(i + 1), cfg, lora_cfg,
+        scale=L.b_scale, device=device) for i in range(L.adapters)}
+    merged = {None: params}
+    merged.update({a: dict(params, layers=LO.merge_lora(
+        params["layers"], ad, lora_cfg)) for a, ad in bank.items()})
+    waits = []
+
+    def make_pool():
+        pool = AdapterPool(params, cfg, lora_cfg, loader=bank.__getitem__,
+                           capacity=L.capacity)
+        acquire = pool.acquire
+
+        def counted_acquire(adapter_id):
+            try:
+                return acquire(adapter_id)
+            except AdapterSlotsExhausted:
+                waits.append(adapter_id)
+                raise
+
+        pool.acquire = counted_acquire
+        return pool
+
+    def make_engine(spec=None, **kw):
+        _collect(on_card)    # the last section's engine and pool
+        return DecodeEngine(params, cfg, EngineConfig(
+            slots=L.slots, max_len=L.max_len, block_size=L.block_size,
+            spec=spec), adapters=make_pool(), device=device, **kw)
+
+    def run(eng, specs, fault=None, verify=False):
+        reqs = [eng.submit(Request(p, max_new_tokens=L.new_tokens,
+                                   adapter_id=a, tenant=a or "base"))
+                for p, a in specs]
+        t0 = time.perf_counter()
+        with StepLogits(eng, fault) as step_rec:
+            if verify:
+                with VerifyLogits(eng) as verify_rec:
+                    eng.start()
+                    for r in reqs:
+                        r.wait(timeout=600)
+            else:
+                verify_rec = None
+                eng.start()
+                for r in reqs:
+                    r.wait(timeout=600)
+        wall = time.perf_counter() - t0
+        return reqs, _Rows(step_rec, verify_rec), step_rec, wall
+
+    def check(name, reqs, rows):
+        gaps, diffs = zip(*[check_rows(
+            f"{name} {i}", merged[r.adapter_id], cfg, r, rows.of(r), device)
+            for i, r in enumerate(reqs)])
+        return max(gaps), max(diffs)
+
+    def steps_by_lanes() -> dict:
+        """Decode-step ms since the span ring was cleared, by lanes."""
+        by_lanes = {}
+        for s in telemetry.spans():
+            if s["name"] == "serve.decode_step":
+                by_lanes.setdefault(s["attrs"]["active"], []).append(
+                    s["dur"] * 1e3)
+        return {n: {"steps": len(v), "mean": sum(v) / len(v)}
+                for n, v in sorted(by_lanes.items())}
+
+    def pool_free(eng, name):
+        require(eng.pool.used() == 0
+                and eng.pool.available() == eng.pool.usable_blocks
+                and not eng._adapters._ref,
+                f"{name}: KV or adapter pool not free after stop")
+
+    rng = np.random.default_rng(2)
+    V = cfg.vocab_size
+    prompts = [rng.integers(0, V, L.prompt_lens[i % 4]).tolist()
+               for i in range(len(MIXED))]
+    out = {"model": model, "nvidia_smi": nvidia_smi, "slots": L.slots,
+           "max_len": L.max_len, "rank": L.rank, "alpha": L.alpha,
+           "targets": list(lora_cfg.targets), "adapters": L.adapters,
+           "capacity": L.capacity, "new_tokens": L.new_tokens}
+
+    # the adapters must matter: the teacher's logits of each adapter
+    # against the base model's, over one prompt and the base's answer
+    base_answer = G.generate(params, torch.tensor([prompts[1]],
+                                                  device=device), cfg,
+                             max_new_tokens=L.new_tokens)[0].tolist()
+    base_teacher = teacher_logits(params, cfg, prompts[1], base_answer,
+                                  device)
+    effect = {a: float((teacher_logits(merged[a], cfg, prompts[1],
+                                       base_answer, device)
+                        - base_teacher).abs().max())
+              for a in bank}
+    out["adapter_effect"] = effect
+    require(min(effect.values()) >= LORA_MIN_ADAPTER_EFFECT,
+            f"an adapter moves the teacher's logits by only "
+            f"{min(effect.values())} (limit {LORA_MIN_ADAPTER_EFFECT})")
+
+    # the mixed run: gathered steps, evictions and a wait on a pinned slot
+    eng = make_engine()
+    evictions0 = ti.SERVE_ADAPTER_EVICTIONS.value()
+    telemetry.SPAN_RING.clear()
+    reqs, rows, _, wall = run(eng, list(zip(prompts, MIXED)))
+    eng.stop()
+    steps = steps_by_lanes()
+    gap, diff = check("mixed", reqs, rows)
+    require(eng._gathered_steps >= 1, "the mixed run never gathered")
+    require(waits, "the mixed run never waited on a pinned adapter slot")
+    evictions = ti.SERVE_ADAPTER_EVICTIONS.value() - evictions0
+    require(evictions >= 1, "the mixed run never evicted an adapter")
+    pool_free(eng, "mixed")
+    n = sum(len(r.tokens) for r in reqs)
+    out["mixed"] = {
+        "requests": len(reqs), "wall_s": wall, "generated_tokens": n,
+        "tokens_per_s": n / wall,
+        "gathered_steps": eng._gathered_steps,
+        "merged_steps": eng._merged_steps, "evictions": evictions,
+        "slot_waits": len(waits),
+        "decode_step_ms_by_lanes": steps,
+        "tie_gap_max": gap, "logits_diff_max": diff}
+
+    # the homogeneous run: every lane on one adapter -> merged steps
+    del eng, reqs, rows
+    eng = make_engine()
+    telemetry.SPAN_RING.clear()
+    reqs, rows, _, wall = run(eng, [(p, "a1") for p in
+                                    prompts[:L.homogeneous]])
+    eng.stop()
+    steps = steps_by_lanes()
+    gap, diff = check("homogeneous", reqs, rows)
+    require(eng._merged_steps >= 1 and eng._gathered_steps == 0,
+            f"homogeneous run: {eng._merged_steps} merged, "
+            f"{eng._gathered_steps} gathered steps")
+    pool_free(eng, "homogeneous")
+    out["homogeneous"] = {"requests": len(reqs), "wall_s": wall,
+                          "merged_steps": eng._merged_steps,
+                          "decode_step_ms_by_lanes": steps,
+                          "tie_gap_max": gap, "logits_diff_max": diff}
+
+    # tenant isolation of the prefix cache, and an unknown adapter
+    del eng, reqs, rows
+    eng = make_engine()
+    eng.start()
+    shared = prompts[3][:4 * L.block_size + 1]
+    try:
+        iso = []
+        for a in ("a0", "a1", "a0"):
+            r = eng.submit(Request(shared, max_new_tokens=2, adapter_id=a))
+            r.wait(timeout=600)
+            iso.append(r)
+        bad = eng.submit(Request(prompts[0], max_new_tokens=2,
+                                 adapter_id="no-such-adapter"))
+        good = eng.submit(Request(prompts[0], max_new_tokens=2,
+                                  adapter_id="a2"))
+        try:
+            bad.wait(timeout=600)
+            require(False, "the unknown adapter's request was served")
+        except AdapterLoadError:
+            pass
+        good.wait(timeout=600)
+    finally:
+        eng.stop()
+    require(iso[1].prefix_tokens == 0 and iso[2].prefix_tokens > 0,
+            f"prefix isolation: {[r.prefix_tokens for r in iso]}")
+    pool_free(eng, "isolation")
+    out["isolation"] = {"prefix_tokens": [r.prefix_tokens for r in iso],
+                        "unknown_adapter_failed_alone": True}
+
+    # spec with a per-adapter draft: a0 speculates, a1 decodes plain
+    del eng, iso, bad, good
+    dcfg = T.config(L.draft)
+    dparams = T.init_params(torch.Generator(device=device).manual_seed(1),
+                            dcfg, device)
+    eng = make_engine(SpecConfig(k=L.k), draft=(dparams, dcfg),
+                      adapter_drafts={"a0": dparams})
+    reqs, rows, _, _ = run(eng, [(prompts[2], "a0"), (prompts[3], "a1")],
+                           verify=True)
+    eng.stop()
+    gap, diff = check("adapter draft", reqs, rows)
+    require(reqs[0].spec_steps > 0 and reqs[1].spec_steps == 0,
+            f"adapter drafts: spec steps {reqs[0].spec_steps}, "
+            f"{reqs[1].spec_steps}")
+    pool_free(eng, "adapter draft")
+    out["adapter_draft"] = {
+        "draft": L.draft, "spec_steps": [r.spec_steps for r in reqs],
+        "accepted": reqs[0].accepted_tokens,
+        "drafted": reqs[0].draft_tokens,
+        "tie_gap_max": gap, "logits_diff_max": diff}
+    del dparams, eng, reqs, rows
+
+    # the checks' power: adapter indices rolled one lane on in the
+    # gathered step; every request whose adapter that changed is flagged
+    eng = make_engine()
+    specs = [(p, a) for p, a in zip(prompts, (None, "a0", "a1", "a2") * 2)]
+    reqs, rows, step_rec, _ = run(eng, specs, fault="adapters")
+    eng.stop()
+    diffs = {r.request_id: logits_diff(teacher_logits(
+        merged[r.adapter_id], cfg, r.prompt, r.tokens, device),
+        rows.of(r)) for r in reqs}
+    moved = [r.request_id for r in reqs if step_rec.changed(r.request_id)]
+    out["planted"] = {
+        "fault": "adapter indices rolled", "lanes": len(reqs),
+        "lanes_changed": len(moved),
+        "logits_diff_per_lane": list(diffs.values()),
+        "lanes_flagged_by_logits": sum(diffs[i] > ENGINE_LOGITS_MAX_ABS
+                                       for i in moved),
+        "logits_diff_min_changed_lane": min(diffs[i] for i in moved)
+        if moved else None}
+    require(moved and out["planted"]["lanes_flagged_by_logits"]
+            == len(moved),
+            f"the logits check missed the planted adapter fault: "
+            f"{out['planted']}")
+    out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if on_card else None)
+    emit("lora", **out)
+    del eng, reqs, rows, step_rec, params, merged, bank
+    _collect(on_card)
     return out
 
 
@@ -1763,6 +2499,18 @@ def main() -> int:
     emit("engine_path", launches=engine_launches)
     require(not any(engine_launches.values()),
             f"the engine path launched {engine_launches}, expected none")
+
+    # ---- the spec and lora paths, counts zeroed just before each and read
+    # just after: the verify and the draft are `forward_step`'s einsums
+    # and the LoRA delta is `gathered_delta`'s, as in the reference ----
+    for name, phase in (("spec", phase_spec), ("lora", phase_lora)):
+        _zero_launch_counts()
+        _zero_det_launch_counts()
+        phase(nvidia_smi=smi)
+        path_launches = {**_launch_counts(), **_det_launch_counts()}
+        emit(f"{name}_path", launches=path_launches)
+        require(not any(path_launches.values()),
+                f"the {name} path launched {path_launches}, expected none")
 
     # ---- the training path (counts zeroed and read inside) ----
     train = phase_train()

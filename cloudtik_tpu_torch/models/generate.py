@@ -14,11 +14,12 @@ Counterpart of the static-cache path of `cloudtik_tpu/models/generate.py`:
   reproduce jax.random draws; greedy output is bit-comparable).
 
 The paged helpers (`init_block_pool`, `gather_paged_cache`,
-`paged_prefill_chunk`, `copy_block`) are the device half of the serving
-engine's block pool (serve/engine.py, serve/kvcache.py); they update the
-pools in place.  Not here yet: the LoRA branch, `paged_verify`,
-`draft_propose` and the block-plane gather/scatter of KV migration (ROADMAP
-A2), and MoE layers.
+`paged_prefill_chunk`, `paged_verify`, `copy_block`) are the device half of
+the serving engine's block pool (serve/engine.py, serve/kvcache.py); they
+update the pools in place.  `draft_propose` is the draft half of
+speculative decoding, and `lora=` applies the gathered batched-adapter
+delta (models/lora.py) next to the base projections.  Not here yet: the
+block-plane gather/scatter of KV migration (ROADMAP A2), and MoE layers.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
+from cloudtik_tpu_torch.models import lora as LO
 from cloudtik_tpu_torch.models.transformer import (
     TransformerConfig, _check_dense, _embed_lookup, _mlp, _proj,
     _rms_norm, _rope, layer_params, logits_f32)
@@ -68,42 +70,81 @@ def _attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _qkv(cfg: TransformerConfig, h: torch.Tensor, layer: Params,
+         lora=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pre-RoPE projections of the normed input h, each with its
+    lane's gathered LoRA delta when `lora` = (layer_planes, idx, scale)
+    is given: applied next to the base projection, exactly where a merged
+    weight would have acted."""
+    q = _proj(h, layer["wq"], cfg)
+    k = _proj(h, layer["wk"], cfg)
+    v = _proj(h, layer["wv"], cfg)
+    if lora is not None:
+        planes, idx, scale = lora
+        if "wq" in planes:
+            q = q + LO.gathered_delta("wq", h, planes, idx, scale)
+        if "wk" in planes:
+            k = k + LO.gathered_delta("wk", h, planes, idx, scale)
+        if "wv" in planes:
+            v = v + LO.gathered_delta("wv", h, planes, idx, scale)
+    return q, k, v
+
+
+def _attn_out(cfg: TransformerConfig, o: torch.Tensor, layer: Params,
+              lora=None) -> torch.Tensor:
+    """o [B,S,H,Dh] through wo, plus the lane's `wo` delta if adapted."""
+    d = layer["wo"].shape[-1]
+    out = o.reshape(*o.shape[:2], -1) \
+        @ layer["wo"].to(cfg.dtype).reshape(-1, d)
+    if lora is not None and "wo" in lora[0]:
+        planes, idx, scale = lora
+        out = out + LO.gathered_delta("wo", o, planes, idx, scale)
+    return out
+
+
 def _layer_step(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
                 ck: torch.Tensor, cv: torch.Tensor,
-                start: int) -> torch.Tensor:
+                start: int, lora=None) -> torch.Tensor:
     """One layer over S new tokens at absolute position `start`.
-    ck/cv [B, max_len, Hkv, Dh] are written in place at [start, start+S)."""
-    B, S, d = x.shape
+    ck/cv [B, max_len, Hkv, Dh] are written in place at [start, start+S).
+    `lora` is the gathered batched-adapter triple (layer_planes, idx,
+    scale) (models/lora.py)."""
+    B, S, _ = x.shape
     if start + S > ck.shape[1]:
         raise ValueError(f"cache of length {ck.shape[1]} cannot take "
                          f"{S} tokens at position {start}")
     positions = start + torch.arange(S, device=x.device).expand(B, S)
     h = _rms_norm(x, layer["ln_attn"], cfg.norm_eps)
-    q = _rope(_proj(h, layer["wq"], cfg), positions, cfg.rope_theta)
-    k = _rope(_proj(h, layer["wk"], cfg), positions, cfg.rope_theta)
-    v = _proj(h, layer["wv"], cfg)
+    q, k, v = _qkv(cfg, h, layer, lora)
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
     ck[:, start:start + S] = k.to(ck.dtype)
     cv[:, start:start + S] = v.to(cv.dtype)
     o = _attend(q, ck, cv, start, cfg)
-    wo = layer["wo"].to(cfg.dtype)
-    x = x + o.reshape(B, S, -1) @ wo.reshape(-1, d)
+    x = x + _attn_out(cfg, o, layer, lora)
     h = _rms_norm(x, layer["ln_mlp"], cfg.norm_eps)
     return x + _mlp(h, layer, cfg)
 
 
 def forward_step(params: Params, tokens: torch.Tensor,
-                 cache: Dict[str, Any], cfg: TransformerConfig
+                 cache: Dict[str, Any], cfg: TransformerConfig, lora=None
                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run S new tokens through all layers against the cache.
     tokens [B, S] -> (logits [B, S, vocab] f32, cache).  The cache is
     updated IN PLACE (k/v written at its length, length advanced) and
-    returned for symmetry with the JAX signature."""
+    returned for symmetry with the JAX signature.
+
+    `lora` enables the gathered batched-adapter path: {"planes": {target:
+    {a: [L, A, ...], b: [L, A, ...]}}, "idx": [B] int, "scale": float} —
+    N heterogeneous adapters in one forward."""
     _check_dense(cfg)
     start = cache["length"]
     x = _embed_lookup(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
+        layer_lora = None if lora is None else (
+            LO.layer_planes(lora["planes"], i), lora["idx"], lora["scale"])
         x = _layer_step(cfg, x, layer_params(params, i), cache["k"][i],
-                        cache["v"][i], start)
+                        cache["v"][i], start, layer_lora)
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
     cache["length"] = start + tokens.shape[1]
     return logits_f32(x, params, cfg), cache
@@ -162,7 +203,7 @@ def gather_paged_cache(kp: torch.Tensor, vp: torch.Tensor,
 
 def paged_prefill_chunk(params: Params, kp: torch.Tensor, vp: torch.Tensor,
                         table: torch.Tensor, tokens: torch.Tensor,
-                        start: int, cfg: TransformerConfig
+                        start: int, cfg: TransformerConfig, lora=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run one prompt chunk against a paged pool (chunked prefill).
 
@@ -178,7 +219,8 @@ def paged_prefill_chunk(params: Params, kp: torch.Tensor, vp: torch.Tensor,
     capacity: C is the PADDED chunk width, so start+C may overrun the table
     (a bucket wider than the remaining capacity), and `_layer_step` refuses
     a write past its cache.  Only padding tokens can sit past the capacity;
-    they land in the scratch, which the write-back drops.
+    they land in the scratch, which the write-back drops.  `lora` as in
+    `forward_step`.
     """
     L, _N, bs, H, D = kp.shape
     M = table.shape[0]
@@ -187,10 +229,55 @@ def paged_prefill_chunk(params: Params, kp: torch.Tensor, vp: torch.Tensor,
     scratch = ck.new_zeros((L, 1, C, H, D))
     cache = {"k": torch.cat([ck, scratch], dim=2),
              "v": torch.cat([cv, scratch], dim=2), "length": int(start)}
-    logits, cache = forward_step(params, tokens, cache, cfg)
+    logits, cache = forward_step(params, tokens, cache, cfg, lora=lora)
     kp[:, table] = cache["k"][:, 0, :M * bs].reshape(L, M, bs, H, D)
     vp[:, table] = cache["v"][:, 0, :M * bs].reshape(L, M, bs, H, D)
     return kp, vp, logits
+
+
+def paged_verify(params: Params, kp: torch.Tensor, vp: torch.Tensor,
+                 table: torch.Tensor, tokens: torch.Tensor, start: int,
+                 cfg: TransformerConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative-decoding verify: ONE target forward over a request's
+    proposed positions (Leviathan et al., ICML'23; Chen et al., 2023).
+
+    tokens [1, C] are the request's pending token followed by the draft's
+    proposals, at absolute positions [start, start+C).  The logits at
+    position i are the target's distribution AFTER consuming
+    tokens[:i+1], so their greedy argmax is exactly what token-by-token
+    decode would have produced: the caller accepts the longest proposal
+    prefix matching them and always takes the target's own token at the
+    first mismatch (or the bonus token on full acceptance).
+
+    The same gather -> forward_step -> scatter path as chunked prefill,
+    scratch tail included: a window whose padding overruns the table
+    lands in scratch.  The write-back rewrites every table block, so the
+    caller copies any shared block in the window first; rejected
+    positions are the caller's to rewind (stale K/V past the accepted
+    cursor is masked, and overwritten before it can be attended).
+    """
+    return paged_prefill_chunk(params, kp, vp, table, tokens, start, cfg)
+
+
+def draft_propose(params: Params, token: torch.Tensor, cache: Dict[str, Any],
+                  cfg: TransformerConfig, k: int
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """k greedy draft tokens: the draft half of speculative decoding.
+
+    `token` is the request's pending token as a 0-d tensor on the cache's
+    device; returns (proposals [k], cache), the cache updated in place:
+    proposal i's K/V is written at cache position length+i, the layout the
+    verify re-derives on the target side.  The k single-token forwards
+    keep each next token on the device (no host sync inside the loop;
+    the caller reads the proposals once)."""
+    toks = []
+    tok = token.reshape(1, 1)
+    for _ in range(k):
+        logits, cache = forward_step(params, tok, cache, cfg)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        toks.append(tok)
+    return torch.cat(toks, dim=1)[0], cache
 
 
 def copy_block(kp: torch.Tensor, vp: torch.Tensor, src: int, dst: int

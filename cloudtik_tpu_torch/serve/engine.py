@@ -23,20 +23,37 @@ request lifecycle, metric, span, event and request-ledger names:
   from the engine's `torch.Generator`, so sampled tokens differ from the
   reference's), engine-level static top_k.  Greedy lanes take the argmax
   whatever the sampled lanes beside them draw.
+* SPECULATIVE DECODING (`EngineConfig.spec` + `DecodeEngine(draft=...)`):
+  per greedy slot and loop iteration, a draft model proposes k tokens
+  against a private contiguous cache (`generate.draft_propose`) and ONE
+  target verify (`generate.paged_verify`) scores all k+1 positions; the
+  longest matching prefix is accepted and the target's own token at the
+  first mismatch (or the bonus token) is always emitted, so greedy output
+  stays what plain decode gives.  Rejected positions rewind the cursor,
+  speculation-only blocks return to the pool, and a shared block in the
+  verify's window is copied first.  A `serve.spec.verify` fault degrades
+  the request to plain decode; sampled requests never speculate.
+* MULTI-TENANT LoRA (`DecodeEngine(adapters=AdapterPool(...))`,
+  serve/adapters.py): requests carry `tenant` + `adapter_id`; a step whose
+  lanes wear different adapters runs the gathered base+delta forward
+  (per-lane plane indices), a batch-homogeneous step runs the plain step
+  on the pool's cached merged weights.  Prefix chain keys are salted with
+  the adapter_id.  An adapter request speculates only with a registered
+  per-adapter draft (`adapter_drafts=`), and is then verified against the
+  merged target.
 
 The loop thread runs under `torch.inference_mode()`: grad mode is
 thread-local, and a decode step that recorded autograd history would grow
 memory with every step.  One host sync per decode step (`.tolist()` of the
-next tokens).
+next tokens), and two per spec round (the proposals, the verify's tokens).
 
 The port serves token ids it has checked against the vocabulary: an id
 outside it is refused at submit (`reason="token_ids"`, HTTP 400), since
 an index past the embedding would fault the CUDA context mid-step, where
 the reference's `jnp.take` passes it through.
 
-Not here yet (ROADMAP A2): speculative decoding (`EngineConfig.spec`,
-`draft=`), multi-tenant LoRA (`adapters=`, `adapter_drafts=`) and KV-block
-migration (`migrator=`, `import_blocks`); each raises NotImplementedError.
+Not here yet (ROADMAP A2): KV-block migration (`migrator=`,
+`import_blocks`); each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -58,11 +75,14 @@ from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.faults import seams
 from cloudtik_tpu_torch.faults.plan import FaultInjected
 from cloudtik_tpu_torch.models import generate as G
+from cloudtik_tpu_torch.models import lora as LO
 from cloudtik_tpu_torch.models.generate import _NEG
 from cloudtik_tpu_torch.models.transformer import (
-    TransformerConfig, _check_dense, _embed_lookup, _mlp, _proj, _rms_norm,
-    _rope, layer_params, logits_f32)
+    TransformerConfig, _check_dense, _embed_lookup, _mlp, _rms_norm, _rope,
+    layer_params, logits_f32)
 from cloudtik_tpu_torch.serve import kvcache, reqlog
+from cloudtik_tpu_torch.serve.adapters import (
+    AdapterLoadError, AdapterPool, AdapterSlotsExhausted)
 from cloudtik_tpu_torch.serve.kvcache import BlockPool, BlockPoolExhausted
 from cloudtik_tpu_torch.telemetry import events, goodput
 from cloudtik_tpu_torch.telemetry import instruments as ti
@@ -79,6 +99,19 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 @dataclasses.dataclass
+class SpecConfig:
+    """Draft-model speculative decoding (Leviathan et al., ICML'23; Chen
+    et al., "Accelerating LLM Decoding with Speculative Sampling").
+
+    Each spec round runs `k` draft forwards plus ONE target verify over
+    the paged pool and emits 1..k+1 tokens; greedy output stays what
+    plain decode gives.  The draft model itself is handed to
+    :class:`DecodeEngine` as ``draft=(params, cfg)``."""
+
+    k: int = 4                        # draft tokens proposed per verify
+
+
+@dataclasses.dataclass
 class EngineConfig:
     slots: int = 4                    # concurrent decode lanes
     max_len: int = 512                # per-request KV capacity (tokens)
@@ -92,8 +125,8 @@ class EngineConfig:
     # max prompt tokens prefilled per loop iteration; None = largest
     # bucket (the ladder is the chunk size).  max_len disables chunking.
     chunk_size: Optional[int] = None
-    # draft-model speculative decoding: not ported yet (raises)
-    spec: Optional[Any] = None
+    # draft-model speculative decoding; needs DecodeEngine(draft=...)
+    spec: Optional[SpecConfig] = None
     # admission-queue bound: a submit arriving past this many waiting
     # requests is REFUSED (RequestRejected reason="queue_full" -> HTTP
     # 429 + Retry-After).  None = unbounded.
@@ -116,6 +149,18 @@ class _Slot:
     length: int = 0                   # tokens in cache once decoding
     remaining: int = 0                # new tokens still wanted
     decoding: bool = False            # prefill finished
+    adapter_slot: int = 0             # LoRA plane slot (0 = base model)
+    # speculative decoding: the slot's private contiguous draft cache, its
+    # prompt-prefill cursor, the tokens it holds (its "length"), and the
+    # latch a verify fault flips (the request falls back to plain decode)
+    draft_cache: Optional[Dict[str, Any]] = None
+    draft_pos: int = 0                # prompt tokens in the draft cache
+    draft_len: int = 0                # tokens the draft cache holds
+    spec_off: bool = False            # verify fault: degraded to plain
+    # which draft weights propose for this slot: the base draft, or a
+    # registered per-adapter draft (adapter requests with no matching
+    # draft get no cache at all — they decode plain)
+    draft_params: Optional[Params] = None
 
 
 class RequestCancelled(RuntimeError):
@@ -143,9 +188,10 @@ class Request:
     `done_time` at completion — TTFT is first_token_time - created,
     and queue wait is admitted - created.  A preempted request's
     admitted/first-token stamps reset (it re-runs from scratch);
-    `preemptions` counts how often that happened.  The migration and
-    speculative-decoding counters stay 0 here; they keep the request
-    ledger's records in the reference's shape.
+    `preemptions` counts how often that happened.  `draft_tokens`,
+    `accepted_tokens` and `spec_steps` count speculative rounds; the
+    migration counters stay 0 here (no migration yet), keeping the
+    request ledger's records in the reference's shape.
     """
 
     def __init__(self, prompt: List[int], max_new_tokens: int = 32,
@@ -158,8 +204,8 @@ class Request:
         self.temperature = float(temperature)
         self.eos_id = eos_id
         # multi-tenant serving: which product this request belongs to
-        # (reqlog records, per-tenant metrics, weighted-fair admission);
-        # an adapter_id is refused at submit (no adapter pool here)
+        # (reqlog records, per-tenant metrics, weighted-fair admission)
+        # and which LoRA adapter decodes it (None = the base model)
         self.tenant = str(tenant)
         self.adapter_id = adapter_id
         self.tokens: List[int] = []
@@ -242,10 +288,18 @@ class Request:
         return True
 
 
+def fire_verify_seam(request_id: int, width: int) -> None:
+    """The `serve.spec.verify` injection seam, fired immediately before
+    every speculative draft/verify round (`raise` -> the request degrades
+    to non-speculative decode for the rest of its life; `latency` -> a
+    slow verify).  With no plan armed this is one attribute check."""
+    seams.fire("serve.spec.verify", request=request_id, width=width)
+
+
 def _decode_layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
                   ck: torch.Tensor, cv: torch.Tensor, tables: torch.Tensor,
                   lengths: torch.Tensor, active: torch.Tensor,
-                  block_size: int) -> torch.Tensor:
+                  block_size: int, lora=None) -> torch.Tensor:
     """One layer, one token per slot, against the paged pool.
 
     x [B,1,d]; ck/cv [N,bs,Hkv,Dh] (this layer's pool plane, written in
@@ -254,15 +308,19 @@ def _decode_layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
     at (table[length // bs], length % bs) and attends over its gathered
     table — inactive lanes all write block 0 at offset 0 (a duplicate
     index, harmless because block 0 is garbage) and their output is
-    discarded by the caller."""
+    discarded by the caller.
+
+    `lora` is the gathered batched-adapter triple (layer_planes, idx,
+    scale) (models/lora.py): each lane gathers ITS adapter's low-rank pair
+    and applies the delta next to the base projection, pre-RoPE."""
     B = x.shape[0]
     M = tables.shape[1]
     bs = block_size
     positions = lengths[:, None]                      # [B,1]
     h = _rms_norm(x, layer["ln_attn"], cfg.norm_eps)
-    q = _rope(_proj(h, layer["wq"], cfg), positions, cfg.rope_theta)
-    k = _rope(_proj(h, layer["wk"], cfg), positions, cfg.rope_theta)
-    v = _proj(h, layer["wv"], cfg)
+    q, k, v = G._qkv(cfg, h, layer, lora)
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
     # per-slot scatter at each slot's own (block, offset); inactive
     # slots write the null block's garbage (always masked)
     rows = torch.arange(B, device=x.device)
@@ -287,8 +345,7 @@ def _decode_layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
     scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("bhst,bthd->bshd", probs, cv_h.float()).to(x.dtype)
-    d = x.shape[-1]
-    x = x + o.reshape(B, 1, -1) @ layer["wo"].to(cfg.dtype).reshape(-1, d)
+    x = x + G._attn_out(cfg, o, layer, lora)
     h = _rms_norm(x, layer["ln_mlp"], cfg.norm_eps)
     return x + _mlp(h, layer, cfg)
 
@@ -296,15 +353,19 @@ def _decode_layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
 def decode_logits(params: Params, tokens: torch.Tensor, kp: torch.Tensor,
                   vp: torch.Tensor, tables: torch.Tensor,
                   lengths: torch.Tensor, active: torch.Tensor,
-                  cfg: TransformerConfig, block_size: int) -> torch.Tensor:
+                  cfg: TransformerConfig, block_size: int,
+                  lora=None) -> torch.Tensor:
     """The decode step's forward: tokens [B] (each slot's last token),
     kp/vp [L,N,bs,Hkv,Dh] pools (written in place), tables [B,M],
-    lengths/active [B] -> logits [B, vocab] f32."""
+    lengths/active [B] -> logits [B, vocab] f32.  `lora` as in
+    `generate.forward_step`: {"planes", "idx" [B], "scale"}."""
     _check_dense(cfg)
     x = _embed_lookup(params["embed"], tokens[:, None], cfg)
     for i in range(cfg.n_layers):
+        layer_lora = None if lora is None else (
+            LO.layer_planes(lora["planes"], i), lora["idx"], lora["scale"])
         x = _decode_layer(cfg, x, layer_params(params, i), kp[i], vp[i],
-                          tables, lengths, active, block_size)
+                          tables, lengths, active, block_size, layer_lora)
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_f32(x, params, cfg)[:, 0, :]
 
@@ -314,7 +375,8 @@ def decode_step(params: Params, tokens: torch.Tensor, kp: torch.Tensor,
                 lengths: torch.Tensor, active: torch.Tensor,
                 temps: Optional[torch.Tensor],
                 generator: Optional[torch.Generator],
-                cfg: TransformerConfig, block_size: int, top_k: int
+                cfg: TransformerConfig, block_size: int, top_k: int,
+                lora=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
     """One token for every active slot, paged.
@@ -322,9 +384,12 @@ def decode_step(params: Params, tokens: torch.Tensor, kp: torch.Tensor,
     tokens [B], kp/vp [L,N,bs,Hkv,Dh] block pools, tables [B,M],
     lengths/active [B]; temps [B] f32, or None when every lane is greedy
     (no draw is made).  Returns (next_tokens, kp, vp, new_lengths), the
-    pools updated in place; inactive slots keep their state."""
+    pools updated in place; inactive slots keep their state.  `lora`
+    enables the gathered batched-adapter path (`decode_logits`): a batch
+    mixing N adapters and base-model lanes on the null slot 0 is still
+    one step."""
     logits = decode_logits(params, tokens, kp, vp, tables, lengths, active,
-                           cfg, block_size)
+                           cfg, block_size, lora=lora)
     if top_k > 0:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits < kth, torch.full_like(logits, _NEG),
@@ -347,38 +412,40 @@ class DecodeEngine:
     """Host loop + device work for continuous-batching generation.
 
     submit() is thread-safe; callers block on Request.wait().  One
-    background thread owns all device state AND the block pool, so the
-    allocator needs no locking.  `params` must lie on `device` (None: the
+    background thread owns all device state, the block pool and the
+    adapter pool, so neither allocator needs locking.  `params` (and the
+    draft's, and the adapter pool's base) must lie on `device` (None: the
     card); `generator` (default: seeded 0 on that device) draws the
-    sampled tokens."""
+    sampled tokens.  `draft=(params, cfg)` with `EngineConfig.spec` turns
+    on speculative decoding; `adapters` serves LoRA adapters and
+    `adapter_drafts` maps an adapter_id to its own draft weights (over the
+    draft's architecture)."""
 
     def __init__(self, params: Params, cfg: TransformerConfig,
                  engine_config: Optional[EngineConfig] = None,
                  generator: Optional[torch.Generator] = None,
                  draft: Optional[Tuple[Params, TransformerConfig]] = None,
                  migrator: Optional[Any] = None,
-                 adapters: Optional[Any] = None,
+                 adapters: Optional[AdapterPool] = None,
                  adapter_drafts: Optional[Dict[str, Params]] = None,
                  device: DeviceLike = None):
         self.ec = engine_config or EngineConfig()
-        for name, value in (("DecodeEngine(draft=...)", draft),
-                            ("DecodeEngine(migrator=...)", migrator),
-                            ("DecodeEngine(adapters=...)", adapters),
-                            ("DecodeEngine(adapter_drafts=...)",
-                             adapter_drafts),
-                            ("EngineConfig.spec", self.ec.spec)):
-            if value is not None:
-                raise _not_ported(name)
+        if migrator is not None:
+            raise _not_ported("DecodeEngine(migrator=...)")
         if self.ec.admission not in ("fifo", "wfq"):
             raise ValueError(
                 f"unknown admission policy {self.ec.admission!r}; "
                 "expected 'fifo' or 'wfq'")
         _check_dense(cfg)
         self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(
-                f"params lie on {params['embed'].device}, the engine runs "
-                f"on {self.device}")
+        for what, tree in (("params", params),
+                           ("the draft's params", draft and draft[0]),
+                           ("the adapter pool's base",
+                            adapters and adapters.base)):
+            if tree and tree["embed"].device.type != self.device.type:
+                raise ValueError(
+                    f"{what} lie on {tree['embed'].device}, the engine "
+                    f"runs on {self.device}")
         self._params = params
         self.cfg = cfg
         self._generator = generator if generator is not None else \
@@ -424,6 +491,66 @@ class DecodeEngine:
         # lanes vs slot_idle, anchored when the engine starts serving
         self._ledger = goodput.get_ledger("serve")
 
+        # -- multi-tenant LoRA adapters (serve/adapters.py) ----------------
+        # heterogeneous-adapter lanes decode in ONE step: the stacked
+        # planes plus per-slot plane indices ride the decode and prefill
+        # forwards; a batch-HOMOGENEOUS step (every active lane on the
+        # same adapter) runs the plain step on the pool's cached merged
+        # weights, with no gather arithmetic.
+        self._adapters = adapters
+        self._adapter_idx = np.zeros((B,), np.int64)
+        # loop-thread-only counters: which decode path each step took
+        self._merged_steps = 0
+        self._gathered_steps = 0
+
+        # -- draft-model speculative decoding (EngineConfig.spec) ----------
+        self._spec = self.ec.spec
+        # per-adapter draft weights (adapter_id -> draft params over the
+        # SAME draft architecture).  On a spec-enabled multi-tenant
+        # engine a request carrying an adapter_id speculates ONLY when its
+        # adapter has a draft registered here: the base draft proposing
+        # for an adapter-shifted target would verify at ~0 acceptance, so
+        # unmatched adapter requests take the plain decode path.
+        self._adapter_drafts = dict(adapter_drafts or {})
+        if self._adapter_drafts and self._spec is None:
+            raise ValueError(
+                "adapter_drafts without EngineConfig.spec has no effect — "
+                "per-adapter drafts are a speculative-decoding surface")
+        if self._adapter_drafts and adapters is None:
+            raise ValueError(
+                "adapter_drafts without an adapter pool: the engine could "
+                "never serve the adapters those drafts propose for")
+        if self._spec is not None:
+            if draft is None:
+                raise ValueError(
+                    "EngineConfig.spec is set but no draft model was "
+                    "passed — DecodeEngine(..., draft=(params, cfg))")
+            if self._spec.k < 1:
+                raise ValueError("SpecConfig.k must be >= 1")
+            if self._spec.k > chunk_max:
+                # the draft plane's scratch tail is chunk_max wide: k
+                # proposals past the capacity must land in it (JAX clamps
+                # such a write silently; the port's forward refuses it)
+                raise ValueError(
+                    f"SpecConfig.k ({self._spec.k}) must not exceed the "
+                    f"prefill chunk ({chunk_max} tokens)")
+            self._draft_params, self._draft_cfg = draft
+            _check_dense(self._draft_cfg)
+            if self._draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab ({self._draft_cfg.vocab_size}) must "
+                    f"match the target's ({cfg.vocab_size}) — the verify "
+                    "step compares token ids")
+            # the draft's per-slot plane carries a chunk_max scratch tail:
+            # a padded prefill bucket overrunning the capacity lands there
+            self._draft_plane = self._capacity_tokens + chunk_max
+            # cumulative totals behind the acceptance-rate and
+            # tokens-per-verify gauges (loop-thread only)
+            self._spec_draft_total = 0
+            self._spec_accepted_total = 0
+            self._spec_emitted_total = 0
+            self._spec_verifies = 0
+
     # -- public ----------------------------------------------------------
     def _submit_check(self, request: Request) -> Optional[RequestRejected]:
         """Submit-time feasibility in KV-pool-capacity terms; None when
@@ -431,7 +558,7 @@ class DecodeEngine:
         if not request.prompt:
             return RequestRejected("empty prompt",
                                    reason="empty_prompt")
-        if request.adapter_id is not None:
+        if request.adapter_id is not None and self._adapters is None:
             return RequestRejected(
                 f"request names adapter {request.adapter_id!r} but "
                 "this engine serves the base model only (no adapter "
@@ -648,6 +775,11 @@ class DecodeEngine:
         self._slots[slot_id] = None
         self.pool.release(list(reversed(slot.table)))
         slot.table = []
+        if self._adapters is not None:
+            # drop this request's pin; a refcount-0 adapter parks on the
+            # pool's idle LRU (planes stay warm, reclaimable)
+            self._adapters.release(slot.request.adapter_id)
+            self._adapter_idx[slot_id] = 0
         self._sync_table(slot_id)
 
     def _stamp_first_token(self, slot_id: int, slot: _Slot,
@@ -712,7 +844,8 @@ class DecodeEngine:
         salvaged = 0
         if self.ec.prefix_cache and at_stake >= self.ec.block_size:
             salvaged = self.pool.register_prefix(
-                req.prompt[:at_stake], slot.table)
+                req.prompt[:at_stake], slot.table,
+                namespace=req.adapter_id)
         self._release_slot(slot_id)
         req.tokens.clear()
         req.admitted = None
@@ -859,11 +992,26 @@ class DecodeEngine:
                 # a preemption victim re-admits only once its WORST
                 # case fits — optimistic re-admission would thrash
                 break
+            adapter_slot = 0
+            if self._adapters is not None:
+                try:
+                    adapter_slot = self._adapters.acquire(req.adapter_id)
+                except AdapterSlotsExhausted:
+                    break     # every plane slot pinned: wait, like
+                    #           KV-block exhaustion
+                except AdapterLoadError as e:
+                    # the load failure fails the REQUEST, never the
+                    # engine: record it and admit the next one
+                    del self._waiting[i]
+                    self._finish_request(req, "error", e)
+                    continue
             reuse_blocks: List[int] = []
             reuse_len = 0
             if self.ec.prefix_cache:
+                # chain keys are salted with the adapter_id: identical
+                # prompts under different adapters NEVER share KV
                 reuse_blocks, reuse_len = self.pool.match_prefix(
-                    req.prompt)
+                    req.prompt, namespace=req.adapter_id)
             need = kvcache.blocks_for(true_len, self.ec.block_size) \
                 - len(reuse_blocks)
             try:
@@ -871,6 +1019,8 @@ class DecodeEngine:
             except (BlockPoolExhausted, FaultInjected):
                 if reuse_blocks:
                     self.pool.release(reuse_blocks)
+                if self._adapters is not None:
+                    self._adapters.release(req.adapter_id)
                 break         # exhaustion queues new admissions
             del self._waiting[i]
             try:
@@ -885,9 +1035,21 @@ class DecodeEngine:
                              table=reuse_blocks + fresh,
                              true_len=true_len,
                              prefill_pos=reuse_len,
-                             remaining=req.max_new_tokens - 1)
+                             remaining=req.max_new_tokens - 1,
+                             adapter_slot=adapter_slot)
+                draft_params = self._draft_for(req)
+                if draft_params is not None and req.temperature <= 0.0:
+                    # private draft cache; the draft prefills the WHOLE
+                    # prompt (prefix reuse only skips target compute — the
+                    # draft has no shared pool).  Sampled requests never
+                    # speculate, nor do adapter requests without a
+                    # registered draft: they get no draft cache
+                    slot.draft_cache = G.init_cache(
+                        self._draft_cfg, 1, self._draft_plane, self.device)
+                    slot.draft_params = draft_params
                 req.kv_blocks = max(req.kv_blocks, len(slot.table))
                 self._slots[slot_id] = slot
+                self._adapter_idx[slot_id] = adapter_slot
                 self._sync_table(slot_id)
                 # re-enter the request's trace: this is the loop
                 # thread, so the submit-side context does not carry over
@@ -901,6 +1063,8 @@ class DecodeEngine:
                     self._release_slot(slot_id)
                 else:     # failed before the slot took ownership
                     self.pool.release(reuse_blocks + fresh)
+                    if self._adapters is not None:
+                        self._adapters.release(req.adapter_id)
                 self._finish_request(req, "error", e)
         ti.SERVE_QUEUE_DEPTH.set(self._queue.qsize()
                                  + len(self._waiting),
@@ -911,7 +1075,11 @@ class DecodeEngine:
         """Run ONE prompt chunk for the oldest prefilling slot.  One
         chunk per loop iteration is the Sarathi interleave: a decode
         step runs between chunks, so in-flight TPOT is bounded by one
-        chunk's compute, not a whole long prompt's."""
+        chunk's compute, not a whole long prompt's.  With speculative
+        decoding on, the draft model prefills the SAME prompt into the
+        slot's private cache one chunk per tick alongside the target's;
+        the slot starts decoding once BOTH caches cover the prompt (the
+        first token still arrives at target-prefill completion)."""
         cand = [(s.request.admitted_mono or 0.0, i)
                 for i, s in enumerate(self._slots)
                 if s is not None and not s.decoding]
@@ -921,51 +1089,91 @@ class DecodeEngine:
         slot = self._slots[slot_id]
         req = slot.request
         try:
-            chunk = min(slot.true_len - slot.prefill_pos, self._chunk_max)
-            covered = kvcache.blocks_for(slot.prefill_pos + chunk,
-                                         self.ec.block_size)
-            if len(slot.table) < covered:
-                if not self._grow_table(slot_id, slot,
-                                        covered - len(slot.table)):
-                    return    # preempted itself; re-admits later
-            bucket = self._bucket(chunk)
-            with telemetry.trace_context(req.traceparent):
-                with telemetry.span("serve.prefill",
-                                    request=req.request_id,
-                                    slot=slot_id,
-                                    start=slot.prefill_pos,
-                                    chunk_len=chunk):
-                    padded = np.zeros((1, bucket), np.int64)
-                    padded[0, :chunk] = req.prompt[
-                        slot.prefill_pos:slot.prefill_pos + chunk]
-                    _, _, logits = G.paged_prefill_chunk(
-                        self._params, self._kp, self._vp,
-                        torch.tensor(self._tables_np[slot_id],
-                                     device=self.device),
-                        torch.tensor(padded, device=self.device),
-                        slot.prefill_pos, self.cfg)
-                    tok = logits[0, chunk - 1].argmax(-1)
-            slot.prefill_pos += chunk
-            req.prefill_chunks += 1
-            ti.SERVE_PREFILL_CHUNKS.inc()
-            if slot.prefill_pos >= slot.true_len:
-                # prompt complete: the final chunk's last logits ARE
-                # the first generated token
-                first_tok = int(tok)
-                if self.ec.prefix_cache:
-                    self.pool.register_prefix(
-                        req.prompt, slot.table,
-                        start_block=req.prefix_blocks)
-                self._stamp_first_token(slot_id, slot, first_tok)
-                if (req.eos_id is not None and first_tok == req.eos_id) \
-                        or slot.remaining <= 0:
-                    self._release_slot(slot_id)
-                    self._finish_request(req, "ok")
-                    return
+            if slot.prefill_pos < slot.true_len:
+                chunk = min(slot.true_len - slot.prefill_pos,
+                            self._chunk_max)
+                covered = kvcache.blocks_for(slot.prefill_pos + chunk,
+                                             self.ec.block_size)
+                if len(slot.table) < covered:
+                    if not self._grow_table(slot_id, slot,
+                                            covered - len(slot.table)):
+                        return    # preempted itself; re-admits later
+                bucket = self._bucket(chunk)
+                with telemetry.trace_context(req.traceparent):
+                    with telemetry.span("serve.prefill",
+                                        request=req.request_id,
+                                        slot=slot_id,
+                                        start=slot.prefill_pos,
+                                        chunk_len=chunk):
+                        padded = np.zeros((1, bucket), np.int64)
+                        padded[0, :chunk] = req.prompt[
+                            slot.prefill_pos:slot.prefill_pos + chunk]
+                        lora = None
+                        if self._adapters is not None:
+                            # the gathered-adapter prefill: the slot's
+                            # adapter delta next to the base forward
+                            lora = {"planes": self._adapters.planes,
+                                    "idx": torch.tensor(
+                                        [slot.adapter_slot],
+                                        device=self.device),
+                                    "scale": self._adapters.lora_cfg.scale}
+                        _, _, logits = G.paged_prefill_chunk(
+                            self._params, self._kp, self._vp,
+                            torch.tensor(self._tables_np[slot_id],
+                                         device=self.device),
+                            torch.tensor(padded, device=self.device),
+                            slot.prefill_pos, self.cfg, lora=lora)
+                        tok = logits[0, chunk - 1].argmax(-1)
+                slot.prefill_pos += chunk
+                req.prefill_chunks += 1
+                ti.SERVE_PREFILL_CHUNKS.inc()
+                if slot.prefill_pos >= slot.true_len:
+                    # prompt complete: the final chunk's last logits ARE
+                    # the first generated token
+                    first_tok = int(tok)
+                    if self.ec.prefix_cache:
+                        self.pool.register_prefix(
+                            req.prompt, slot.table,
+                            start_block=req.prefix_blocks,
+                            namespace=req.adapter_id)
+                    self._stamp_first_token(slot_id, slot, first_tok)
+                    if (req.eos_id is not None
+                            and first_tok == req.eos_id) \
+                            or slot.remaining <= 0:
+                        self._release_slot(slot_id)
+                        self._finish_request(req, "ok")
+                        return
+            if slot.draft_cache is not None \
+                    and slot.draft_pos < slot.true_len:
+                self._draft_prefill_chunk(slot)
+            if slot.prefill_pos >= slot.true_len \
+                    and (slot.draft_cache is None
+                         or slot.draft_pos >= slot.true_len):
                 slot.decoding = True
         except Exception as e:   # surface per-request failures
             self._release_slot(slot_id)
             self._finish_request(req, "error", e)
+
+    def _draft_prefill_chunk(self, slot: _Slot) -> None:
+        """One draft-model prompt chunk into the slot's private cache,
+        padded to the same bucket ladder as the target's chunks.  Pad
+        garbage lands beyond the cursor and is overwritten by the next
+        chunk before any query can attend it; the plane's scratch tail
+        absorbs a bucket overrunning the capacity."""
+        req = slot.request
+        chunk = min(slot.true_len - slot.draft_pos, self._chunk_max)
+        padded = np.zeros((1, self._bucket(chunk)), np.int64)
+        padded[0, :chunk] = req.prompt[
+            slot.draft_pos:slot.draft_pos + chunk]
+        slot.draft_cache["length"] = slot.draft_pos
+        G.forward_step(slot.draft_params,
+                       torch.tensor(padded, device=self.device),
+                       slot.draft_cache, self._draft_cfg)
+        slot.draft_pos += chunk
+        slot.draft_len = slot.draft_pos
+        # forward_step advanced length by the PADDED width; pin it to the
+        # real cursor so the next chunk overwrites the pad garbage
+        slot.draft_cache["length"] = slot.draft_pos
 
     def _reap_cancelled(self) -> None:
         """Free slots whose request was cancelled — runs on the loop
@@ -977,13 +1185,15 @@ class DecodeEngine:
                     slot.request, "cancelled",
                     RequestCancelled("request cancelled"))
 
-    def _prepare_decode(self) -> None:
+    def _prepare_decode(self, skip=frozenset()) -> None:
         """Host pre-pass before the decode step: every decoding slot's
         next write position must land in an allocated, privately-owned
         block — grow tables across block boundaries, copy-on-write any
-        block another holder shares (pool.needs_copy)."""
+        block another holder shares (pool.needs_copy).  Slots in `skip`
+        already advanced speculatively this iteration and take no plain
+        decode write."""
         for slot_id, slot in enumerate(self._slots):
-            if slot is None or not slot.decoding:
+            if slot is None or not slot.decoding or slot_id in skip:
                 continue
             j = slot.length // self.ec.block_size
             if j >= len(slot.table):
@@ -991,11 +1201,205 @@ class DecodeEngine:
                 continue      # preempt handled inside; mask re-reads
             self._cow_block(slot_id, slot, j)
 
+    # -- speculative decoding ---------------------------------------------
+    def _draft_for(self, req: Request) -> Optional[Params]:
+        """The draft weights allowed to propose for this request: the base
+        draft for base-model requests; for adapter requests, the
+        REGISTERED per-adapter draft or nothing (a base-model draft
+        proposing for an adapter-shifted target would be rejected almost
+        always), so an unmatched adapter request decodes plain."""
+        if self._spec is None:
+            return None
+        if req.adapter_id is None:
+            return self._draft_params
+        return self._adapter_drafts.get(req.adapter_id)
+
+    def _spec_width(self, slot: _Slot) -> int:
+        """Verify width for a slot: pending token + proposals, capped so
+        the emitted tokens can never overshoot max_new_tokens or the
+        per-request KV capacity."""
+        return min(self._spec.k + 1, slot.remaining,
+                   self._capacity_tokens - slot.length)
+
+    def _spec_eligible(self, slot: _Slot) -> bool:
+        """Spec rounds run for greedy decoding slots only: sampled and
+        verify-faulted (degraded) requests take the plain batched step,
+        and a width under 2 leaves nothing worth speculating on."""
+        return (slot.decoding and not slot.spec_off
+                and slot.draft_cache is not None
+                and slot.request.temperature <= 0.0
+                and self._spec_width(slot) >= 2)
+
+    def _spec_pass(self) -> set:
+        """One draft/verify round for every eligible slot; returns the
+        slot ids that advanced speculatively (they skip the plain decode
+        step this iteration).  Serve-side goodput books the round's wall
+        time into busy lanes vs slot_idle, like a plain decode step."""
+        done: set = set()
+        spec_ids = [i for i, s in enumerate(self._slots)
+                    if s is not None and self._spec_eligible(s)]
+        if not spec_ids:
+            return done
+        t_spec = time.perf_counter()
+        for slot_id in spec_ids:
+            slot = self._slots[slot_id]
+            if slot is None or not slot.decoding:
+                continue   # preempted/finished by an earlier lane
+            if self._spec_step(slot_id, slot):
+                done.add(slot_id)
+        if done and _telemetry_state.enabled:
+            dt = time.perf_counter() - t_spec
+            busy = dt * len(done) / self.ec.slots
+            self._ledger.attribute(goodput.BUCKET_STEP_COMPUTE, busy)
+            self._ledger.attribute(goodput.BUCKET_SLOT_IDLE, dt - busy)
+            self._ledger.tick()
+        return done
+
+    def _draft_propose(self, slot: _Slot, n: int) -> List[int]:
+        """Catch the draft cache up to the slot's cursor ([1,1] replay of
+        already-emitted tokens — at most the bonus token in steady
+        state), then run the k-step draft.  Returns the first n
+        proposals; the host syncs once, after the k forwards."""
+        req = slot.request
+        cache = slot.draft_cache
+        while slot.draft_len < slot.length:
+            tok = req.tokens[slot.draft_len - slot.true_len]
+            G.forward_step(slot.draft_params,
+                           torch.tensor([[tok]], device=self.device),
+                           cache, self._draft_cfg)
+            slot.draft_len += 1
+        toks, _ = G.draft_propose(
+            slot.draft_params, torch.tensor(req.tokens[-1],
+                                            device=self.device),
+            cache, self._draft_cfg, self._spec.k)
+        slot.draft_len += self._spec.k
+        return toks.tolist()[:n]
+
+    def _spec_step(self, slot_id: int, slot: _Slot) -> bool:
+        """One draft/verify round for a slot: k draft forwards plus ONE
+        target verify over the paged pool, emitting 1..k+1 tokens.  The
+        longest proposal prefix matching the target's greedy tokens is
+        accepted and the target's own token at the first mismatch (or the
+        bonus token) is always emitted.  Rejected positions rewind the
+        write cursor (stale K/V past it is masked and overwritten before
+        it can be attended) and speculation-only blocks go back to the
+        pool; any shared block the verify would write is copied first.
+        Returns True when the slot advanced (or finished)."""
+        req = slot.request
+        bs = self.ec.block_size
+        length = slot.length
+        W = self._spec_width(slot)
+        try:
+            fire_verify_seam(req.request_id, W)
+        except FaultInjected:
+            # degrade THIS request to plain decode; nothing was written
+            # and the draft cache can never be read again — release it
+            slot.spec_off = True
+            slot.draft_cache = None
+            return False
+        try:
+            # the verify writes positions [length, length+W): cover them,
+            # and COW any block another holder shares before appending
+            covered = kvcache.blocks_for(length + W, bs)
+            if len(slot.table) < covered:
+                if not self._grow_table(slot_id, slot,
+                                        covered - len(slot.table)):
+                    return False   # preempted itself; re-admits later
+            for j in range(length // bs, (length + W - 1) // bs + 1):
+                if not self._cow_block(slot_id, slot, j):
+                    return False   # preempted itself; re-admits later
+            # the verify scores the REQUEST'S target: for an adapter slot
+            # that is base+delta, the pool's cached merged weights
+            target_params = self._params if req.adapter_id is None \
+                else self._adapters.merged(req.adapter_id)
+            with telemetry.trace_context(req.traceparent):
+                with telemetry.span("serve.spec.verify",
+                                    request=req.request_id,
+                                    slot=slot_id, width=W):
+                    proposals = self._draft_propose(slot, W - 1)
+                    padded = np.zeros((1, self._spec.k + 1), np.int64)
+                    padded[0, 0] = req.tokens[-1]
+                    padded[0, 1:W] = proposals
+                    _, _, logits = G.paged_verify(
+                        target_params, self._kp, self._vp,
+                        torch.tensor(self._tables_np[slot_id],
+                                     device=self.device),
+                        torch.tensor(padded, device=self.device),
+                        length, self.cfg)
+                    target = logits[0].argmax(-1).tolist()
+            accepted = 0
+            while accepted < W - 1 \
+                    and target[accepted] == proposals[accepted]:
+                accepted += 1
+            emitted = proposals[:accepted] + [target[accepted]]
+            req.spec_steps += 1
+            req.draft_tokens += W - 1
+            req.accepted_tokens += accepted
+            ti.SERVE_SPEC_STEPS.inc()
+            ti.SERVE_SPEC_DRAFT_TOKENS.inc(W - 1)
+            if accepted:
+                ti.SERVE_SPEC_ACCEPTED_TOKENS.inc(accepted)
+            if _telemetry_state.enabled:
+                self._spec_draft_total += W - 1
+                self._spec_accepted_total += accepted
+                self._spec_emitted_total += len(emitted)
+                self._spec_verifies += 1
+                ti.SERVE_SPEC_ACCEPTANCE.set(
+                    self._spec_accepted_total / self._spec_draft_total)
+                ti.SERVE_SPEC_TOKENS_PER_VERIFY.set(
+                    self._spec_emitted_total / self._spec_verifies)
+            eos = req.eos_id
+            hit_eos = False
+            kept: List[int] = []
+            for tok in emitted:
+                kept.append(tok)
+                if eos is not None and tok == eos:
+                    hit_eos = True
+                    break
+            req.tokens.extend(kept)
+            ti.SERVE_TOKENS.inc(len(kept))
+            new_length = length + accepted + 1
+            slot.length = new_length
+            slot.remaining -= len(kept)
+            if hit_eos or slot.remaining <= 0 \
+                    or new_length + 1 >= self._capacity_tokens:
+                self._release_slot(slot_id)
+                self._finish_request(req, "ok")
+                return True
+            self._tokens[slot_id] = kept[-1]
+            self._lengths[slot_id] = new_length
+            # rewind the draft behind any rejected positions; a full
+            # acceptance leaves it one token (the bonus) behind and the
+            # next round's catch-up replays it
+            if slot.draft_len > new_length:
+                slot.draft_len = new_length
+                slot.draft_cache["length"] = new_length
+            # free speculation-only blocks past the accepted cursor (one
+            # block of headroom stays for the pending token)
+            needed = kvcache.blocks_for(new_length + 1, bs)
+            if len(slot.table) > needed:
+                extra = slot.table[needed:]
+                del slot.table[needed:]
+                self.pool.release(extra)
+                self._sync_table(slot_id)
+            return True
+        except Exception as e:   # surface per-request failures
+            self._release_slot(slot_id)
+            self._finish_request(req, "error", e)
+            return False
+
     def _step(self) -> None:
-        self._prepare_decode()
-        decoding = [s is not None and s.decoding for s in self._slots]
+        spec_done: set = frozenset()
+        if self._spec is not None:
+            spec_done = self._spec_pass()
+        self._prepare_decode(skip=spec_done)
+        decoding = [s is not None and s.decoding and i not in spec_done
+                    for i, s in enumerate(self._slots)]
         n_active = sum(decoding)
-        ti.SERVE_ACTIVE_SLOTS.set(n_active, role=self._role)
+        # spec slots whose request finished inside the round are free
+        # lanes now — count only the ones still occupied as active
+        n_spec = sum(1 for i in spec_done if self._slots[i] is not None)
+        ti.SERVE_ACTIVE_SLOTS.set(n_active + n_spec, role=self._role)
         if n_active == 0:
             return
         seams.fire("serve.decode_step", active=n_active)
@@ -1005,14 +1409,32 @@ class DecodeEngine:
                 [s.request.temperature if decoding[i] else 0.0
                  for i, s in enumerate(self._slots)], np.float32)
             dev = self.device
+            params, lora = self._params, None
+            if self._adapters is not None:
+                active_ids = {self._slots[i].request.adapter_id
+                              for i, on in enumerate(decoding) if on}
+                if len(active_ids) == 1:
+                    # batch-HOMOGENEOUS step: every active lane wears the
+                    # same adapter — the pool's cached merged weights
+                    # ride the plain step, with no gather arithmetic
+                    self._merged_steps += 1
+                    params = self._adapters.merged(next(iter(active_ids)))
+                else:
+                    # heterogeneous adapters decode in ONE step: per-slot
+                    # plane indices gather each lane's low-rank pair
+                    self._gathered_steps += 1
+                    lora = {"planes": self._adapters.planes,
+                            "idx": torch.tensor(self._adapter_idx,
+                                                device=dev),
+                            "scale": self._adapters.lora_cfg.scale}
             nxt, self._kp, self._vp, self._lengths = decode_step(
-                self._params, self._tokens, self._kp, self._vp,
+                params, self._tokens, self._kp, self._vp,
                 torch.tensor(self._tables_np, device=dev), self._lengths,
                 torch.tensor(decoding, device=dev),
                 torch.tensor(temps, device=dev)
                 if (temps > 1e-5).any() else None,
                 self._generator, self.cfg, self.ec.block_size,
-                self.ec.top_k)
+                self.ec.top_k, lora=lora)
             self._tokens = nxt
             host_tokens = nxt.tolist()      # the step's one host sync
         ti.SERVE_TOKENS.inc(n_active)

@@ -11,12 +11,16 @@ server in front of the port's `generate` (one request at a time) or, with
 `BackendError`, `ModelBackend` and `ServeServer` (with its graceful drain
 and its adoption of a caller's `traceparent` header) are this package's
 own copies of the JAX package's, which this package does not import.  The
-daemon installs the request ledger (serve/reqlog.py) at boot.  Not here
-yet: the engine's speculative, disaggregated and multi-tenant LoRA modes
-(ROADMAP A2), the GBDT backend and replica registration.
+daemon installs the request ledger (serve/reqlog.py) at boot.  The engine
+serves speculatively with `--spec-model`, and LoRA adapters through
+`engine_backend(adapter_loader=...)`.  Not here yet: the disaggregated
+mode (ROADMAP A2), checkpoints (`--checkpoint-dir`, `--spec-checkpoint-dir`,
+`--adapters-dir`: ROADMAP A6), the GBDT backend and replica registration.
 
     python -m cloudtik_tpu_torch.serve.server --model tpu_1b
     python -m cloudtik_tpu_torch.serve.server --engine --model tpu_1b
+    python -m cloudtik_tpu_torch.serve.server --engine --model tpu_1b \
+        --spec-model tpu_120m --spec-k 4
 """
 
 from __future__ import annotations
@@ -78,7 +82,7 @@ def transformer_backend(model: str = "tiny",
     if checkpoint_dir:
         raise NotImplementedError(
             "checkpoint_dir is not supported yet: restoring a checkpoint "
-            "comes with the checkpoint slice")
+            "comes with the checkpoint slice (ROADMAP A6)")
     dev = resolve_device(device)
     cfg = T.config(model, **config_overrides)
     if params is None:
@@ -120,8 +124,13 @@ def engine_backend(model: str = "tiny",
                    num_blocks: Optional[int] = None,
                    spec_model: Optional[str] = None,
                    spec_checkpoint_dir: Optional[str] = None,
+                   spec_k: int = 4,
                    disagg: bool = False,
                    adapters_dir: Optional[str] = None,
+                   adapter_loader: Optional[Callable[[str], Any]] = None,
+                   adapter_slots: int = 8,
+                   lora_rank: int = 16,
+                   lora_alpha: float = 32.0,
                    admission: str = "fifo",
                    tenant_weights: Optional[Dict[str, float]] = None,
                    max_queue_depth: Optional[int] = None,
@@ -131,47 +140,70 @@ def engine_backend(model: str = "tiny",
 
     Each HTTP request submits ONE prompt to the shared DecodeEngine and
     blocks on its result; the ThreadingHTTPServer's concurrency is what
-    fills the engine's decode slots.  ``"tenant"`` tags a request for
-    per-tenant metrics and (with ``admission="wfq"`` + `tenant_weights`)
-    weighted-fair admission; `max_queue_depth` bounds the admission
-    queue (overflow is a 429 + Retry-After).  `params` and `device` as in
-    `transformer_backend`.  The speculative (`spec_model`), disaggregated
-    (`disagg`) and LoRA (`adapters_dir`) modes are not ported yet and
-    raise NotImplementedError; their tuning arguments come with them.
-    The backend keeps `engine` (for stop()), `params` and `cfg` as
+    fills the engine's decode slots.  `spec_model` enables draft-model
+    speculative decoding: the named preset, its weights made from seed 0
+    as the target's are, proposes `spec_k` greedy tokens per round and
+    ONE target verify accepts the matching prefix (so `spec_model` equal
+    to `model` is a self-draft).  `adapter_loader` (adapter_id -> adapter
+    tree) turns on multi-tenant LoRA: requests naming ``"adapter":
+    "<id>"`` load into an adapter pool of `adapter_slots` plane slots at
+    rank `lora_rank` and alpha `lora_alpha`; ``"tenant"`` tags a request
+    for per-tenant metrics and (with ``admission="wfq"`` +
+    `tenant_weights`) weighted-fair admission.  `max_queue_depth` bounds
+    the admission queue (overflow is a 429 + Retry-After).  `params` and
+    `device` as in `transformer_backend`.  Not ported yet, and raising
+    NotImplementedError: `disagg` (ROADMAP A2), and the checkpoints of
+    `checkpoint_dir`, `spec_checkpoint_dir` and `adapters_dir` (ROADMAP
+    A6).  The backend keeps `engine` (for stop()), `params` and `cfg` as
     attributes."""
     import torch
 
     from cloudtik_tpu_torch import convert
     from cloudtik_tpu_torch.device import resolve_device
     from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.models.lora import LoRAConfig
+    from cloudtik_tpu_torch.serve.adapters import (
+        AdapterPool, checkpoint_loader)
     from cloudtik_tpu_torch.serve.engine import (
-        DecodeEngine, EngineConfig, Request, RequestRejected)
+        DecodeEngine, EngineConfig, Request, RequestRejected, SpecConfig)
 
+    if disagg:
+        raise NotImplementedError(
+            "engine_backend(disagg=...) is not supported by the PyTorch "
+            "engine yet (ROADMAP A2)")
     for flag, value in (("checkpoint_dir", checkpoint_dir),
-                        ("spec_model", spec_model),
-                        ("spec_checkpoint_dir", spec_checkpoint_dir),
-                        ("disagg", disagg),
-                        ("adapters_dir", adapters_dir)):
+                        ("spec_checkpoint_dir", spec_checkpoint_dir)):
         if value:
             raise NotImplementedError(
-                f"engine_backend({flag}=...) is not supported by the "
-                "PyTorch engine yet (ROADMAP A2; checkpoints come with "
-                "the checkpoint slice)")
-    dev = resolve_device(device)
+                f"engine_backend({flag}=...): restoring a checkpoint comes "
+                "with the checkpoint slice (ROADMAP A6)")
     cfg = T.config(model, **config_overrides)
+    lora_cfg = LoRAConfig(rank=lora_rank, alpha=lora_alpha)
+    if adapters_dir:
+        adapter_loader = checkpoint_loader(adapters_dir, cfg, lora_cfg)
+    dev = resolve_device(device)
     if params is None:
         params = T.init_params(
             torch.Generator(device=dev).manual_seed(0), cfg, dev)
     else:
         params = convert.params_from_jax(params, dev)
+    draft = spec = None
+    if spec_model:
+        draft_cfg = T.config(spec_model, **config_overrides)
+        draft = (T.init_params(torch.Generator(device=dev).manual_seed(0),
+                               draft_cfg, dev), draft_cfg)
+        spec = SpecConfig(k=spec_k)
+    pool = None
+    if adapter_loader is not None:
+        pool = AdapterPool(params, cfg, lora_cfg, loader=adapter_loader,
+                           capacity=adapter_slots)
     engine = DecodeEngine(
         params, cfg, EngineConfig(
             slots=slots, max_len=max_len, block_size=block_size,
-            num_blocks=num_blocks, admission=admission,
+            num_blocks=num_blocks, spec=spec, admission=admission,
             tenant_weights=tenant_weights,
             max_queue_depth=max_queue_depth),
-        device=dev)
+        draft=draft, adapters=pool, device=dev)
     engine.start()
 
     def generate(payload: Dict[str, Any]):
@@ -374,7 +406,7 @@ def main(argv=None) -> int:
     p.add_argument("--model", default="tiny",
                    help="transformer preset to serve")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="not supported yet (checkpoint slice)")
+                   help="not supported yet (checkpoint slice, ROADMAP A6)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     p.add_argument("--engine", action="store_true",
@@ -387,6 +419,24 @@ def main(argv=None) -> int:
     p.add_argument("--num-blocks", type=int, default=None,
                    help="KV pool size in blocks (engine mode; default "
                         "fully provisions slots x max_len)")
+    p.add_argument("--spec-model", default=None,
+                   help="draft-model preset for speculative decoding "
+                        "(engine mode; greedy output stays what plain "
+                        "decode gives)")
+    p.add_argument("--spec-checkpoint-dir", default=None,
+                   help="not supported yet (checkpoint slice, ROADMAP A6)")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft tokens proposed per verify")
+    p.add_argument("--adapters-dir", default=None,
+                   help="LoRA adapters from trainer checkpoints: not "
+                        "supported yet (checkpoint slice, ROADMAP A6)")
+    p.add_argument("--adapter-slots", type=int, default=8,
+                   help="resident-adapter capacity (LRU evicts idle "
+                        "adapters past it)")
+    p.add_argument("--lora-rank", type=int, default=16,
+                   help="LoRA rank the adapters were trained at")
+    p.add_argument("--lora-alpha", type=float, default=32.0,
+                   help="LoRA alpha (delta scale = alpha / rank)")
     p.add_argument("--admission", choices=["fifo", "wfq"],
                    default="fifo",
                    help="admission policy: fifo (arrival order) or "
@@ -418,7 +468,11 @@ def main(argv=None) -> int:
             args.model, checkpoint_dir=args.checkpoint_dir,
             slots=args.slots, max_len=args.max_len,
             block_size=args.block_size, num_blocks=args.num_blocks,
-            admission=args.admission,
+            spec_model=args.spec_model,
+            spec_checkpoint_dir=args.spec_checkpoint_dir,
+            spec_k=args.spec_k, adapters_dir=args.adapters_dir,
+            adapter_slots=args.adapter_slots, lora_rank=args.lora_rank,
+            lora_alpha=args.lora_alpha, admission=args.admission,
             tenant_weights=tenant_weights or None,
             max_queue_depth=args.max_queue_depth, device=args.device)]
     else:

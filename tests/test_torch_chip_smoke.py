@@ -1,6 +1,6 @@
-"""`chip_smoke.py` rehearsed on the CPU: its serve, engine, forward,
-training and detection phases run end to end at `tiny` size on the plain
-kernel versions, its kernel_det case list at CPU size, its bound
+"""`chip_smoke.py` rehearsed on the CPU: its serve, engine, spec, lora,
+forward, training and detection phases run end to end at `tiny` size on
+the plain kernel versions, its kernel_det case list at CPU size, its bound
 arithmetic and its tie-aware greedy check are pinned, and without a card
 it fails and prints no result."""
 
@@ -511,3 +511,150 @@ def test_logits_check_flags_a_planted_fault(fault):
     else:
         assert out["lanes_flagged_by_logits"] == 4
         assert out["logits_diff_min_lane"] > chip_smoke.ENGINE_LOGITS_MAX_ABS
+
+
+def test_spec_phase_rehearsal_takes_no_kernel_on_cpu():
+    before = (FA.LAUNCHES, D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN)
+    out = chip_smoke.phase_spec("tiny", "cpu", chip_smoke.SPEC_REHEARSAL)
+    assert (FA.LAUNCHES, D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN) == before
+    runs = out["runs"]
+    assert set(runs) == {"plain", "other_draft", "self_draft"}
+    for run in runs.values():
+        assert run["tie_gap_max"] <= chip_smoke.ENGINE_TIE_GAP
+        assert run["logits_diff_max"] <= chip_smoke.ENGINE_LOGITS_MAX_ABS
+        assert run["generated_tokens"] == 7 * 12 + 3   # one EOS request
+    self_run = runs["self_draft"]
+    assert self_run["acceptance"] == 1.0          # `tiny` drafts itself
+    assert self_run["eos_stop_in_first_round"]
+    assert 1.0 < self_run["tokens_per_verify"] <= 5.0
+    assert set(self_run["round_split"]) == {
+        "context", "k", "catch_up_forward_ms", "draft_propose_ms",
+        "verify_ms"}
+    assert "acceptance" not in runs["plain"]
+    planted = out["planted"]
+    assert planted["lanes_flagged_by_logits"] == planted["lanes"] == 8
+    assert out["peak_mem_gb"] is None
+
+
+def test_lora_phase_rehearsal_takes_no_kernel_on_cpu():
+    before = (FA.LAUNCHES, D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN)
+    out = chip_smoke.phase_lora("tiny", "cpu", chip_smoke.LORA_REHEARSAL)
+    assert (FA.LAUNCHES, D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN) == before
+    assert min(out["adapter_effect"].values()) \
+        >= chip_smoke.LORA_MIN_ADAPTER_EFFECT
+    mixed = out["mixed"]
+    assert mixed["requests"] == 12 and mixed["gathered_steps"] >= 1
+    assert mixed["evictions"] >= 1 and mixed["slot_waits"] >= 1
+    assert out["homogeneous"]["merged_steps"] >= 1
+    assert out["isolation"]["prefix_tokens"][:2] == [0, 0]
+    assert out["isolation"]["prefix_tokens"][2] > 0
+    assert out["adapter_draft"]["spec_steps"][0] > 0
+    assert out["adapter_draft"]["spec_steps"][1] == 0
+    planted = out["planted"]
+    assert planted["lanes_changed"] == 8
+    assert planted["lanes_flagged_by_logits"] == 8
+    for run in ("mixed", "homogeneous", "adapter_draft"):
+        assert out[run]["tie_gap_max"] <= chip_smoke.ENGINE_TIE_GAP
+        assert out[run]["logits_diff_max"] \
+            <= chip_smoke.ENGINE_LOGITS_MAX_ABS
+
+
+def test_spec_and_lora_loads_are_the_phases_traffic_at_tpu_1b():
+    spec = chip_smoke.SPEC_LOAD
+    assert (spec.slots, spec.max_len, spec.block_size, spec.k) \
+        == (8, 1024, 16, 4)
+    assert (spec.clients, spec.new_tokens) == (8, 32)
+    assert min(spec.prompt_lens) == 32 and max(spec.prompt_lens) == 384
+    assert spec.drafts == ("tpu_120m", "tpu_1b")
+    lora = chip_smoke.LORA_LOAD
+    assert (lora.slots, lora.max_len, lora.block_size) == (8, 1024, 16)
+    assert (lora.rank, lora.alpha, lora.adapters, lora.capacity) \
+        == (16, 32.0, 4, 3)
+    assert lora.b_scale == 0.05 and lora.draft == "tpu_120m"
+    mixed = chip_smoke.MIXED
+    assert len(mixed) == 12 and mixed.count(None) == 3
+    assert len(set(mixed) - {None}) == lora.adapters
+    # the first 8 fill the slots on `capacity` adapters, so a3 must wait
+    assert len(set(mixed[:lora.slots]) - {None}) == lora.capacity
+
+
+@pytest.mark.parametrize("fault", [None, "shift"])
+def test_verify_logits_rows_and_the_planted_shift(fault):
+    """The verify recorder's rows are the target's logits at each accepted
+    or emitted position: an f32 self-draft engine's rows sit at rounding
+    against the teacher-forced forward, and a verify run one position on
+    moves the rows of a short prompt far past the limit."""
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.serve.engine import (
+        DecodeEngine, EngineConfig, Request, SpecConfig)
+
+    cfg = T.config("tiny", dtype=torch.float32)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    eng = DecodeEngine(params, cfg, EngineConfig(
+        slots=2, max_len=64, block_size=8, prefill_buckets=(8, 16),
+        spec=SpecConfig(k=3)), draft=(params, cfg), device="cpu")
+    reqs = [eng.submit(Request(p, max_new_tokens=10))
+            for p in ([5, 17, 101, 9], [42, 7, 19])]
+    with chip_smoke.StepLogits(eng) as step, \
+            chip_smoke.VerifyLogits(eng, fault) as verify:
+        eng.start()
+        try:
+            for r in reqs:
+                r.wait(timeout=60)
+        finally:
+            eng.stop()
+    assert "_spec_step" not in vars(eng)           # the wrapper is gone
+    rows = chip_smoke._Rows(step, verify)
+    for r in reqs:
+        assert verify.rounds(r) >= 2
+        got = rows.of(r)
+        # the first token comes from the prefill, every other from a row
+        assert sorted(got) == list(range(1, len(r.tokens)))
+        diff = chip_smoke.logits_diff(chip_smoke.teacher_logits(
+            params, cfg, r.prompt, r.tokens, "cpu"), got)
+        if fault is None:
+            assert diff < 1e-4
+        else:
+            assert diff > chip_smoke.ENGINE_LOGITS_MAX_ABS
+
+
+def test_step_logits_flags_rolled_adapter_indices():
+    """A gathered LoRA step whose adapter indices are rolled one lane on
+    is flagged in every lane whose adapter changed, and only there."""
+    from cloudtik_tpu_torch.models import lora as LO
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.serve.adapters import AdapterPool
+    from cloudtik_tpu_torch.serve.engine import (
+        DecodeEngine, EngineConfig, Request)
+
+    cfg = T.config("tiny", dtype=torch.float32)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    lc = LO.LoRAConfig(rank=4)
+    bank = {a: LO.random_lora_params(torch.Generator().manual_seed(i), cfg,
+                                     lc, scale=0.2, device="cpu")
+            for i, a in enumerate(("x", "y"))}
+    eng = DecodeEngine(params, cfg, EngineConfig(
+        slots=3, max_len=64, block_size=8, prefill_buckets=(8,)),
+        adapters=AdapterPool(params, cfg, lc, bank.__getitem__, 2),
+        device="cpu")
+    # lanes [x, x, y]: rolled, lane 1 keeps x while lane 0 lives (it
+    # asks for the most tokens); lanes 0 and 2 change
+    reqs = [eng.submit(Request(p, max_new_tokens=n, adapter_id=a))
+            for p, n, a in (([5, 17, 101], 10, "x"), ([42, 7], 6, "x"),
+                            ([9, 9, 8], 6, "y"))]
+    with chip_smoke.StepLogits(eng, "adapters") as rec:
+        eng.start()
+        try:
+            for r in reqs:
+                r.wait(timeout=60)
+        finally:
+            eng.stop()
+    assert [rec.changed(r.request_id) for r in reqs] == [True, False, True]
+    for r in reqs:
+        merged = dict(params, layers=LO.merge_lora(
+            params["layers"], bank[r.adapter_id], lc))
+        diff = chip_smoke.logits_diff(chip_smoke.teacher_logits(
+            merged, cfg, r.prompt, r.tokens, "cpu"),
+            rec.rows(r.request_id))
+        assert (diff > chip_smoke.ENGINE_LOGITS_MAX_ABS) \
+            == rec.changed(r.request_id)

@@ -444,11 +444,7 @@ def test_cow_fork_appends_through_both_forks(params):
     assert eng.pool.available() == eng.pool.usable_blocks
 
 
-@pytest.mark.parametrize("kwargs, what", [
-    ({"draft": "d"}, "draft"), ({"migrator": "m"}, "migrator"),
-    ({"adapters": "a"}, "adapters"), ({"adapter_drafts": {}}, "adapter"),
-    ({"engine_config": TE.EngineConfig(spec=object())}, "spec"),
-])
+@pytest.mark.parametrize("kwargs, what", [({"migrator": "m"}, "migrator")])
 def test_unported_surfaces_raise(params, kwargs, what):
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A2"):
         TE.DecodeEngine(params[1], TCFG, device="cpu", **kwargs)

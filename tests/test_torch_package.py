@@ -14,6 +14,7 @@ import torch
 from cloudtik_tpu_torch import convert
 from cloudtik_tpu_torch.device import resolve_device
 from cloudtik_tpu_torch.models import generate as TG
+from cloudtik_tpu_torch.models import lora as TL
 from cloudtik_tpu_torch.models import maskrcnn as TMR
 from cloudtik_tpu_torch.models import resnet as TRN
 from cloudtik_tpu_torch.models import ssd as TSD
@@ -99,11 +100,19 @@ def test_resolve_device(no_cuda):
                        TSD.config("tiny")),
     lambda: TMR.detect({}, np.zeros((1, 64, 64, 3), np.float32),
                        TMR.config("tiny")),
+    lambda: TL.init_lora_params(torch.Generator(), TT.config("tiny"),
+                                TL.LoRAConfig()),
+    lambda: TL.random_lora_params(torch.Generator(), TT.config("tiny"),
+                                  TL.LoRAConfig()),
+    lambda: TL.init_adapter_planes(TT.config("tiny"), TL.LoRAConfig(), 2),
+    lambda: TS.engine_backend("tiny", spec_model="tiny"),
 ], ids=["init_params", "init_cache", "params_from_jax",
         "transformer_backend", "engine_backend", "DecodeEngine",
         "init_block_pool", "Trainer", "resnet.init_params",
         "ssd.init_params", "maskrcnn.init_params", "ssd.detect",
-        "maskrcnn.detect"])
+        "maskrcnn.detect", "lora.init_lora_params",
+        "lora.random_lora_params", "lora.init_adapter_planes",
+        "engine_backend.spec_model"])
 def test_entry_points_without_device_raise_off_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()

@@ -282,9 +282,102 @@ def test_drain_and_stop_finishes_inflight_then_stops_the_engine():
     assert engine.pool.used() == 0
 
 
-@pytest.mark.parametrize("flag", [
-    {"spec_model": "tiny"}, {"disagg": True}, {"adapters_dir": "/a"},
-    {"checkpoint_dir": "/c"}])
-def test_engine_backend_unported_modes_raise(flag):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("flag, item", [
+    ({"disagg": True}, "A2"), ({"adapters_dir": "/a"}, "A6"),
+    ({"checkpoint_dir": "/c"}, "A6"), ({"spec_checkpoint_dir": "/s"}, "A6")])
+def test_engine_backend_unported_modes_raise(flag, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         engine_backend("tiny", device="cpu", **flag)
+
+
+def test_engine_backend_spec_model_is_a_self_draft_from_seed_zero():
+    """`--spec-model` names a preset whose weights come from seed 0, as
+    the target's do: the same preset is a self-draft.  Concurrent posts
+    speculate and answer what `generate` gives."""
+    from cloudtik_tpu_torch.models import generate as TG
+    from cloudtik_tpu_torch.telemetry import instruments as ti
+
+    backend = engine_backend("tiny", slots=2, max_len=64, block_size=8,
+                             spec_model="tiny", spec_k=3, device="cpu",
+                             dtype=torch.float32)
+    engine = backend.engine
+    assert engine._spec.k == 3
+    assert torch.equal(engine._draft_params["layers"]["wq"],
+                       backend.params["layers"]["wq"])
+    server = ServeServer([backend], host="127.0.0.1", port=0)
+    server.start()
+    steps0 = ti.SERVE_SPEC_STEPS.value()
+    prompts = [[1, 2, 3], [200, 17, 5, 4, 3]]
+    results = {}
+    threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+        i, _http(f"http://127.0.0.1:{server.port}/v1/generate",
+                 {"tokens": [prompts[i]], "max_new_tokens": 9})))
+        for i in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        server.stop()
+        engine.stop()
+    assert not any(t.is_alive() for t in threads)
+    for i, prompt in enumerate(prompts):
+        status, body, _ = results[i]
+        assert status == 200
+        assert body["tokens"][0] == TG.generate(
+            backend.params, torch.tensor([prompt]), backend.cfg,
+            max_new_tokens=9)[0].tolist()
+    assert ti.SERVE_SPEC_STEPS.value() - steps0 >= 4
+    assert engine.pool.used() == 0
+
+
+def test_engine_backend_adapter_and_tenant_payload_fields(tmp_path):
+    """With an adapter loader, a post naming `"adapter"` decodes on that
+    adapter (the tokens of `generate` on the merged weights) and its
+    ledger record carries the adapter and the `"tenant"`; an unknown
+    adapter fails its request alone (400)."""
+    from cloudtik_tpu_torch.models import generate as TG
+    from cloudtik_tpu_torch.models import lora as TL
+    from cloudtik_tpu_torch.models import transformer as TT
+    from cloudtik_tpu_torch.serve import reqlog
+
+    lora_cfg = TL.LoRAConfig(rank=4, alpha=8.0)
+    bank = {"t0": TL.random_lora_params(torch.Generator().manual_seed(3),
+                                        TT.config("tiny"), lora_cfg,
+                                        device="cpu")}
+    backend = engine_backend("tiny", slots=2, max_len=32, block_size=8,
+                             adapter_loader=bank.__getitem__,
+                             adapter_slots=1, lora_rank=4, lora_alpha=8.0,
+                             device="cpu", dtype=torch.float32)
+    engine = backend.engine
+    assert engine._adapters.capacity == 1
+    assert engine._adapters.lora_cfg == lora_cfg
+    server = ServeServer([backend], host="127.0.0.1", port=0)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}/v1/generate"
+    path = str(tmp_path / "requests.jsonl")
+    reqlog.install(path)
+    try:
+        status, body, _ = _http(url, {"tokens": [[5, 6, 7]],
+                                      "max_new_tokens": 5, "adapter": "t0",
+                                      "tenant": "acme"})
+        bad, bad_body, _ = _http(url, {"tokens": [[5, 6, 7]],
+                                       "adapter": "nope"})
+        again, _, _ = _http(url, {"tokens": [[5, 6, 7]],
+                                  "max_new_tokens": 2})
+    finally:
+        reqlog.uninstall()
+        server.stop()
+        engine.stop()
+    merged = dict(backend.params, layers=TL.merge_lora(
+        backend.params["layers"], bank["t0"], lora_cfg))
+    assert status == 200
+    assert body["tokens"][0] == TG.generate(
+        merged, torch.tensor([[5, 6, 7]]), backend.cfg,
+        max_new_tokens=5)[0].tolist()
+    assert (bad, again) == (400, 200)
+    assert "nope" in bad_body["error"]
+    records = reqlog.read_requests(path)
+    assert [(r["tenant"], r["adapter_id"]) for r in records] == [
+        ("acme", "t0"), ("default", "nope"), ("default", None)]
