@@ -64,6 +64,21 @@ run with a non-zero exit:
            depth, B=8, S=2048, bf16 params and moments, save_attn remat: 2
            warm-up steps, then 5 measured steps with 16 launches of each
            kernel per step; ms/step, tokens/s, MFU, peak memory
+  checkpoint  the train path's configuration with checkpoints: 2 steps run
+           twice from one state (with prefetch depth 0 and 2: whether the
+           losses are bitwise equal, and data_wait per step), then 4 steps
+           saving every 2 off the step loop into a temporary directory (it
+           must have room for max_to_keep + 1 steps), step 4 torn by a
+           planted `checkpoint.save` fault; a fresh Trainer resumes at
+           step 2 past it, every leaf equal to the state saved, and runs
+           steps 3-4 to the uninterrupted losses (bitwise when the probe
+           was, else within twice its gap) with 16 launches of each flash
+           kernel a step; `restore_latest_good` past the torn step
+           removes it; `tik-serve`'s plain backend and engine serve the
+           restored weights (tokens equal a direct `generate`; the engine
+           by the tie-aware check).  Save stall, d2h and write seconds
+           and GB/s, restore seconds, bytes per step, memory before and
+           after a snapshot and peaks
   kernel_det  the NMS and ROIAlign kernels against their plain versions:
            NMS keep lists equal to the plain version's and to the JAX
            `nms_reference`'s (tests/torch_golden/, inputs rebuilt from
@@ -88,8 +103,9 @@ run with a non-zero exit:
            Mask R-CNN's map pooled on ROIAlign's vector route
 
 Launch counts are zeroed just before each path (forward then serve; the
-engine; spec; lora; the measured train steps; the measured detect calls of
-each model) and read just after it.  The last lines are the
+engine; spec; lora; the measured train steps; the resumed steps of the
+checkpoint phase; the measured detect calls of each model) and read just
+after it.  The last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
 """
@@ -100,6 +116,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1910,6 +1927,497 @@ def phase_train_grads(model: str = "tpu_1b", n_layers: int = 2, B: int = 2,
     return out
 
 
+# -------------------------------------------------------------- checkpoint --
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointLoad:
+    """The checkpoint phase: the train phase's configuration (bf16 params
+    and moments, save_attn) trained `steps` steps in one `fit` with a
+    checkpoint every `every`, the save at `torn_step` torn right after it
+    commits; then `serve_prompts` prompts of `serve_prompt` tokens and
+    `serve_new` new ones through both backends on the restored weights."""
+    model: str = "tpu_1b"
+    batch: int = 8
+    seq: int = 2048
+    every: int = 2
+    steps: int = 4
+    torn_step: int = 4
+    serve_prompts: int = 4
+    serve_prompt: int = 128
+    serve_new: int = 16
+
+
+CHECKPOINT_LOAD = CheckpointLoad()
+CHECKPOINT_REHEARSAL = CheckpointLoad(model="tiny", batch=2, seq=32,
+                                      serve_prompt=8, serve_new=6)
+
+
+def _span_seconds(name: str, part=None) -> dict:
+    """{step: seconds} of the finished `name` spans (with attrs part ==
+    `part` when given)."""
+    from cloudtik_tpu_torch import telemetry
+
+    return {r["attrs"]["step"]: r["dur"] for r in telemetry.spans()
+            if r["name"] == name and "step" in r["attrs"]
+            and (part is None or r["attrs"].get("part") == part)}
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def _drop_page_cache(path) -> None:
+    """Evict the cached pages of every file under `path` (posix_fadvise
+    DONTNEED: a committed step's files are fsynced, so their pages are
+    clean), so that the next read comes from the disk."""
+    for f in Path(path).rglob("*"):
+        if f.is_file():
+            fd = os.open(f, os.O_RDONLY)
+            try:
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+
+
+def _step_timer(trainer, on_card: bool) -> list:
+    """Wrap `trainer.train_step` so that it records a CUDA event on the
+    current stream just before and just after each step; returns the list
+    of (start, end) events it fills (none off the card)."""
+    import torch
+
+    marks = []
+    train_step = trainer.train_step
+
+    def timed(batch):
+        if not on_card:
+            return train_step(batch)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train_step(batch)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    trainer.train_step = timed
+    return marks
+
+
+def _step_ms(marks) -> dict:
+    """Device ms of each step, and of each gap up to the next step's start
+    (what the loop queues between two steps, such as a snapshot's clone),
+    from `_step_timer`'s events after a synchronize."""
+    return {"step_ms": [s.elapsed_time(e) for s, e in marks],
+            "between_ms": [e.elapsed_time(s) for (_, e), (s, _)
+                           in zip(marks, marks[1:])]}
+
+
+def _leaf_gap(got, want) -> float:
+    """Max abs difference over the leaves of two trees of one structure
+    (`want` on the host): 0.0 only when every leaf is `torch.equal`, inf
+    when a leaf differs by no finite amount (a NaN, a Python value)."""
+    import torch
+
+    from cloudtik_tpu_torch.tree import tree_leaves
+
+    got, want = tree_leaves(got), tree_leaves(want)
+    require(len(got) == len(want),
+            f"{len(got)} leaves against the reference's {len(want)}")
+    gap = 0.0
+    for a, b in zip(got, want):
+        if not isinstance(a, torch.Tensor):
+            gap = gap if a == b else math.inf
+            continue
+        a = a.cpu()
+        if not torch.equal(a, b):
+            d = (a.float() - b.float()).abs().max().item()
+            gap = max(gap, d) if d > 0 else math.inf
+    return gap
+
+
+def phase_checkpoint(load: CheckpointLoad = CHECKPOINT_LOAD,
+                     device: str = "cuda") -> dict:
+    """Train, save off the step loop, tear a step, resume past it, serve
+    the restored weights.  Launch counts are zeroed just before the
+    resumed steps and read just after."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cloudtik_tpu_torch import telemetry
+    from cloudtik_tpu_torch.faults import seams
+    from cloudtik_tpu_torch.faults.plan import FaultPlan, FaultPoint
+    from cloudtik_tpu_torch.models import generate as G
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.serve.server import (
+        ServeServer, engine_backend, transformer_backend)
+    from cloudtik_tpu_torch.telemetry import goodput
+    from cloudtik_tpu_torch.train.checkpoint import restore_params
+    from cloudtik_tpu_torch.train.data import synthetic_lm_batches
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.train.trainer import (
+        Trainer, TrainerConfig, transformer_spec)
+    from cloudtik_tpu_torch.tree import tree_leaves, tree_map
+
+    on_card = device == "cuda"
+    telemetry.enable()
+    B, S = load.batch, load.seq
+    cfg = T.config(load.model, max_seq_len=S, param_dtype=torch.bfloat16)
+    root = tempfile.mkdtemp(prefix="tik-checkpoint-")
+    ckpt_dir = str(Path(root) / "run")
+    # one log window over a whole fit: nothing waits for the card between
+    # steps, so a save's d2h runs under the steps after it, as in a long
+    # run
+    one_window = load.steps + 1
+
+    def trainer_for(every: int, depth: int = 2,
+                    log_every: int = 1) -> "Trainer":
+        return Trainer(transformer_spec(cfg), TrainerConfig(
+            global_batch_size=B, seq_len=S, log_every=log_every,
+            optimizer=OptimizerConfig(moment_dtype="bfloat16"),
+            checkpoint_every=every, checkpoint_dir=ckpt_dir,
+            prefetch_depth=depth), device=device)
+
+    def data(skip: int = 0):
+        return itertools.islice(
+            synthetic_lm_batches(B, S, cfg.vocab_size, seed=5), skip, None)
+
+    def seed():
+        return torch.Generator(device=device).manual_seed(0)
+
+    def free_card():
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    def host_copy(tree):
+        return tree_map(lambda t: t.detach().cpu().clone()
+                        if isinstance(t, torch.Tensor) else t, tree)
+
+    def losses(out):
+        return [h["loss"] for h in out["history"]]
+
+    def timed_s(fn):
+        t0 = time.perf_counter()
+        result = fn()
+        return result, time.perf_counter() - t0
+
+    out = {"model": load.model, "batch": B, "seq": S,
+           "param_dtype": "bfloat16", "moment_dtype": "bfloat16",
+           "remat_policy": cfg.remat_policy, "directory": root}
+    try:
+        # ---- room for max_to_keep + 1 steps of the saving trainer's
+        # checkpointer, or a loud failure ----
+        trainer = trainer_for(every=load.every, log_every=one_window)
+        keep = trainer.checkpointer.config.max_to_keep
+        state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+            trainer._abstract_state()) if isinstance(t, torch.Tensor))
+        free = shutil.disk_usage(root).free
+        need = (keep + 1) * state_bytes
+        out["disk"] = {"state_bytes": state_bytes, "free_bytes": free,
+                       "max_to_keep": keep, "needed_bytes": need}
+        require(free >= need, f"checkpoint phase: {free} bytes free under "
+                f"{root}, {need} needed for {keep + 1} steps of "
+                f"{state_bytes} bytes")
+
+        # ---- determinism: `every` steps twice from one state (prefetch
+        # 0 and 2), data_wait per step from the goodput ledger (log_every
+        # 1: the callback runs after each step, so the pipeline's start,
+        # step 1, stands apart); the prefetch-2 run goes on, uninterrupted,
+        # to `steps`: its state at `every` and its losses are what the
+        # saving run must restore and resume to ----
+        buckets = (goodput.BUCKET_DATA_WAIT, goodput.BUCKET_HOST_TRANSFER)
+        probe = trainer_for(every=0, depth=0)
+        probe_losses, data_wait, at_save = {}, {}, {}
+        for depth in (0, 2):
+            probe.config.prefetch_depth = depth
+            probe.init_state(seed())
+            totals = [[goodput.LEDGER.total(b) for b in buckets]]
+            probe_losses[depth] = losses(probe.fit(
+                data(), load.every, callbacks=[
+                    lambda _t, _e: totals.append(
+                        [goodput.LEDGER.total(b) for b in buckets])]))
+            per_step = [[(b - a) * 1e3 for a, b in zip(x, y)]
+                        for x, y in zip(totals, totals[1:])]
+            data_wait[depth] = {
+                "data_wait_ms_by_step": [w for w, _ in per_step],
+                "host_transfer_ms_by_step": [h for _, h in per_step]}
+            at_save[depth] = host_copy(probe.state)
+        uninterrupted = probe_losses[2] + losses(probe.fit(
+            data(skip=load.every), load.steps - load.every))
+        del probe
+        free_card()
+        loss_gap = max(abs(a - b) for a, b in zip(probe_losses[0],
+                                                  probe_losses[2]))
+        state_gap = _leaf_gap(at_save[0], at_save[2])
+        require(math.isfinite(state_gap), "the two probe runs' states "
+                "differ by no finite amount")
+        saved = at_save.pop(2)
+        del at_save
+        deterministic = probe_losses[0] == probe_losses[2] \
+            and state_gap == 0.0
+        loss_tol = 0.0 if deterministic else 2 * loss_gap
+        leaf_tol = 2 * state_gap
+        out["determinism"] = {"losses": probe_losses,
+                              "max_abs_loss_gap": loss_gap,
+                              "max_abs_leaf_gap": state_gap,
+                              "bitwise": deterministic,
+                              "resume_tolerance": loss_tol,
+                              "leaf_tolerance": leaf_tol}
+        out["prefetch"] = {f"depth_{d}": v for d, v in data_wait.items()}
+
+        # ---- the same fit with no save, step by step on the card's
+        # clock: what the saving run's steps are held against ----
+        nosave = trainer_for(every=0, log_every=one_window)
+        nosave.init_state(seed())
+        nosave_marks = _step_timer(nosave, on_card)
+        nosave.fit(data(), load.steps)
+        del nosave
+        free_card()
+
+        # ---- train and save in one fit, step `torn_step` torn; at each
+        # save the peak since the last one (or the fit's start) is read
+        # and the peak restarted once the snapshot is staged ----
+        trainer.init_state(seed())
+        ckpt = trainer.checkpointer
+        marks = _step_timer(trainer, on_card)
+        staged = []
+        save = ckpt.save
+
+        def measured_save(step, state, force=False):
+            row = {"step": step}
+            if on_card:
+                row.update(
+                    peak_before_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    allocated_before_gb=torch.cuda.memory_allocated() / 1e9)
+            started = save(step, state, force)
+            if started:
+                if on_card:
+                    row["allocated_after_gb"] = \
+                        torch.cuda.memory_allocated() / 1e9
+                    torch.cuda.reset_peak_memory_stats()
+                staged.append(row)
+            return started
+
+        ckpt.save = measured_save
+        plan = FaultPlan([FaultPoint("checkpoint.save", "torn_write",
+                                     match={"step": load.torn_step})],
+                         seed=7, name="checkpoint-phase")
+        free_card()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        with seams.armed(plan):
+            final = losses(trainer.fit(data(), load.steps))
+            ckpt.wait()
+        require([e for e in plan.trace if e["kind"] == "torn_write"],
+                "the torn-write fault never fired")
+        require(abs(final[-1] - uninterrupted[-1]) <= loss_tol,
+                f"the saving run's last loss {final[-1]} differs from the "
+                f"uninterrupted run's {uninterrupted[-1]} (tolerance "
+                f"{loss_tol})")
+        ckpt.close()
+        steps_on_disk = ckpt.all_steps()
+        step_bytes = {s: _dir_bytes(Path(ckpt_dir) / str(s))
+                      for s in steps_on_disk}
+        require(steps_on_disk == list(range(load.every, load.steps + 1,
+                                            load.every)),
+                f"steps on disk {steps_on_disk}")
+        del trainer, ckpt
+        free_card()
+
+        # ---- resume past the torn step, from the disk ----
+        resumed = trainer_for(every=1000)
+        _drop_page_cache(ckpt_dir)
+        step, resume_s = timed_s(resumed.maybe_resume)
+        require(step == load.every, f"resumed at step {step}, expected "
+                f"{load.every} (step {load.torn_step} is torn)")
+        restored_gap = _leaf_gap(resumed.state, saved)
+        require(restored_gap <= leaf_tol,
+                f"restored leaves differ from the uninterrupted run's "
+                f"state at step {load.every} by {restored_gap} (tolerance "
+                f"{leaf_tol})")
+        _zero_launch_counts()
+        _zero_det_launch_counts()
+        resumed_losses = losses(resumed.fit(data(skip=load.every),
+                                            load.steps - load.every))
+        launches = _launch_counts()
+        det_launches = _det_launch_counts()
+        require(not any(det_launches.values()),
+                f"the checkpoint path launched {det_launches}, expected "
+                "no detection kernel")
+        diff = max(abs(a - b) for a, b in zip(
+            resumed_losses, uninterrupted[load.every:]))
+        out["resume"] = {"restored_step": step, "resume_s": resume_s,
+                         "leaves": len(tree_leaves(saved)),
+                         "max_abs_leaf_gap": restored_gap,
+                         "uninterrupted_losses": uninterrupted,
+                         "saving_run_last_loss": final[-1],
+                         "resumed_losses": resumed_losses,
+                         "max_abs_loss_diff": diff,
+                         "tolerance": loss_tol}
+        require(diff <= loss_tol,
+                f"resumed losses {resumed_losses} differ from the "
+                f"uninterrupted run's {uninterrupted[load.every:]} by "
+                f"{diff} (tolerance {loss_tol})")
+        out["launches"] = launches
+        out["det_launches"] = det_launches
+        out["launches_per_step"] = {
+            k: n / (load.steps - load.every) for k, n in launches.items()}
+
+        # ---- restore times, each read from the disk (page cache dropped
+        # before it) but the second full one: past the torn step, which
+        # goes (the torn file may be an optimizer leaf, which a
+        # params-only read never opens), then full and params-only reads
+        # of step `every` ----
+        _drop_page_cache(ckpt_dir)
+        (_state, good), past_torn_s = timed_s(
+            lambda: resumed.checkpointer.restore_latest_good(
+                resumed._abstract_state(), remove_unreadable=True,
+                device=torch.device(device)))
+        del _state
+        require(good == load.every
+                and resumed.checkpointer.all_steps() == [load.every],
+                f"restore_latest_good gave step {good}, left "
+                f"{resumed.checkpointer.all_steps()}")
+        _drop_page_cache(ckpt_dir)
+        _, full_s = timed_s(lambda: resumed.restore_checkpoint(load.every))
+        _, full_warm_s = timed_s(
+            lambda: resumed.restore_checkpoint(load.every))
+        del resumed
+        free_card()
+        like = T.init_params(torch.Generator(), cfg, "meta")
+        _drop_page_cache(ckpt_dir)
+        params, params_s = timed_s(
+            lambda: restore_params(ckpt_dir, like, torch.device(device)))
+        require(_leaf_gap(params, saved["params"]) <= leaf_tol,
+                "the params-only restore differs from the saved params")
+        del params
+
+        # ---- save costs: the host's enqueue and the write from the
+        # spans; the stall as the card's time from the end of the saved
+        # step to the end of the fit, against the fit with no save ----
+        snap = _span_seconds("checkpoint.save", "snapshot")
+        d2h = _span_seconds("checkpoint.d2h")
+        write = _span_seconds("checkpoint.save", "write")
+        inline = _span_seconds("checkpoint.save", "inline")
+        pinned = [r["dur"] for r in telemetry.spans()
+                  if r["name"] == "checkpoint.reserve"]
+        gb = step_bytes[load.every] / 1e9
+        stall = {}
+        if on_card:
+            def after_save_ms(m):
+                return m[load.every - 1][1].elapsed_time(m[-1][1])
+
+            steps_ms, nosave_ms = _step_ms(marks), _step_ms(nosave_marks)
+            stall = {
+                "stall_ms": after_save_ms(marks)
+                - after_save_ms(nosave_marks),
+                "after_save_ms": after_save_ms(marks),
+                "after_save_no_save_ms": after_save_ms(nosave_marks),
+                "clone_ms": steps_ms["between_ms"][load.every - 1]
+                - nosave_ms["between_ms"][load.every - 1],
+                "step_ms": steps_ms["step_ms"],
+                "step_no_save_ms": nosave_ms["step_ms"]}
+        out["save"] = {
+            "step_dir_bytes": step_bytes[load.every],
+            "torn_step_dir_bytes": step_bytes[load.torn_step],
+            "offloaded": {"step": load.every,
+                          "host_enqueue_ms": snap[load.every] * 1e3,
+                          "stall_ms": stall.get("stall_ms"),
+                          # the buffers pinned before the fit's first step
+                          "pin_before_loop_s":
+                          pinned[0] if pinned else None,
+                          "d2h_s": d2h[load.every],
+                          "d2h_gb_per_s": gb / d2h[load.every],
+                          "write_s": write[load.every],
+                          "write_gb_per_s": gb / write[load.every]},
+            "card_time": stall or None,
+            "torn_inline": {"step": load.torn_step,
+                            "stall_s": inline[load.torn_step],
+                            "d2h_s": d2h[load.torn_step],
+                            "d2h_gb_per_s": gb / d2h[load.torn_step],
+                            "write_s": write[load.torn_step]},
+        }
+        out["restore"] = {"cold_full_s": full_s,
+                          "cold_full_gb_per_s": gb / full_s,
+                          "warm_full_s": full_warm_s,
+                          "cold_params_only_s": params_s,
+                          "cold_full_past_torn_step_s": past_torn_s}
+        first, torn = staged
+        out["memory"] = {
+            "peak_no_snapshot_gb": first.get("peak_before_gb"),
+            "peak_with_snapshot_gb": torn.get("peak_before_gb"),
+            "snapshot_gb": (first["allocated_after_gb"]
+                            - first["allocated_before_gb"])
+            if on_card else None,
+            "snapshot_held_at_next_save_gb": (
+                torn["allocated_before_gb"] - first["allocated_before_gb"])
+            if on_card else None,
+            "at_save": staged}
+
+        # ---- serve the restored weights: plain backend and engine ----
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab_size, (
+            load.serve_prompts, load.serve_prompt)).tolist()
+        overrides = dict(max_seq_len=S, param_dtype=torch.bfloat16)
+        plain = transformer_backend(load.model, checkpoint_dir=ckpt_dir,
+                                    device=device, **overrides)
+        require(_leaf_gap(plain.params, saved["params"]) <= leaf_tol,
+                "the served params differ from the saved ones")
+        engine = engine_backend(
+            load.model, checkpoint_dir=ckpt_dir, device=device, slots=4,
+            max_len=load.serve_prompt + load.serve_new + 16, block_size=16,
+            **overrides)
+        served = {"plain": [], "engine": []}
+        gaps = []
+        try:
+            for name, backend in (("plain", plain), ("engine", engine)):
+                server = ServeServer([backend], host="127.0.0.1", port=0)
+                server.start()
+                try:
+                    for prompt in prompts:
+                        status, body = _http(
+                            f"http://127.0.0.1:{server.port}/v1/generate",
+                            {"tokens": [prompt],
+                             "max_new_tokens": load.serve_new})
+                        require(status == 200, f"{name}: status {status} "
+                                f"{body}")
+                        served[name].append(body["tokens"][0])
+                finally:
+                    server.stop()
+            for prompt, plain_toks, eng_toks in zip(
+                    prompts, served["plain"], served["engine"]):
+                direct = G.generate(
+                    plain.params, torch.tensor([prompt], device=device),
+                    plain.cfg, max_new_tokens=load.serve_new)[0].tolist()
+                require(plain_toks == direct, "served tokens differ from "
+                        "a direct generate on the restored params")
+                gaps.append(check_tie_aware("checkpoint engine", tie_gaps(
+                    plain.params, plain.cfg, prompt, eng_toks, device)))
+        finally:
+            engine.engine.stop()
+        out["serve"] = {"prompts": load.serve_prompts,
+                        "prompt_len": load.serve_prompt,
+                        "new_tokens": load.serve_new,
+                        "plain_equals_direct_generate": True,
+                        "engine_equal_to_plain": sum(
+                            a == b for a, b in zip(served["plain"],
+                                                   served["engine"])),
+                        "engine_tie_gap_max": max(gaps),
+                        "tie_gap_limit": ENGINE_TIE_GAP}
+        del plain, engine
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(not Path(root).exists(), f"{root} was not removed")
+    emit("checkpoint", **out)
+    gc.collect()
+    return out
+
+
 # -------------------------------------------------------------- kernel_det --
 
 # FP32 rate outside the tensor cores (NVIDIA data sheet), for NMS's bound.
@@ -2521,6 +3029,17 @@ def main() -> int:
             f"train step launches {per_step}, expected {cfg.n_layers} of "
             "each kernel (save_attn must never re-run the forward)")
     torch.cuda.empty_cache()
+
+    # ---- the checkpoint path (counts zeroed and read inside, around the
+    # steps resumed past the torn checkpoint) ----
+    checkpoint = phase_checkpoint()
+    per_step = checkpoint["launches_per_step"]
+    require(per_step == {"flash_fwd": cfg.n_layers,
+                         "flash_bwd_dq": cfg.n_layers,
+                         "flash_bwd_dkv": cfg.n_layers},
+            f"resumed train step launches {per_step}, expected "
+            f"{cfg.n_layers} of each kernel")
+    torch.cuda.empty_cache()
     phase_train_grads()
     torch.cuda.empty_cache()
 
@@ -2545,7 +3064,8 @@ def main() -> int:
 
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]
-    launches = {k: inference[k] + train["launches"][k] for k in inference}
+    launches = {k: inference[k] + train["launches"][k]
+                + checkpoint["launches"][k] for k in inference}
 
     def bwd_err(grads):
         return max(r["errors"][g]["max_abs"] for r in kernel_bwd.values()

@@ -5,6 +5,8 @@ The port keeps the stacked `[L, ...]` layer layout and the key names of
 `wo [L,H,Dh,d]`, `w_gate [L,d,f]`, ...), so a conversion is a copy with no
 transposes.  The JAX side hands over numpy leaves
 (`jax.tree.map(np.asarray, params)`); nothing here imports JAX.
+`opt_state_from_jax` carries optax's AdamW state over to the port
+optimizer's.
 """
 
 from __future__ import annotations
@@ -47,3 +49,52 @@ def params_to_numpy(tree: Any) -> Any:
             t = t.float()
         return t.numpy()
     return tree_map(leaf, tree)
+
+
+def _adam_state(tree: Any) -> Optional[Any]:
+    """The node of an optax state tree that holds count, mu and nu: a
+    `ScaleByAdamState` namedtuple, or the dict orbax's metadata gives it."""
+    fields = getattr(tree, "_fields", None)
+    if fields is not None and {"count", "mu", "nu"} <= set(fields):
+        return tree._asdict()
+    if isinstance(tree, dict) and {"count", "mu", "nu"} <= set(tree):
+        return tree
+    children = tree.values() if isinstance(tree, dict) else (
+        tree if isinstance(tree, (list, tuple)) else ())
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def opt_state_from_jax(tree: Any, device: DeviceLike = None) -> Any:
+    """optax's `chain(clip_by_global_norm, adamw)` state (or `adamw`'s
+    alone), with numpy leaves, -> the port AdamW's {"count", "mu", "nu"}:
+    `ScaleByAdamState`'s moments as tensors in their own dtypes (a bf16 mu
+    stays bf16) and its int32 count as a Python int.  The schedule's count
+    beside it must be the same step."""
+    adam = _adam_state(tree)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the "
+                         "optimizer state")
+    count = int(np.asarray(adam["count"]))
+
+    def counts(node):
+        fields = getattr(node, "_fields", None)
+        if fields is not None:
+            node = node._asdict()
+        if isinstance(node, dict):
+            return ([int(np.asarray(node["count"]))] if "count" in node
+                    else []) + [c for k, v in node.items()
+                                if k not in ("count", "mu", "nu")
+                                for c in counts(v)]
+        if isinstance(node, (list, tuple)):
+            return [c for v in node for c in counts(v)]
+        return []
+
+    if set(counts(tree)) != {count}:
+        raise ValueError(f"optimizer state counts disagree: "
+                         f"{counts(tree)}")
+    return {"count": count, "mu": params_from_jax(adam["mu"], device),
+            "nu": params_from_jax(adam["nu"], device)}

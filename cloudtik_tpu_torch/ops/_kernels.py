@@ -6,7 +6,9 @@ Each source under `cloudtik_tpu_torch/csrc/` is compiled by `nvcc` for
 checkout, keyed by a hash of the source and the flags, and are built at the
 first launch on a CUDA tensor (or by `build_all()`, which starts one `nvcc`
 per source at once).  Nothing happens at import: the CPU tests import every
-module on a machine with no `nvcc`.
+module on a machine with no `nvcc`.  Each build that compiled something
+calls the functions in `BUILD_LISTENERS` with its wall seconds and the
+sources it built (the step profiler books them to the `compile` bucket).
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -55,6 +58,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+# fn(seconds, [source, ...]) after each build that compiled something
+BUILD_LISTENERS: List[Callable[[float, List[str]], None]] = []
 
 
 class KernelBuildError(RuntimeError):
@@ -111,6 +116,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
         todo = [(n, _target(n)) for n in names if not _target(n).exists()]
         if not todo:
             return {}
+        t0 = time.perf_counter()
         nvcc = _nvcc()
         procs = [(n, *_start(n, nvcc, t), t) for n, t in todo]
         logs = {}
@@ -120,6 +126,9 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
                 logs[n] = _finish(n, proc, tmp, t)
             except KernelBuildError as e:
                 errors.append(str(e))
+        seconds = time.perf_counter() - t0
+        for listener in list(BUILD_LISTENERS):
+            listener(seconds, [n for n, _ in todo])
         if errors:
             raise KernelBuildError("\n".join(errors))
         return logs

@@ -23,8 +23,7 @@ engine leaves the request queued exactly like KV-block exhaustion.
 
 Not thread-safe by design: every mutation happens on the engine's loop
 thread (the BlockPool rule).  The pool takes any `loader` callable;
-`checkpoint_loader` (adapters restored from trainer checkpoints) waits on
-the checkpoint slice, ROADMAP A6.
+`checkpoint_loader` restores adapters from the LoRA trainer's checkpoints.
 """
 
 from __future__ import annotations
@@ -67,11 +66,27 @@ def fire_load_seam(adapter_id: str) -> None:
 
 def checkpoint_loader(adapters_dir: str, cfg, lora_cfg: LO.LoRAConfig
                       ) -> Callable[[str], Params]:
-    """Loader restoring `<adapters_dir>/<adapter_id>` from a trainer
-    checkpoint: not ported yet."""
-    raise NotImplementedError(
-        "adapters restored from trainer checkpoints (adapters_dir) come "
-        "with the checkpoint slice (ROADMAP A6)")
+    """Loader restoring adapter `<adapters_dir>/<adapter_id>` from a
+    trainer checkpoint (the LoRA trainer saves {"params": adapters}; the
+    JAX package's convert with `tools/import_jax_checkpoint.py`).  The
+    restore template is `init_lora_params` on the "meta" device, so
+    shapes are checked against this server's model and rank; the adapter
+    comes back on the host and the pool moves it to its planes."""
+    import os
+
+    from cloudtik_tpu_torch.train.checkpoint import restore_params
+
+    def load(adapter_id: str) -> Params:
+        directory = os.path.join(adapters_dir, adapter_id)
+        if not os.path.isdir(directory):
+            raise AdapterLoadError(
+                f"adapter {adapter_id!r}: no checkpoint directory at "
+                f"{directory}")
+        template = LO.init_lora_params(torch.Generator(), cfg, lora_cfg,
+                                       "meta")
+        return restore_params(directory, template)
+
+    return load
 
 
 class AdapterPool:

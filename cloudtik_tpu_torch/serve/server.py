@@ -13,14 +13,19 @@ and its adoption of a caller's `traceparent` header) are this package's
 own copies of the JAX package's, which this package does not import.  The
 daemon installs the request ledger (serve/reqlog.py) at boot.  The engine
 serves speculatively with `--spec-model`, and LoRA adapters through
-`engine_backend(adapter_loader=...)`.  Not here yet: the disaggregated
-mode (ROADMAP A2), checkpoints (`--checkpoint-dir`, `--spec-checkpoint-dir`,
-`--adapters-dir`: ROADMAP A6), the GBDT backend and replica registration.
+`--adapters-dir` or `engine_backend(adapter_loader=...)`.  Weights come
+from a trainer checkpoint with `--checkpoint-dir` (and the draft's with
+`--spec-checkpoint-dir`), read by a partial restore of its params
+(train/checkpoint.py; `tools/import_jax_checkpoint.py` converts the JAX
+package's).  Not here yet: the disaggregated mode (ROADMAP A2), the GBDT
+backend and replica registration.
 
     python -m cloudtik_tpu_torch.serve.server --model tpu_1b
     python -m cloudtik_tpu_torch.serve.server --engine --model tpu_1b
     python -m cloudtik_tpu_torch.serve.server --engine --model tpu_1b \
         --spec-model tpu_120m --spec-k 4
+    python -m cloudtik_tpu_torch.serve.server --model tpu_1b \
+        --checkpoint-dir /path/to/run/checkpoints
 """
 
 from __future__ import annotations
@@ -67,29 +72,22 @@ def transformer_backend(model: str = "tiny",
                         **config_overrides) -> ModelBackend:
     """Generation endpoint on the transformer family.
 
-    `params` takes a numpy tree as the JAX `init_params` gives it
-    (converted by `convert.params_from_jax`); without it the weights come
-    from `init_params` with a generator seeded 0.  The backend keeps its
-    `params` and `cfg` as attributes."""
+    The weights are the params of the newest checkpoint under
+    `checkpoint_dir` (a partial restore, in the preset's `param_dtype`);
+    else `params`, a numpy tree as the JAX `init_params` gives it
+    (converted by `convert.params_from_jax`); else `init_params` with a
+    generator seeded 0.  The backend keeps its `params` and `cfg` as
+    attributes."""
     import numpy as np
     import torch
 
-    from cloudtik_tpu_torch import convert
     from cloudtik_tpu_torch.device import resolve_device
     from cloudtik_tpu_torch.models import generate as G
     from cloudtik_tpu_torch.models import transformer as T
 
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint_dir is not supported yet: restoring a checkpoint "
-            "comes with the checkpoint slice (ROADMAP A6)")
     dev = resolve_device(device)
     cfg = T.config(model, **config_overrides)
-    if params is None:
-        params = T.init_params(
-            torch.Generator(device=dev).manual_seed(0), cfg, dev)
-    else:
-        params = convert.params_from_jax(params, dev)
+    params = _initial_params(cfg, dev, checkpoint_dir, params)
 
     def generate(payload: Dict[str, Any]) -> Dict[str, Any]:
         tokens = np.asarray(payload["tokens"], np.int64)
@@ -115,6 +113,24 @@ def transformer_backend(model: str = "tiny",
     backend.params = params
     backend.cfg = cfg
     return backend
+
+
+def _initial_params(cfg, dev, checkpoint_dir: Optional[str], params):
+    """A backend's weights: restored from `checkpoint_dir`, converted from
+    a numpy `params` tree, or made from seed 0."""
+    import torch
+
+    from cloudtik_tpu_torch import convert
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.train.checkpoint import restore_params
+
+    if checkpoint_dir:
+        return restore_params(checkpoint_dir, T.init_params(
+            torch.Generator(), cfg, "meta"), dev)
+    if params is not None:
+        return convert.params_from_jax(params, dev)
+    return T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         dev)
 
 
 def engine_backend(model: str = "tiny",
@@ -144,21 +160,18 @@ def engine_backend(model: str = "tiny",
     speculative decoding: the named preset, its weights made from seed 0
     as the target's are, proposes `spec_k` greedy tokens per round and
     ONE target verify accepts the matching prefix (so `spec_model` equal
-    to `model` is a self-draft).  `adapter_loader` (adapter_id -> adapter
-    tree) turns on multi-tenant LoRA: requests naming ``"adapter":
-    "<id>"`` load into an adapter pool of `adapter_slots` plane slots at
-    rank `lora_rank` and alpha `lora_alpha`; ``"tenant"`` tags a request
-    for per-tenant metrics and (with ``admission="wfq"`` +
-    `tenant_weights`) weighted-fair admission.  `max_queue_depth` bounds
-    the admission queue (overflow is a 429 + Retry-After).  `params` and
-    `device` as in `transformer_backend`.  Not ported yet, and raising
-    NotImplementedError: `disagg` (ROADMAP A2), and the checkpoints of
-    `checkpoint_dir`, `spec_checkpoint_dir` and `adapters_dir` (ROADMAP
-    A6).  The backend keeps `engine` (for stop()), `params` and `cfg` as
-    attributes."""
-    import torch
-
-    from cloudtik_tpu_torch import convert
+    to `model` is a self-draft), or restored from `spec_checkpoint_dir`.
+    `adapters_dir` (adapters restored from `<adapters_dir>/<adapter_id>`
+    checkpoints) or `adapter_loader` (adapter_id -> adapter tree) turns
+    on multi-tenant LoRA: requests naming ``"adapter": "<id>"`` load into
+    an adapter pool of `adapter_slots` plane slots at rank `lora_rank`
+    and alpha `lora_alpha`; ``"tenant"`` tags a request for per-tenant
+    metrics and (with ``admission="wfq"`` + `tenant_weights`)
+    weighted-fair admission.  `max_queue_depth` bounds the admission
+    queue (overflow is a 429 + Retry-After).  `checkpoint_dir`, `params`
+    and `device` as in `transformer_backend`.  Not ported yet, and
+    raising NotImplementedError: `disagg` (ROADMAP A2).  The backend
+    keeps `engine` (for stop()), `params` and `cfg` as attributes."""
     from cloudtik_tpu_torch.device import resolve_device
     from cloudtik_tpu_torch.models import transformer as T
     from cloudtik_tpu_torch.models.lora import LoRAConfig
@@ -171,27 +184,17 @@ def engine_backend(model: str = "tiny",
         raise NotImplementedError(
             "engine_backend(disagg=...) is not supported by the PyTorch "
             "engine yet (ROADMAP A2)")
-    for flag, value in (("checkpoint_dir", checkpoint_dir),
-                        ("spec_checkpoint_dir", spec_checkpoint_dir)):
-        if value:
-            raise NotImplementedError(
-                f"engine_backend({flag}=...): restoring a checkpoint comes "
-                "with the checkpoint slice (ROADMAP A6)")
     cfg = T.config(model, **config_overrides)
     lora_cfg = LoRAConfig(rank=lora_rank, alpha=lora_alpha)
     if adapters_dir:
         adapter_loader = checkpoint_loader(adapters_dir, cfg, lora_cfg)
     dev = resolve_device(device)
-    if params is None:
-        params = T.init_params(
-            torch.Generator(device=dev).manual_seed(0), cfg, dev)
-    else:
-        params = convert.params_from_jax(params, dev)
+    params = _initial_params(cfg, dev, checkpoint_dir, params)
     draft = spec = None
     if spec_model:
         draft_cfg = T.config(spec_model, **config_overrides)
-        draft = (T.init_params(torch.Generator(device=dev).manual_seed(0),
-                               draft_cfg, dev), draft_cfg)
+        draft = (_initial_params(draft_cfg, dev, spec_checkpoint_dir, None),
+                 draft_cfg)
         spec = SpecConfig(k=spec_k)
     pool = None
     if adapter_loader is not None:
@@ -406,7 +409,8 @@ def main(argv=None) -> int:
     p.add_argument("--model", default="tiny",
                    help="transformer preset to serve")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="not supported yet (checkpoint slice, ROADMAP A6)")
+                   help="serve the params of the newest checkpoint under "
+                        "this trainer checkpoint directory")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     p.add_argument("--engine", action="store_true",
@@ -424,12 +428,13 @@ def main(argv=None) -> int:
                         "(engine mode; greedy output stays what plain "
                         "decode gives)")
     p.add_argument("--spec-checkpoint-dir", default=None,
-                   help="not supported yet (checkpoint slice, ROADMAP A6)")
+                   help="the draft's weights from this trainer checkpoint "
+                        "directory (default: seed 0)")
     p.add_argument("--spec-k", type=int, default=4,
                    help="draft tokens proposed per verify")
     p.add_argument("--adapters-dir", default=None,
-                   help="LoRA adapters from trainer checkpoints: not "
-                        "supported yet (checkpoint slice, ROADMAP A6)")
+                   help="LoRA adapters from trainer checkpoints: "
+                        "<dir>/<adapter_id> each (engine mode)")
     p.add_argument("--adapter-slots", type=int, default=8,
                    help="resident-adapter capacity (LRU evicts idle "
                         "adapters past it)")

@@ -5,6 +5,7 @@ arithmetic and its tie-aware greedy check are pinned, and without a card
 it fails and prints no result."""
 
 import dataclasses
+import math
 import shutil
 import subprocess
 import sys
@@ -658,3 +659,66 @@ def test_step_logits_flags_rolled_adapter_indices():
             rec.rows(r.request_id))
         assert (diff > chip_smoke.ENGINE_LOGITS_MAX_ABS) \
             == rec.changed(r.request_id)
+
+
+def test_checkpoint_phase_rehearsal_takes_no_kernel_on_cpu():
+    """The checkpoint phase end to end at `tiny`: saves in one fit, a torn
+    step 4, a resume at step 2 with every leaf equal to the uninterrupted
+    run's state there and its losses (bitwise on the CPU), both backends
+    on the restored weights, and its directory removed."""
+    before = (FA.LAUNCHES, D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN)
+    out = chip_smoke.phase_checkpoint(chip_smoke.CHECKPOINT_REHEARSAL,
+                                      "cpu")
+    assert (FA.LAUNCHES, D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN) == before
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    assert out["det_launches"] == {"nms": 0, "roi_align": 0}
+    assert out["determinism"]["bitwise"] is True
+    assert out["determinism"]["max_abs_leaf_gap"] == 0.0
+    assert out["disk"]["max_to_keep"] == 3
+    for depth in ("depth_0", "depth_2"):
+        assert len(out["prefetch"][depth]["data_wait_ms_by_step"]) == 2
+    resume = out["resume"]
+    assert resume["restored_step"] == 2
+    assert resume["max_abs_leaf_gap"] == 0.0
+    assert resume["resumed_losses"] == resume["uninterrupted_losses"][2:]
+    assert resume["saving_run_last_loss"] \
+        == resume["uninterrupted_losses"][-1]
+    assert out["save"]["step_dir_bytes"] \
+        > out["save"]["torn_step_dir_bytes"]
+    assert out["save"]["offloaded"]["write_s"] > 0
+    assert out["save"]["offloaded"]["stall_ms"] is None   # card time only
+    assert out["save"]["torn_inline"]["d2h_s"] > 0
+    assert out["save"]["offloaded"]["pin_before_loop_s"] is None
+    assert all(t > 0 for t in out["restore"].values())
+    assert out["serve"]["plain_equals_direct_generate"]
+    assert out["serve"]["engine_tie_gap_max"] <= chip_smoke.ENGINE_TIE_GAP
+    assert out["memory"]["peak_with_snapshot_gb"] is None
+    assert [r["step"] for r in out["memory"]["at_save"]] == [2, 4]
+    assert not Path(out["directory"]).exists()
+
+
+def test_checkpoint_load_is_the_train_phase_configuration():
+    load = chip_smoke.CHECKPOINT_LOAD
+    assert (load.model, load.batch, load.seq) == ("tpu_1b", 8, 2048)
+    assert (load.every, load.steps, load.torn_step) == (2, 4, 4)
+
+
+def test_leaf_gap_is_zero_only_for_equal_leaves():
+    a = {"w": torch.tensor([1.0, -0.0]), "count": 3}
+    assert chip_smoke._leaf_gap(a, {"w": torch.tensor([1.0, -0.0]),
+                                    "count": 3}) == 0.0
+    assert chip_smoke._leaf_gap(a, {"w": torch.tensor([1.5, -0.0]),
+                                    "count": 3}) == 0.5
+    for other in ({"w": torch.tensor([1.0, -0.0]), "count": 4},
+                  {"w": torch.tensor([float("nan"), -0.0]), "count": 3}):
+        assert chip_smoke._leaf_gap(a, other) == math.inf
+
+
+def test_checkpoint_phase_fails_loudly_without_room(monkeypatch):
+    import shutil as sh
+
+    monkeypatch.setattr(sh, "disk_usage",
+                        lambda path: sh._ntuple_diskusage(1, 1, 0))
+    with pytest.raises(SystemExit, match="bytes free"):
+        chip_smoke.phase_checkpoint(chip_smoke.CHECKPOINT_REHEARSAL, "cpu")

@@ -38,6 +38,7 @@ COPIES = (
     "telemetry/export.py", "telemetry/__init__.py",
     "telemetry/instruments.py", "telemetry/events.py",
     "telemetry/goodput.py", "serve/kvcache.py", "serve/reqlog.py",
+    "utils/retry.py",
 )
 # (copy, line in the port) -> why it differs from the reference; empty
 ALLOWED_DIFFERENCES = {}
