@@ -58,6 +58,31 @@ run with a non-zero exit:
            logits the adapters must move by >= 0.6; adapter indices
            rolled one lane on must be flagged in every changed lane; no
            B1-B5 launch on this path
+  disagg   `tik-serve --engine --disagg`: `engine_backend(disagg=True,
+           prefill_slots=2)` at the engine phase's configuration and
+           traffic behind ServeServer: a prefill-role engine exports each
+           finished prompt's KV blocks (gathered on the card, one copy to
+           the host) over the in-process migration wire to the decode-role
+           engine, which copies them back and scatters them into its pool.
+           Every answer tie-aware and every decode-role step against the
+           teacher; every record one migration of its whole prompt; prefix
+           hits on both roles; one migrated request's blocks equal bit for
+           bit in both pools; both pools free after stop; two requests
+           torn by a planted `serve.kvcache.migrate` fault answer right
+           through the fallback; a pair whose import lands its planes one
+           block on must be flagged in every lane.  Tokens/s, TTFT/TPOT,
+           and per migration the gather + d2h, pack + send and import ms,
+           MB and GB/s, beside a monolithic `--engine` run of the same
+           requests; no B1-B5 launch on this path
+  fabric   the serving fabric: a PrefillReplica and two DecodeReplicas
+           (tpu_1b engines over one set of weights) behind the copied
+           prefix-affinity Router and a ReplicaRegistry, KV blocks over
+           SocketKVTransport on 127.0.0.1: prompt-heavy requests migrate,
+           short ones go direct, a torn migration falls back on the decode
+           replica the router chose, and a prefill replica killed
+           mid-traffic leaves every request answered (tie-aware, outcomes
+           only).  The socket wire's GB/s and ms per handoff; no B1-B5
+           launch on this path
   forward  the inference path, part 1: tpu_1b `forward` at B=4, S=2048 in
            bf16, held against the same forward on the reference attention
   train    the training path: `Trainer.fit` on tpu_1b at full width and
@@ -103,10 +128,10 @@ run with a non-zero exit:
            Mask R-CNN's map pooled on ROIAlign's vector route
 
 Launch counts are zeroed just before each path (forward then serve; the
-engine; spec; lora; the measured train steps; the resumed steps of the
+engine; spec; lora; disagg; fabric; the measured train steps; the resumed steps of the
 checkpoint phase; the measured detect calls of each model) and read just
-after it.  The last lines are the
-`nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
+after it.  The `total` line gives the script's seconds; the last lines are
+the `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
 """
 
@@ -853,6 +878,40 @@ def _percentiles(values: list) -> dict:
             "p95": float(np.percentile(values, 95))}
 
 
+def engine_traffic(params, cfg, load: EngineLoad, device,
+                   direct_new: int = None) -> dict:
+    """The engine phase's requests, from numpy seed 0: `load.clients`
+    prompts (the even ones behind one shared `load.prefix_len`-token
+    prefix) and their new-token counts; each prompt's direct greedy
+    answer (its first `direct_new` tokens when given); and the EOS
+    request, the one whose first five direct tokens lead their runners-up
+    by the most, so its stop position does not hang on a near tie, with
+    its EOS token.  `rng` goes on drawing for the phase."""
+    import numpy as np
+    import torch
+
+    from cloudtik_tpu_torch.models import generate as G
+
+    L, V = load, cfg.vocab_size
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, V, L.prefix_len).tolist()
+    prompts, news = [], []
+    for i in range(L.clients):
+        own = rng.integers(0, V, L.prompt_lens[i % 4]).tolist()
+        prompts.append(prefix + own if i % 2 == 0 else own)
+        news.append(L.short_new if i % 4 == 1 else L.new_tokens)
+    direct = [G.generate(params, torch.tensor([p], device=device), cfg,
+                         max_new_tokens=min(n, direct_new or n))[0].tolist()
+              for p, n in zip(prompts, news)]
+    margins = [min(greedy_margins(params, cfg, p, d[:5], device))
+               if d[4] not in d[:4] else -1.0
+               for p, d in zip(prompts, direct)]
+    eos_i = int(np.argmax(margins))
+    return {"rng": rng, "prefix": prefix, "prompts": prompts, "news": news,
+            "direct": direct, "margins": margins, "eos_i": eos_i,
+            "eos": direct[eos_i][4]}
+
+
 def phase_engine(model: str = "tpu_1b", device: str = "cuda",
                  load: EngineLoad = ENGINE_LOAD,
                  nvidia_smi: str = None) -> dict:
@@ -863,11 +922,9 @@ def phase_engine(model: str = "tpu_1b", device: str = "cuda",
     import tempfile
     import threading
 
-    import numpy as np
     import torch
 
     from cloudtik_tpu_torch import telemetry
-    from cloudtik_tpu_torch.models import generate as G
     from cloudtik_tpu_torch.serve import kvcache, reqlog
     from cloudtik_tpu_torch.serve.engine import (
         DecodeEngine, EngineConfig, Request, RequestCancelled)
@@ -885,24 +942,10 @@ def phase_engine(model: str = "tpu_1b", device: str = "cuda",
     engine, cfg, params = backend.engine, backend.cfg, backend.params
     chunk_max = engine._chunk_max
     V = cfg.vocab_size
-    rng = np.random.default_rng(0)
-    prefix = rng.integers(0, V, L.prefix_len).tolist()
-    prompts, news = [], []
-    for i in range(L.clients):
-        own = rng.integers(0, V, L.prompt_lens[i % 4]).tolist()
-        prompts.append(prefix + own if i % 2 == 0 else own)
-        news.append(L.short_new if i % 4 == 1 else L.new_tokens)
-    # the direct greedy answers, and the EOS request: the one whose first
-    # five direct tokens lead their runners-up by the most, so its stop
-    # position does not hang on a near tie
-    direct = [G.generate(params, torch.tensor([p], device=device), cfg,
-                         max_new_tokens=n)[0].tolist()
-              for p, n in zip(prompts, news)]
-    margins = [min(greedy_margins(params, cfg, p, d[:5], device))
-               if d[4] not in d[:4] else -1.0
-               for p, d in zip(prompts, direct)]
-    eos_i = int(np.argmax(margins))
-    eos = direct[eos_i][4]
+    traffic = engine_traffic(params, cfg, L, device)
+    rng, prefix, prompts, news, direct, margins, eos_i, eos = (
+        traffic[k] for k in ("rng", "prefix", "prompts", "news", "direct",
+                             "margins", "eos_i", "eos"))
 
     server = ServeServer([backend], host="127.0.0.1", port=0)
     server.start()
@@ -1227,7 +1270,10 @@ def _serve_wave(engine, url, payloads):
         finally:
             reqlog.uninstall()
             del engine.submit
-        records = {r["request_id"]: r for r in reqlog.read_requests(path)}
+        # a disaggregated pair also writes each request's "migrated"
+        # milestone (the prefill role's half) under the same id
+        records = {r["request_id"]: r for r in reqlog.read_requests(path)
+                   if r["finish"] != reqlog.FINISH_MIGRATED}
     require(not any(t.is_alive() for t in threads), "a client hung")
     reqs, recs = [], []
     for i, (status, body) in enumerate(results):
@@ -1718,6 +1764,591 @@ def phase_lora(model: str = "tpu_1b", device: str = "cuda",
                           if on_card else None)
     emit("lora", **out)
     del eng, reqs, rows, step_rec, params, merged, bank
+    _collect(on_card)
+    return out
+
+
+# ------------------------------------------------------------------ disagg --
+
+class MigrationLog:
+    """Times each migration of a prefill-role engine into a decode-role
+    engine while entered, and keeps the bits of one: per migration the
+    gather + device-to-host ms (`_migrate_out` less its export), the
+    pack + send ms (the migrator's export: over the loopback that includes
+    the inbox's reassembly), and the import ms (the decode loop's
+    host-to-device copy and scatter, ended by a synchronise the log adds).
+    The first migration of a prompt of at least `keep_len` tokens has its
+    prefill-pool blocks cloned before the export and its decode-pool
+    blocks cloned after the import."""
+
+    def __init__(self, prefill, decode, keep_len: int):
+        self.prefill, self.decode, self.keep_len = prefill, decode, keep_len
+        self.out, self.imports, self.kept = [], [], {}
+
+    def __enter__(self):
+        import torch
+
+        pre, dec = self.prefill, self.decode
+        sync = torch.cuda.synchronize if dec.device.type == "cuda" \
+            else (lambda: None)
+        migrate_out, export = pre._migrate_out, pre._migrator.export
+        scatter, stamp = dec._scatter_imported, dec._stamp_first_token
+        current = {}
+
+        def timed_migrate_out(slot_id, slot, first_tok):
+            req = slot.request
+            if slot.true_len >= self.keep_len and not self.kept:
+                table = slot.table[:-(-slot.true_len // pre.ec.block_size)]
+                self.kept[req.request_id] = {"prefill": (
+                    pre._kp[:, table].clone(), pre._vp[:, table].clone())}
+            current.clear()
+            t0 = time.perf_counter()
+            migrate_out(slot_id, slot, first_tok)
+            total = (time.perf_counter() - t0) * 1e3
+            if "export_ms" in current:
+                self.out.append({
+                    "request": req.request_id, "tokens": slot.true_len,
+                    "mb": current["mb"],
+                    "gather_d2h_ms": total - current["export_ms"],
+                    "pack_send_ms": current["export_ms"]})
+
+        def timed_export(request, **kw):
+            t0 = time.perf_counter()
+            export(request, **kw)
+            current["export_ms"] = (time.perf_counter() - t0) * 1e3
+            current["mb"] = 2 * kw["k"].numel() * kw["k"].element_size() \
+                / 1e6
+
+        def timed_scatter(table, start, k, v):
+            t0 = time.perf_counter()
+            scatter(table, start, k, v)
+            sync()
+            self.imports.append({
+                "blocks": len(table) - start, "reused": start,
+                "mb": 2 * k[:, start:].numel() * k.element_size() / 1e6,
+                "import_ms": (time.perf_counter() - t0) * 1e3})
+
+        def import_stamp(slot_id, slot, first_tok):
+            # an import stamps its first token right after its scatter
+            rid = slot.request.request_id
+            if slot.request.migrations:
+                self.imports[-1]["request"] = rid
+                kept = self.kept.get(rid)
+                if kept is not None and "decode" not in kept:
+                    kept["decode"] = (dec._kp[:, slot.table].clone(),
+                                      dec._vp[:, slot.table].clone())
+            return stamp(slot_id, slot, first_tok)
+
+        pre._migrate_out, pre._migrator.export = timed_migrate_out, \
+            timed_export
+        dec._scatter_imported, dec._stamp_first_token = timed_scatter, \
+            import_stamp
+        return self
+
+    def __exit__(self, *exc):
+        del self.prefill._migrate_out, self.decode._scatter_imported
+        del self.decode._stamp_first_token, self.prefill._migrator.export
+
+    def bit_equal_blocks(self) -> int:
+        """How many blocks the kept request migrated, when its decode-pool
+        blocks equal its prefill-pool blocks bit for bit (K and V); else
+        0."""
+        import torch
+
+        for kept in self.kept.values():
+            if "decode" in kept and all(
+                    torch.equal(a, b) for a, b in zip(kept["prefill"],
+                                                      kept["decode"])):
+                return kept["decode"][0].shape[1]
+        return 0
+
+    def summary(self) -> dict:
+        """Per migration its three stages, MB and GB/s over the three;
+        per stage the totals and rate; and the largest migration's row."""
+        imports = {r["request"]: r for r in self.imports}
+        rows = []
+        for r in self.out:
+            imp = imports[r["request"]]
+            ms = r["gather_d2h_ms"] + r["pack_send_ms"] + imp["import_ms"]
+            rows.append(dict(r, import_ms=imp["import_ms"],
+                             import_mb=imp["mb"], reused=imp["reused"],
+                             gb_per_s=r["mb"] / ms))
+        out = {"migrations": len(self.out), "imports": len(self.imports),
+               "rows": rows}
+        for stage, src in (("gather_d2h", self.out),
+                           ("pack_send", self.out),
+                           ("import", self.imports)):
+            ms = sum(r[f"{stage}_ms"] for r in src)
+            mb = sum(r["mb"] for r in src)
+            out[stage] = {"ms_total": ms, "mb_total": mb,
+                          "gb_per_s": mb / ms if ms else None}
+        if rows:
+            out["largest"] = max(rows, key=lambda r: r["mb"])
+        return out
+
+
+def planted_import_shift(params, cfg, load, rng, device) -> dict:
+    """The logits check's power on the migration path: `load.slots`
+    requests through a disaggregated pair whose decode role lands each
+    request's imported planes one block on (block j's planes in table
+    entry j + 1: the first entry keeps what the pool held there, the last
+    block's planes are dropped), its prefix cache off so that every block
+    is imported.  Attention over the prompt is blind to which block holds
+    which (already rotated) positions, so what the shift changes is the
+    first and the last block: the prompts, drawn from `rng`, are two
+    blocks less three tokens each, so that it changes half of each one.
+    Every import moves; returns how many of those lanes the logits check
+    flags."""
+    from cloudtik_tpu_torch.serve.disagg import DisaggServing
+    from cloudtik_tpu_torch.serve.engine import EngineConfig, Request
+
+    ec = dict(max_len=load.max_len, block_size=load.block_size)
+    pair = DisaggServing(params, cfg, EngineConfig(slots=2, **ec),
+                         EngineConfig(slots=load.slots, prefix_cache=False,
+                                      **ec), device=device)
+    scatter = pair.decode._scatter_imported
+    stamp = pair.decode._stamp_first_token
+    moved, changed = [], set()
+
+    def shifted(table, start, k, v):
+        moved.append(len(table) > start)
+        scatter(table[start + 1:], 0, k[:, start:-1], v[:, start:-1])
+
+    def tagged_stamp(slot_id, slot, first_tok):
+        # an import stamps its first token right after its scatter
+        if slot.request.migrations and moved.pop():
+            changed.add(slot.request.request_id)
+        return stamp(slot_id, slot, first_tok)
+
+    pair.decode._scatter_imported = shifted
+    pair.decode._stamp_first_token = tagged_stamp
+    reqs = [Request(rng.integers(0, cfg.vocab_size,
+                                 2 * load.block_size - 3).tolist(),
+                    max_new_tokens=load.short_new)
+            for _ in range(load.slots)]
+    with StepLogits(pair.decode) as rec:
+        pair.start()
+        try:
+            for r in reqs:
+                pair.submit(r)
+            outs = [r.wait(timeout=600) for r in reqs]
+        finally:
+            pair.stop()
+    diffs = {r.request_id: logits_diff(teacher_logits(
+        params, cfg, r.prompt, toks, device), rec.rows(r.request_id))
+        for r, toks in zip(reqs, outs)}
+    return {"fault": "imported planes one block on",
+            "lanes": len(reqs), "lanes_changed": len(changed),
+            "logits_diff_per_lane": list(diffs.values()),
+            "lanes_flagged_by_logits": sum(diffs[i] > ENGINE_LOGITS_MAX_ABS
+                                           for i in changed),
+            "logits_diff_min_changed_lane": min(
+                (diffs[i] for i in changed), default=None)}
+
+
+def phase_disagg(model: str = "tpu_1b", device: str = "cuda",
+                 load: EngineLoad = ENGINE_LOAD, prefill_slots: int = 2,
+                 nvidia_smi: str = None) -> dict:
+    """`tik-serve --engine --disagg`: `engine_backend(model, disagg=True,
+    prefill_slots=2)` at the engine phase's configuration behind
+    ServeServer, the engine phase's traffic (16 clients, a shared cached
+    prefix, one EOS).  Every answer passes the tie-aware check and every
+    decode-role step the logits check; every record carries one migration
+    of its whole prompt; both roles hit their prefix caches; one migrated
+    request's blocks arrive bit for bit; both pools end free.  Then two
+    requests torn by a planted `serve.kvcache.migrate` fault must answer
+    right through the fallback, and a pair whose import lands its blocks
+    one position on must be flagged in every lane it changes.  The same
+    requests through a monolithic `--engine` backend, for the numbers."""
+    import torch
+
+    from cloudtik_tpu_torch import telemetry
+    from cloudtik_tpu_torch.faults import seams
+    from cloudtik_tpu_torch.faults.plan import FaultPlan, FaultPoint
+    from cloudtik_tpu_torch.serve.engine import Request
+    from cloudtik_tpu_torch.serve.server import ServeServer, engine_backend
+    from cloudtik_tpu_torch.telemetry import instruments as ti
+
+    on_card = device == "cuda"
+    L = load
+    telemetry.enable()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    backend = engine_backend(model, slots=L.slots, max_len=L.max_len,
+                             block_size=L.block_size, disagg=True,
+                             prefill_slots=prefill_slots, device=device)
+    pair, cfg, params = backend.engine, backend.cfg, backend.params
+    V = cfg.vocab_size
+    traffic = engine_traffic(params, cfg, L, device, direct_new=5)
+    rng, prefix, prompts, news, eos_i, eos = (
+        traffic[k] for k in ("rng", "prefix", "prompts", "news", "eos_i",
+                             "eos"))
+    payloads = [{"tokens": [p], "max_new_tokens": n}
+                for p, n in zip(prompts, news)]
+    payloads[eos_i]["eos_id"] = eos
+    warm = {"tokens": [prefix + prompts[1][:8]], "max_new_tokens": 2}
+    out = {"model": model, "dtype": str(cfg.dtype).replace("torch.", ""),
+           "nvidia_smi": nvidia_smi, "decode_slots": L.slots,
+           "prefill_slots": prefill_slots, "max_len": L.max_len,
+           "block_size": L.block_size,
+           "pool_blocks": {"prefill": pair.prefill.pool.num_blocks,
+                           "decode": pair.decode.pool.num_blocks}}
+
+    server = ServeServer([backend], host="127.0.0.1", port=0)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}/v1/generate"
+    try:
+        status, _ = _http(url, warm)
+        require(status == 200, f"disagg warm-up status {status}")
+        failures0 = ti.SERVE_KV_MIGRATION_FAILURES.value()
+        with StepLogits(pair.decode) as rec, \
+                MigrationLog(pair.prefill, pair.decode,
+                             max(map(len, prompts))) as mig:
+            wall, reqs, recs = _serve_wave(pair, url, payloads)
+            # two requests torn by a planted fault: at the second block
+            # of the first, then at the first block of the second
+            torn = [Request(rng.integers(0, V, 8 * L.block_size).tolist(),
+                            max_new_tokens=L.short_new) for _ in range(2)]
+            plan = FaultPlan([FaultPoint("serve.kvcache.migrate", "raise",
+                                         at_call=2, times=2)])
+            with seams.armed(plan):
+                for r in torn:
+                    pair.submit(r)
+                for r in torn:
+                    r.wait(timeout=600)
+        gaps, diffs = [], []
+        for i, req in enumerate(reqs):
+            got = req.tokens
+            if i == eos_i:
+                require(got[-1] == eos and eos not in got[:-1],
+                        f"request {i} did not stop at its EOS: {got}")
+            else:
+                require(len(got) == news[i],
+                        f"request {i}: {len(got)} tokens, asked {news[i]}")
+            require(all(0 <= t < V for t in got), f"request {i}: ids")
+            gap, diff = check_answer(f"disagg request {i}", params, cfg,
+                                     req.prompt, got, rec, req.request_id,
+                                     device)
+            gaps.append(gap)
+            diffs.append(diff)
+            require(recs[i]["migrations"] == 1
+                    and recs[i]["migrated_tokens"] == len(req.prompt),
+                    f"request {i}: migrations {recs[i]['migrations']}, "
+                    f"migrated_tokens {recs[i]['migrated_tokens']} of "
+                    f"{len(req.prompt)}")
+        require(plan.points[0].fired == 2,
+                f"the planted tear fired {plan.points[0].fired} times")
+        torn_checks = [check_answer(f"torn request {j}", params, cfg,
+                                    r.prompt, r.tokens, rec, r.request_id,
+                                    device) for j, r in enumerate(torn)]
+        require(all(r.error is None and r.migrations == 0
+                    and len(r.tokens) == L.short_new for r in torn),
+                "a torn request did not finish through the fallback")
+        failures = ti.SERVE_KV_MIGRATION_FAILURES.value() - failures0
+        require(failures == 2, f"migration failures counted: {failures}")
+        prefill_hits = sum(r["prefix_tokens"] > 0 for r in recs)
+        decode_hits = sum(r["reused"] > 0 for r in mig.imports)
+        require(prefill_hits >= 1 and decode_hits >= 1,
+                f"prefix hits: prefill role {prefill_hits}, decode role "
+                f"{decode_hits}")
+        bit_equal = mig.bit_equal_blocks()
+        require(bit_equal > 0,
+                "a migrated request's decode-pool blocks differ from its "
+                "prefill-pool blocks")
+        out["wave"] = dict(
+            _wave_numbers(wall, reqs, recs), clients=L.clients,
+            tie_gap_max=max(gaps), tie_gap_limit=ENGINE_TIE_GAP,
+            logits_diff_max=max(diffs),
+            logits_diff_limit=ENGINE_LOGITS_MAX_ABS,
+            migrated_tokens=[r["migrated_tokens"] for r in recs],
+            prefix_hits={"prefill": prefill_hits, "decode": decode_hits},
+            bit_equal_blocks=bit_equal)
+        out["migration"] = mig.summary()
+        out["torn"] = {"requests": len(torn), "fired": 2,
+                       "failures_counted": failures,
+                       "tie_gap_max": max(g for g, _ in torn_checks),
+                       "logits_diff_max": max(d for _, d in torn_checks)}
+    finally:
+        server.stop()
+        pair.stop()
+    require(pair.prefill.pool.used() == 0 and pair.decode.pool.used() == 0,
+            f"pools after stop: prefill {pair.prefill.pool.used()}, "
+            f"decode {pair.decode.pool.used()} used")
+    out["planted"] = planted_import_shift(params, cfg, L, rng, device)
+    p = out["planted"]
+    require(p["lanes_changed"] == p["lanes"]
+            and p["lanes_flagged_by_logits"] == p["lanes_changed"],
+            f"the logits check missed the planted import shift: {p}")
+
+    # the same requests through a monolithic `--engine` backend
+    mono = engine_backend(model, slots=L.slots, max_len=L.max_len,
+                          block_size=L.block_size, device=device)
+    server = ServeServer([mono], host="127.0.0.1", port=0)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}/v1/generate"
+    try:
+        status, _ = _http(url, warm)
+        require(status == 200, f"monolith warm-up status {status}")
+        wall, reqs, recs = _serve_wave(mono.engine, url, payloads)
+        gaps = [check_tie_aware(f"monolith request {i}", tie_gaps(
+            params, cfg, r.prompt, r.tokens, device))
+            for i, r in enumerate(reqs)]
+        out["monolith"] = dict(_wave_numbers(wall, reqs, recs),
+                               tie_gap_max=max(gaps))
+    finally:
+        server.stop()
+        mono.engine.stop()
+    out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if on_card else None)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("disagg", **out)
+    del backend, pair, params, mono
+    _collect(on_card)
+    return out
+
+
+# ------------------------------------------------------------------ fabric --
+
+@dataclasses.dataclass(frozen=True)
+class FabricLoad:
+    """The fabric phase's configuration and traffic: one prefill replica
+    (`prefill_slots` lanes) and two decode replicas (`decode_slots` lanes
+    each), blocks of `block_size`; prompts of `heavy_lens` tokens (at or
+    over `threshold`: the fabric hop) and `short_lens` (direct), taken in
+    turn, `new_tokens` each; `kill_requests` heavy requests in flight
+    when the prefill replica is killed."""
+    max_len: int = 1024
+    block_size: int = 16
+    prefill_slots: int = 2
+    decode_slots: int = 4
+    threshold: int = 64
+    heavy_lens: tuple = (384, 700)
+    short_lens: tuple = (16, 48)
+    clients: int = 8
+    new_tokens: int = 24
+    kill_requests: int = 4
+
+
+FABRIC_LOAD = FabricLoad()
+# the CPU rehearsal at `tiny`: the same traffic at a quarter of the lengths
+FABRIC_REHEARSAL = FabricLoad(max_len=256, block_size=8, threshold=16,
+                              heavy_lens=(96, 175), short_lens=(4, 12),
+                              new_tokens=8)
+
+
+class HandoffLog:
+    """Times each socket export of a `FabricMigrator` while entered: per
+    handoff the ms from opening the transport to the commit frame sent,
+    and the planes' MB."""
+
+    def __init__(self, migrator):
+        self.migrator, self.rows = migrator, []
+
+    def __enter__(self):
+        send = self.migrator._send
+
+        def timed_send(request, handoff, kw):
+            t0 = time.perf_counter()
+            send(request, handoff, kw)
+            self.rows.append({
+                "tokens": kw["length"],
+                "mb": 2 * kw["k"].numel() * kw["k"].element_size() / 1e6,
+                "handoff_ms": (time.perf_counter() - t0) * 1e3})
+
+        self.migrator._send = timed_send
+        return self
+
+    def __exit__(self, *exc):
+        del self.migrator._send
+
+    def summary(self) -> dict:
+        ms = sum(r["handoff_ms"] for r in self.rows)
+        mb = sum(r["mb"] for r in self.rows)
+        return {"handoffs": len(self.rows), "rows": self.rows,
+                "handoff_ms": _percentiles([r["handoff_ms"]
+                                            for r in self.rows]),
+                "wire_gb_per_s": mb / ms if ms else None}
+
+
+def phase_fabric(model: str = "tpu_1b", device: str = "cuda",
+                 load: FabricLoad = FABRIC_LOAD,
+                 nvidia_smi: str = None) -> dict:
+    """The serving fabric on the card: a `PrefillReplica` and two
+    `DecodeReplica`s, each its own engine over one set of weights, behind
+    the prefix-affinity `Router` with a `ReplicaRegistry` over
+    `InMemoryStateBackend`; KV blocks cross `SocketKVTransport` on
+    127.0.0.1.  Prompt-heavy requests must take the fabric hop and short
+    ones go direct; a torn migration falls back on the decode replica the
+    router chose; a prefill replica killed mid-traffic leaves every greedy
+    request answered.  Every answer passes the tie-aware check (outcomes,
+    never timings)."""
+    import numpy as np
+    import torch
+
+    from cloudtik_tpu_torch import telemetry
+    from cloudtik_tpu_torch.control.state import (
+        InMemoryStateBackend, StateClient)
+    from cloudtik_tpu_torch.faults import seams
+    from cloudtik_tpu_torch.faults.plan import FaultPlan, FaultPoint
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.serve import fabric
+    from cloudtik_tpu_torch.serve.engine import (
+        DecodeEngine, EngineConfig, Request)
+    from cloudtik_tpu_torch.serve.replicas import ReplicaRegistry
+    from cloudtik_tpu_torch.serve.router import (
+        Router, RouterConfig, chain_hash)
+    from cloudtik_tpu_torch.telemetry import instruments as ti
+
+    on_card = device == "cuda"
+    L = load
+    telemetry.enable()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = T.config(model)
+    params = T.init_params(torch.Generator(device=device).manual_seed(0),
+                           cfg, device)
+    ec = dict(max_len=L.max_len, block_size=L.block_size)
+    prefill = fabric.PrefillReplica("p0", DecodeEngine(
+        params, cfg, EngineConfig(slots=L.prefill_slots, **ec),
+        migrator=fabric.FabricMigrator(), device=device))
+    decodes = [fabric.DecodeReplica(f"d{i}", DecodeEngine(
+        params, cfg, EngineConfig(slots=L.decode_slots, **ec),
+        role="decode", device=device)) for i in range(2)]
+    replicas = [prefill] + decodes
+    for r in replicas:
+        r.engine.start()
+    router = Router(ReplicaRegistry(StateClient(InMemoryStateBackend())),
+                    RouterConfig(block_size=L.block_size,
+                                 prefill_len_threshold=L.threshold,
+                                 request_deadline_s=600))
+    router.add_client(prefill, role="prefill", slots=L.prefill_slots)
+    for r in decodes:
+        router.add_client(r, role="decode", slots=L.decode_slots)
+    rng = np.random.default_rng(1)
+    V = cfg.vocab_size
+
+    def prompt(n):
+        return rng.integers(0, V, n).tolist()
+
+    def paths():
+        return {p: ti.SERVE_FABRIC_REQUESTS.value(path=p)
+                for p in ("migrated", "fallback", "direct")}
+
+    def answered(name, answers):
+        """The largest tie gap over (prompt, tokens, error) answers, each
+        complete and right."""
+        gaps = []
+        for j, (p, toks, error) in enumerate(answers):
+            require(error is None and len(toks) == L.new_tokens,
+                    f"{name} {j}: error {error!r}, {len(toks)} tokens of "
+                    f"{L.new_tokens}")
+            gaps.append(check_tie_aware(f"{name} {j}", tie_gaps(
+                params, cfg, p, toks, device)))
+        return max(gaps)
+
+    def done(reqs):
+        return [(r.prompt, r.tokens, r.error) for r in reqs]
+
+    out = {"model": model, "dtype": str(cfg.dtype).replace("torch.", ""),
+           "nvidia_smi": nvidia_smi, **dataclasses.asdict(L)}
+    try:
+        for n in (L.heavy_lens[0], L.short_lens[0]):
+            router.handle({"tokens": prompt(n), "max_new_tokens": 2})
+        # the wave: heavy and short requests in turn, all at once
+        lens = [(L.heavy_lens, L.short_lens)[i % 2][i // 2 % 2]
+                for i in range(L.clients)]
+        reqs = [Request(prompt(n), max_new_tokens=L.new_tokens)
+                for n in lens]
+        before = paths()
+        with HandoffLog(prefill.engine._migrator) as handoffs:
+            t0 = time.perf_counter()
+            for r in reqs:
+                router.submit(r)
+            for r in reqs:
+                r.wait(timeout=600)
+            wall = time.perf_counter() - t0
+        after = paths()
+        n_heavy = sum(n >= L.threshold for n in lens)
+        require(after == dict(before, migrated=before["migrated"]
+                              + n_heavy),
+                f"fabric paths moved {before} -> {after}, expected "
+                f"{n_heavy} migrated and nothing else")
+        out["wave"] = {"requests": len(reqs), "heavy": n_heavy,
+                       "wall_s": wall,
+                       "tokens_per_s": sum(len(r.tokens) for r in reqs)
+                       / wall,
+                       "tie_gap_max": answered("fabric request",
+                                               done(reqs)),
+                       **handoffs.summary()}
+
+        # a torn migration: the fallback re-prefills on the decode
+        # replica the router chose
+        torn = prompt(L.heavy_lens[0])
+        chosen = router._pick(chain_hash(torn, L.block_size), set())[0]
+        fell_back = []
+        for r in decodes:
+            take = r.take_fallback
+            r.take_fallback = (lambda ticket, req, r=r, take=take: (
+                fell_back.append(r.replica_id), take(ticket, req))[1])
+        failures0 = ti.SERVE_KV_MIGRATION_FAILURES.value()
+        before = paths()
+        plan = FaultPlan([FaultPoint("serve.kvcache.migrate", "raise",
+                                     at_call=2, times=1)])
+        try:
+            with seams.armed(plan):
+                res = router.handle({"tokens": torn,
+                                     "max_new_tokens": L.new_tokens})
+        finally:
+            for r in decodes:
+                del r.take_fallback
+        require(res.get("fabric_path") == "fallback"
+                and fell_back == [chosen.replica_id]
+                and paths()["fallback"] == before["fallback"] + 1
+                and ti.SERVE_KV_MIGRATION_FAILURES.value()
+                == failures0 + 1,
+                f"torn migration: path {res.get('fabric_path')}, fell "
+                f"back on {fell_back} (router chose {chosen.replica_id})")
+        out["torn"] = {"fell_back_on": fell_back,
+                       "tie_gap": answered("torn request", [
+                           (torn, res["tokens"][0], None)])}
+
+        # the prefill replica killed with heavy requests in flight
+        killed = [Request(prompt(L.heavy_lens[i % 2]),
+                          max_new_tokens=L.new_tokens)
+                  for i in range(L.kill_requests)]
+        before = paths()
+        for r in killed:
+            router.submit(r)
+        deadline = time.monotonic() + 60
+        while not any(r._done.is_set() for r in killed) and not any(
+                s is not None for s in prefill.engine._slots):
+            require(time.monotonic() < deadline, "no request started")
+            time.sleep(0.001)
+        prefill.kill()
+        for r in killed:
+            r.wait(timeout=600)
+        out["prefill_killed"] = {
+            "requests": len(killed),
+            "paths": {k: paths()[k] - v for k, v in before.items()},
+            "tie_gap_max": answered("request past the prefill kill",
+                                    done(killed))}
+    finally:
+        router.stop()
+        for r in replicas:
+            r.stop()
+    for r in replicas:
+        require(r.engine.pool.used() == 0,
+                f"{r.replica_id}: {r.engine.pool.used()} blocks held "
+                "after stop")
+    out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if on_card else None)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("fabric", **out)
+    del replicas, prefill, decodes, params, router
     _collect(on_card)
     return out
 
@@ -2950,6 +3581,7 @@ def phase_detect(kind: str, name: str, B: int = 8, device: str = "cuda",
 def main() -> int:
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke runs on the "
               "card", file=sys.stderr)
@@ -3008,10 +3640,12 @@ def main() -> int:
     require(not any(engine_launches.values()),
             f"the engine path launched {engine_launches}, expected none")
 
-    # ---- the spec and lora paths, counts zeroed just before each and read
-    # just after: the verify and the draft are `forward_step`'s einsums
-    # and the LoRA delta is `gathered_delta`'s, as in the reference ----
-    for name, phase in (("spec", phase_spec), ("lora", phase_lora)):
+    # ---- the spec, lora, disagg and fabric paths, counts zeroed just
+    # before each and read just after: the verify and the draft are
+    # `forward_step`'s einsums, the LoRA delta is `gathered_delta`'s and
+    # migration's gather and scatter are indexing, as in the reference ----
+    for name, phase in (("spec", phase_spec), ("lora", phase_lora),
+                        ("disagg", phase_disagg), ("fabric", phase_fabric)):
         _zero_launch_counts()
         _zero_det_launch_counts()
         phase(nvidia_smi=smi)
@@ -3142,6 +3776,7 @@ def main() -> int:
     }]
     require(all(r["bound_by"] == "bytes" for r in roi_main),
             "roi_align's main shapes are not bound by bytes")
+    emit("total", seconds=time.perf_counter() - t_script)
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

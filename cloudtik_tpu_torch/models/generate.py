@@ -16,10 +16,12 @@ Counterpart of the static-cache path of `cloudtik_tpu/models/generate.py`:
 The paged helpers (`init_block_pool`, `gather_paged_cache`,
 `paged_prefill_chunk`, `paged_verify`, `copy_block`) are the device half of
 the serving engine's block pool (serve/engine.py, serve/kvcache.py); they
-update the pools in place.  `draft_propose` is the draft half of
+update the pools in place.  `gather_block_planes` / `scatter_block_planes`
+move a request's raw blocks out of one pool and into another (KV-block
+migration, serve/migration.py).  `draft_propose` is the draft half of
 speculative decoding, and `lora=` applies the gathered batched-adapter
-delta (models/lora.py) next to the base projections.  Not here yet: the
-block-plane gather/scatter of KV migration (ROADMAP A2), and MoE layers.
+delta (models/lora.py) next to the base projections.  Not here yet: MoE
+layers.
 """
 
 from __future__ import annotations
@@ -286,6 +288,37 @@ def copy_block(kp: torch.Tensor, vp: torch.Tensor, src: int, dst: int
     decides WHEN via needs_copy, this moves the bytes)."""
     kp[:, dst] = kp[:, src]
     vp[:, dst] = vp[:, src]
+    return kp, vp
+
+
+def gather_block_planes(kp: torch.Tensor, vp: torch.Tensor,
+                        table: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pull a table's raw block planes out of the pool (KV-block export:
+    migration serializes them at block granularity).
+
+    kp/vp [L, N, bs, Hkv, Dh], table [M] int -> k/v [L, M, bs, Hkv, Dh],
+    exactly the table's blocks (no padding: the reference pads only so
+    that XLA compiles one program).  Each is a view of a block-major copy
+    ([M, L, ...] in memory), so block j's planes `k[:, j]` are contiguous
+    and serialize without another copy."""
+    return (kp.transpose(0, 1)[table].transpose(0, 1),
+            vp.transpose(0, 1)[table].transpose(0, 1))
+
+
+def scatter_block_planes(kp: torch.Tensor, vp: torch.Tensor,
+                         table: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write exported block planes into a (different) pool, in place: the
+    KV import half of migration.  table [M] int, k/v [L, M, bs, Hkv, Dh]
+    on the pool's device, cast to the pool's dtype as the reference's
+    `astype` does.  The caller passes only the blocks to write (a prefix
+    reused in this pool is not rewritten), and never the null block 0:
+    `init_block_pool` keeps every block finite, and nothing is padded onto
+    block 0 here."""
+    kp[:, table] = k.to(kp.dtype)
+    vp[:, table] = v.to(vp.dtype)
     return kp, vp
 
 

@@ -41,6 +41,16 @@ request lifecycle, metric, span, event and request-ledger names:
   the adapter_id.  An adapter request speculates only with a registered
   per-adapter draft (`adapter_drafts=`), and is then verified against the
   merged target.
+* MIGRATION / DISAGGREGATION (serve/migration.py + serve/disagg.py): a
+  prefill-role engine (`DecodeEngine(migrator=...)`) gathers a finished
+  prompt's KV blocks on the device, copies them to the host once, and
+  exports them through a pluggable transport instead of decoding; a
+  decode-role engine imports them (`import_blocks`, thread-safe: it only
+  queues) and its loop thread copies them to the device, scatters them
+  into its own pool in place, registers the full prompt blocks in its
+  prefix map and decodes from the header's first token.  A fault at the
+  `serve.kvcache.migrate` seam mid-transfer degrades that request to the
+  migrator's fallback (a plain re-prefill submit on the decode role).
 
 The loop thread runs under `torch.inference_mode()`: grad mode is
 thread-local, and a decode step that recorded autograd history would grow
@@ -51,9 +61,6 @@ The port serves token ids it has checked against the vocabulary: an id
 outside it is refused at submit (`reason="token_ids"`, HTTP 400), since
 an index past the embedding would fault the CUDA context mid-step, where
 the reference's `jnp.take` passes it through.
-
-Not here yet (ROADMAP A2): KV-block migration (`migrator=`,
-`import_blocks`); each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -80,7 +87,7 @@ from cloudtik_tpu_torch.models.generate import _NEG
 from cloudtik_tpu_torch.models.transformer import (
     TransformerConfig, _check_dense, _embed_lookup, _mlp, _rms_norm, _rope,
     layer_params, logits_f32)
-from cloudtik_tpu_torch.serve import kvcache, reqlog
+from cloudtik_tpu_torch.serve import kvcache, migration, reqlog
 from cloudtik_tpu_torch.serve.adapters import (
     AdapterLoadError, AdapterPool, AdapterSlotsExhausted)
 from cloudtik_tpu_torch.serve.kvcache import BlockPool, BlockPoolExhausted
@@ -91,11 +98,6 @@ from cloudtik_tpu_torch.telemetry.core import STATE as _telemetry_state
 logger = logging.getLogger(__name__)
 
 Params = Dict[str, Any]
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet (ROADMAP A2)")
 
 
 @dataclasses.dataclass
@@ -189,9 +191,10 @@ class Request:
     and queue wait is admitted - created.  A preempted request's
     admitted/first-token stamps reset (it re-runs from scratch);
     `preemptions` counts how often that happened.  `draft_tokens`,
-    `accepted_tokens` and `spec_steps` count speculative rounds; the
-    migration counters stay 0 here (no migration yet), keeping the
-    request ledger's records in the reference's shape.
+    `accepted_tokens` and `spec_steps` count speculative rounds, and
+    `migrations` / `migrated_tokens` the KV imports that carried its
+    prompt in (serve/migration.py; an imported request's TTFT is stamped
+    at import).
     """
 
     def __init__(self, prompt: List[int], max_new_tokens: int = 32,
@@ -232,8 +235,9 @@ class Request:
         self.prefix_tokens: int = 0           # prompt tokens not recomputed
         self.prefill_chunks: int = 0          # chunks the prompt took
         self.preemptions: int = 0             # pool-exhaustion requeues
-        self.migrations: int = 0
-        self.migrated_tokens: int = 0
+        # KV-block migration accounting (serve/migration.py)
+        self.migrations: int = 0              # completed imports
+        self.migrated_tokens: int = 0         # tokens whose KV moved
         self.draft_tokens: int = 0
         self.accepted_tokens: int = 0
         self.spec_steps: int = 0
@@ -419,19 +423,21 @@ class DecodeEngine:
     sampled tokens.  `draft=(params, cfg)` with `EngineConfig.spec` turns
     on speculative decoding; `adapters` serves LoRA adapters and
     `adapter_drafts` maps an adapter_id to its own draft weights (over the
-    draft's architecture)."""
+    draft's architecture).  `migrator` (serve/migration.py) makes this a
+    prefill-role engine that exports each finished prompt's KV blocks
+    instead of decoding them; `role` labels the serve gauges and the block
+    pool (default "prefill" with a migrator, else "engine")."""
 
     def __init__(self, params: Params, cfg: TransformerConfig,
                  engine_config: Optional[EngineConfig] = None,
                  generator: Optional[torch.Generator] = None,
                  draft: Optional[Tuple[Params, TransformerConfig]] = None,
-                 migrator: Optional[Any] = None,
+                 migrator: Optional[migration.BlockMigrator] = None,
+                 role: Optional[str] = None,
                  adapters: Optional[AdapterPool] = None,
                  adapter_drafts: Optional[Dict[str, Params]] = None,
                  device: DeviceLike = None):
         self.ec = engine_config or EngineConfig()
-        if migrator is not None:
-            raise _not_ported("DecodeEngine(migrator=...)")
         if self.ec.admission not in ("fifo", "wfq"):
             raise ValueError(
                 f"unknown admission policy {self.ec.admission!r}; "
@@ -456,8 +462,11 @@ class DecodeEngine:
         # table covers max_len even when block_size doesn't divide it)
         self._blocks_per_req = kvcache.blocks_for(T, bs)
         self._capacity_tokens = self._blocks_per_req * bs
-        # the serve gauges' `role` label: a monolithic engine
-        self._role = "engine"
+        # the serve gauges' `role` label, so two engines in one process
+        # (a disaggregated prefill/decode pair) never overwrite each
+        # other's series; monolithic engines report role="engine"
+        self._role = role if role is not None else (
+            "prefill" if migrator is not None else "engine")
         num_blocks = self.ec.num_blocks
         if num_blocks is None:
             num_blocks = B * self._blocks_per_req + 1   # + null block
@@ -503,8 +512,23 @@ class DecodeEngine:
         self._merged_steps = 0
         self._gathered_steps = 0
 
+        # -- KV-block migration (serve/migration.py) -----------------------
+        # prefill role: `migrator` set — a finished prefill exports its
+        # blocks through the transport instead of decoding here.  decode
+        # role: `import_blocks()` feeds `_imports` from any thread; the
+        # loop thread copies arrived planes to the device and scatters
+        # them into this pool.
+        self._migrator = migrator
+        self._imports: "queue.Queue[tuple]" = queue.Queue()
+        self._pending_imports: "collections.deque" = collections.deque()
+
         # -- draft-model speculative decoding (EngineConfig.spec) ----------
         self._spec = self.ec.spec
+        if self._spec is not None and migrator is not None:
+            raise ValueError(
+                "a prefill-role engine (migrator=...) never decodes, "
+                "so EngineConfig.spec would only waste draft prefills "
+                "— configure spec on the decode role instead")
         # per-adapter draft weights (adapter_id -> draft params over the
         # SAME draft architecture).  On a spec-enabled multi-tenant
         # engine a request carrying an adapter_id speculates ONLY when its
@@ -552,9 +576,15 @@ class DecodeEngine:
             self._spec_verifies = 0
 
     # -- public ----------------------------------------------------------
-    def _submit_check(self, request: Request) -> Optional[RequestRejected]:
+    def _submit_check(self, request: Request,
+                      prompt_only: Optional[bool] = None
+                      ) -> Optional[RequestRejected]:
         """Submit-time feasibility in KV-pool-capacity terms; None when
-        schedulable."""
+        schedulable.  A PREFILL-ROLE engine (migrator set) only ever holds
+        the prompt blocks (prefill, export, free), so it charges the
+        prompt-only footprint; the decode side's worst case is the
+        composer's to check against the decode engine
+        (`DisaggServing.submit` does, with ``prompt_only=False``)."""
         if not request.prompt:
             return RequestRejected("empty prompt",
                                    reason="empty_prompt")
@@ -569,9 +599,12 @@ class DecodeEngine:
                 and not 0 <= request.eos_id < V):
             return RequestRejected(f"token ids must lie in [0, {V})",
                                    reason="token_ids")
+        if prompt_only is None:
+            prompt_only = self._migrator is not None
         bs = self.ec.block_size
-        total = len(request.prompt) + request.max_new_tokens
-        what = "prompt+max_new"
+        total = len(request.prompt) + (
+            0 if prompt_only else request.max_new_tokens)
+        what = "prompt" if prompt_only else "prompt+max_new"
         need = kvcache.blocks_for(total, bs)
         if total > self._capacity_tokens:
             return RequestRejected(
@@ -621,8 +654,17 @@ class DecodeEngine:
         return self.submit(Request(prompt, **kw)).wait(timeout=600)
 
     def import_blocks(self, request: Request, header: Dict[str, Any],
-                      k: Any, v: Any) -> Request:
-        raise _not_ported("DecodeEngine.import_blocks (KV migration)")
+                      k: torch.Tensor, v: torch.Tensor) -> Request:
+        """Thread-safe: queue a migrated-in request for the loop thread to
+        import (decode role).  `k`/`v` are the exported host planes
+        ``[L, M, bs, Hkv, Dh]`` in table order; `request` is the live
+        Request the caller owns (the loopback hands the original object
+        over; a cross-host receiver constructs one from the header).  No
+        device work happens here: the transport's thread may call it."""
+        request._engine = self
+        self._imports.put((request, header, k, v))
+        self._wake.set()
+        return request
 
     def stats(self) -> Dict[str, Any]:
         """Load snapshot: queue depth, occupied slots, slot-idle
@@ -735,6 +777,18 @@ class DecodeEngine:
                 break
             self._finish_request(req, "error", RuntimeError(reason),
                                  finish=reqlog.FINISH_DRAINED)
+        # migrated-in requests waiting for import
+        while self._pending_imports:
+            self._finish_request(self._pending_imports.popleft()[0],
+                                 "error", RuntimeError(reason),
+                                 finish=reqlog.FINISH_DRAINED)
+        while True:
+            try:
+                req = self._imports.get_nowait()[0]
+            except queue.Empty:
+                break
+            self._finish_request(req, "error", RuntimeError(reason),
+                                 finish=reqlog.FINISH_DRAINED)
         ti.SERVE_QUEUE_DEPTH.set(0, role=self._role)
         if self._tenants_gauged:
             self._emit_tenant_queue_depth()
@@ -785,7 +839,9 @@ class DecodeEngine:
     def _stamp_first_token(self, slot_id: int, slot: _Slot,
                            first_tok: int) -> None:
         """The first generated token becomes visible: append it, stamp
-        TTFT, seed the device-side token/length lanes."""
+        TTFT, seed the device-side token/length lanes.  ONE implementation
+        for the monolithic prefill-completion path and the migration
+        import path (imported requests stamp at IMPORT)."""
         req = slot.request
         req.tokens.append(first_tok)
         req.first_token_time = time.time()
@@ -907,6 +963,216 @@ class DecodeEngine:
         slot.table[j] = fresh[0]
         self._sync_table(slot_id)
         return True
+
+    # -- KV-block migration (serve/migration.py) --------------------------
+    def _migrate_out(self, slot_id: int, slot: _Slot,
+                     first_tok: int) -> None:
+        """Prefill role: export this slot's prompt KV blocks through the
+        migrator and free the lane — the request lives on wherever the
+        transport delivered it.  The covered blocks are gathered on the
+        device and copied to the host in ONE copy, which the stream runs
+        after the prefill chunk that wrote them.  A fault mid-transfer
+        degrades the request to the migrator's fallback (re-prefill on
+        the decode role, stamps reset like a preemption); it is never
+        lost."""
+        req = slot.request
+        bs = self.ec.block_size
+        covered = kvcache.blocks_for(slot.true_len, bs)
+        table = torch.tensor(slot.table[:covered], device=self.device)
+        with telemetry.trace_context(req.traceparent):
+            with telemetry.span("serve.kvcache.migrate",
+                                request=req.request_id,
+                                tokens=slot.true_len, blocks=covered):
+                k, v = G.gather_block_planes(self._kp, self._vp, table)
+                # block-major [2, M, L, ...]: one dense device-to-host
+                # copy, into page-locked memory on the card (the caching
+                # host allocator reuses it from one migration to the next)
+                planes = torch.stack((k.transpose(0, 1), v.transpose(0, 1)))
+                host = torch.empty(
+                    planes.shape, dtype=planes.dtype,
+                    pin_memory=self.device.type == "cuda")
+                host.copy_(planes)
+                try:
+                    self._migrator.export(
+                        req, first_token=first_tok,
+                        length=slot.true_len, k=host[0].transpose(0, 1),
+                        v=host[1].transpose(0, 1), block_size=bs)
+                except (FaultInjected, migration.MigrationError,
+                        OSError) as e:
+                    ti.SERVE_KV_MIGRATION_FAILURES.inc()
+                    events.emit("tik_serve_migration",
+                                request=req.request_id,
+                                direction="out", result="failed",
+                                tokens=slot.true_len, error=str(e))
+                    self._release_slot(slot_id)
+                    req.admitted = None
+                    req.admitted_mono = None
+                    fallback = self._migrator.fallback
+                    if fallback is not None:
+                        fallback(req)
+                    else:
+                        self._finish_request(req, "error", e)
+                    return
+            ti.SERVE_KV_MIGRATIONS.inc(direction="out")
+            ti.SERVE_KV_MIGRATED_TOKENS.inc(slot.true_len,
+                                            direction="out")
+            events.emit("tik_serve_migration", request=req.request_id,
+                        direction="out", result="ok",
+                        tokens=slot.true_len, blocks=covered)
+        # release AFTER the export: registered full prompt blocks park on
+        # the evictable LRU, keeping this role's prefix cache warm
+        self._release_slot(slot_id)
+
+    def _import_refusal(self, req: Request, header: Dict[str, Any],
+                        k: torch.Tensor) -> Optional[RequestRejected]:
+        """Why a migrated-in request can never decode HERE (geometry,
+        worst case past this pool, an adapter this engine lacks), or
+        None.  Such a request fails alone: a FIFO head waiting for blocks
+        that cannot exist would wedge every later import behind it."""
+        bs = self.ec.block_size
+        total = int(header["length"]) + req.max_new_tokens
+        L, _M, kbs, H, D = k.shape
+        if int(header["block_size"]) != bs or kbs != bs \
+                or (L, H, D) != (self.cfg.n_layers, self.cfg.n_kv_heads,
+                                 self.cfg.head_dim) \
+                or total > self._capacity_tokens \
+                or kvcache.blocks_for(total, bs) > self.pool.usable_blocks:
+            return RequestRejected(
+                f"migrated request carries {k.shape[1]} blocks of "
+                f"{header['block_size']} tokens x {L} layers x {H} heads x "
+                f"{D} and needs {total} tokens worst-case; this engine "
+                f"holds {self.pool.usable_blocks} usable blocks of {bs} "
+                f"tokens x {self.cfg.n_layers} x {self.cfg.n_kv_heads} x "
+                f"{self.cfg.head_dim} ({self._capacity_tokens} tokens per "
+                "request)")
+        if req.adapter_id is not None and self._adapters is None:
+            return RequestRejected(
+                f"migrated request names adapter {req.adapter_id!r} but "
+                "this decode engine serves the base model only (no "
+                "adapter pool configured)", reason="adapter")
+        return None
+
+    def _import_tick(self) -> None:
+        """Decode role: admit migrated-in requests.  Imported planes are
+        copied to the device and scattered into this pool at block
+        granularity, on this (the loop's) thread, before the decode step
+        that reads them; full prompt blocks register in the prefix map
+        (shared prefixes keep hitting across roles), and the slot starts
+        DECODING from the header's first token.  Exhaustion leaves
+        imports queued FIFO, exactly like `_admit`."""
+        while True:
+            try:
+                self._pending_imports.append(self._imports.get_nowait())
+            except queue.Empty:
+                break
+        while self._pending_imports:
+            req, header, k, v = self._pending_imports[0]
+            if req._done.is_set():
+                self._pending_imports.popleft()
+                continue
+            if req._cancel:
+                self._pending_imports.popleft()
+                self._finish_request(
+                    req, "cancelled", RequestCancelled("request cancelled"))
+                continue
+            slot_id = next((i for i, s in enumerate(self._slots)
+                            if s is None), None)
+            if slot_id is None:
+                break
+            refused = self._import_refusal(req, header, k)
+            if refused is not None:
+                self._pending_imports.popleft()
+                self._finish_request(req, "error", refused)
+                continue
+            true_len = int(header["length"])
+            n_blocks = int(k.shape[1])
+            adapter_slot = 0
+            if self._adapters is not None:
+                try:
+                    adapter_slot = self._adapters.acquire(req.adapter_id)
+                except AdapterSlotsExhausted:
+                    break     # every plane slot pinned: wait, FIFO
+                except AdapterLoadError as e:
+                    # the load failure fails the REQUEST, never the pool
+                    self._pending_imports.popleft()
+                    self._finish_request(req, "error", e)
+                    continue
+            # identical prefix blocks already cached HERE are reused (a
+            # shared prompt imports once); only tail planes scatter.
+            # count=False: these tokens arrived computed, so the reuse
+            # saves transfer, not prefill recompute
+            reuse_blocks: List[int] = []
+            if self.ec.prefix_cache:
+                reuse_blocks, _ = self.pool.match_prefix(
+                    req.prompt, count=False, namespace=req.adapter_id)
+            start = len(reuse_blocks)
+            try:
+                fresh = self.pool.alloc(n_blocks - start)
+            except (BlockPoolExhausted, FaultInjected):
+                if reuse_blocks:
+                    self.pool.release(reuse_blocks)
+                if self._adapters is not None:
+                    self._adapters.release(req.adapter_id)
+                break             # wait for blocks, FIFO
+            self._pending_imports.popleft()
+            try:
+                with telemetry.trace_context(req.traceparent):
+                    with telemetry.span("serve.kvcache.import",
+                                        request=req.request_id,
+                                        tokens=true_len,
+                                        blocks=n_blocks - start,
+                                        reused=start):
+                        self._scatter_imported(reuse_blocks + fresh,
+                                               start, k, v)
+                        first_tok = int(header["first_token"])
+                        slot = _Slot(
+                            request=req, table=reuse_blocks + fresh,
+                            true_len=true_len, prefill_pos=true_len,
+                            length=true_len,
+                            remaining=req.max_new_tokens - 1,
+                            decoding=True, adapter_slot=adapter_slot)
+                        if req.admitted is None:   # cross-host import
+                            req.admitted = time.time()
+                            req.admitted_mono = time.monotonic()
+                        req.migrations += 1
+                        req.migrated_tokens += true_len
+                        req.kv_blocks = max(req.kv_blocks, len(slot.table))
+                        self._slots[slot_id] = slot
+                        self._adapter_idx[slot_id] = adapter_slot
+                        self._sync_table(slot_id)
+                        self._stamp_first_token(slot_id, slot, first_tok)
+                        if self.ec.prefix_cache:
+                            self.pool.register_prefix(
+                                req.prompt, slot.table, start_block=start,
+                                namespace=req.adapter_id)
+                    ti.SERVE_KV_MIGRATIONS.inc(direction="in")
+                    ti.SERVE_KV_MIGRATED_TOKENS.inc(true_len,
+                                                    direction="in")
+                    events.emit("tik_serve_migration",
+                                request=req.request_id, direction="in",
+                                result="ok", tokens=true_len, slot=slot_id,
+                                blocks=n_blocks - start)
+            except Exception as e:   # surface per-request failures
+                if self._slots[slot_id] is not None:
+                    self._release_slot(slot_id)
+                else:     # failed before the slot took ownership
+                    self.pool.release(reuse_blocks + fresh)
+                    if self._adapters is not None:
+                        self._adapters.release(req.adapter_id)
+                self._finish_request(req, "error", e)
+
+    def _scatter_imported(self, table: List[int], start: int,
+                          k: torch.Tensor, v: torch.Tensor) -> None:
+        """Copy the imported planes of `table[start:]` to the device and
+        scatter them into the live pool in place.  Only those blocks are
+        written: no padding, and never the null block (the pool never
+        hands it out)."""
+        tail = table[start:]
+        if not tail:
+            return
+        G.scatter_block_planes(
+            self._kp, self._vp, torch.tensor(tail, device=self.device),
+            k[:, start:].to(self.device), v[:, start:].to(self.device))
 
     # -- engine loop ------------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -1136,10 +1402,17 @@ class DecodeEngine:
                             req.prompt, slot.table,
                             start_block=req.prefix_blocks,
                             namespace=req.adapter_id)
+                    done_now = (req.eos_id is not None
+                                and first_tok == req.eos_id) \
+                        or slot.remaining <= 0
+                    if self._migrator is not None and not done_now:
+                        # prefill role: stream the finished blocks to the
+                        # decode role and free the lane — TTFT is stamped
+                        # at IMPORT, the first token rides the header
+                        self._migrate_out(slot_id, slot, first_tok)
+                        return
                     self._stamp_first_token(slot_id, slot, first_tok)
-                    if (req.eos_id is not None
-                            and first_tok == req.eos_id) \
-                            or slot.remaining <= 0:
+                    if done_now:
                         self._release_slot(slot_id)
                         self._finish_request(req, "ok")
                         return
@@ -1472,6 +1745,7 @@ class DecodeEngine:
                 while not self._stop.is_set():
                     try:
                         self._reap_cancelled()
+                        self._import_tick()
                         self._admit()
                         prefilling = any(
                             s is not None and not s.decoding
@@ -1489,7 +1763,9 @@ class DecodeEngine:
                             self._step()
                         elif not prefilling \
                                 and all(s is None for s in self._slots) \
-                                and self._queue.empty():
+                                and self._queue.empty() \
+                                and not self._pending_imports \
+                                and self._imports.empty():
                             self._wake.wait(timeout=0.5)
                             self._wake.clear()
                             # waiting with no work: fold the gap into idle

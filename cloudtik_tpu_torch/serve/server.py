@@ -12,18 +12,25 @@ server in front of the port's `generate` (one request at a time) or, with
 and its adoption of a caller's `traceparent` header) are this package's
 own copies of the JAX package's, which this package does not import.  The
 daemon installs the request ledger (serve/reqlog.py) at boot.  The engine
-serves speculatively with `--spec-model`, and LoRA adapters through
-`--adapters-dir` or `engine_backend(adapter_loader=...)`.  Weights come
-from a trainer checkpoint with `--checkpoint-dir` (and the draft's with
+serves speculatively with `--spec-model`, LoRA adapters through
+`--adapters-dir` or `engine_backend(adapter_loader=...)`, and, with
+`--disagg`, through a prefill-role and a decode-role engine joined by
+KV-block migration (serve/disagg.py).  Weights come from a trainer
+checkpoint with `--checkpoint-dir` (and the draft's with
 `--spec-checkpoint-dir`), read by a partial restore of its params
 (train/checkpoint.py; `tools/import_jax_checkpoint.py` converts the JAX
-package's).  Not here yet: the disaggregated mode (ROADMAP A2), the GBDT
-backend and replica registration.
+package's).  With `--replica-id` and `--state-host` the server heartbeats
+into the serving fabric's replica registry (serve/replicas.py), where the
+prefix-affinity router (`python -m cloudtik_tpu_torch.serve.router`)
+finds it; SIGTERM drains the registration first.  Not here yet: the GBDT
+backend.
 
     python -m cloudtik_tpu_torch.serve.server --model tpu_1b
     python -m cloudtik_tpu_torch.serve.server --engine --model tpu_1b
     python -m cloudtik_tpu_torch.serve.server --engine --model tpu_1b \
         --spec-model tpu_120m --spec-k 4
+    python -m cloudtik_tpu_torch.serve.server --engine --model tpu_1b \
+        --disagg --prefill-slots 2
     python -m cloudtik_tpu_torch.serve.server --model tpu_1b \
         --checkpoint-dir /path/to/run/checkpoints
 """
@@ -142,6 +149,8 @@ def engine_backend(model: str = "tiny",
                    spec_checkpoint_dir: Optional[str] = None,
                    spec_k: int = 4,
                    disagg: bool = False,
+                   prefill_slots: int = 2,
+                   prefill_blocks: Optional[int] = None,
                    adapters_dir: Optional[str] = None,
                    adapter_loader: Optional[Callable[[str], Any]] = None,
                    adapter_slots: int = 8,
@@ -161,6 +170,13 @@ def engine_backend(model: str = "tiny",
     as the target's are, proposes `spec_k` greedy tokens per round and
     ONE target verify accepts the matching prefix (so `spec_model` equal
     to `model` is a self-draft), or restored from `spec_checkpoint_dir`.
+    `disagg` splits serving into a prefill-role engine (`prefill_slots`,
+    `prefill_blocks`) streaming finished KV blocks to a decode-role engine
+    (`slots`, `num_blocks`) over the in-process migration transport
+    (serve/disagg.py); admission, `tenant_weights` and `max_queue_depth`
+    then apply to the prefill role, where requests arrive, and `disagg`
+    with `spec_model` or with adapters raises ValueError, as the
+    reference does.
     `adapters_dir` (adapters restored from `<adapters_dir>/<adapter_id>`
     checkpoints) or `adapter_loader` (adapter_id -> adapter tree) turns
     on multi-tenant LoRA: requests naming ``"adapter": "<id>"`` load into
@@ -169,21 +185,26 @@ def engine_backend(model: str = "tiny",
     metrics and (with ``admission="wfq"`` + `tenant_weights`)
     weighted-fair admission.  `max_queue_depth` bounds the admission
     queue (overflow is a 429 + Retry-After).  `checkpoint_dir`, `params`
-    and `device` as in `transformer_backend`.  Not ported yet, and
-    raising NotImplementedError: `disagg` (ROADMAP A2).  The backend
-    keeps `engine` (for stop()), `params` and `cfg` as attributes."""
+    and `device` as in `transformer_backend`.  The backend keeps `engine`
+    (a `DecodeEngine`, or the `DisaggServing` pair; for stop()), `params`
+    and `cfg` as attributes."""
     from cloudtik_tpu_torch.device import resolve_device
     from cloudtik_tpu_torch.models import transformer as T
     from cloudtik_tpu_torch.models.lora import LoRAConfig
     from cloudtik_tpu_torch.serve.adapters import (
         AdapterPool, checkpoint_loader)
+    from cloudtik_tpu_torch.serve.disagg import DisaggServing
     from cloudtik_tpu_torch.serve.engine import (
         DecodeEngine, EngineConfig, Request, RequestRejected, SpecConfig)
 
-    if disagg:
-        raise NotImplementedError(
-            "engine_backend(disagg=...) is not supported by the PyTorch "
-            "engine yet (ROADMAP A2)")
+    if disagg and (adapters_dir or adapter_loader is not None):
+        raise ValueError("--disagg and --adapters-dir are mutually "
+                         "exclusive for now (migration headers carry no "
+                         "adapter identity)")
+    if disagg and spec_model:
+        raise ValueError("--disagg and --spec-model are mutually "
+                         "exclusive (imported requests decode plain; run "
+                         "spec on a monolithic engine)")
     cfg = T.config(model, **config_overrides)
     lora_cfg = LoRAConfig(rank=lora_rank, alpha=lora_alpha)
     if adapters_dir:
@@ -200,13 +221,27 @@ def engine_backend(model: str = "tiny",
     if adapter_loader is not None:
         pool = AdapterPool(params, cfg, lora_cfg, loader=adapter_loader,
                            capacity=adapter_slots)
-    engine = DecodeEngine(
-        params, cfg, EngineConfig(
-            slots=slots, max_len=max_len, block_size=block_size,
-            num_blocks=num_blocks, spec=spec, admission=admission,
-            tenant_weights=tenant_weights,
-            max_queue_depth=max_queue_depth),
-        draft=draft, adapters=pool, device=dev)
+    if disagg:
+        # admission happens on the PREFILL role (DisaggServing.submit
+        # forwards there), so the queue bound and fairness policy wire
+        # into its config
+        engine = DisaggServing(
+            params, cfg,
+            EngineConfig(slots=prefill_slots, max_len=max_len,
+                         block_size=block_size, num_blocks=prefill_blocks,
+                         admission=admission, tenant_weights=tenant_weights,
+                         max_queue_depth=max_queue_depth),
+            EngineConfig(slots=slots, max_len=max_len,
+                         block_size=block_size, num_blocks=num_blocks),
+            device=dev)
+    else:
+        engine = DecodeEngine(
+            params, cfg, EngineConfig(
+                slots=slots, max_len=max_len, block_size=block_size,
+                num_blocks=num_blocks, spec=spec, admission=admission,
+                tenant_weights=tenant_weights,
+                max_queue_depth=max_queue_depth),
+            draft=draft, adapters=pool, device=dev)
     engine.start()
 
     def generate(payload: Dict[str, Any]):
@@ -248,12 +283,19 @@ def engine_backend(model: str = "tiny",
         return ({"tokens": [tokens],
                  "request_id": req.request_id}, headers)
 
-    backend = ModelBackend(f"transformer-engine:{model}",
-                           {"generate": generate})
+    name = f"transformer-engine-disagg:{model}" if disagg \
+        else f"transformer-engine:{model}"
+    backend = ModelBackend(name, {"generate": generate})
     backend.engine = engine          # exposes stop() for clean shutdown
     backend.params = params
     backend.cfg = cfg
     return backend
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    # a listen backlog for a burst of concurrent clients (the stdlib's 5
+    # lets a burst of 16 connects be reset before they are accepted)
+    request_queue_size = 128
 
 
 class ServeServer:
@@ -337,7 +379,7 @@ class ServeServer:
                 finally:
                     server._done()
 
-        self._server = ThreadingHTTPServer((host, port), Handler)
+        self._server = _HTTPServer((host, port), Handler)
         self.port = self._server.server_address[1]
         self._thread: Optional[threading.Thread] = None
 
@@ -432,6 +474,16 @@ def main(argv=None) -> int:
                         "directory (default: seed 0)")
     p.add_argument("--spec-k", type=int, default=4,
                    help="draft tokens proposed per verify")
+    p.add_argument("--disagg", action="store_true",
+                   help="disaggregated serving (engine mode): a "
+                        "prefill-role engine streams finished KV blocks "
+                        "to the decode-role engine; --slots/--num-blocks "
+                        "size the decode role")
+    p.add_argument("--prefill-slots", type=int, default=2,
+                   help="prefill-role lanes (--disagg)")
+    p.add_argument("--prefill-blocks", type=int, default=None,
+                   help="prefill-role KV pool size in blocks (--disagg; "
+                        "default fully provisions the prefill slots)")
     p.add_argument("--adapters-dir", default=None,
                    help="LoRA adapters from trainer checkpoints: "
                         "<dir>/<adapter_id> each (engine mode)")
@@ -455,6 +507,20 @@ def main(argv=None) -> int:
                         "many waiting requests get 429 + Retry-After")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8200)
+    p.add_argument("--replica-id", default=None,
+                   help="register this server in the serving-fabric "
+                        "replica registry under this id (needs "
+                        "--state-host); the affinity router then routes "
+                        "to it")
+    p.add_argument("--state-host", default=None,
+                   help="head state server holding the replica registry")
+    p.add_argument("--state-port", type=int, default=None)
+    p.add_argument("--version", default="0",
+                   help="deploy version label for this replica (shown by "
+                        "the registry, stamped on its ledger records)")
+    p.add_argument("--advertise-url", default=None,
+                   help="URL the router should reach this replica at "
+                        "(default http://<host>:<port>)")
     p.add_argument("--drain-grace-s", type=float, default=30.0,
                    help="SIGTERM drain: seconds to let in-flight "
                         "requests finish before exiting")
@@ -475,7 +541,10 @@ def main(argv=None) -> int:
             block_size=args.block_size, num_blocks=args.num_blocks,
             spec_model=args.spec_model,
             spec_checkpoint_dir=args.spec_checkpoint_dir,
-            spec_k=args.spec_k, adapters_dir=args.adapters_dir,
+            spec_k=args.spec_k, disagg=args.disagg,
+            prefill_slots=args.prefill_slots,
+            prefill_blocks=args.prefill_blocks,
+            adapters_dir=args.adapters_dir,
             adapter_slots=args.adapter_slots, lora_rank=args.lora_rank,
             lora_alpha=args.lora_alpha, admission=args.admission,
             tenant_weights=tenant_weights or None,
@@ -497,6 +566,12 @@ def main(argv=None) -> int:
     server = ServeServer(backends, host=args.host, port=args.port)
     server.start()
     print(f"tik-serve listening on {args.host}:{server.port}", flush=True)
+    beater = None
+    if args.replica_id and args.state_host:
+        beater = register_replica(
+            backends[0], server, args.replica_id, args.state_host,
+            state_port=args.state_port, host=args.host, slots=args.slots,
+            version=args.version, advertise_url=args.advertise_url)
 
     stop_event = threading.Event()
     import signal
@@ -505,10 +580,61 @@ def main(argv=None) -> int:
         stop_event.wait()
     except KeyboardInterrupt:
         pass
-    # graceful drain: refuse new submits (503 + Retry-After), let
-    # in-flight finish, then stop the engine and the server
+    # graceful drain: mark the replica not routable first, then refuse
+    # new submits (503 + Retry-After), let in-flight finish, stop the
+    # engine and the server, and leave the registry
+    if beater is not None:
+        beater.drain()
     drain_and_stop(server, backends, grace_s=args.drain_grace_s)
+    if beater is not None:
+        beater.stop(deregister=True)
     return 0
+
+
+def register_replica(backend: ModelBackend, server: ServeServer,
+                     replica_id: str, state_host: str,
+                     state_port: Optional[int] = None,
+                     host: str = "0.0.0.0", slots: int = 0,
+                     version: str = "0",
+                     advertise_url: Optional[str] = None):
+    """Serving-fabric registration: a started `ReplicaHeartbeat` beating
+    liveness and the engine's load stats into the head state server's
+    replica registry, so the affinity router can route here.  A
+    `DisaggServing` pair registers as role ``prefill`` with its prefill
+    engine's stats, as the reference does; the engines' ledger records
+    carry `replica_id` and `version`."""
+    import socket
+
+    from cloudtik_tpu_torch.control.state import StateClient, TcpStateBackend
+    from cloudtik_tpu_torch.serve.replicas import (
+        ReplicaHeartbeat, ReplicaRegistry)
+
+    backend_kw = {} if state_port is None else {"port": state_port}
+    registry = ReplicaRegistry(StateClient(
+        TcpStateBackend(state_host, **backend_kw)))
+    engine = getattr(backend, "engine", None)
+    role, stats_fn = "engine", None
+    if engine is not None:
+        engines = [engine]
+        if hasattr(engine, "prefill"):       # DisaggServing pair
+            role, stats_fn = "prefill", engine.prefill.stats
+            engines = [engine.prefill, engine.decode]
+        else:
+            stats_fn = engine.stats
+        for eng in engines:
+            eng.replica_id = replica_id
+            eng.version = version
+    # a wildcard bind address is not a reachable URL: advertise the
+    # hostname instead
+    advertise_host = host
+    if advertise_host in ("0.0.0.0", "::", ""):
+        advertise_host = socket.gethostname()
+    url = advertise_url or f"http://{advertise_host}:{server.port}"
+    beater = ReplicaHeartbeat(registry, replica_id, url, role=role,
+                              slots=slots, stats_fn=stats_fn,
+                              version=version)
+    beater.start()
+    return beater
 
 
 if __name__ == "__main__":

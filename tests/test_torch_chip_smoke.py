@@ -1,5 +1,5 @@
 """`chip_smoke.py` rehearsed on the CPU: its serve, engine, spec, lora,
-forward, training and detection phases run end to end at `tiny` size on
+disagg, fabric, forward, training and detection phases run end to end at `tiny` size on
 the plain kernel versions, its kernel_det case list at CPU size, its bound
 arithmetic and its tie-aware greedy check are pinned, and without a card
 it fails and prints no result."""
@@ -558,6 +558,56 @@ def test_lora_phase_rehearsal_takes_no_kernel_on_cpu():
         assert out[run]["tie_gap_max"] <= chip_smoke.ENGINE_TIE_GAP
         assert out[run]["logits_diff_max"] \
             <= chip_smoke.ENGINE_LOGITS_MAX_ABS
+
+
+def test_disagg_phase_rehearsal_takes_no_kernel_on_cpu():
+    before = (FA.LAUNCHES, D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN)
+    out = chip_smoke.phase_disagg("tiny", "cpu", chip_smoke.REHEARSAL_LOAD)
+    assert (FA.LAUNCHES, D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN) == before
+    load = chip_smoke.REHEARSAL_LOAD
+    wave = out["wave"]
+    assert wave["clients"] == 16
+    assert wave["tie_gap_max"] <= chip_smoke.ENGINE_TIE_GAP
+    assert wave["logits_diff_max"] <= chip_smoke.ENGINE_LOGITS_MAX_ABS
+    assert min(wave["prefix_hits"].values()) >= 1
+    # the longest prompt migrated bit for bit: 175 tokens in blocks of 8
+    assert wave["bit_equal_blocks"] == -(-175 // load.block_size)
+    mig = out["migration"]
+    assert mig["migrations"] == mig["imports"] == 16
+    assert mig["largest"]["tokens"] == 175
+    assert out["torn"]["fired"] == out["torn"]["failures_counted"] == 2
+    planted = out["planted"]
+    assert planted["lanes_changed"] == planted["lanes"] == 8
+    assert planted["lanes_flagged_by_logits"] == 8
+    assert out["monolith"]["generated_tokens"] == wave["generated_tokens"]
+    assert out["pool_blocks"] == {"prefill": 2 * 32 + 1,
+                                  "decode": 8 * 32 + 1}
+    assert out["peak_mem_gb"] is None
+
+
+def test_fabric_phase_rehearsal_takes_no_kernel_on_cpu():
+    before = (FA.LAUNCHES, D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN)
+    out = chip_smoke.phase_fabric("tiny", "cpu", chip_smoke.FABRIC_REHEARSAL)
+    assert (FA.LAUNCHES, D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN) == before
+    wave = out["wave"]
+    assert (wave["requests"], wave["heavy"], wave["handoffs"]) == (8, 4, 4)
+    assert wave["tie_gap_max"] <= chip_smoke.ENGINE_TIE_GAP
+    assert len(out["torn"]["fell_back_on"]) == 1
+    killed = out["prefill_killed"]
+    assert killed["requests"] == 4
+    assert killed["tie_gap_max"] <= chip_smoke.ENGINE_TIE_GAP
+    assert out["peak_mem_gb"] is None
+
+
+def test_fabric_load_is_the_phase_traffic_at_tpu_1b():
+    load = chip_smoke.FABRIC_LOAD
+    assert (load.max_len, load.block_size, load.prefill_slots,
+            load.decode_slots) == (1024, 16, 2, 4)
+    assert min(load.heavy_lens) >= load.threshold > max(load.short_lens)
+    assert max(load.heavy_lens) == max(chip_smoke.ENGINE_LOAD.prompt_lens)
+    rehearsal = chip_smoke.FABRIC_REHEARSAL
+    assert min(rehearsal.heavy_lens) >= rehearsal.threshold \
+        > max(rehearsal.short_lens)
 
 
 def test_spec_and_lora_loads_are_the_phases_traffic_at_tpu_1b():

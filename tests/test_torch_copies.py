@@ -38,7 +38,9 @@ COPIES = (
     "telemetry/export.py", "telemetry/__init__.py",
     "telemetry/instruments.py", "telemetry/events.py",
     "telemetry/goodput.py", "serve/kvcache.py", "serve/reqlog.py",
-    "utils/retry.py",
+    "utils/retry.py", "control/state.py", "serve/replicas.py",
+    "serve/routerlog.py", "serve/router.py", "serve/fabric.py",
+    "serve/explain.py",
 )
 # (copy, line in the port) -> why it differs from the reference; empty
 ALLOWED_DIFFERENCES = {}

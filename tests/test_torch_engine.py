@@ -446,15 +446,29 @@ def test_cow_fork_appends_through_both_forks(params):
 
 @pytest.mark.parametrize("kwargs, what", [({"migrator": "m"}, "migrator")])
 def test_unported_surfaces_raise(params, kwargs, what):
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A2"):
-        TE.DecodeEngine(params[1], TCFG, device="cpu", **kwargs)
+    """`migrator=` is ported (tests/test_torch_migration.py); what still
+    raises there is the reference's refusal of speculative decoding on a
+    prefill-role engine, which never decodes."""
+    with pytest.raises(ValueError, match=f"prefill-role engine \\({what}="):
+        TE.DecodeEngine(params[1], TCFG,
+                        TE.EngineConfig(spec=TE.SpecConfig(k=2)),
+                        draft=(params[1], TCFG), device="cpu", **kwargs)
 
 
 def test_import_blocks_and_bad_ids_are_refused(params):
     eng = _engine(TE, params, start=False, slots=1, max_len=32)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-            eng.import_blocks(TE.Request([1]), {}, None, None)
+        # an import this engine can never hold (blocks of 4 tokens into a
+        # pool of 16) fails its request, not the engine
+        shape = (TCFG.n_layers, 1, 4, TCFG.n_kv_heads, TCFG.head_dim)
+        bad = eng.import_blocks(
+            TE.Request([1]), {"length": 1, "first_token": 2,
+                              "block_size": 4, "blocks": 1},
+            torch.zeros(shape), torch.zeros(shape))
+        eng._import_tick()
+        with pytest.raises(TE.RequestRejected, match="migrated request"):
+            bad.wait(timeout=WAIT)
+        assert eng.pool.used() == 0
         for bad in (TE.Request([1, 256]), TE.Request([1], eos_id=-1),
                     TE.Request([])):
             with pytest.raises(TE.RequestRejected) as exc:

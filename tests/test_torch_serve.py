@@ -292,13 +292,17 @@ def test_drain_and_stop_finishes_inflight_then_stops_the_engine():
     ({"disagg": True}, "A2"), ({"adapters_dir": "/a"}, "A6"),
     ({"checkpoint_dir": "/c"}, "A6"), ({"spec_checkpoint_dir": "/s"}, "A6")])
 def test_engine_backend_unported_modes_raise(flag, item):
-    """`disagg` is not ported (A2) and raises.  The checkpoint flags (A6)
+    """`disagg` (A2) is ported: what raises there are the reference's two
+    refusals, `disagg` with a draft model and with adapters (the disagg
+    mode itself: tests/test_torch_disagg.py).  The checkpoint flags (A6)
     are: a directory that holds no checkpoint raises when the backend is
     built, and a missing adapter directory fails the request that names
     the adapter."""
     if item == "A2":
-        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-            engine_backend("tiny", device="cpu", **flag)
+        with pytest.raises(ValueError, match="--disagg and --spec-model"):
+            engine_backend("tiny", device="cpu", spec_model="tiny", **flag)
+        with pytest.raises(ValueError, match="--disagg and --adapters-dir"):
+            engine_backend("tiny", device="cpu", adapters_dir="/a", **flag)
         return
     if "adapters_dir" in flag:
         backend = engine_backend("tiny", device="cpu", slots=1, max_len=32,
@@ -407,3 +411,58 @@ def test_engine_backend_adapter_and_tenant_payload_fields(tmp_path):
     records = reqlog.read_requests(path)
     assert [(r["tenant"], r["adapter_id"]) for r in records] == [
         ("acme", "t0"), ("default", "nope"), ("default", None)]
+
+
+def test_replica_registration_beats_and_sigterm_deregisters(tmp_path):
+    """`tik-serve --engine --disagg --replica-id r0 --state-host ...`
+    registers in the replica registry (role `prefill` for the disagg pair,
+    its version, its URL, the prefill engine's stats), serves, and on
+    SIGTERM drains and leaves the registry before it exits 0."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from cloudtik_tpu_torch.control.state import (
+        InMemoryStateBackend, StateClient, StateServer)
+    from cloudtik_tpu_torch.serve.replicas import ReplicaRegistry
+
+    root = Path(__file__).resolve().parents[1]
+    store = InMemoryStateBackend()
+    state = StateServer(host="127.0.0.1", port=0, backend=store)
+    state.start()
+    registry = ReplicaRegistry(StateClient(store))
+    env = dict(os.environ, PYTHONPATH=str(root),
+               TIK_REQLOG_PATH=str(tmp_path / "requests.jsonl"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cloudtik_tpu_torch.serve.server",
+         "--engine", "--disagg", "--model", "tiny", "--device", "cpu",
+         "--slots", "2", "--max-len", "64", "--block-size", "8",
+         "--host", "127.0.0.1", "--port", "0", "--replica-id", "r0",
+         "--state-host", "127.0.0.1", "--state-port", str(state.port),
+         "--version", "v7", "--drain-grace-s", "10"],
+        cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        deadline = time.monotonic() + 120
+        while not registry.list_replicas():
+            assert proc.poll() is None, "the server exited early"
+            assert time.monotonic() < deadline, "never registered"
+            time.sleep(0.05)
+        (info,) = registry.list_replicas()
+        assert (info.replica_id, info.role, info.version) == (
+            "r0", "prefill", "v7")
+        assert info.stats["slots"] == 2 and not info.draining
+        status, body, _ = _http(f"{info.url}/v1/generate", {
+            "tokens": [[1, 2, 3]], "max_new_tokens": 3})
+        assert status == 200 and len(body["tokens"][0]) == 3
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+        assert registry.list_replicas() == []
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        state.stop()
