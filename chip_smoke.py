@@ -119,6 +119,28 @@ run with a non-zero exit:
   train_grads  tpu_1b width with 2 layers: the flash path's gradients
            against the reference attention path's, and the loss falling
            over 10 steps on one repeated batch
+  lora_train  LoRA fine-tuning through `recipes.llama_lora_finetune.build`
+           at its defaults (tpu_1b, f32 base, rank 16 on wq and
+           wv, B=8, S=2048, AdamW): 2 warm-up and 6 measured steps on one
+           repeated batch with 16 launches of each flash kernel a step,
+           every base leaf unchanged, every adapter leaf moved, the loss
+           falling; ms/step, tokens/s, MFU at 4/6 of the full flops, peak
+           memory.  The adapter is saved by the port's Checkpointer and
+           served by `engine_backend(adapters_dir=...)` beside the base:
+           it must move the teacher's logits by >= 0.3, and every answer
+           passes the tie-aware and logits checks against a teacher over
+           `merge_lora`'d weights (the base's for base requests)
+  bert     BERT-Large MLM pretraining through
+           `recipes.bert_large_pretrain.build` (24 layers, d=1024,
+           16 heads of 64, S=512, f32 params, bf16 compute) at B=32:
+           2 warm-up and 5 measured steps on one repeated batch with 24
+           launches of each flash kernel a step (non-causal, D=64) and the
+           loss falling; ms/step, tokens/s, MFU, peak memory
+  bert_grads  bert_large width with 2 layers: the flash path's gradients
+           against the reference attention path's, as train_grads
+  optim    sgd, adafactor, lion and adamw (bf16 moments), 5 updates each
+           over a 2-layer tpu_1b layer stack on the card, held to the same
+           optimizer on the CPU in f32
   detect   the detection path: `detect` of maskrcnn_resnet50 at B=8 x 512
            (2 ROIAlign launches and 1 NMS launch per call) and of
            ssd_resnet34 at B=8 x 300 and at B=8 x 1200 (1 NMS launch over
@@ -128,10 +150,11 @@ run with a non-zero exit:
            Mask R-CNN's map pooled on ROIAlign's vector route
 
 Launch counts are zeroed just before each path (forward then serve; the
-engine; spec; lora; disagg; fabric; the measured train steps; the resumed steps of the
-checkpoint phase; the measured detect calls of each model) and read just
-after it.  The `total` line gives the script's seconds; the last lines are
-the `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
+engine; spec; lora; disagg; fabric; the measured train steps; the resumed
+steps of the checkpoint phase; the measured steps of lora_train and of
+bert; the measured detect calls of each model) and read just after it.
+The `total` line gives the script's seconds; the last lines are the
+`nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
 """
 
@@ -139,6 +162,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -266,6 +290,9 @@ ATTN_CASES = (
     AttnCase("d64_causal", 2, 16, 16, 2048, 64, True),
     AttnCase("gqa_causal", 2, 16, 4, 1024, 128, True, layout="bshd"),
     AttnCase("s1088_causal", 2, 16, 16, 1088, 128, True),
+    # BERT-Large's attention as the bert phase hands it over: non-causal,
+    # head_dim 64, S=512, q/k/v transposed views of [B, S, H, D]
+    AttnCase("bert_large_b32", 32, 16, 16, 512, 64, False, layout="bshd"),
 )
 # bf16/fp16 output: p and o are rounded to 8/11 mantissa bits at different
 # points in the kernel (per 64-column tile) and the plain version (per row)
@@ -2437,6 +2464,37 @@ def _zero_launch_counts() -> None:
     FA.LAUNCHES = FA.LAUNCHES_DQ = FA.LAUNCHES_DKV = 0
 
 
+def _train_measured(trainer, data, warmup: int, steps: int,
+                    on_card: bool) -> dict:
+    """`warmup` steps, then `steps` measured steps in one log window with
+    the launch counts zeroed just before and read just after, both off
+    the iterator `data`.  "losses" are the warm-up windows' losses and
+    the measured window's last; "last" is that window's history entry."""
+    import torch
+
+    t0 = time.perf_counter()
+    warm = trainer.fit(data, warmup)["history"]
+    warmup_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    trainer.config.log_every = steps
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    entry = trainer.fit(data, steps)["history"][-1]   # ends in float()
+    wall_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    return {
+        "warmup_steps": warmup, "measured_steps": steps,
+        "warmup_s": warmup_s, "ms_per_step": wall_s / steps * 1e3,
+        "tokens_per_s": entry["tokens_per_sec"], "mfu": entry.get("mfu"),
+        "losses": [h["loss"] for h in warm] + [entry["loss"]],
+        "last": entry, "launches": launches,
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None)}
+
+
 def phase_train(model: str = "tpu_1b", B: int = 8, S: int = 2048,
                 device: str = "cuda", warmup: int = 2,
                 steps: int = 5) -> dict:
@@ -2456,33 +2514,15 @@ def phase_train(model: str = "tpu_1b", B: int = 8, S: int = 2048,
         optimizer=OptimizerConfig(moment_dtype="bfloat16"),
         log_every=steps), device=device)
     trainer.init_state(torch.Generator(device=device).manual_seed(0))
-    data = synthetic_lm_batches(B, S, cfg.vocab_size)
-    t0 = time.perf_counter()
-    trainer.fit(data, warmup)
-    warmup_s = time.perf_counter() - t0
-    on_card = device == "cuda"
-    if on_card:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
     # ---- the training path: counts zeroed just before, read just after --
-    _zero_launch_counts()
-    t0 = time.perf_counter()
-    out = trainer.fit(data, steps)     # ends in float() of the metrics
-    wall_s = time.perf_counter() - t0
-    launches = _launch_counts()
-    entry = out["history"][-1]
+    train = _train_measured(trainer, synthetic_lm_batches(
+        B, S, cfg.vocab_size), warmup, steps, device == "cuda")
+    entry = train.pop("last")
     result = {
         "model": model, "batch": B, "seq": S, "param_dtype": "bfloat16",
         "moment_dtype": "bfloat16", "remat_policy": cfg.remat_policy,
-        "warmup_steps": warmup, "measured_steps": steps,
-        "warmup_s": warmup_s, "ms_per_step": wall_s / steps * 1e3,
-        "tokens_per_s": entry["tokens_per_sec"], "mfu": entry.get("mfu"),
-        "flops_per_token": cfg.flops_per_token(),
+        **train, "flops_per_token": cfg.flops_per_token(),
         "loss": entry["loss"], "grad_norm": entry["grad_norm"],
-        "launches": launches,
-        "launches_per_step": {k: n / steps for k, n in launches.items()},
-        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
-                        if on_card else None),
     }
     emit("train", **result)
     require(math.isfinite(entry["loss"]), f"train loss {entry['loss']}")
@@ -2555,6 +2595,393 @@ def phase_train_grads(model: str = "tpu_1b", n_layers: int = 2, B: int = 2,
     require(all(math.isfinite(x) for x in losses)
             and losses[-1] < losses[0] - 0.1,
             f"loss did not fall on a repeated batch: {losses}")
+    return out
+
+
+# ----------------------------------------------------------- lora_train --
+
+@dataclasses.dataclass(frozen=True)
+class LoraTrainLoad:
+    """The lora_train phase: `recipes.llama_lora_finetune.build` at the
+    recipe's defaults (tpu_1b, rank 16, B=8, S=2048, f32 base) plus
+    `argv`, AdamW at `lr` with no warmup (the default warmup of 100 steps
+    gives a learning rate of ~0 to a run of a few steps), `warmup` steps
+    then `steps` measured ones on one repeated batch; then the adapter,
+    saved by the port's Checkpointer, served through
+    `engine_backend(adapters_dir=...)` beside the base: one request on
+    the adapter and one on the base for each of `serve_prompts`."""
+    argv: tuple = ()
+    lr: float = 3e-3
+    warmup: int = 2
+    steps: int = 6
+    serve_prompts: tuple = (32, 96, 160, 224)
+    serve_new: int = 24
+    slots: int = 4
+    max_len: int = 512
+    block_size: int = 16
+
+
+LORA_TRAIN_LOAD = LoraTrainLoad()
+# the CPU rehearsal at `tiny`
+LORA_TRAIN_REHEARSAL = LoraTrainLoad(
+    argv=("--model", "tiny", "--seq-len", "64", "--batch", "4"), lr=1e-2,
+    serve_prompts=(8, 16, 24, 32), serve_new=6, max_len=128, block_size=8)
+# The trained adapter must move the teacher's logits (merged weights
+# against the base's, over one prompt and the base's own answer) by twice
+# the logits check's limit: then an answer the server decoded on the base
+# weights, or on a fresh adapter (b = 0: a delta of exactly 0), sits at
+# least one limit from the trained teacher and fails the check.
+LORA_TRAIN_MIN_EFFECT = 2 * ENGINE_LOGITS_MAX_ABS
+
+
+def _check_losses(name: str, losses: list) -> None:
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"{name}: the loss did not fall on a repeated batch: {losses}")
+
+
+def phase_lora_train(load: LoraTrainLoad = LORA_TRAIN_LOAD,
+                     device: str = "cuda", nvidia_smi: str = None) -> dict:
+    """LoRA fine-tuning through the recipe's `build`, then the trained
+    adapter saved and served.  Launch counts are zeroed just before the
+    measured steps and read just after."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cloudtik_tpu_torch.models import generate as G
+    from cloudtik_tpu_torch.models import lora as LO
+    from cloudtik_tpu_torch.recipes import llama_lora_finetune as R
+    from cloudtik_tpu_torch.serve.server import ServeServer, engine_backend
+    from cloudtik_tpu_torch.train.checkpoint import (CheckpointConfig,
+                                                     Checkpointer)
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.tree import tree_leaves, tree_map
+
+    on_card = device == "cuda"
+    L = load
+    _collect(on_card)
+    args = R.parser().parse_args(
+        ["--device", device, "--log-every", "1", *L.argv])
+    trainer, data, cfg, base, lora_cfg = R.build(args, OptimizerConfig(
+        learning_rate=L.lr, warmup_steps=0, total_steps=1000))
+    trainer.init_state(torch.Generator(device=device).manual_seed(1))
+    base_before = tree_map(torch.clone, base)
+    start = tree_map(lambda p: p.detach().clone(), trainer.params)
+    train = _train_measured(trainer, itertools.repeat(next(data)), L.warmup,
+                            L.steps, on_card)
+    base_unchanged = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(base), tree_leaves(base_before)))
+    adapters_changed = all(not torch.equal(a.detach(), b) for a, b in zip(
+        tree_leaves(trainer.params), tree_leaves(start)))
+    del base_before, start
+    entry = train.pop("last")
+    out = {"model": args.model, "nvidia_smi": nvidia_smi,
+           "n_layers": cfg.n_layers, "rank": lora_cfg.rank,
+           "alpha": lora_cfg.alpha, "targets": list(lora_cfg.targets),
+           "batch": args.batch, "seq": args.seq_len,
+           "base_dtype": str(cfg.param_dtype).replace("torch.", ""),
+           "optimizer": {"name": "adamw", "lr": L.lr, "warmup_steps": 0},
+           "adapter_params": sum(p.numel()
+                                 for p in tree_leaves(trainer.params)),
+           "flops_per_token": trainer.spec.flops_per_token, **train,
+           "grad_norm": entry["grad_norm"],
+           "base_unchanged": base_unchanged,
+           "adapters_changed": adapters_changed}
+    require(base_unchanged, "lora_train: a base leaf changed")
+    require(adapters_changed, "lora_train: an adapter leaf did not move")
+    _check_losses("lora_train", out["losses"])
+
+    # the trained adapter: saved, then served beside the base
+    adapter = tree_map(lambda p: p.detach(), trainer.params)
+    merged = dict(base, layers=LO.merge_lora(base["layers"], adapter,
+                                             lora_cfg))
+    rng = np.random.default_rng(3)
+    V = cfg.vocab_size
+    prompts = [rng.integers(0, V, n).tolist() for n in L.serve_prompts * 2]
+    with torch.no_grad():
+        base_answer = G.generate(base, torch.tensor([prompts[0]],
+                                                    device=device), cfg,
+                                 max_new_tokens=L.serve_new)[0].tolist()
+    effect = float((teacher_logits(merged, cfg, prompts[0], base_answer,
+                                   device)
+                    - teacher_logits(base, cfg, prompts[0], base_answer,
+                                     device)).abs().max())
+    out["adapter_effect"] = effect
+    out["adapter_effect_limit"] = LORA_TRAIN_MIN_EFFECT
+    require(effect >= LORA_TRAIN_MIN_EFFECT,
+            f"lora_train: the trained adapter moves the teacher's logits by "
+            f"only {effect} (limit {LORA_TRAIN_MIN_EFFECT})")
+    root = tempfile.mkdtemp(prefix="tik-lora-train-")
+    backend = server = None
+    try:
+        adapters_dir = os.path.join(root, "adapters")
+        ckpt = Checkpointer(CheckpointConfig(
+            directory=os.path.join(adapters_dir, "trained")))
+        ckpt.save(trainer.step, {"params": trainer.params}, force=True)
+        ckpt.close()
+        del trainer
+        _collect(on_card)
+        backend = engine_backend(
+            args.model, slots=L.slots, max_len=L.max_len,
+            block_size=L.block_size, adapters_dir=adapters_dir,
+            lora_rank=lora_cfg.rank, lora_alpha=lora_cfg.alpha,
+            params=base, device=device, max_seq_len=args.seq_len)
+        engine = backend.engine
+        server = ServeServer([backend], host="127.0.0.1", port=0)
+        server.start()
+        url = f"http://127.0.0.1:{server.port}/v1/generate"
+        payloads = [dict({"tokens": [p], "max_new_tokens": L.serve_new},
+                         **({"adapter": "trained"} if i % 2 == 0 else {}))
+                    for i, p in enumerate(prompts)]
+        with StepLogits(engine) as rec:
+            wall, reqs, _ = _serve_wave(engine, url, payloads)
+    finally:
+        if server is not None:
+            server.stop()
+        if backend is not None:
+            backend.engine.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    gaps, diffs = zip(*[check_rows(
+        f"lora_train request {i}", merged if r.adapter_id else base, cfg, r,
+        rec.rows(r.request_id), device) for i, r in enumerate(reqs)])
+    require(engine.pool.used() == 0 and not engine._adapters._ref,
+            "lora_train: KV or adapter pool not free after stop")
+    n = sum(len(r.tokens) for r in reqs)
+    out["serve"] = {"requests": len(reqs),
+                    "on_adapter": sum(bool(r.adapter_id) for r in reqs),
+                    "wall_s": wall, "tokens_per_s": n / wall,
+                    "tie_gap_max": max(gaps), "logits_diff_max": max(diffs)}
+    emit("lora_train", **out)
+    del backend, engine, merged, base, reqs, rec
+    _collect(on_card)
+    return out
+
+
+# ------------------------------------------------------------------- bert --
+
+@dataclasses.dataclass(frozen=True)
+class BertLoad:
+    """The bert phase: `recipes.bert_large_pretrain.build`
+    (bert_large, S=512, f32 params with bf16 compute) plus `argv` (B=32,
+    16,384 tokens a step as the train phase's), AdamW at `lr` with no
+    warmup, `warmup` then `steps` measured steps on one repeated batch."""
+    argv: tuple = ("--batch", "32")
+    lr: float = 1e-4
+    warmup: int = 2
+    steps: int = 5
+
+
+BERT_LOAD = BertLoad()
+BERT_REHEARSAL = BertLoad(argv=("--model", "tiny", "--seq-len", "64",
+                                "--batch", "4"), lr=1e-3)
+
+
+def phase_bert(load: BertLoad = BERT_LOAD, device: str = "cuda",
+               nvidia_smi: str = None) -> dict:
+    """BERT MLM pretraining through the recipe's `build`.  Launch counts
+    are zeroed just before the measured steps and read just after."""
+    import torch
+
+    from cloudtik_tpu_torch.recipes import bert_large_pretrain as R
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+
+    on_card = device == "cuda"
+    _collect(on_card)
+    args = R.parser().parse_args(
+        ["--device", device, "--log-every", "1", *load.argv])
+    trainer, data, cfg = R.build(args, OptimizerConfig(
+        learning_rate=load.lr, warmup_steps=0, total_steps=1000))
+    trainer.init_state(torch.Generator(device=device).manual_seed(0))
+    batch = next(data)
+    train = _train_measured(trainer, itertools.repeat(batch), load.warmup,
+                            load.steps, on_card)
+    entry = train.pop("last")
+    out = {"model": args.model, "nvidia_smi": nvidia_smi,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "head_dim": cfg.head_dim,
+           "batch": args.batch, "seq": args.seq_len,
+           "masked_per_seq": batch["mlm_positions"].shape[1],
+           "param_dtype": str(cfg.param_dtype).replace("torch.", ""),
+           "dtype": str(cfg.dtype).replace("torch.", ""),
+           "optimizer": {"name": "adamw", "lr": load.lr, "warmup_steps": 0},
+           "params": cfg.num_params(),
+           "flops_per_token": cfg.flops_per_token(), **train,
+           "mlm_accuracy": entry["mlm_accuracy"],
+           "grad_norm": entry["grad_norm"]}
+    emit("bert", **out)
+    _check_losses("bert", out["losses"])
+    del trainer
+    _collect(on_card)
+    return out
+
+
+# BERT's key bias gets a zero gradient in exact arithmetic (a bias on k
+# adds one score to every key of a query, which the softmax cancels), so
+# both paths return rounding noise there: it is held to 1e-2 of the
+# largest leaf's gradient norm instead of its own.
+BERT_ZERO_GRADS = ("layers.bk",)
+
+
+def phase_bert_grads(model: str = "bert_large", n_layers: int = 2,
+                     B: int = 4, S: int = 512, device: str = "cuda",
+                     loss_steps: int = 10) -> dict:
+    """bert_large width with `n_layers` layers: the flash path's
+    gradients against the reference attention path's (GRADS_REL_L2 per
+    leaf, as train_grads), and the loss falling over `loss_steps` steps
+    on one repeated batch."""
+    import torch
+
+    from cloudtik_tpu_torch.models import bert as BE
+    from cloudtik_tpu_torch.train.data import synthetic_mlm_batches
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.train.trainer import (
+        Trainer, TrainerConfig, bert_spec)
+    from cloudtik_tpu_torch.tree import tree_leaves
+
+    cfg = BE.config(model, n_layers=n_layers, max_seq_len=S)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = BE.init_params(gen, cfg, device)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    host_batch = next(synthetic_mlm_batches(B, S, cfg.vocab_size, seed=1))
+    batch = {k: torch.as_tensor(v).to(device, torch.long)
+             for k, v in host_batch.items()}
+    names = [f"{top}.{k}" if isinstance(v, dict) else top
+             for top, v in params.items()
+             for k in (v if isinstance(v, dict) else [None])]
+    grads = {}
+    for impl in ("flash", "reference"):
+        icfg = dataclasses.replace(cfg, attention_impl=impl)
+        loss, _ = BE.loss_fn(params, batch, icfg)
+        grads[impl] = torch.autograd.grad(
+            loss, tree_leaves(params), allow_unused=True,
+            materialize_grads=True)
+    scale = max(g.float().norm().item() for g in grads["reference"])
+    rel, zero = {}, {}
+    for n, a, b in zip(names, grads["flash"], grads["reference"]):
+        err = (a.float() - b.float()).norm().item()
+        if n in BERT_ZERO_GRADS:
+            zero[n] = max(a.float().norm().item(),
+                          b.float().norm().item()) / scale
+        elif b.float().norm().item() > 0:
+            rel[n] = err / b.float().norm().item()
+        else:   # mlm_bias: never read, zero on both paths
+            require(a.float().norm().item() == 0,
+                    f"bert_grads: {n} has a gradient on the flash path")
+    finite = all(_all_finite(g) for g in grads["flash"])
+    del grads
+
+    trainer = Trainer(bert_spec(cfg), TrainerConfig(
+        global_batch_size=B, seq_len=S, log_every=1,
+        optimizer=OptimizerConfig(learning_rate=1e-3, warmup_steps=1,
+                                  schedule="constant")), device=device)
+    trainer.init_state(params=params)
+    history = trainer.fit(iter([host_batch] * loss_steps),
+                          loss_steps)["history"]
+    losses = [h["loss"] for h in history]
+    out = {"model": model, "n_layers": n_layers, "batch": B, "seq": S,
+           "grad_rel_l2_flash_vs_reference": rel,
+           "zero_grad_leaves_over_largest_norm": zero,
+           "tolerance_rel_l2": GRADS_REL_L2, "tolerance_zero_leaves": 1e-2,
+           "grads_finite": finite, "repeated_batch_losses": losses}
+    emit("bert_grads", **out)
+    require(finite, "bert_grads: non-finite gradients on the flash path")
+    require(max(rel.values()) <= GRADS_REL_L2,
+            f"bert_grads: flash-path gradients differ from the reference "
+            f"path's: {rel}")
+    require(max(zero.values()) <= 1e-2,
+            f"bert_grads: the zero-gradient leaves are not small: {zero}")
+    require(all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0] - 0.1,
+            f"bert_grads: loss did not fall on a repeated batch: {losses}")
+    return out
+
+
+# ------------------------------------------------------------------ optim --
+
+# Each optimizer on the card against the same optimizer on the CPU in f32,
+# from one state and on the same gradients.  Held per leaf by the L2 of
+# the difference over the L2 of the total update (what the 5 updates moved
+# the leaf): the card's reductions (the global norm that scales the clip,
+# Adafactor's row and column means and rms) sum in another order, moving
+# an update by ~1e-7 of itself; AdamW's bf16 mu rounds to bf16 on both
+# sides, but a last-bit difference of its f32 input may flip a rounding,
+# 2**-8 of that element's update; Lion's sign flips where its argument
+# lies within that noise of zero, 2 lr on a handful of elements.  1e-3
+# holds all three with room and fails on a wrong term or a stale state.
+OPTIM_CASES = (("sgd", None), ("adafactor", None), ("lion", None),
+               ("adamw", "bfloat16"))
+OPTIM_REL_L2 = 1e-3
+
+
+def phase_optim(model: str = "tpu_1b", n_layers: int = 2, steps: int = 5,
+                device: str = "cuda", lr: float = 1e-3,
+                nvidia_smi: str = None) -> dict:
+    """`make_optimizer`'s sgd, adafactor, lion and adamw (bf16 moments)
+    over the layer stack and final norm of a `n_layers`-layer model at
+    `model` width, `steps` updates of gradients drawn N(0, 1e-3) (a
+    global norm over 1, so the clip acts), on `device` and on the CPU."""
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.train.optim import (OptimizerConfig,
+                                                make_optimizer)
+    from cloudtik_tpu_torch.tree import tree_leaves, tree_map
+
+    on_card = device == "cuda"
+    cfg = T.config(model, n_layers=n_layers)
+    full = T.init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                         device)
+    params0 = {"layers": full["layers"], "final_norm": full["final_norm"]}
+    del full
+    gen = torch.Generator(device=device).manual_seed(5)
+    grads = [tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device=device) * 1e-3, params0)
+        for _ in range(steps)]
+    names = [f"layers.{k}" for k in params0["layers"]] + ["final_norm"]
+
+    def run(where):
+        params = tree_map(lambda t: t.to(where, copy=True), params0)
+        opt = make_optimizer(ocfg)
+        state = opt.init(params)
+        for g in grads:
+            updates, state, _ = opt.update(
+                tree_map(lambda t: t.to(where), g), state, params)
+            tree_map(lambda p, u: p.add_(u.to(p.dtype)), params, updates)
+        if where != "cpu" and on_card:
+            torch.cuda.synchronize()
+        return params, state
+
+    out = {"model": model, "n_layers": n_layers, "steps": steps, "lr": lr,
+           "nvidia_smi": nvidia_smi,
+           "params": sum(p.numel() for p in tree_leaves(params0)),
+           "tolerance_rel_l2": OPTIM_REL_L2, "cases": {}}
+    p0 = tree_map(lambda p: p.cpu(), params0)
+    for name, moment_dtype in OPTIM_CASES:
+        ocfg = OptimizerConfig(name=name, learning_rate=lr, warmup_steps=0,
+                               total_steps=1000, moment_dtype=moment_dtype)
+        t0 = time.perf_counter()
+        got, state = run(device)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want, _ = run("cpu")
+        cpu_s = time.perf_counter() - t0
+        rel = {}
+        for n, a, b, p in zip(names, tree_leaves(got), tree_leaves(want),
+                              tree_leaves(p0)):
+            moved = (b - p).norm().item()
+            rel[n] = (a.cpu() - b).norm().item() / moved
+        out["cases"][f"{name}/{moment_dtype or 'float32'}"] = {
+            "count": state["count"], "rel_l2": rel,
+            "max_rel_l2": max(rel.values()),
+            "card_s": card_s, "cpu_s": cpu_s}
+        require(state["count"] == steps and max(rel.values())
+                <= OPTIM_REL_L2, f"optim {name}: the card's updates differ "
+                f"from the CPU's: {rel}")
+        del got, want, state
+    emit("optim", **out)
     return out
 
 
@@ -3677,6 +4104,28 @@ def main() -> int:
     phase_train_grads()
     torch.cuda.empty_cache()
 
+    # ---- LoRA training (counts zeroed and read inside, around the
+    # measured steps), then the trained adapter served ----
+    lora_train = phase_lora_train(nvidia_smi=smi)
+    per_step = lora_train["launches_per_step"]
+    n = lora_train["n_layers"]
+    require(per_step == {"flash_fwd": n, "flash_bwd_dq": n,
+                         "flash_bwd_dkv": n},
+            f"lora_train step launches {per_step}, expected {n} of each "
+            "kernel")
+
+    # ---- BERT-Large pretraining (counts zeroed and read inside) ----
+    bert = phase_bert(nvidia_smi=smi)
+    per_step = bert["launches_per_step"]
+    n = bert["n_layers"]
+    require(per_step == {"flash_fwd": n, "flash_bwd_dq": n,
+                         "flash_bwd_dkv": n},
+            f"bert step launches {per_step}, expected {n} of each kernel")
+    phase_bert_grads()
+    torch.cuda.empty_cache()
+    phase_optim(nvidia_smi=smi)
+    torch.cuda.empty_cache()
+
     # ---- the detection path (counts zeroed and read inside) ----
     detect = {"maskrcnn": phase_detect("maskrcnn", "maskrcnn_resnet50"),
               "ssd": phase_detect("ssd", "ssd_resnet34"),
@@ -3699,7 +4148,8 @@ def main() -> int:
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]
     launches = {k: inference[k] + train["launches"][k]
-                + checkpoint["launches"][k] for k in inference}
+                + checkpoint["launches"][k] + lora_train["launches"][k]
+                + bert["launches"][k] for k in inference}
 
     def bwd_err(grads):
         return max(r["errors"][g]["max_abs"] for r in kernel_bwd.values()

@@ -5,8 +5,8 @@ The port keeps the stacked `[L, ...]` layer layout and the key names of
 `wo [L,H,Dh,d]`, `w_gate [L,d,f]`, ...), so a conversion is a copy with no
 transposes.  The JAX side hands over numpy leaves
 (`jax.tree.map(np.asarray, params)`); nothing here imports JAX.
-`opt_state_from_jax` carries optax's AdamW state over to the port
-optimizer's.
+`opt_state_from_jax` carries the optax state of any of the four
+optimizers (AdamW, SGD, Adafactor, Lion) over to the port optimizer's.
 """
 
 from __future__ import annotations
@@ -51,50 +51,76 @@ def params_to_numpy(tree: Any) -> Any:
     return tree_map(leaf, tree)
 
 
-def _adam_state(tree: Any) -> Optional[Any]:
-    """The node of an optax state tree that holds count, mu and nu: a
-    `ScaleByAdamState` namedtuple, or the dict orbax's metadata gives it."""
-    fields = getattr(tree, "_fields", None)
-    if fields is not None and {"count", "mu", "nu"} <= set(fields):
-        return tree._asdict()
-    if isinstance(tree, dict) and {"count", "mu", "nu"} <= set(tree):
-        return tree
-    children = tree.values() if isinstance(tree, dict) else (
+# The node of each optimizer's optax state, by its fields, in the order
+# they are looked for (ScaleByAdamState's fields hold ScaleByLionState's).
+STATE_NODES = (
+    ("ScaleByAdamState", ("count", "mu", "nu")),
+    ("FactoredState", ("count", "v_row", "v_col", "v")),
+    ("TraceState", ("trace",)),
+    ("ScaleByLionState", ("count", "mu")),
+)
+# the fields that hold parameter-shaped trees
+_STATE_TREES = {f for _, fields in STATE_NODES for f in fields} - {"count"}
+
+
+def _as_dict(node: Any) -> Optional[dict]:
+    """A namedtuple's or a dict's fields (orbax's metadata gives a
+    namedtuple as a dict), else None."""
+    if getattr(node, "_fields", None) is not None:
+        return node._asdict()
+    return node if isinstance(node, dict) else None
+
+
+def _find_state(tree: Any, fields) -> Optional[dict]:
+    """The first node of an optax state tree that holds all `fields`."""
+    node = _as_dict(tree)
+    if node is not None and set(fields) <= set(node):
+        return node
+    children = node.values() if node is not None else (
         tree if isinstance(tree, (list, tuple)) else ())
     for child in children:
-        found = _adam_state(child)
+        found = _find_state(child, fields)
         if found is not None:
             return found
     return None
 
 
+def _counts(tree: Any) -> list:
+    """Every `count` in an optax state tree (the optimizer's and the
+    schedule's), outside the parameter-shaped subtrees."""
+    node = _as_dict(tree)
+    if node is not None:
+        own = [int(np.asarray(node["count"]))] if "count" in node else []
+        return own + [c for k, v in node.items()
+                      if k != "count" and k not in _STATE_TREES
+                      for c in _counts(v)]
+    if isinstance(tree, (list, tuple)):
+        return [c for v in tree for c in _counts(v)]
+    return []
+
+
 def opt_state_from_jax(tree: Any, device: DeviceLike = None) -> Any:
-    """optax's `chain(clip_by_global_norm, adamw)` state (or `adamw`'s
-    alone), with numpy leaves, -> the port AdamW's {"count", "mu", "nu"}:
-    `ScaleByAdamState`'s moments as tensors in their own dtypes (a bf16 mu
-    stays bf16) and its int32 count as a Python int.  The schedule's count
-    beside it must be the same step."""
-    adam = _adam_state(tree)
-    if adam is None:
-        raise ValueError("no ScaleByAdamState (count, mu, nu) in the "
-                         "optimizer state")
-    count = int(np.asarray(adam["count"]))
-
-    def counts(node):
-        fields = getattr(node, "_fields", None)
-        if fields is not None:
-            node = node._asdict()
-        if isinstance(node, dict):
-            return ([int(np.asarray(node["count"]))] if "count" in node
-                    else []) + [c for k, v in node.items()
-                                if k not in ("count", "mu", "nu")
-                                for c in counts(v)]
-        if isinstance(node, (list, tuple)):
-            return [c for v in node for c in counts(v)]
-        return []
-
-    if set(counts(tree)) != {count}:
-        raise ValueError(f"optimizer state counts disagree: "
-                         f"{counts(tree)}")
-    return {"count": count, "mu": params_from_jax(adam["mu"], device),
-            "nu": params_from_jax(adam["nu"], device)}
+    """optax's `chain(clip_by_global_norm, <optimizer>)` state (or the
+    optimizer's alone), with numpy leaves, -> the port optimizer's state:
+    {"count", "mu", "nu"} from `ScaleByAdamState`, {"count", "v_row",
+    "v_col", "v"} from `FactoredState` (optax's placeholders kept),
+    {"count", "trace"} from `TraceState` or {"count", "mu"} from
+    `ScaleByLionState`; the trees as tensors in their own dtypes (a bf16
+    mu stays bf16), the int32 count as a Python int.  Every count in the
+    tree (the schedule's beside the optimizer's) must be the same step."""
+    for _, fields in STATE_NODES:
+        node = _find_state(tree, fields)
+        if node is not None:
+            break
+    else:
+        raise ValueError(
+            "no optimizer state in the tree: looked for "
+            + ", ".join(f"{name} {fields}" for name, fields in STATE_NODES))
+    counts = _counts(tree)
+    if len(set(counts)) != 1:
+        raise ValueError(f"optimizer state counts disagree or are "
+                         f"missing: {counts}")
+    out = {"count": counts[0]}
+    out.update((k, params_from_jax(node[k], device))
+               for k in fields if k != "count")
+    return out

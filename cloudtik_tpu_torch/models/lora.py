@@ -1,4 +1,5 @@
-"""LoRA — low-rank adaptation of the attention projections: the serving half.
+"""LoRA — low-rank adaptation of the attention projections: training and
+serving.
 
 Counterpart of `cloudtik_tpu/models/lora.py`.  An adapter is a small tree
 `{target: {"a": [L, rows..., r], "b": [L, r, cols...]}}` beside the frozen
@@ -10,10 +11,16 @@ fixed-capacity planes `a: [L, A, rows..., r]` / `b: [L, A, r, cols...]`, and
 base projection.  Plane slot 0 is the null adapter (all zeros, a delta of
 exactly 0), so base-model requests share the program.
 
+Training (`lora_loss_fn`, `lora_spec`) differentiates the adapters only:
+the loss merges them into the frozen base inside the step, and the base
+lives in the spec's closure, detached, so it never enters the trainer's
+params, the optimizer state or a checkpoint (a checkpoint holds the
+adapters and their optimizer state, which `serve/adapters.py`'s
+`checkpoint_loader` reads back).
+
 Here the planes are written in place (`write_adapter_slot`,
 `clear_adapter_slot`), where the JAX functions return new trees, and
-random draws come from a `torch.Generator`.  Not here yet: LoRA training
-(`lora_loss_fn`, `lora_spec`: ROADMAP A3/A4, with the port's trainer) and
+random draws come from a `torch.Generator`.  Not here yet:
 `lora_logical_axes` (ROADMAP A7, the parallel layer).
 """
 
@@ -25,7 +32,8 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
-from cloudtik_tpu_torch.models.transformer import TransformerConfig
+from cloudtik_tpu_torch.models.transformer import (
+    TransformerConfig, loss_fn as base_loss_fn)
 
 Params = Dict[str, Any]
 
@@ -207,3 +215,32 @@ def merge_lora(base_layers: Params, lora_params: Params,
         merged[t] = base_layers[t] + (delta * lora.scale).to(
             base_layers[t].dtype)
     return merged
+
+
+def lora_loss_fn(lora_params: Params, base_params: Params,
+                 batch: Dict[str, torch.Tensor], cfg: TransformerConfig,
+                 lora: LoRAConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The transformer loss on the base with the adapters merged in; only
+    `lora_params` carry gradients."""
+    params = dict(base_params)
+    params["layers"] = merge_lora(base_params["layers"], lora_params, lora)
+    return base_loss_fn(params, batch, cfg)
+
+
+def lora_spec(base_params: Params, cfg: TransformerConfig,
+              lora: LoRAConfig):
+    """ModelSpec training only the adapters.  The base is held detached
+    (views of the caller's tensors, no copy, no gradient) and must lie on
+    the trainer's device."""
+    from cloudtik_tpu_torch.train.trainer import ModelSpec
+    from cloudtik_tpu_torch.tree import tree_map
+
+    base = tree_map(lambda p: p.detach(), base_params)
+    return ModelSpec(
+        init=lambda gen, device: init_lora_params(gen, cfg, lora, device),
+        loss_fn=lambda p, batch: lora_loss_fn(p, base, batch, cfg, lora),
+        # frozen base: the backward computes activation grads only (~2N),
+        # not weight grads, 4N in all against full training's 6N
+        flops_per_token=cfg.flops_per_token() * 4.0 / 6.0,
+    )

@@ -124,17 +124,21 @@ def transformer_backend(model: str = "tiny",
 
 def _initial_params(cfg, dev, checkpoint_dir: Optional[str], params):
     """A backend's weights: restored from `checkpoint_dir`, converted from
-    a numpy `params` tree, or made from seed 0."""
+    a numpy `params` tree (a tree of tensors, such as a trainer's, is
+    taken as it is, moved to `dev`), or made from seed 0."""
     import torch
 
     from cloudtik_tpu_torch import convert
     from cloudtik_tpu_torch.models import transformer as T
     from cloudtik_tpu_torch.train.checkpoint import restore_params
+    from cloudtik_tpu_torch.tree import tree_leaves, tree_map
 
     if checkpoint_dir:
         return restore_params(checkpoint_dir, T.init_params(
             torch.Generator(), cfg, "meta"), dev)
     if params is not None:
+        if all(isinstance(p, torch.Tensor) for p in tree_leaves(params)):
+            return tree_map(lambda p: p.detach().to(dev), params)
         return convert.params_from_jax(params, dev)
     return T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                          dev)

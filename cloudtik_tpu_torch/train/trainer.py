@@ -1,8 +1,9 @@
-"""The training loop on one card: a step of grads + AdamW, an MFU meter,
-checkpoints and an async input pipeline.
+"""The training loop on one card: a step of grads + the optimizer, an MFU
+meter, checkpoints and an async input pipeline.
 
 Counterpart of the single-device core of `cloudtik_tpu/train/trainer.py`:
-`ModelSpec`, `transformer_spec`, `TrainerConfig`, `Trainer.init_state` /
+`ModelSpec`, `transformer_spec`, `bert_spec` (and `models/lora.py`'s
+`lora_spec`), `TrainerConfig`, `Trainer.init_state` /
 `fit` with the same history keys (loss, n_tokens, accuracy, grad_norm,
 step, tokens_per_sec, mfu), gradient accumulation as the mean of the
 micro-batch gradients, and the update `p + u.to(p.dtype)`.  PyTorch runs
@@ -17,9 +18,9 @@ window's wall time is taken after it.
 `maybe_resume` restores the newest readable one, and the steps a resume
 re-runs book as `restart_replay`.
 
-Not here yet (ROADMAP A5, A7): the mesh and shardings, the overlapped
-gradient sync, elastic re-meshing, `profile_dir`, and the other model
-families' specs.
+Not here yet (ROADMAP A5, A7, A8): the mesh and shardings, the
+overlapped gradient sync, elastic re-meshing, `profile_dir`, and the other
+model families' specs.
 """
 
 from __future__ import annotations
@@ -72,6 +73,19 @@ def transformer_spec(cfg) -> ModelSpec:
     return ModelSpec(
         init=lambda gen, device: T.init_params(gen, cfg, device),
         loss_fn=lambda params, batch: T.loss_fn(params, batch, cfg),
+        flops_per_token=cfg.flops_per_token(),
+    )
+
+
+def bert_spec(cfg, objective: str = "mlm") -> ModelSpec:
+    """BERT with the MLM objective, or ("classify") sequence
+    classification."""
+    from cloudtik_tpu_torch.models import bert as B
+
+    loss = B.loss_fn if objective == "mlm" else B.classify_loss_fn
+    return ModelSpec(
+        init=lambda gen, device: B.init_params(gen, cfg, device),
+        loss_fn=lambda params, batch: loss(params, batch, cfg),
         flops_per_token=cfg.flops_per_token(),
     )
 
@@ -178,7 +192,7 @@ class Trainer:
 
     def _abstract_state(self) -> Dict[str, Any]:
         """{params, opt_state} of "meta" tensors: the shapes and dtypes a
-        restore checks and casts to."""
+        restore checks and casts to, for any of the optimizers' states."""
         params = self.spec.init(torch.Generator(), torch.device("meta"))
         return {"params": params, "opt_state": self.optimizer.init(params)}
 
@@ -202,7 +216,10 @@ class Trainer:
     def _grads(self, batch: Dict[str, torch.Tensor]):
         loss, metrics = self.spec.loss_fn(self.params, batch)
         leaves = tree_leaves(self.params)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss never reads (BERT's mlm_bias) gets a zero
+        # gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         return tree_unflatten(self.params, list(grads)), metrics
 
     def train_step(self, batch: Dict[str, torch.Tensor]

@@ -14,6 +14,7 @@ relative, and serve the JAX backends' greedy tokens (plain, engine, and an
 imported LoRA adapter).  `tiny` in f32, one intra-op thread.
 """
 
+import dataclasses
 import itertools
 import json
 import os
@@ -47,7 +48,7 @@ from cloudtik_tpu_torch.train import optim as TO
 from cloudtik_tpu_torch.train import trainer as TTR
 from cloudtik_tpu_torch.train.checkpoint import (
     FORMAT, MANIFEST, CheckpointConfig, Checkpointer)
-from cloudtik_tpu_torch.tree import tree_leaves
+from cloudtik_tpu_torch.tree import tree_leaves, tree_map
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import import_jax_checkpoint  # noqa: E402
@@ -60,8 +61,13 @@ OPT = dict(learning_rate=1e-2, warmup_steps=2, total_steps=50)
 TCFG = TT.config("tiny", dtype=torch.float32, attention_impl="reference")
 
 
-def _trainer(directory, every=2, prefetch_depth=2, **opt):
-    return TTR.Trainer(TTR.transformer_spec(TCFG), TTR.TrainerConfig(
+# tiny at d_model 128: Adafactor factors embed, lm_head and the MLP
+# weights and keeps a full v for wq/wk/wv/wo and the norms
+WIDE = dict(d_model=128, d_ff=256)
+
+
+def _trainer(directory, every=2, prefetch_depth=2, cfg=TCFG, **opt):
+    return TTR.Trainer(TTR.transformer_spec(cfg), TTR.TrainerConfig(
         global_batch_size=4, seq_len=32, log_every=1,
         optimizer=TO.OptimizerConfig(**dict(OPT, **opt)),
         checkpoint_every=every, checkpoint_dir=str(directory),
@@ -126,6 +132,41 @@ def test_resume_is_bitwise_on_the_cpu(tmp_path):
     assert resumed.maybe_resume() == 2
     assert _losses(resumed.fit(_data(skip=2), 3)) == want[2:]
     _assert_trees_equal(resumed.state, straight.state)
+
+
+@pytest.mark.parametrize("name,moment_dtype", [
+    ("sgd", "bfloat16"), ("adafactor", None), ("lion", "bfloat16")])
+def test_resume_is_bitwise_per_optimizer(tmp_path, name, moment_dtype):
+    """Each optimizer's state round-trips: SGD's trace and Lion's mu in
+    bf16, Adafactor's factored and full second moments beside optax's
+    (1,)-shaped placeholders; the resumed run equals the uninterrupted
+    one bitwise."""
+    cfg = dataclasses.replace(TCFG, **WIDE)
+    opt = dict(name=name, moment_dtype=moment_dtype)
+    straight = _trainer(tmp_path / "a", every=1000, cfg=cfg, **opt)
+    straight.init_state(torch.Generator().manual_seed(0))
+    want = _losses(straight.fit(_data(), 4))
+    first = _trainer(tmp_path / "b", cfg=cfg, **opt)
+    first.init_state(torch.Generator().manual_seed(0))
+    assert _losses(first.fit(_data(), 2)) == want[:2]
+    first.checkpointer.wait()
+    resumed = _trainer(tmp_path / "b", every=1000, cfg=cfg, **opt)
+    assert resumed.maybe_resume() == 2
+    _assert_trees_equal(resumed.state, first.state)
+    assert _losses(resumed.fit(_data(skip=2), 2)) == want[2:]
+    _assert_trees_equal(resumed.state, straight.state)
+    state = resumed.opt_state
+    assert state["count"] == 4
+    if name == "adafactor":
+        # embed [256, 128]: a mean over each of its two axes
+        assert state["v_row"]["embed"].shape == (128,)
+        assert state["v_col"]["embed"].shape == (256,)
+        assert state["v"]["embed"].shape == (1,)
+        assert state["v"]["layers"]["wq"].shape == (2, 128, 4, 32)
+        assert state["v_row"]["layers"]["wq"].shape == (1,)
+    else:
+        moments = state["trace" if name == "sgd" else "mu"]
+        assert moments["embed"].dtype == torch.bfloat16
 
 
 def test_retention_window(tmp_path):
@@ -449,6 +490,48 @@ def test_opt_state_from_jax_keeps_dtypes_and_the_count():
         assert got["nu"]["w"].dtype == torch.float32
     with pytest.raises(ValueError, match="ScaleByAdamState"):
         convert.opt_state_from_jax({"x": np.zeros(2)}, "cpu")
+
+
+@pytest.mark.parametrize("name", ["sgd", "adafactor", "lion"])
+def test_imported_optimizer_state_resumes_to_the_jax_losses(tmp_path,
+                                                            name):
+    """A JAX run with each of the other optimizers, imported: the port
+    resumes with optax's state (equal leaves) and its next losses agree
+    with the JAX resumed run's within the trainer test's 1e-4."""
+    jcfg = dataclasses.replace(JCFG, **WIDE)
+    opt = JO.OptimizerConfig(**OPT, name=name)
+    jtc = JTR.TrainerConfig(
+        global_batch_size=4, seq_len=32, mesh=MeshConfig(data=1, fsdp=1),
+        optimizer=opt, log_every=1, checkpoint_every=2,
+        checkpoint_dir=str(tmp_path / "jax"), prefetch_depth=0)
+    jtrainer = JTR.Trainer(JTR.transformer_spec(jcfg), jtc, mesh=build_mesh(
+        jtc.mesh, devices=jax.devices()[:1]))
+    jtrainer.init_state(jax.random.PRNGKey(0))
+    jtrainer.fit(JD.synthetic_lm_batches(4, 32, 256, seed=3), 2)
+    jtrainer.checkpointer.wait()
+    jtrainer.checkpointer.close()
+    assert import_jax_checkpoint.import_checkpoints(
+        str(tmp_path / "jax"), str(tmp_path / "port")) == [2]
+    port = _trainer(tmp_path / "port", every=1000,
+                    cfg=dataclasses.replace(TCFG, **WIDE), name=name)
+    assert port.maybe_resume() == 2
+    want = convert.opt_state_from_jax(
+        jax.tree.map(np.asarray, jtrainer.state["opt_state"]), "cpu")
+    assert port.opt_state["count"] == want["count"] == 2
+    for k in want:
+        if k != "count":
+            # matched by key: jax.tree sorts dict keys, the port does not
+            same = tree_map(lambda a, b: a.dtype == b.dtype
+                            and torch.equal(a, b), port.opt_state[k],
+                            want[k])
+            assert all(tree_leaves(same)), k
+    jout = jtrainer.fit(itertools.islice(
+        JD.synthetic_lm_batches(4, 32, 256, seed=3), 2, None), 2)
+    tout = port.fit(_data(skip=2), 2)
+    for j, t in zip(jout["history"], tout["history"]):
+        for key in ("loss", "accuracy", "grad_norm"):
+            np.testing.assert_allclose(t[key], j[key], rtol=1e-4,
+                                       err_msg=key)
 
 
 PROMPTS = ([5, 17, 101, 9], [42, 7, 19, 23, 88, 3])

@@ -120,7 +120,7 @@ def test_attention_cases_cover_the_kernels_tiling():
     assert list(cases) == [
         "forward_b4", "tpu_1b_b1", "gqa_noncausal", "ragged_causal",
         "fp16_causal", "cross_causal", "d64_causal", "gqa_causal",
-        "s1088_causal"]
+        "s1088_causal", "bert_large_b32"]
     cross = cases["cross_causal"]
     assert cross.causal and (cross.S, cross.Skv) == (384, 1024)
     assert all(c.Skv == c.S for n, c in cases.items() if n != "cross_causal")
@@ -772,3 +772,120 @@ def test_checkpoint_phase_fails_loudly_without_room(monkeypatch):
                         lambda path: sh._ntuple_diskusage(1, 1, 0))
     with pytest.raises(SystemExit, match="bytes free"):
         chip_smoke.phase_checkpoint(chip_smoke.CHECKPOINT_REHEARSAL, "cpu")
+
+
+def test_bert_case_is_the_bert_phase_shape_and_its_bound():
+    """BERT-Large at B=32, S=512: 16 heads of 64, non-causal, transposed
+    [B, S, H, D] views, in the forward and the backward cases."""
+    from cloudtik_tpu_torch.models import bert as BE
+
+    c = next(c for c in chip_smoke.ATTN_CASES if c.name == "bert_large_b32")
+    cfg = BE.config("bert_large")
+    assert (c.B, c.H, c.Hkv, c.S, c.D, c.causal, c.layout, c.dtype) == (
+        32, cfg.n_heads, cfg.n_heads, cfg.max_seq_len, cfg.head_dim, False,
+        "bshd", "bfloat16")
+    assert c in chip_smoke.BWD_CASES
+    bound_ms, bound_by, flops, nbytes = chip_smoke.attention_bound(c)
+    assert flops == 4 * 32 * 16 * 512 * 512 * 64       # 34.4 GFLOP
+    assert nbytes == 2 * 4 * 32 * 16 * 512 * 64 + 4 * 32 * 16 * 512
+    # 134 MB of q, k, v, o at 3.35 TB/s outlast 34.4 GFLOP at 989 TFLOP/s
+    assert bound_by == "bytes"
+    assert bound_ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert bound_ms == pytest.approx(0.04038, abs=1e-5)
+    bwd = chip_smoke.attention_bwd_bound(c)
+    assert bwd["dq"]["bound_by"] == bwd["dkv"]["bound_by"] == "operations"
+    assert bwd["dq"]["flops"] == 6 * 32 * 16 * 512 * 512 * 64
+    assert bwd["dkv"]["flops"] == 8 * 32 * 16 * 512 * 512 * 64
+    assert bwd["dq"]["bound_ms"] == pytest.approx(0.05211, abs=1e-5)
+    assert bwd["dkv"]["bound_ms"] == pytest.approx(0.06948, abs=1e-5)
+
+
+def test_lora_train_load_is_the_recipe_defaults():
+    from cloudtik_tpu_torch.recipes import llama_lora_finetune as R
+
+    assert chip_smoke.LORA_TRAIN_LOAD.argv == ()
+    args = R.parser().parse_args(list(chip_smoke.LORA_TRAIN_LOAD.argv))
+    assert (args.model, args.rank, args.batch, args.seq_len) == (
+        "tpu_1b", 16, 8, 2048)
+    assert chip_smoke.LORA_TRAIN_MIN_EFFECT == \
+        2 * chip_smoke.ENGINE_LOGITS_MAX_ABS
+
+
+def test_lora_train_phase_rehearsal_takes_no_kernel_on_cpu():
+    out = chip_smoke.phase_lora_train(chip_smoke.LORA_TRAIN_REHEARSAL,
+                                      "cpu")
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    assert out["base_unchanged"] and out["adapters_changed"]
+    assert out["losses"][-1] < out["losses"][0]
+    assert out["adapter_effect"] >= chip_smoke.LORA_TRAIN_MIN_EFFECT
+    serve = out["serve"]
+    assert serve["requests"] == 8 and serve["on_adapter"] == 4
+    assert serve["tie_gap_max"] <= chip_smoke.ENGINE_TIE_GAP
+    assert serve["logits_diff_max"] <= chip_smoke.ENGINE_LOGITS_MAX_ABS
+    from cloudtik_tpu_torch.models import transformer as T
+    assert out["flops_per_token"] == pytest.approx(
+        T.config("tiny", max_seq_len=64).flops_per_token() * 4 / 6)
+    assert out["mfu"] is None and out["peak_mem_gb"] is None
+
+
+def test_bert_load_is_bert_large_at_the_train_phase_tokens():
+    from cloudtik_tpu_torch.recipes import bert_large_pretrain as R
+
+    args = R.parser().parse_args(list(chip_smoke.BERT_LOAD.argv))
+    assert (args.model, args.seq_len, args.batch) == ("bert_large", 512, 32)
+    assert args.batch * args.seq_len == 8 * 2048
+
+
+def test_bert_phase_rehearsal_takes_no_kernel_on_cpu():
+    out = chip_smoke.phase_bert(chip_smoke.BERT_REHEARSAL, "cpu")
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    assert out["n_layers"] == 2 and out["masked_per_seq"] == 10
+    assert out["losses"][-1] < out["losses"][0]
+    assert 0.0 <= out["mlm_accuracy"] <= 1.0
+
+
+def test_bert_grads_rehearsal():
+    out = chip_smoke.phase_bert_grads("tiny", 2, 2, 64, "cpu",
+                                      loss_steps=6)
+    rel = out["grad_rel_l2_flash_vs_reference"]
+    # every leaf but mlm_bias (never read) and bk (a zero gradient)
+    assert len(rel) == 24 and "layers.wq" in rel and "mlm_dense" in rel
+    assert set(out["zero_grad_leaves_over_largest_norm"]) == {"layers.bk"}
+    assert max(rel.values()) <= chip_smoke.GRADS_REL_L2
+    losses = out["repeated_batch_losses"]
+    assert len(losses) == 6 and losses[-1] < losses[0] - 0.1
+
+
+def test_optim_phase_rehearsal_runs_every_case():
+    out = chip_smoke.phase_optim("tiny", 2, 5, "cpu")
+    assert list(out["cases"]) == ["sgd/float32", "adafactor/float32",
+                                  "lion/float32", "adamw/bfloat16"]
+    for case in out["cases"].values():
+        assert case["count"] == 5 and case["max_rel_l2"] == 0.0
+        assert set(case["rel_l2"]) == {
+            "layers.wq", "layers.wk", "layers.wv", "layers.wo",
+            "layers.ln_attn", "layers.ln_mlp", "layers.w_gate",
+            "layers.w_up", "layers.w_down", "final_norm"}
+
+
+def test_optim_check_flags_a_wrong_update(monkeypatch):
+    """The comparison's power: a card-side optimizer whose learning rate
+    is 1% off moves every leaf's update by 1e-2 of itself, 10x the
+    limit."""
+    from cloudtik_tpu_torch.train import optim as TO
+
+    real = TO.make_optimizer
+    calls = []
+
+    def skewed(cfg):
+        calls.append(cfg.name)
+        if len(calls) % 2 == 1:     # the first run of a case: the "card"
+            import dataclasses as dc
+            cfg = dc.replace(cfg, learning_rate=cfg.learning_rate * 1.01)
+        return real(cfg)
+
+    monkeypatch.setattr(TO, "make_optimizer", skewed)
+    with pytest.raises(SystemExit, match="optim sgd"):
+        chip_smoke.phase_optim("tiny", 2, 5, "cpu")

@@ -9,7 +9,8 @@ trainer's (each step holds {"params", "opt_state"}) or the LoRA trainer's
 the JAX package's own `Checkpointer.restore` against a template built from
 the step's orbax metadata (so any preset and optimizer configuration reads
 back), params go through
-`convert.params_from_jax` and optax's AdamW state through
+`convert.params_from_jax` and the optimizer state (optax's AdamW, SGD,
+Adafactor or Lion) through
 `convert.opt_state_from_jax`, and the step is written under the same
 number into DST in the port's format (`cloudtik_tpu_torch/train/
 checkpoint.py`), dtypes kept (a bf16 leaf stays bf16).  DST then serves

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Where the time goes in one training step of the PyTorch port, on one card.
 
-    python3 tools/profile_torch_train.py [--batch 8] [--seq 2048] [--steps 2]
+    python3 tools/profile_torch_train.py [--model tpu_1b|bert_large]
+        [--batch 8] [--seq 2048] [--steps 2]
 
 Runs `Trainer` on tpu_1b at [batch, seq] in bench.py's configuration (bf16
-params and Adam moments, save_attn remat), warms up for two steps, then
-profiles (torch.profiler, CPU + CUDA activity) `--steps` steps and prints one
-JSON line: wall time and device time per step, the device's busy share of
-the wall, kernel launches per step, device time per step grouped by kind
-(the flash forward, dq and dk/dv kernels, bf16 matmuls, f32 matmuls -- the
-logits products --, everything else), the optimizer's span on the device
-timeline (the trainer's `train.optimizer` range), launches per step by
-kind, and the top kernels by name.  Needs a CUDA card; weights are random
-from seed 0.
+params and Adam moments, save_attn remat), or on bert_large (default B=32,
+S=512) as `recipes/bert_large_pretrain.py` builds it (f32 params, bf16
+compute, the MLM objective on `synthetic_mlm_batches`), warms up for two
+steps, then profiles (torch.profiler, CPU + CUDA activity) `--steps` steps
+and prints one JSON line: wall time and device time per step, the device's
+busy share of the wall, kernel launches per step, device time per step
+grouped by kind (the flash forward, dq and dk/dv kernels, bf16 matmuls,
+f32 matmuls -- the logits products, BERT's MLM head --, everything else),
+the optimizer's span on the device timeline (the trainer's
+`train.optimizer` range), launches per step by kind, and the top kernels
+by name.  Needs a CUDA card; weights are random from seed 0.
 """
 
 from __future__ import annotations
@@ -55,10 +58,17 @@ def _device_us(evt, total: bool = False) -> float:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--batch", type=int, default=8)
-    p.add_argument("--seq", type=int, default=2048)
+    p.add_argument("--model", default="tpu_1b",
+                   choices=("tpu_1b", "bert_large"))
+    p.add_argument("--batch", type=int, default=None,
+                   help="8 for tpu_1b, 32 for bert_large")
+    p.add_argument("--seq", type=int, default=None,
+                   help="2048 for tpu_1b, 512 for bert_large")
     p.add_argument("--steps", type=int, default=2)
     args = p.parse_args(argv)
+    bert = args.model == "bert_large"
+    B = args.batch or (32 if bert else 8)
+    S = args.seq or (512 if bert else 2048)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -66,11 +76,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA card", file=sys.stderr)
         return 1
+    from cloudtik_tpu_torch.models import bert as BE
     from cloudtik_tpu_torch.models import transformer as T
-    from cloudtik_tpu_torch.train.data import synthetic_lm_batches
+    from cloudtik_tpu_torch.train.data import (synthetic_lm_batches,
+                                               synthetic_mlm_batches)
     from cloudtik_tpu_torch.train.optim import OptimizerConfig
     from cloudtik_tpu_torch.train.trainer import (
-        Trainer, TrainerConfig, transformer_spec)
+        Trainer, TrainerConfig, bert_spec, transformer_spec)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -79,14 +91,27 @@ def main(argv=None) -> int:
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
-    B, S, n = args.batch, args.seq, args.steps
-    cfg = T.config("tpu_1b", max_seq_len=S, param_dtype=torch.bfloat16)
-    trainer = Trainer(transformer_spec(cfg), TrainerConfig(
-        global_batch_size=B, seq_len=S,
-        optimizer=OptimizerConfig(moment_dtype="bfloat16"), log_every=n),
+    n = args.steps
+    if bert:
+        cfg = BE.config("bert_large", max_seq_len=S)
+        spec, opt = bert_spec(cfg), OptimizerConfig()
+        data = synthetic_mlm_batches(B, S, cfg.vocab_size)
+        P = next(synthetic_mlm_batches(1, S, cfg.vocab_size))[
+            "mlm_positions"].shape[1]
+        # the head's f32 products over the B*P gathered rows: forward,
+        # and the input and weight gradients
+        head_tflop = 3 * 2 * B * P * cfg.d_model * (
+            cfg.d_model + cfg.vocab_size) / 1e12
+    else:
+        cfg = T.config("tpu_1b", max_seq_len=S, param_dtype=torch.bfloat16)
+        spec = transformer_spec(cfg)
+        opt = OptimizerConfig(moment_dtype="bfloat16")
+        data = synthetic_lm_batches(B, S, cfg.vocab_size)
+        head_tflop = 4 * 2 * B * S * cfg.d_model * cfg.vocab_size / 1e12
+    trainer = Trainer(spec, TrainerConfig(
+        global_batch_size=B, seq_len=S, optimizer=opt, log_every=n),
         device="cuda")
     trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
-    data = synthetic_lm_batches(B, S, cfg.vocab_size)
     trainer.fit(data, 2)                  # warm: allocator, cuBLAS, nvcc
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -120,16 +145,15 @@ def main(argv=None) -> int:
     kernels.sort(reverse=True)
     device_ms = sum(by_kind.values())
     tokens = B * S
-    out = {"profile": "train_step", "model": "tpu_1b", "batch": B, "seq": S,
-           "steps": n, "wall_ms_per_step": wall_ms / n,
+    out = {"profile": "train_step", "model": args.model, "batch": B,
+           "seq": S, "steps": n, "wall_ms_per_step": wall_ms / n,
            "device_ms_per_step": device_ms,
            "device_busy_share": device_ms / (wall_ms / n),
            "kernel_launches_per_step": launches / n,
            "device_ms_per_step_by_kind": by_kind,
            "launches_per_step_by_kind": counts,
            "optimizer_device_ms_per_step": optimizer_ms,
-           "logits_f32_tflop_per_step":
-               4 * 2 * tokens * cfg.d_model * cfg.vocab_size / 1e12,
+           "logits_f32_tflop_per_step": head_tflop,
            "model_tflop_per_step": cfg.flops_per_token() * tokens / 1e12,
            "top_kernels": [{"ms_per_step": ms, "count_per_step": c,
                             "name": name} for ms, c, name in kernels[:12]]}
