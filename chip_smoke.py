@@ -113,9 +113,14 @@ run with a non-zero exit:
            signed zeros, +-inf and absent scores; ROIAlign
            within 1e-5 at Mask R-CNN's shapes, sampling 2 at scale 0.25,
            ROIs partly outside the map and under a pixel, 100 and 72
-           channels, each on the route it must take (vector or strided); kernel and
-           plain times beside the bound (no single PyTorch call computes
-           either)
+           channels, each on the route it must take (vector or
+           strided); kernel and plain times beside the bound (no single
+           PyTorch call computes either); then ROIAlign's gradient at Mask R-CNN's training shapes
+           (B=4 x 128 ROIs, 7x7 and 14x14): the kernel forward held within
+           1e-5 to the plain gather form's there, and the Function's
+           gradient, with the kernel forward, is `roi_align_grad`'s, which
+           is held within 1e-5 to the plain gather form's autograd
+           gradient; its ms beside the kernel forward's
   train_grads  tpu_1b width with 2 layers: the flash path's gradients
            against the reference attention path's, and the loss falling
            over 10 steps on one repeated batch
@@ -148,11 +153,34 @@ run with a non-zero exit:
            peak memory; outputs checked,
            each call's NMS and pooling held against the plain versions, and
            Mask R-CNN's map pooled on ROIAlign's vector route
+  resnet_train, ssd_train, maskrcnn_train  the recipes' builders
+           (`recipes.resnet50_imagenet`, `ssd_coco`, `maskrcnn_coco`) at the
+           per-card batch of the JAX recipes' launch lines: resnet50 at
+           B=128 x 224, ssd_resnet34 at B=32 x 300 (a positive anchor in
+           every image), maskrcnn_resnet50 at B=4 x 512 with masks; 2 warm-up
+           and 5 measured steps on one repeated batch, the loss falling;
+           img/s, ms/step, MFU, peak memory, data_wait per step; no B1-B5
+           launch but Mask R-CNN's exactly 2 ROIAlign launches a step on the
+           vector route.  Mask R-CNN then takes one step's gradients with
+           the kernel and with the plain ROIAlign forced: in f32 compute
+           every leaf within 1e-3 relative L2; in the bf16 training
+           configuration the median leaf within 0.05 and the largest
+           within 0.25, beside a plain step whose pooled maps move by 1e-6
+           (the bf16 noise floor); and it shows the ROI losses moving the
+           backbone's gradient
+  loaders  a writer thread publishes token shards (`export_token_shard`,
+           `finish_export`) while `streaming_shard_batches` feeds
+           `Trainer.fit(profile_dir=...)` on tpu_1b at full width and 2
+           layers, B=8, S=2048, 3 steps: every batch equals the tokens
+           published, the marker ends the stream, the Chrome trace names
+           the three flash kernels, and `tokenized_file_batches` reads the
+           same corpus as 3 batches
 
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
 steps of the checkpoint phase; the measured steps of lora_train and of
-bert; the measured detect calls of each model) and read just after it.
+bert; the measured detect calls of each model; the measured steps of each
+vision phase; the loaders' fit) and read just after it.
 The `total` line gives the script's seconds; the last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
@@ -2465,12 +2493,16 @@ def _zero_launch_counts() -> None:
 
 
 def _train_measured(trainer, data, warmup: int, steps: int,
-                    on_card: bool) -> dict:
+                    on_card: bool, detection: bool = False) -> dict:
     """`warmup` steps, then `steps` measured steps in one log window with
-    the launch counts zeroed just before and read just after, both off
-    the iterator `data`.  "losses" are the warm-up windows' losses and
-    the measured window's last; "last" is that window's history entry."""
+    the launch counts zeroed just before and read just after (with
+    `detection`, B4's and B5's too), both off the iterator `data`.
+    "losses" are the warm-up windows' losses and the measured window's
+    last; "last" is that window's history entry; data_wait per measured
+    step comes from the goodput ledger."""
     import torch
+
+    from cloudtik_tpu_torch.telemetry import goodput
 
     t0 = time.perf_counter()
     warm = trainer.fit(data, warmup)["history"]
@@ -2480,17 +2512,24 @@ def _train_measured(trainer, data, warmup: int, steps: int,
         torch.cuda.reset_peak_memory_stats()
     trainer.config.log_every = steps
     _zero_launch_counts()
+    if detection:
+        _zero_det_launch_counts()
+    wait0 = goodput.LEDGER.total(goodput.BUCKET_DATA_WAIT)
     t0 = time.perf_counter()
     entry = trainer.fit(data, steps)["history"][-1]   # ends in float()
     wall_s = time.perf_counter() - t0
     launches = _launch_counts()
+    if detection:
+        launches.update(_det_launch_counts())
+    wait_s = goodput.LEDGER.total(goodput.BUCKET_DATA_WAIT) - wait0
     return {
         "warmup_steps": warmup, "measured_steps": steps,
         "warmup_s": warmup_s, "ms_per_step": wall_s / steps * 1e3,
         "tokens_per_s": entry["tokens_per_sec"], "mfu": entry.get("mfu"),
         "losses": [h["loss"] for h in warm] + [entry["loss"]],
-        "last": entry, "launches": launches,
+        "last": entry, "history": warm + [entry], "launches": launches,
         "launches_per_step": {k: n / steps for k, n in launches.items()},
+        "data_wait_ms_per_step": wait_s / steps * 1e3,
         "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                         if on_card else None)}
 
@@ -3735,8 +3774,16 @@ ROI_CASES = (
     RoiCase("ragged_channels", 2, 64, 100, 32, 14, 1, route="strided"),
     RoiCase("channel_tail", 2, 64, 72, 32, 7, 2),
 )
+# The shapes Mask R-CNN's training step gives ROIAlign (the maskrcnn_train
+# phase: 4 images x 128 proposals on the bf16 C4 map), forward on the
+# kernel and backward through `detection.roi_align_grad`
+ROI_GRAD_CASES = (
+    RoiCase("maskrcnn_train_7", 4, 128, 1024, 32, 7, 1),
+    RoiCase("maskrcnn_train_14", 4, 128, 1024, 32, 14, 1),
+)
 # f32 outputs from the same (widened) inputs; only the order of the sums
-# and the contraction of the bilinear weights differ
+# and the contraction of the bilinear weights differ; the same holds for
+# the f32 gradients
 ROI_ATOL = ROI_RTOL = 1e-5
 ROI_FLOPS_PER_SAMPLE = 16   # 4 taps: weights, products, sum
 
@@ -3785,16 +3832,19 @@ def roi_errors(got, want) -> dict:
 
 
 def phase_kernel_det(device: str = "cuda", nms_cases=NMS_CASES,
-                     roi_cases=ROI_CASES) -> dict:
-    """B4 and B5 against their plain versions on the same inputs; times on
-    the card only."""
+                     roi_cases=ROI_CASES,
+                     roi_grad_cases=ROI_GRAD_CASES) -> dict:
+    """B4 and B5 against their plain versions on the same inputs, then
+    ROIAlign's gradient (the kernel forward, `roi_align_grad` backward)
+    against the plain gather form's autograd gradient; times on the card
+    only."""
     import torch
 
     from cloudtik_tpu_torch.ops import detection as D
 
     on_card = device == "cuda"
     gen = torch.Generator(device=device).manual_seed(2)
-    out = {"nms": {}, "roi_align": {}}
+    out = {"nms": {}, "roi_align": {}, "roi_align_grad": {}}
     for c in nms_cases:
         boxes, scores = make_nms_inputs(c, device)
         kw = {"iou_threshold": c.iou_threshold, "max_output": c.K}
@@ -3867,7 +3917,84 @@ def phase_kernel_det(device: str = "cuda", nms_cases=NMS_CASES,
             torch.cuda.empty_cache()
         emit("kernel_det", kernel="roi_align", **row)
         out["roi_align"][c.name] = row
+    for c in roi_grad_cases:
+        out["roi_align_grad"][c.name] = roi_grad_case(c, gen, device)
     return out
+
+
+def roi_grad_case(c: RoiCase, gen, device: str) -> dict:
+    """ROIAlign at one training case: through `_RoIAlignFn` the forward
+    (the kernel on the card) is held against the plain gather form's on
+    the same (widened) map, and its gradient is exactly `roi_align_grad`'s,
+    cast to the map's dtype; that f32 gradient is held against the plain
+    form's autograd gradient, both within ROI_ATOL + ROI_RTOL |ref|.  The
+    backward's bound is the forward's: it reads the output's gradient and
+    writes the map's, the same bytes and taps."""
+    import torch
+
+    from cloudtik_tpu_torch.ops import detection as D
+
+    on_card = device == "cuda"
+    feats, rois = make_roi_inputs(c, gen, device)
+    # the map as the detector holds it: an NHWC leaf, pooled through its
+    # [B, C, H, W] view
+    leaf = feats.permute(0, 2, 3, 1).detach().requires_grad_(True)
+    fmap = leaf.permute(0, 3, 1, 2)
+    kw = {"pooled_size": c.P, "sampling_ratio": c.sampling,
+          "spatial_scale": c.scale}
+    D.LAST_ROI_ROUTE = None
+    pooled = D.roi_align_batched(fmap, rois, **kw)
+    route = D.LAST_ROI_ROUTE
+    require(route == (c.route if on_card else None),
+            f"roi_align_grad {c.name}: took the {route} route, expected "
+            f"{c.route}")
+    widened = leaf.detach().float().requires_grad_(True)
+    plain = D.roi_align_reference_batched(widened.permute(0, 3, 1, 2), rois,
+                                          **kw)
+    fwd_errors = roi_errors(pooled, plain)
+    require(fwd_errors["finite"], f"roi_align_grad {c.name}: non-finite "
+                                  "forward")
+    require(fwd_errors["within"], f"roi_align_grad {c.name}: the forward "
+                                  f"differs from the plain one {fwd_errors}")
+    upstream = torch.randn(pooled.shape, generator=gen, device=device)
+    (got,) = torch.autograd.grad(pooled, leaf, upstream)
+    (want,) = torch.autograd.grad(plain, widened, upstream)
+    del pooled, plain
+    size = tuple(fmap.shape)
+    grad32 = D.roi_align_grad(upstream, rois, size, **kw).permute(0, 2, 3, 1)
+    require(got.dtype == leaf.dtype and torch.equal(got,
+                                                    grad32.to(got.dtype)),
+            f"roi_align_grad {c.name}: the Function's gradient is not "
+            "roi_align_grad's")
+    errors = roi_errors(grad32, want)
+    require(errors["finite"], f"roi_align_grad {c.name}: non-finite")
+    require(errors["within"], f"roi_align_grad {c.name}: differs from the "
+                              f"plain gradient {errors}")
+    del got, grad32, want
+    bound_ms, bound_by, flops, nbytes = roi_bound(c)
+    row = {"case": c.name, "B": c.B, "R": c.R, "C": c.C, "H": c.H,
+           "P": c.P, "sampling": c.sampling, "dtype": c.dtype,
+           "route": route, "forward_max_abs_err": fwd_errors["max_abs_err"],
+           "max_abs_err": errors["max_abs_err"],
+           "tolerance": {"atol": ROI_ATOL, "rtol": ROI_RTOL},
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+           "bytes": nbytes}
+    if on_card:
+        detached = fmap.detach()
+        row["forward_kernel_ms"] = time_ms(lambda: D.roi_align_batched(
+            detached, rois, **kw))
+        row["backward_ms"] = time_ms(lambda: D.roi_align_grad(
+            upstream, rois, size, **kw))
+
+        def plain():
+            x = detached.float().requires_grad_(True)
+            return torch.autograd.grad(D.roi_align_reference_batched(
+                x, rois, **kw), x, upstream)
+
+        row["plain_forward_backward_ms"] = time_ms(plain, iters=3, warmup=1)
+        torch.cuda.empty_cache()
+    emit("kernel_det", kernel="roi_align_grad", **row)
+    return row
 
 
 # ------------------------------------------------------------------ detect --
@@ -4001,6 +4128,473 @@ def phase_detect(kind: str, name: str, B: int = 8, device: str = "cuda",
     if on_card:
         torch.cuda.empty_cache()
     return result
+
+
+# ---------------------------------------------------- vision training --
+
+@dataclasses.dataclass(frozen=True)
+class VisionLoad:
+    """A vision training phase: `recipes.<recipe>.build` plus `argv` (the
+    per-card batch of the JAX recipe's launch line), the recipe's AdamW
+    with `optimizer`'s overrides (by default no warmup: the recipe's
+    100-step warmup gives a learning rate of ~0 to a run of a few steps),
+    `warmup` then `steps` measured steps on one repeated batch."""
+    recipe: str
+    argv: tuple = ()
+    warmup: int = 2
+    steps: int = 5
+    optimizer: tuple = (("warmup_steps", 0),)
+
+
+# --batch 1024 --data 8, --batch 256 --data 8 and --batch 32 --data 8: the
+# per-card batches of the JAX recipes' launch lines
+RESNET_TRAIN_LOAD = VisionLoad("resnet50_imagenet", ("--batch", "128"))
+SSD_TRAIN_LOAD = VisionLoad("ssd_coco", ("--batch", "32"))
+# Mask R-CNN keeps the recipe's 100-step warmup: at 3e-4 from the first
+# step its heads diverge (the loss went 17.3 -> 36.1 -> 87.2 on the card,
+# fc1's fan-in is 50,176), while under the warmup it falls
+MASKRCNN_TRAIN_LOAD = VisionLoad("maskrcnn_coco", ("--batch", "4"),
+                                 optimizer=())
+# the CPU rehearsals at `tiny`
+RESNET_TRAIN_REHEARSAL = VisionLoad(
+    "resnet50_imagenet", ("--model", "tiny", "--image-size", "32",
+                          "--batch", "4"), warmup=1, steps=2)
+SSD_TRAIN_REHEARSAL = VisionLoad(
+    "ssd_coco", ("--model", "tiny", "--image-size", "64", "--batch", "2"),
+    warmup=1, steps=2)
+MASKRCNN_TRAIN_REHEARSAL = VisionLoad(
+    "maskrcnn_coco", ("--model", "tiny", "--image-size", "64", "--batch",
+                      "2"), warmup=1, steps=2)
+# the detection kernels' launches per Mask R-CNN train step: its two
+# poolings; no NMS (training proposes by top-K)
+MASKRCNN_STEP_LAUNCHES = {"nms": 0, "roi_align": 2}
+
+
+def _vision_train(name: str, load: VisionLoad, device: str,
+                  nvidia_smi: str = None):
+    """The recipe's trainer on one repeated batch of its data: the
+    measured steps with every kernel's launch count zeroed just before and
+    read just after.  Returns (result, trainer, host batch, cfg)."""
+    import importlib
+
+    import torch
+
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+
+    on_card = device == "cuda"
+    _collect(on_card)
+    recipe = importlib.import_module(
+        f"cloudtik_tpu_torch.recipes.{load.recipe}")
+    args = recipe.parser().parse_args(
+        ["--device", device, "--log-every", "1", *load.argv])
+    trainer, data, cfg = recipe.build(args,
+                                      OptimizerConfig(**dict(load.optimizer)))
+    trainer.init_state(torch.Generator(device=device).manual_seed(0))
+    batch = next(data)
+    train = _train_measured(trainer, itertools.repeat(batch), load.warmup,
+                            load.steps, on_card, detection=True)
+    entry = train.pop("last")
+    opt = trainer.config.optimizer
+    out = {"model": args.model, "nvidia_smi": nvidia_smi,
+           "recipe": load.recipe, "image_size": cfg.image_size,
+           "batch": args.batch, "dtype": "bfloat16",
+           "optimizer": {"name": opt.name, "lr": opt.learning_rate,
+                         "warmup_steps": opt.warmup_steps,
+                         "weight_decay": opt.weight_decay},
+           "flops_per_image": cfg.flops_per_image(), **train,
+           "images_per_s": train["tokens_per_s"],
+           "metrics": {k: v for k, v in entry.items()
+                       if k not in ("step", "tokens_per_sec", "mfu")}}
+    del out["tokens_per_s"]
+    out["history"] = train.pop("history")
+    require(math.isfinite(entry["loss"]), f"{name}: loss {entry['loss']}")
+    _check_losses(name, out["losses"])
+    return out, trainer, batch, cfg
+
+
+def _require_no_launches(name: str, out: dict, allowed=None) -> None:
+    """Per step: no B1-B5 launch but those `allowed` ({kernel: n})."""
+    want = {k: 0 for k in out["launches_per_step"]}
+    want.update(allowed or {})
+    require(out["launches_per_step"] == want,
+            f"{name} step launches {out['launches_per_step']}, expected "
+            f"{want}")
+
+
+def phase_resnet_train(load: VisionLoad = RESNET_TRAIN_LOAD,
+                       device: str = "cuda", nvidia_smi: str = None) -> dict:
+    """ResNet-50 at 224 through `recipes.resnet50_imagenet.build`."""
+    out, trainer, _, _ = _vision_train("resnet_train", load, device,
+                                       nvidia_smi)
+    emit("resnet_train", **out)
+    _require_no_launches("resnet_train", out)
+    del trainer
+    _collect(device == "cuda")
+    return out
+
+
+def phase_ssd_train(load: VisionLoad = SSD_TRAIN_LOAD, device: str = "cuda",
+                    nvidia_smi: str = None) -> dict:
+    """SSD-ResNet34 at 300 through `recipes.ssd_coco.build`; every image
+    of the batch has a positive anchor."""
+    import torch
+
+    from cloudtik_tpu_torch.models import ssd as SD
+
+    out, trainer, batch, cfg = _vision_train("ssd_train", load, device,
+                                             nvidia_smi)
+    with torch.no_grad():
+        labels, _ = SD.match_anchors(
+            torch.as_tensor(batch["gt_boxes"], device=device),
+            torch.as_tensor(batch["gt_labels"], device=device),
+            SD.anchors_on(cfg, torch.device(device)), cfg)
+    out["num_pos_per_image"] = (labels > 0).sum(dim=1).tolist()
+    emit("ssd_train", **out)
+    require(min(out["num_pos_per_image"]) >= 1,
+            f"ssd_train: an image without a positive anchor "
+            f"{out['num_pos_per_image']}")
+    _require_no_launches("ssd_train", out)
+    del trainer
+    _collect(device == "cuda")
+    return out
+
+
+def _named_leaves(tree, prefix: str = "") -> list:
+    """[(dotted name, tensor)] in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _named_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+# The backbone's gradient with the ROI losses must differ from its gradient
+# from the RPN alone by at least this share of its norm: a ROIAlign without
+# a gradient leaves them equal but for the order of cuDNN's sums (~1e-6).
+BACKBONE_FROM_HEADS_MIN = 1e-3
+# One Mask R-CNN step's gradients, the kernel's ROIAlign against the plain
+# one, per leaf in relative L2.  In f32 compute only the order of the sums
+# differs (1.5e-5 read on the card); a missing or wrong ROIAlign gradient
+# moves the backbone's leaves by a share of ~0.8.
+MASKRCNN_F32_GRAD_REL_L2 = 1e-3
+# In the bf16 training configuration the pooled maps round to bf16, so the
+# ~1e-6 between the kernel's sums and the gather form's flips roundings
+# that the BN layers' backward amplifies toward the stem: the median leaf
+# is held to train_grads' limit and the largest to about three times the
+# largest read on the card (0.086), beside the same step's spread between
+# two plain ROIAlign runs whose pooled maps differ by POOLED_PERTURBATION
+# of their values (the noise floor, reported).
+MASKRCNN_BF16_GRAD_REL_L2_MEDIAN = GRADS_REL_L2
+MASKRCNN_BF16_GRAD_REL_L2_MAX = 0.25
+POOLED_PERTURBATION = 1e-6
+
+
+def phase_maskrcnn_train(load: VisionLoad = MASKRCNN_TRAIN_LOAD,
+                         device: str = "cuda",
+                         nvidia_smi: str = None) -> dict:
+    """Mask R-CNN at 512 with masks through `recipes.maskrcnn_coco.build`:
+    exactly 2 ROIAlign launches a step on the vector route; then one step's
+    gradients at full width, every leaf with the kernel's `_RoIAlignFn`
+    against the same step with the plain ROIAlign forced: in f32 compute
+    within MASKRCNN_F32_GRAD_REL_L2, in the bf16 training configuration
+    the median leaf and the largest within their limits, beside a rerun of
+    the kernel step and a plain step whose pooled maps move by
+    POOLED_PERTURBATION (reported); and the backbone's gradient with the
+    ROI losses against the RPN's alone."""
+    import torch
+
+    from cloudtik_tpu_torch.models import maskrcnn as MR
+    from cloudtik_tpu_torch.ops import detection as D
+
+    on_card = device == "cuda"
+    out, trainer, batch, cfg = _vision_train("maskrcnn_train", load, device,
+                                             nvidia_smi)
+    out["mask_size"] = batch["gt_masks"].shape[-1]
+    params = trainer.params
+    named = _named_leaves(params)
+    names = [n for n, _ in named]
+    leaves = [t for _, t in named]
+    dbatch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+    pooled_gap = {"max_abs": 0.0, "max_ref": 0.0}
+
+    def perturbed(*args, **kw):
+        """The plain ROIAlign, every output moved by POOLED_PERTURBATION
+        of itself (a fixed draw)."""
+        out = D.roi_align_reference_batched(*args, **kw)
+        noise = torch.randn(out.shape, device=out.device,
+                            generator=torch.Generator(
+                                device=out.device).manual_seed(3))
+        return out * (1.0 + POOLED_PERTURBATION * noise)
+
+    def probed(*args, **kw):
+        """The kernel's ROIAlign, its output's distance from the plain
+        one's on the same inputs recorded on the side."""
+        out = D.roi_align_batched(*args, **kw)
+        with torch.no_grad():
+            want = D.roi_align_reference_batched(*args, **kw)
+            pooled_gap["max_abs"] = max(pooled_gap["max_abs"],
+                                        (out - want).abs().max().item())
+            pooled_gap["max_ref"] = max(pooled_gap["max_ref"],
+                                        want.abs().max().item())
+        return out
+
+    def step_grads(step_cfg, pool=None):
+        """One step's gradient of every leaf, with `pool` forced into
+        `roi_heads` in place of the kernel's ROIAlign when given."""
+        real = MR.roi_align_batched
+        if pool is not None:
+            MR.roi_align_batched = pool
+        try:
+            loss = MR.loss_fn(params, dbatch, step_cfg)[0]
+            return torch.autograd.grad(loss, leaves, allow_unused=True,
+                                       materialize_grads=True)
+        finally:
+            MR.roi_align_batched = real
+
+    def rel_by_leaf(got, want):
+        rel = {}
+        for n, a, b in zip(names, got, want):
+            norm = b.float().norm()
+            if norm == 0:
+                require(not bool(a.any()), f"maskrcnn_train: {n} has a "
+                        "gradient on one path only")
+                continue
+            rel[n] = ((a.float() - b.float()).norm() / norm).item()
+        return rel
+
+    def median(rel):
+        return sorted(rel.values())[len(rel) // 2]
+
+    # the training configuration (bf16 compute, the vector route): the
+    # step's launches; the plain ROIAlign's step against it; and, as its
+    # noise floor, a rerun of it and a plain step against a plain step
+    # whose pooled maps moved by POOLED_PERTURBATION
+    _zero_det_launch_counts()
+    D.LAST_ROI_ROUTE = None
+    kernel_grads = step_grads(cfg)
+    step_launches = _det_launch_counts()
+    route = D.LAST_ROI_ROUTE
+    bf16_rerun = rel_by_leaf(step_grads(cfg, probed), kernel_grads)
+    plain_grads = step_grads(cfg, D.roi_align_reference_batched)
+    bf16_plain = rel_by_leaf(plain_grads, kernel_grads)
+    bf16_witness = rel_by_leaf(step_grads(cfg, perturbed), plain_grads)
+    del plain_grads
+    # in f32 compute (the strided route): only the order of the sums
+    # differs between the two paths
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    rel = rel_by_leaf(step_grads(cfg32),
+                      step_grads(cfg32, D.roi_align_reference_batched))
+    zero = len(names) - len(rel)
+    worst = max(rel, key=rel.get)
+    bf16_worst = max(bf16_plain, key=bf16_plain.get)
+
+    # the backbone's gradient from the heads: with the ROI losses against
+    # the RPN's alone
+    feat = MR.backbone_feature(params, dbatch["images"], cfg)
+    obj, deltas = MR.rpn_forward(params, feat, cfg)
+    rpn = sum(MR.rpn_losses(obj, deltas, dbatch["gt_boxes"].float(),
+                            dbatch["gt_labels"].long(),
+                            MR.anchors_on(cfg, obj.device), cfg))
+    backbone = [i for i, n in enumerate(names) if n.startswith("backbone.")]
+    rpn_grads = torch.autograd.grad(rpn, [leaves[i] for i in backbone],
+                                    allow_unused=True,
+                                    materialize_grads=True)
+    moved, d2, n2 = {}, 0.0, 0.0
+    for i, g_rpn in zip(backbone, rpn_grads):
+        g = kernel_grads[i].float()
+        if g.norm() == 0:
+            continue      # stages past the C4 feature
+        d = (g - g_rpn.float()).norm()
+        moved[names[i]] = (d / g.norm()).item()
+        d2 += d.item() ** 2
+        n2 += g.norm().item() ** 2
+    share = math.sqrt(d2 / n2)
+    out.update(
+        roi_route=route, grad_step_launches=step_launches,
+        grad_rel_l2_kernel_vs_plain_max={worst: rel[worst]},
+        grad_rel_l2_kernel_vs_plain=rel, zero_grad_leaves=zero,
+        tolerance_rel_l2=MASKRCNN_F32_GRAD_REL_L2,
+        bf16_grad_rel_l2_rerun_max=max(bf16_rerun.values()),
+        bf16_grad_rel_l2_kernel_vs_plain_max={
+            bf16_worst: bf16_plain[bf16_worst]},
+        bf16_grad_rel_l2_kernel_vs_plain_median=median(bf16_plain),
+        bf16_tolerance_rel_l2={"median": MASKRCNN_BF16_GRAD_REL_L2_MEDIAN,
+                               "max": MASKRCNN_BF16_GRAD_REL_L2_MAX},
+        bf16_pooled_kernel_vs_plain_max_abs=pooled_gap["max_abs"],
+        bf16_pooled_max_abs=pooled_gap["max_ref"],
+        bf16_witness_perturbation=POOLED_PERTURBATION,
+        bf16_witness_grad_rel_l2_max=max(bf16_witness.values()),
+        bf16_witness_grad_rel_l2_median=median(bf16_witness),
+        backbone_grad_from_heads_share=share,
+        backbone_grad_from_heads_min_leaf=min(moved.values()),
+        backbone_grad_from_heads_limit=BACKBONE_FROM_HEADS_MIN)
+    emit("maskrcnn_train", **out)
+    want = MASKRCNN_STEP_LAUNCHES if on_card else {}
+    _require_no_launches("maskrcnn_train", out, want)
+    require(step_launches == {"nms": 0, "roi_align": 0, **want},
+            f"maskrcnn_train: the gradient step launched {step_launches}")
+    require(route == ("vector" if on_card else None),
+            f"maskrcnn_train: ROIAlign took the {route} route")
+    require(all(_all_finite(g) for g in kernel_grads),
+            "maskrcnn_train: non-finite gradients")
+    require(rel[worst] <= MASKRCNN_F32_GRAD_REL_L2,
+            f"maskrcnn_train: {worst}'s f32 gradient with the ROIAlign "
+            f"kernel differs from the plain one's by {rel[worst]}")
+    require(median(bf16_plain) <= MASKRCNN_BF16_GRAD_REL_L2_MEDIAN
+            and bf16_plain[bf16_worst] <= MASKRCNN_BF16_GRAD_REL_L2_MAX,
+            f"maskrcnn_train: the bf16 step's gradients with the ROIAlign "
+            f"kernel differ from the plain one's by {median(bf16_plain)} "
+            f"(median leaf), {bf16_plain[bf16_worst]} ({bf16_worst})")
+    require(moved and min(moved.values()) > 0
+            and share >= BACKBONE_FROM_HEADS_MIN,
+            f"maskrcnn_train: the ROI losses move the backbone's gradient "
+            f"by {share} (limit {BACKBONE_FROM_HEADS_MIN}): {moved}")
+    del trainer, params, leaves, kernel_grads, dbatch, feat, obj, deltas
+    _collect(on_card)
+    return out
+
+
+# -------------------------------------------------------------- loaders --
+
+@dataclasses.dataclass(frozen=True)
+class LoadersLoad:
+    """The loaders phase: `model` at full width and `n_layers` layers (a
+    depth cut for the script's time), B x S, `steps` shards of one batch
+    each published `delay_s` apart while the trainer streams them."""
+    model: str = "tpu_1b"
+    n_layers: int = 2
+    batch: int = 8
+    seq: int = 2048
+    steps: int = 3
+    delay_s: float = 0.2
+
+
+LOADERS_LOAD = LoadersLoad()
+LOADERS_REHEARSAL = LoadersLoad(model="tiny", batch=2, seq=32,
+                                delay_s=0.05)
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel")
+
+
+def phase_loaders(load: LoadersLoad = LOADERS_LOAD, device: str = "cuda",
+                  nvidia_smi: str = None) -> dict:
+    """A writer thread publishes token shards (`export_token_shard`, then
+    `finish_export`) while `streaming_shard_batches` feeds
+    `Trainer.fit(profile_dir=...)`: every batch the trainer took equals the
+    tokens published, reshaped; the marker ends the stream; the trace
+    exists and (on the card) names the three flash kernels; the same
+    corpus through `tokenized_file_batches(repeat=False)` gives the
+    batches it holds.  Launch counts are zeroed just before the fit and
+    read just after."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.train import data as TD
+    from cloudtik_tpu_torch.train.trainer import (
+        Trainer, TrainerConfig, transformer_spec)
+
+    on_card = device == "cuda"
+    L = load
+    _collect(on_card)
+    cfg = T.config(L.model, n_layers=L.n_layers, max_seq_len=L.seq)
+    rng = np.random.default_rng(7)
+    shards = [rng.integers(0, cfg.vocab_size, L.batch * (L.seq + 1),
+                           dtype=np.int32) for _ in range(L.steps)]
+    root = tempfile.mkdtemp(prefix="tik-loaders-")
+    export_dir = os.path.join(root, "export")
+    profile_dir = os.path.join(root, "profile")
+    published = []
+
+    def write():
+        for i, tokens in enumerate(shards):
+            time.sleep(L.delay_s)
+            TD.export_token_shard(export_dir, i, tokens)
+            published.append(time.monotonic())
+        TD.finish_export(export_dir)
+
+    stream = TD.streaming_shard_batches(export_dir, L.batch, L.seq,
+                                        poll_s=0.05, timeout_s=120)
+    taken = []
+
+    def recorded():
+        for b in stream:
+            taken.append(b)
+            yield b
+
+    writer = threading.Thread(target=write, daemon=True,
+                              name="tik-loaders-writer")
+    try:
+        trainer = Trainer(transformer_spec(cfg), TrainerConfig(
+            global_batch_size=L.batch, seq_len=L.seq, log_every=L.steps),
+            device=device)
+        trainer.init_state(torch.Generator(device=device).manual_seed(0))
+        writer.start()
+        t_start = time.monotonic()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        entry = trainer.fit(recorded(), L.steps,
+                            profile_dir=profile_dir)["history"][-1]
+        wall_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        writer.join(timeout=60)
+        require(not writer.is_alive(), "loaders: the writer never finished")
+        rest = list(stream)
+        rows = np.concatenate(shards).reshape(-1, L.seq + 1)
+        equal = [np.array_equal(b["tokens"], rows[i * L.batch:(i + 1)
+                                                  * L.batch, :-1])
+                 and np.array_equal(b["labels"], rows[i * L.batch:(i + 1)
+                                                      * L.batch, 1:])
+                 for i, b in enumerate(taken)]
+        trace_path = os.path.join(profile_dir, "trace.json")
+        require(os.path.exists(trace_path), "loaders: no trace written")
+        with open(trace_path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        named = {k: any(k in n for n in names) for k in FLASH_KERNELS}
+        corpus = os.path.join(root, "corpus.npy")
+        np.save(corpus, np.concatenate(shards))
+        file_batches = list(TD.tokenized_file_batches(
+            corpus, L.batch, L.seq, repeat=False))
+        out = {"model": L.model, "n_layers": L.n_layers,
+               "nvidia_smi": nvidia_smi, "batch": L.batch, "seq": L.seq,
+               "shards": len(shards), "steps": L.steps,
+               "batches_taken": len(taken), "batches_after_marker": len(rest),
+               "all_equal": all(equal) and len(equal) == L.steps,
+               "started_before_last_shard": t_start < published[-1],
+               "ms_per_step_profiled": wall_s / L.steps * 1e3,
+               "loss": entry["loss"], "launches": launches,
+               "launches_per_step": {k: n / L.steps
+                                     for k, n in launches.items()},
+               "trace_bytes": os.path.getsize(trace_path),
+               "trace_names_kernels": named,
+               "file_batches": len(file_batches)}
+    finally:
+        stream.close()
+        shutil.rmtree(root, ignore_errors=True)
+    emit("loaders", **out)
+    require(out["all_equal"], f"loaders: a batch differs from the tokens "
+                              f"published: {equal}")
+    require(not rest, f"loaders: {len(rest)} batches after the marker")
+    require(math.isfinite(entry["loss"]), f"loaders: loss {entry['loss']}")
+    require(all(named.values()) or not on_card,
+            f"loaders: the trace does not name the flash kernels {named}")
+    require(out["file_batches"] == L.steps,
+            f"loaders: tokenized_file_batches gave {out['file_batches']} "
+            f"batches of the corpus, expected {L.steps}")
+    n = L.n_layers if on_card else 0
+    require(out["launches_per_step"] == {k: n for k in launches},
+            f"loaders step launches {out['launches_per_step']}, expected "
+            f"{n} of each flash kernel")
+    del trainer
+    _collect(on_card)
+    return out
 
 
 # -------------------------------------------------------------------- main --
@@ -4145,11 +4739,22 @@ def main() -> int:
     det_launches = {k: sum(r["launches"][k] for r in detect.values())
                     for k in ("nms", "roi_align")}
 
+    # ---- vision and detection training, then the loaders (counts zeroed
+    # and read inside, around the measured steps and the streamed fit):
+    # ResNet and SSD launch none of B1-B5, Mask R-CNN exactly its two
+    # poolings a step ----
+    phase_resnet_train(nvidia_smi=smi)
+    phase_ssd_train(nvidia_smi=smi)
+    maskrcnn_train = phase_maskrcnn_train(nvidia_smi=smi)
+    det_launches["roi_align"] += maskrcnn_train["launches"]["roi_align"]
+    loaders = phase_loaders(nvidia_smi=smi)
+
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]
     launches = {k: inference[k] + train["launches"][k]
                 + checkpoint["launches"][k] + lora_train["launches"][k]
-                + bert["launches"][k] for k in inference}
+                + bert["launches"][k] + loaders["launches"][k]
+                for k in inference}
 
     def bwd_err(grads):
         return max(r["errors"][g]["max_abs"] for r in kernel_bwd.values()
@@ -4217,6 +4822,8 @@ def main() -> int:
         "launches": det_launches["roi_align"],
         "max_abs_err": max(
             [r["max_abs_err"] for r in kernel_det["roi_align"].values()]
+            + [r["forward_max_abs_err"]
+               for r in kernel_det["roi_align_grad"].values()]
             + list(detect["maskrcnn"]["roi_align_max_abs_err"].values())),
         "ms": sum(r["kernel_ms"] for r in roi_main),
         "plain_ms": sum(r["plain_ms"] for r in roi_main),

@@ -1,25 +1,34 @@
-"""Mask R-CNN-style two-stage detector in PyTorch: inference.
+"""Mask R-CNN-style two-stage detector in PyTorch.
 
 Counterpart of `cloudtik_tpu/models/maskrcnn.py`: the same configs,
 anchors, parameter tree and static-shape stages (C4 backbone feature, RPN,
-top-K proposals, ROI box and mask heads).  `roi_heads` pools every
-proposal of every image twice with ROIAlign (the roi and mask sizes), one
-launch of the Hopper ROIAlign kernel each; the kernel reads the bf16 NHWC
-feature map through its strides and widens it in registers, which gives
-the numbers of the JAX `f.astype(f32)` with no f32 copy.  `detect` ends in
-one launch of the Hopper NMS kernel for the batch (see `models/ssd.py`
-`select` for why the port's NMS stands in for the JAX `nms_reference`).
+top-K proposals, ROI box and mask heads), `detect` and the training loss.
+`roi_heads` pools every proposal of every image twice with ROIAlign (the
+roi and mask sizes), one launch of the Hopper ROIAlign kernel each; the
+kernel reads the bf16 NHWC feature map through its strides and widens it in
+registers, which gives the numbers of the JAX `f.astype(f32)` with no f32
+copy.  `detect` ends in one launch of the Hopper NMS kernel for the batch
+(see `models/ssd.py` `select` for why the port's NMS stands in for the JAX
+`nms_reference`).
 
 The RPN flattens its NHWC outputs in (h, w, anchor) order, the order of
 `anchors`; `fc1` reads each pooled ROI flattened as (C, P, P) and the mask
-head the [B*K, P, P, C] transpose, as in JAX.  `_rpn_targets`,
-`_roi_targets`, `_crop_gt_masks` and `loss_fn` come with the training
-slice.
+head the [B*K, P, P, C] transpose, as in JAX.
+
+`loss_fn` is the reference's: RPN targets by dense IoU with every valid gt
+force-claiming its best anchor, proposals from the detached objectness and
+deltas, ROI targets by IoU against the proposals, and the mask loss (when
+the batch has `gt_masks`) against each matched gt mask resampled into its
+proposal (`_crop_gt_masks`).  The targets are computed for the whole batch
+at once, the written-out `vmap` of the JAX per-image functions.  Both
+ROIAlign launches of `roi_heads` carry a gradient to the backbone
+(`ops/detection.py` `_RoIAlignFn`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -29,7 +38,8 @@ from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.models import resnet as R
 from cloudtik_tpu_torch.models import ssd as S
 from cloudtik_tpu_torch.ops.conv import conv_kernel_init, conv_nhwc
-from cloudtik_tpu_torch.ops.detection import roi_align_batched
+from cloudtik_tpu_torch.ops.detection import (box_iou, optax_sigmoid_ce,
+                                              roi_align_batched)
 
 Params = Dict[str, Any]
 
@@ -74,6 +84,20 @@ class MaskRCNNConfig:
     def feature_width(self) -> int:
         return self.backbone_config().stage_widths[self.feature_stage]
 
+    def flops_per_image(self) -> float:
+        bcfg = self.backbone_config()
+        f = R._forward_flops(bcfg)
+        fs = self.feature_size()
+        w = self.feature_width()
+        a = self.anchors_per_cell
+        f += 2 * (9 * w * self.rpn_channels) * fs ** 2
+        f += 2 * (self.rpn_channels * a * 5) * fs ** 2
+        roi = 2 * (w * self.roi_pool ** 2) * self.head_dim \
+            + 2 * self.head_dim * self.head_dim \
+            + 2 * self.head_dim * (self.num_classes * 5)
+        f += roi * self.num_proposals
+        return 3.0 * f
+
 
 PRESETS: Dict[str, MaskRCNNConfig] = {
     "maskrcnn_resnet50": MaskRCNNConfig(),
@@ -101,6 +125,11 @@ def anchors(cfg: MaskRCNNConfig) -> np.ndarray:
                 [cx, cy, np.full_like(cx, w), np.full_like(cy, h)],
                 axis=-1).reshape(-1, 4))
     return np.stack(cells, axis=1).reshape(-1, 4).astype(np.float32)
+
+
+# anchors_on(cfg, device): `anchors(cfg)` on `device`, made once per config
+# and device through SSD's cache
+anchors_on = functools.partial(S.anchors_on, anchors_fn=anchors)
 
 
 # --------------------------------------------------------------------------
@@ -233,6 +262,150 @@ def roi_heads(params: Params, feat: torch.Tensor, proposals: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+def _rpn_targets(gt_boxes, gt_labels, anchor_boxes, cfg):
+    """gt_boxes [B, M, 4], gt_labels [B, M] -> labels [B, N] (1 pos / 0 neg
+    / -1 ignore) and targets [B, N, 4] as deltas."""
+    B = gt_labels.shape[0]
+    n = anchor_boxes.shape[0]
+    valid = gt_labels > 0
+    iou = box_iou(gt_boxes, S.cxcywh_to_xyxy(anchor_boxes))   # [B, M, N]
+    iou = torch.where(valid[..., None], iou, torch.full_like(iou, -1.0))
+    best_iou = iou.amax(dim=1)
+    best_gt = iou.argmax(dim=1)
+    # padding rows claim slot n, which is sliced off
+    claim = torch.where(valid, iou.argmax(dim=2), n)
+    claimed = torch.zeros((B, n + 1), dtype=torch.bool,
+                          device=iou.device).scatter_(1, claim, True)[:, :n]
+    pos = claimed | (best_iou >= cfg.rpn_pos_iou)
+    neg = ~pos & (best_iou < cfg.rpn_neg_iou)
+    labels = torch.where(pos, 1, torch.where(neg, 0, -1))
+    matched = gt_boxes.gather(1, best_gt[..., None].expand(-1, -1, 4))
+    targets = S.encode_boxes(S.xyxy_to_cxcywh(matched), anchor_boxes, cfg)
+    return labels, targets
+
+
+def _roi_targets(proposals, gt_boxes, gt_labels, cfg):
+    """Per-proposal class + box-delta targets, the matched gt index and
+    the positive mask, each [B, K]."""
+    valid = gt_labels > 0
+    iou = box_iou(gt_boxes, proposals)                       # [B, M, K]
+    iou = torch.where(valid[..., None], iou, torch.full_like(iou, -1.0))
+    best_iou = iou.amax(dim=1)
+    best_gt = iou.argmax(dim=1)
+    pos = best_iou >= cfg.roi_pos_iou
+    labels = torch.where(pos, gt_labels.long().gather(1, best_gt), 0)
+    matched = gt_boxes.gather(1, best_gt[..., None].expand(-1, -1, 4))
+    targets = S.encode_boxes(S.xyxy_to_cxcywh(matched),
+                             S.xyxy_to_cxcywh(proposals), cfg)
+    return labels, targets, best_gt, pos
+
+
+def _crop_gt_masks(gt_masks, best_gt, proposals, pos, cfg):
+    """Resample each matched gt mask into its proposal window at mask_pool
+    resolution (bilinear hat weights, Wy @ mask @ Wx^T).  gt_masks
+    [B, M, mh, mw] in image-normalized coords -> [B, K, mp, mp], zero where
+    the proposal is not positive."""
+    mh, mw = gt_masks.shape[-2:]
+    mp = cfg.mask_pool
+    mask = gt_masks.float().gather(
+        1, best_gt[..., None, None].expand(-1, -1, mh, mw))   # [B, K, mh, mw]
+    x1, y1, x2, y2 = proposals.unbind(-1)
+    p = torch.arange(mp, dtype=torch.float32, device=proposals.device)
+
+    def axis_w(start, extent, size):                         # [B, K, mp, size]
+        coords = start[..., None] + (p + 0.5) * extent[..., None] - 0.5
+        coords = coords.clamp(0.0, size - 1.0)
+        grid = torch.arange(size, dtype=torch.float32,
+                            device=proposals.device)
+        return (1.0 - (coords[..., None] - grid).abs()).clamp(min=0.0)
+
+    wy = axis_w(y1 * mh, (y2 - y1) * mh / mp, mh)
+    wx = axis_w(x1 * mw, (x2 - x1) * mw / mp, mw)
+    crops = wy @ mask @ wx.transpose(-1, -2)
+    return torch.where(pos[..., None, None], crops, torch.zeros_like(crops))
+
+
+def rpn_losses(obj: torch.Tensor, deltas: torch.Tensor,
+               gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+               anchor_boxes: torch.Tensor, cfg: MaskRCNNConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RPN's two losses, objectness CE over the positive and negative
+    anchors and smooth-L1 over the positives: (rpn_cls_loss,
+    rpn_box_loss)."""
+    rpn_labels, rpn_tgts = _rpn_targets(gt_boxes, gt_labels, anchor_boxes,
+                                        cfg)
+    pos = rpn_labels == 1
+    neg = rpn_labels == 0
+    n_pos = pos.sum(dim=1).clamp(min=1)
+    obj_ce = optax_sigmoid_ce(obj, pos)
+    zero = torch.zeros_like(obj)
+    rpn_cls_loss = (torch.where(pos | neg, obj_ce, zero).sum(dim=1)
+                    / (pos | neg).sum(dim=1).clamp(min=1)).mean()
+    rpn_box = S._smooth_l1(deltas - rpn_tgts).sum(-1)
+    rpn_box_loss = (torch.where(pos, rpn_box, zero).sum(dim=1)
+                    / n_pos).mean()
+    return rpn_cls_loss, rpn_box_loss
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: MaskRCNNConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: images [B,H,W,3], gt_boxes [B,M,4] xyxy normalized,
+    gt_labels [B,M] (0 = pad), gt_masks [B,M,mh,mw] float in {0,1}
+    (optional: the mask loss is left out without it); the metrics
+    detached."""
+    feat = backbone_feature(params, batch["images"], cfg)
+    obj, deltas = rpn_forward(params, feat, cfg)
+    anchor_boxes = anchors_on(cfg, obj.device)
+    gt_boxes = batch["gt_boxes"].float()
+    gt_labels = batch["gt_labels"].long()
+    rpn_cls_loss, rpn_box_loss = rpn_losses(obj, deltas, gt_boxes,
+                                            gt_labels, anchor_boxes, cfg)
+
+    proposals, _ = propose(obj.detach(), deltas.detach(), anchor_boxes, cfg)
+    cls_logits, box_deltas, mask_logits = roi_heads(
+        params, feat, proposals, cfg)
+
+    roi_labels, roi_tgts, best_gt, roi_pos = _roi_targets(
+        proposals, gt_boxes, gt_labels, cfg)
+    n_roi_pos = roi_pos.sum(dim=1).clamp(min=1)
+    logp = torch.log_softmax(cls_logits, dim=-1)
+    roi_ce = -logp.gather(-1, roi_labels[..., None])[..., 0]
+    roi_cls_loss = roi_ce.mean()
+    cls_idx = roi_labels.clamp(min=0)
+    picked = box_deltas.gather(
+        2, cls_idx[..., None, None].expand(-1, -1, 1, 4))[:, :, 0, :]
+    roi_box = S._smooth_l1(picked - roi_tgts).sum(-1)
+    roi_box_loss = (torch.where(roi_pos, roi_box, torch.zeros_like(roi_box))
+                    .sum(dim=1) / n_roi_pos).mean()
+
+    loss = rpn_cls_loss + rpn_box_loss + roi_cls_loss + roi_box_loss
+    metrics = {
+        "rpn_cls_loss": rpn_cls_loss, "rpn_box_loss": rpn_box_loss,
+        "roi_cls_loss": roi_cls_loss, "roi_box_loss": roi_box_loss,
+        "num_pos": roi_pos.sum(dim=1).float().mean(),
+    }
+    if "gt_masks" in batch:
+        mp = cfg.mask_pool
+        crops = _crop_gt_masks(batch["gt_masks"], best_gt, proposals,
+                               roi_pos, cfg)
+        picked_masks = mask_logits.gather(
+            -1, cls_idx[..., None, None, None].expand(-1, -1, mp, mp, 1)
+        )[..., 0]
+        m_ce = optax_sigmoid_ce(picked_masks, crops)
+        mask_loss = (torch.where(roi_pos[..., None, None], m_ce,
+                                 torch.zeros_like(m_ce)).sum(dim=(1, 2, 3))
+                     / (n_roi_pos * mp ** 2)).mean()
+        loss = loss + mask_loss
+        metrics["mask_loss"] = mask_loss
+    metrics["loss"] = loss
+    return loss, {k: v.detach() for k, v in metrics.items()}
+
+
+# --------------------------------------------------------------------------
 # Inference
 # --------------------------------------------------------------------------
 
@@ -248,8 +421,7 @@ def detect(params: Params, images, cfg: MaskRCNNConfig, *,
     ROI heads pooled from."""
     dev = resolve_device(device)
     images = torch.as_tensor(images, device=dev)
-    # copied before any work is queued (see `ssd.detect`)
-    anchor_boxes = torch.as_tensor(anchors(cfg), device=dev)
+    anchor_boxes = anchors_on(cfg, dev)
     with torch.no_grad():
         feat = backbone_feature(params, images, cfg)
         obj, deltas = rpn_forward(params, feat, cfg)

@@ -14,7 +14,8 @@ port does:
 * Block 0 of every stage has a projection shortcut; v1.5 puts the stride
   on the 3x3 conv.
 
-`loss_fn` comes with the training slice.
+`loss_fn` is the classifier's training loss: the mean NLL of the f32
+logits, with `accuracy` beside it.
 """
 
 from __future__ import annotations
@@ -234,3 +235,17 @@ def forward(params: Params, images: torch.Tensor,
     x = x.mean(dim=(1, 2)).float()                    # global avg pool
     fc = params["fc"]
     return x @ fc["kernel"].float() + fc["bias"].float()
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ResNetConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: images [B, H, W, 3] f32, labels [B] int; the metrics
+    detached."""
+    logits = forward(params, batch["images"], cfg)
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -logp.gather(-1, labels[:, None]).mean()
+    return loss, {
+        "loss": loss.detach(),
+        "accuracy": (logits.argmax(-1) == labels).float().mean(),
+    }

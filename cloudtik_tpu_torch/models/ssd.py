@@ -1,9 +1,11 @@
-"""SSD single-shot detector on a ResNet backbone, in PyTorch: inference.
+"""SSD single-shot detector on a ResNet backbone, in PyTorch.
 
 Counterpart of `cloudtik_tpu/models/ssd.py`: the same configs, anchors
-(numpy), box coding, parameter tree and `forward`; `detect` decodes the
-deltas and ends in greedy NMS over every anchor of every image, one launch
-of the Hopper NMS kernel (`ops/detection.py`) for the batch on the card.
+(numpy, and a tensor made once per config and device), box coding,
+parameter tree, `forward`, `match_anchors` and `loss_fn`; `detect`
+decodes the deltas and ends in greedy NMS over every anchor of every
+image, one launch of the Hopper NMS kernel (`ops/detection.py`) for the
+batch on the card.
 
 The JAX `detect` calls `nms_reference`, not the Pallas `nms`; both compute
 `_nms_select_rows`, so the port's `detect` calls the port's `nms_batched`,
@@ -12,13 +14,23 @@ below `score_threshold` become exactly 0.0, not -inf: such boxes stay valid
 and fill the keep list in index order among their ties, as in JAX.
 
 The class and box heads flatten their NHWC outputs in (h, w, anchor) order,
-the order of `anchors`.  `match_anchors` and `loss_fn` come with the
-training slice.
+the order of `anchors`.
+
+`match_anchors` keeps XLA's answer where two ground-truth boxes force-claim
+one anchor: the JAX scatter `.at[claim].set(arange(M))` keeps the last
+writer on the CPU, and a torch `index_put_` with duplicate indices has no
+defined winner on the card, so the port takes the largest claiming index
+with `scatter_reduce(..., "amax")`, which is the last writer and
+deterministic.  Padding rows claim a slot past the anchors that is sliced
+off.  Hard-negative mining ranks by `argsort(argsort(-neg_ce))` with
+`stable=True`, as `jnp.argsort` is stable, and every argmax takes the first
+index on a tie, as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Tuple
 
@@ -28,7 +40,7 @@ import torch
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.models import resnet as R
 from cloudtik_tpu_torch.ops.conv import conv_kernel_init, conv_nhwc
-from cloudtik_tpu_torch.ops.detection import nms_batched
+from cloudtik_tpu_torch.ops.detection import box_iou, nms_batched
 
 Params = Dict[str, Any]
 
@@ -78,6 +90,23 @@ class SSDConfig:
     def num_anchors(self) -> int:
         return sum(s * s * self.anchors_per_cell
                    for s in self.feature_sizes())
+
+    def flops_per_image(self) -> float:
+        """fwd+bwd (3x fwd) conv FLOPs: backbone + extras + heads."""
+        bcfg = self.backbone_config()
+        flops = R._forward_flops(bcfg)
+        sizes = self.feature_sizes()
+        widths = self.feature_widths()
+        n_backbone = len(self.backbone_stages)
+        c_in = widths[n_backbone - 1]
+        for w, s in zip(self.extra_widths, sizes[n_backbone:]):
+            flops += 2 * (c_in * w // 2) * (s * 2) ** 2     # 1x1 reduce
+            flops += 2 * (9 * (w // 2) * w) * s ** 2        # 3x3 stride 2
+            c_in = w
+        a = self.anchors_per_cell
+        for w, s in zip(widths, sizes):
+            flops += 2 * (9 * w * a * (self.num_classes + 4)) * s ** 2
+        return 3.0 * flops
 
     def feature_widths(self) -> List[int]:
         bcfg = self.backbone_config()
@@ -130,6 +159,15 @@ def anchors(cfg: SSDConfig) -> np.ndarray:
         idx += a
         per_map.append(np.stack(maps, axis=1).reshape(-1, 4))
     return np.concatenate(per_map, axis=0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def anchors_on(cfg, device: torch.device, anchors_fn=anchors) -> torch.Tensor:
+    """`anchors_fn(cfg)` (this model's `anchors` unless another detector
+    passes its own) as a tensor on `device`, made once per config and
+    device: no later call copies from pageable host memory, which would
+    wait behind the work queued on the card."""
+    return torch.as_tensor(anchors_fn(cfg), device=device)
 
 
 def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
@@ -245,6 +283,75 @@ def forward(params: Params, images: torch.Tensor,
     return torch.cat(cls_out, dim=1), torch.cat(box_out, dim=1)
 
 
+# --------------------------------------------------------------------------
+# Matching + loss
+# --------------------------------------------------------------------------
+
+def match_anchors(gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                  anchor_boxes: torch.Tensor,
+                  cfg: SSDConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A batch.  gt_boxes [B, M, 4] xyxy normalized (label 0 rows are
+    padding), gt_labels [B, M] int -> (labels [B, N] int64, box_targets
+    [B, N, 4]).  Each anchor takes its best gt above the threshold; every
+    valid gt force-claims its best anchor, the last claimant winning an
+    anchor two claim (see the module docstring)."""
+    B, M = gt_labels.shape
+    n = anchor_boxes.shape[0]
+    valid = gt_labels > 0
+    iou = box_iou(gt_boxes, cxcywh_to_xyxy(anchor_boxes))     # [B, M, N]
+    iou = torch.where(valid[..., None], iou, torch.full_like(iou, -1.0))
+    best_gt = iou.argmax(dim=1)                              # [B, N]
+    best_iou = iou.amax(dim=1)
+    claim = torch.where(valid, iou.argmax(dim=2), n)          # [B, M]
+    claimed_by = torch.full((B, n + 1), -1, dtype=torch.long,
+                            device=iou.device)
+    claimed_by.scatter_reduce_(
+        1, claim, torch.arange(M, device=iou.device).expand(B, M), "amax")
+    claimed_by = claimed_by[:, :n]
+    claimed = claimed_by >= 0
+    assigned = torch.where(claimed, claimed_by, best_gt)
+    positive = claimed | (best_iou >= cfg.match_iou)
+    labels = torch.where(positive, gt_labels.long().gather(1, assigned), 0)
+    matched = gt_boxes.gather(1, assigned[..., None].expand(-1, -1, 4))
+    targets = encode_boxes(xyxy_to_cxcywh(matched), anchor_boxes, cfg)
+    return labels, targets
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: SSDConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: images [B,H,W,3], gt_boxes [B,M,4] xyxy normalized,
+    gt_labels [B,M] int (0 = padding/background); the metrics detached."""
+    cls_logits, box_deltas = forward(params, batch["images"], cfg)
+    anchor_boxes = anchors_on(cfg, cls_logits.device)
+    labels, targets = match_anchors(batch["gt_boxes"].float(),
+                                    batch["gt_labels"], anchor_boxes, cfg)
+    positive = labels > 0
+    num_pos = positive.sum(dim=1).clamp(min=1)               # [B]
+
+    logp = torch.log_softmax(cls_logits, dim=-1)
+    ce = -logp.gather(-1, labels[..., None])[..., 0]
+    # hard negative mining: keep the top (ratio * num_pos) negatives by
+    # loss; rank-of-rank gives each negative its descending-loss rank
+    neg_ce = torch.where(positive, float("-inf"), ce.detach())
+    order = torch.argsort(-neg_ce, dim=1, stable=True)
+    rank = torch.argsort(order, dim=1, stable=True)
+    num_neg = torch.clamp((cfg.neg_pos_ratio * num_pos).long(),
+                          max=positive.shape[1] - 1)
+    negative = ~positive & (rank < num_neg[:, None])
+    zero = torch.zeros_like(ce)
+    conf_loss = torch.where(positive | negative, ce, zero).sum(dim=1) \
+        / num_pos
+    loc = _smooth_l1(box_deltas - targets).sum(-1)
+    loc_loss = torch.where(positive, loc, zero).sum(dim=1) / num_pos
+    loss = (conf_loss + loc_loss).mean()
+    return loss, {
+        "loss": loss.detach(),
+        "conf_loss": conf_loss.detach().mean(),
+        "loc_loss": loc_loss.detach().mean(),
+        "num_pos": num_pos.float().mean(),
+    }
+
+
 def select(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,
            *, score_threshold: float, iou_threshold: float,
            max_detections: int) -> Dict[str, torch.Tensor]:
@@ -279,9 +386,7 @@ def detect(params: Params, images, cfg: SSDConfig, *,
     `nms_boxes` [B, N, 4] / `nms_scores` [B, N]."""
     dev = resolve_device(device)
     images = torch.as_tensor(images, device=dev)
-    # copied before any work is queued: a copy from pageable host memory
-    # waits for the stream, which would idle the card behind the host
-    anchor_boxes = torch.as_tensor(anchors(cfg), device=dev)
+    anchor_boxes = anchors_on(cfg, dev)
     with torch.no_grad():
         cls_logits, box_deltas = forward(params, images, cfg)
         probs = torch.softmax(cls_logits, dim=-1)

@@ -17,6 +17,15 @@ raise, and never fall back.  The batched entries are the written-out `vmap`
 of the JAX callers, so one `detect` call launches each kernel once per
 pooled size, over all images.
 
+ROIAlign has a gradient with respect to the features on both devices
+(`_RoIAlignFn`): the forward is the kernel or the plain version as above,
+and the backward is `roi_align_grad`, the same torch code on both, the
+adjoint of the reference's weight-matmul form `_roi_align_one` (the JAX
+package differentiates that form with XLA and has no backward Pallas
+kernel).  The ROIs get no gradient: ones that require it are refused.
+`sigmoid_focal_loss` and `optax_sigmoid_ce` are elementwise torch ops, as
+XLA fuses them in the reference.
+
 The plain NMS is `_nms_select_rows` op for op: areas, intersection and union
 in the JAX order, `iou > thr` strict and in f32 (the threshold is a weak
 Python float in JAX, so f32(thr)), the lowest index winning ties, a score at
@@ -29,6 +38,7 @@ round-to-nearest intrinsics, so the two keep lists are equal.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -43,8 +53,10 @@ LAUNCHES_ROI_ALIGN = 0
 # can show which form of csrc/roi_align.cu its path took.
 LAST_ROI_ROUTE = None
 
-# ROIs the plain ROIAlign gathers at a time: bounds its [R, C, P*s, P*s]
-# temporaries at full width (4 x 25 MB at Mask R-CNN's 14x14)
+# ROIs the plain ROIAlign gathers, and its gradient contracts, at a time:
+# bounds the gather's [R, C, P*s, P*s] temporaries at full width (4 x 25 MB
+# at Mask R-CNN's 14x14) and the gradient's [B, R, C, P, W] (235 MB at
+# B=4 there, against 0.94 GB for all 128 ROIs at once)
 _ROI_CHUNK = 32
 _ROI_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROI_ROUTE_CODES = {"strided": 0, "vector": 1}
@@ -59,16 +71,18 @@ _SMEM_BYTES = 227 * 1024
 # --------------------------------------------------------------------------
 
 def box_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU.  boxes [*, 4] as (x1, y1, x2, y2)."""
+    """Pairwise IoU.  boxes_a [*, M, 4], boxes_b [*, N, 4] as (x1, y1, x2,
+    y2), their leading dims broadcast -> [*, M, N]; the JAX `box_iou` op
+    for op (per image, as its callers vmap it)."""
     area_a = ((boxes_a[..., 2] - boxes_a[..., 0])
               * (boxes_a[..., 3] - boxes_a[..., 1]))
     area_b = ((boxes_b[..., 2] - boxes_b[..., 0])
               * (boxes_b[..., 3] - boxes_b[..., 1]))
-    lt = torch.maximum(boxes_a[..., None, :2], boxes_b[None, :, :2])
-    rb = torch.minimum(boxes_a[..., None, 2:], boxes_b[None, :, 2:])
+    lt = torch.maximum(boxes_a[..., :, None, :2], boxes_b[..., None, :, :2])
+    rb = torch.minimum(boxes_a[..., :, None, 2:], boxes_b[..., None, :, 2:])
     wh = (rb - lt).clamp(min=0)
     inter = wh[..., 0] * wh[..., 1]
-    union = area_a[..., None] + area_b[None, :] - inter
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / union.clamp(min=1e-9)
 
 
@@ -341,22 +355,108 @@ def _kernel_roi_align(features: torch.Tensor, rois: torch.Tensor,
     return out
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """f32 products in full precision, as the reference pins
+    `Precision.HIGHEST` for ROIAlign.  PyTorch's default already has TF32
+    off, and then nothing is touched; where a caller turned it on, the
+    flag is process-wide, so matmuls that other threads issue inside the
+    block (the backward runs on autograd's device thread) lose TF32 too,
+    until the block restores it."""
+    if not torch.backends.cuda.matmul.allow_tf32:
+        yield
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+
+def _pooling_weights(rois: torch.Tensor, pooled: int, sampling: int,
+                     spatial_scale: float, size: int, axis: int
+                     ) -> torch.Tensor:
+    """The JAX `_axis_weights` for rois [..., 4] along one axis (0: y
+    over `size` rows, 1: x over `size` columns): [..., pooled, size], row
+    p the mean of its samples' hat weights max(0, 1 - |coord - q|) at the
+    clipped coordinates."""
+    lead = rois.shape[:-1]
+    coords = _sample_coords(rois.reshape(-1, 4).float(), pooled, sampling,
+                            spatial_scale)[axis].clamp(0.0, size - 1.0)
+    grid = torch.arange(size, dtype=torch.float32, device=rois.device)
+    hat = (1.0 - (coords[..., None] - grid).abs()).clamp(min=0.0)
+    return hat.reshape(*lead, pooled, sampling, size).mean(dim=-2)
+
+
+def roi_align_grad(grad: torch.Tensor, rois: torch.Tensor, size,
+                   pooled_size: int, sampling_ratio: int,
+                   spatial_scale: float) -> torch.Tensor:
+    """The gradient of ROIAlign with respect to features of `size`
+    (B, C, H, W), given the output's gradient `grad` [B, R, C, P, P] and
+    rois [B, R, 4]: per ROI dF[c, h, w] += sum_{p,q} wy[p, h] g[c, p, q]
+    wx[q, w], the adjoint of the reference's Wy @ F @ Wx^T with the same
+    weights.  Two batched contractions, ROIs a chunk at a time; f32, as a
+    [B, C, H, W] view of a [B, H, W, C] tensor (the detectors' NHWC
+    maps)."""
+    B, C, H, W = size
+    R = rois.shape[1]
+    wy = _pooling_weights(rois, pooled_size, sampling_ratio, spatial_scale,
+                          H, 0)                              # [B, R, P, H]
+    wx = _pooling_weights(rois, pooled_size, sampling_ratio, spatial_scale,
+                          W, 1)                              # [B, R, P, W]
+    out = torch.zeros((B, H, W, C), dtype=torch.float32, device=grad.device)
+    with _no_tf32():
+        for i in range(0, R, _ROI_CHUNK):
+            chunk = slice(i, i + _ROI_CHUNK)
+            t = torch.einsum("brcpq,brqw->brcpw", grad[:, chunk].float(),
+                             wx[:, chunk])
+            out += torch.einsum("brph,brcpw->bhwc", wy[:, chunk], t)
+    return out.permute(0, 3, 1, 2)
+
+
+class _RoIAlignFn(torch.autograd.Function):
+    """ROIAlign with a gradient for the features: the forward is the CUDA
+    kernel on the card and the plain gather form on the CPU, the backward
+    `roi_align_grad` on both, cast to the features' dtype."""
+
+    @staticmethod
+    def forward(ctx, features, rois, pooled, sampling, spatial_scale):
+        ctx.save_for_backward(rois)
+        ctx.meta = (tuple(features.shape), features.dtype, pooled, sampling,
+                    spatial_scale)
+        if features.is_cuda:
+            return _kernel_roi_align(features, rois, pooled, sampling,
+                                     spatial_scale)
+        return roi_align_reference_batched(
+            features, rois, pooled_size=pooled, sampling_ratio=sampling,
+            spatial_scale=spatial_scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (rois,) = ctx.saved_tensors
+        size, dtype, pooled, sampling, spatial_scale = ctx.meta
+        dfeatures = roi_align_grad(grad, rois, size, pooled, sampling,
+                                   spatial_scale).to(dtype)
+        return dfeatures, None, None, None, None
+
+
 def roi_align_batched(features: torch.Tensor, rois: torch.Tensor, *,
                       pooled_size: int = 7, sampling_ratio: int = 2,
                       spatial_scale: float = 1.0) -> torch.Tensor:
     """ROIAlign per image: features [B, C, H, W] (any strides), rois
     [B, R, 4] (x1, y1, x2, y2 in input coordinates) -> [B, R, C, P, P] f32.
     The CUDA kernel for CUDA tensors (one launch for the batch), the plain
-    version for CPU tensors; any other device raises."""
+    version for CPU tensors; any other device raises.  Differentiable with
+    respect to `features`; `rois` that require grad raise."""
     _check_roi(features, rois)
-    if features.is_cuda:
-        return _kernel_roi_align(features, rois, int(pooled_size),
-                                 int(sampling_ratio), spatial_scale)
-    if features.device.type == "cpu":
-        return roi_align_reference_batched(
-            features, rois, pooled_size=pooled_size,
-            sampling_ratio=sampling_ratio, spatial_scale=spatial_scale)
-    raise ValueError(f"no roi_align for device {features.device}")
+    if not (features.is_cuda or features.device.type == "cpu"):
+        raise ValueError(f"no roi_align for device {features.device}")
+    if rois.requires_grad:
+        raise ValueError("roi_align has no gradient for the rois: detach "
+                         "them (the reference's loss pools detached "
+                         "proposals)")
+    return _RoIAlignFn.apply(features, rois, int(pooled_size),
+                             int(sampling_ratio), float(spatial_scale))
 
 
 def roi_align(features: torch.Tensor, rois: torch.Tensor, *,
@@ -368,3 +468,34 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, *,
                              pooled_size=pooled_size,
                              sampling_ratio=sampling_ratio,
                              spatial_scale=spatial_scale)[0]
+
+
+# --------------------------------------------------------------------------
+# Sigmoid focal loss
+# --------------------------------------------------------------------------
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor, *,
+                       alpha: float = 0.25, gamma: float = 2.0,
+                       reduction: str = "sum") -> torch.Tensor:
+    """Focal loss for dense detection: logits [*, K], targets [*, K] in
+    {0, 1}; `alpha` < 0 leaves out the class weighting; reduction "sum",
+    "mean" or anything else for none."""
+    p = torch.sigmoid(logits)
+    ce = optax_sigmoid_ce(logits, targets)
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = ce * ((1 - p_t) ** gamma)
+    if alpha >= 0:
+        alpha_t = alpha * targets + (1 - alpha) * (1 - targets)
+        loss = alpha_t * loss
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "mean":
+        return loss.mean()
+    return loss
+
+
+def optax_sigmoid_ce(logits: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """Numerically-stable sigmoid cross entropy."""
+    return (logits.clamp(min=0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))

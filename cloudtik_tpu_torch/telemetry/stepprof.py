@@ -293,11 +293,18 @@ class ProfileCapture:
         request = take_request(self._path)
         if request is None:
             return False
+        return self.start(request["output_dir"],
+                          max(int(request.get("steps", 1)), 1))
+
+    def start(self, output_dir: str, steps: int = 0) -> bool:
+        """Start the profiler now, writing into `output_dir`; it stops
+        after `steps` completed steps, or (0) only at `stop()`."""
         try:
             import torch
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
+            os.makedirs(output_dir, exist_ok=True)
             profiler = torch.profiler.profile(activities=activities)
             profiler.start()
         except Exception:
@@ -306,15 +313,17 @@ class ProfileCapture:
             return False
         self._profiler = profiler
         self.active = True
-        self._remaining = max(int(request.get("steps", 1)), 1)
-        self._output_dir = request["output_dir"]
-        logger.info("profile capture started: %d step(s) -> %s",
-                    self._remaining, self._output_dir)
+        self._remaining = steps
+        self._output_dir = output_dir
+        logger.info("profile capture started: %s -> %s",
+                    f"{steps} step(s)" if steps else "until stopped",
+                    output_dir)
         return True
 
     def step_done(self, sync_leaf: Any = None) -> None:
-        """Count one completed step while a capture is active."""
-        if not self.active:
+        """Count one completed step while a capture of a step count is
+        active."""
+        if not self.active or not self._remaining:
             return
         self._remaining -= 1
         if self._remaining <= 0:

@@ -1,15 +1,32 @@
-"""Synthetic training batches.
+"""Training batches: synthetic generators, a flat token file and the
+streaming shard hand-off.
 
-Counterpart of `cloudtik_tpu/train/data.py`'s `synthetic_lm_batches` and
-`synthetic_mlm_batches`, byte for byte: the same numpy generator, seed and
-draws, so that both packages train on identical batches.  Batches are
-numpy arrays; the trainer moves them to its device.  The per-host sharded
-loaders come with the parallel slice.
+Counterpart of `cloudtik_tpu/train/data.py`, byte for byte: the same numpy
+generators, seeds and draws (`synthetic_lm_batches`,
+`synthetic_mlm_batches`, `synthetic_image_batches`,
+`synthetic_detection_batches`), the same file reader
+(`tokenized_file_batches`) and the same streaming protocol
+(`export_token_shard`, `finish_export`, `streaming_shard_batches`: shards
+published by atomic rename, a `_SUCCESS` marker, readahead on a watcher
+thread, a timeout, strided shard ownership), so that both packages train
+on identical batches.  Batches are numpy arrays; the trainer moves them to
+its device.  Where the JAX package asks `jax.process_index()` and
+`process_count()` which shards are this host's, the port asks
+`torch.distributed` for its rank and world size when a process group is
+initialised, else 0 and 1.  `global_batches` comes with the parallel layer
+(ROADMAP A7); the generators of the other model families with their
+models.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+import glob as _glob
+import os
+import queue
+import re
+import threading
+import time
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -59,3 +76,264 @@ def synthetic_mlm_batches(
         yield {"tokens": masked,
                "mlm_positions": positions,
                "mlm_labels": labels.astype(np.int32)}
+
+
+def synthetic_image_batches(
+    batch_size: int,
+    image_size: int,
+    num_classes: int,
+    seed: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Synthetic image-classification batches (NHWC float32)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield {
+            "images": rng.standard_normal(
+                (batch_size, image_size, image_size, 3)).astype(np.float32),
+            "labels": rng.integers(
+                0, num_classes, (batch_size,), dtype=np.int32),
+        }
+
+
+def synthetic_detection_batches(
+    batch_size: int,
+    image_size: int,
+    num_classes: int,
+    max_boxes: int = 64,
+    mask_size: int = 0,
+    seed: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Synthetic detection batches: images + padded normalized gt boxes
+    (xyxy) with int labels; label 0 marks padding rows.  mask_size > 0
+    adds box-interior instance masks (Mask R-CNN training)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        n = rng.integers(1, max_boxes // 2 + 1, (batch_size,))
+        boxes = np.zeros((batch_size, max_boxes, 4), np.float32)
+        labels = np.zeros((batch_size, max_boxes), np.int32)
+        for b in range(batch_size):
+            xy = rng.uniform(0.0, 0.7, (n[b], 2))
+            wh = rng.uniform(0.1, 0.3, (n[b], 2))
+            boxes[b, :n[b], :2] = xy
+            boxes[b, :n[b], 2:] = np.minimum(xy + wh, 1.0)
+            labels[b, :n[b]] = rng.integers(1, num_classes, n[b])
+        batch = {
+            "images": rng.standard_normal(
+                (batch_size, image_size, image_size, 3)).astype(np.float32),
+            "gt_boxes": boxes,
+            "gt_labels": labels,
+        }
+        if mask_size:
+            # instance masks: filled box interiors at mask resolution
+            masks = np.zeros(
+                (batch_size, max_boxes, mask_size, mask_size), np.float32)
+            grid = (np.arange(mask_size) + 0.5) / mask_size
+            for b in range(batch_size):
+                for m in range(n[b]):
+                    x1, y1, x2, y2 = boxes[b, m]
+                    masks[b, m] = ((grid[:, None] >= y1)
+                                   & (grid[:, None] <= y2)
+                                   & (grid[None, :] >= x1)
+                                   & (grid[None, :] <= x2))
+            batch["gt_masks"] = masks
+        yield batch
+
+
+def process_shard() -> Tuple[int, int]:
+    """(rank, world size) of this process: `torch.distributed`'s when a
+    process group is initialised, else (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _shard(shard_index: Optional[int],
+           shard_count: Optional[int]) -> Tuple[int, int]:
+    rank, world = process_shard()
+    return (rank if shard_index is None else shard_index,
+            world if shard_count is None else shard_count)
+
+
+# ---------------------------------------------------------------------------
+# Streaming ETL -> trainer hand-off
+# ---------------------------------------------------------------------------
+#
+# The ETL cluster (spark runtime) exports tokenized shards to shared
+# storage while the training cluster trains; the trainer must start before
+# the last shard exists and stream shards as they land.  Protocol:
+#   * writers publish `shard-NNNNN.npy` (flat int32 token ids) ATOMICALLY
+#     via export_token_shard (write hidden tmp, os.replace) so a reader
+#     never observes a half-written file;
+#   * the writer of the LAST shard drops `_SUCCESS` (spark's own
+#     completion-marker convention) via finish_export.
+
+SHARD_DONE_MARKER = "_SUCCESS"
+_SHARD_RE = re.compile(r"shard-(\d+)\.npy$")
+
+
+def export_token_shard(export_dir: str, index: int,
+                       tokens: np.ndarray) -> str:
+    """Atomically publish one tokenized shard (the writer half of the
+    streaming hand-off; a spark executor calls this per partition)."""
+    os.makedirs(export_dir, exist_ok=True)
+    final = os.path.join(export_dir, f"shard-{index:05d}.npy")
+    # unique tmp per attempt: a speculative/zombie re-execution of the
+    # same partition must never write into the inode another attempt is
+    # about to publish (the reader's contract is visible == complete)
+    tmp = os.path.join(
+        export_dir,
+        f".tmp-shard-{index:05d}.{os.getpid()}.{id(tokens):x}.npy")
+    np.save(tmp, np.asarray(tokens, np.int32))
+    os.replace(tmp, final)
+    return final
+
+
+def finish_export(export_dir: str) -> None:
+    """Drop the completion marker after every shard is published."""
+    with open(os.path.join(export_dir, SHARD_DONE_MARKER), "w") as f:
+        f.write("ok\n")
+
+
+def streaming_shard_batches(
+    export_dir: str,
+    batch_size: int,
+    seq_len: int,
+    *,
+    readahead: int = 2,
+    poll_s: float = 0.25,
+    timeout_s: float = 600.0,
+    shard_index: Optional[int] = None,
+    shard_count: Optional[int] = None,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Stream LM batches from an export directory WHILE it is being
+    written.
+
+    A watcher thread polls for newly published shards, loads up to
+    `readahead` of them ahead of the consumer (IO overlaps the train
+    step), and finishes when the `_SUCCESS` marker exists and every
+    published shard is consumed.  Raises TimeoutError if no new shard
+    and no marker appear for `timeout_s` (a dead ETL job must fail the
+    trainer, not hang it).
+
+    Multi-process: rank h consumes shards with index % shard_count == h —
+    disjoint strided ownership, same as tokenized_file_batches.  Ranks
+    must see the same number of batches to stay in lockstep, so
+    exporters should publish equal-size shards in multiples of
+    shard_count.  Trailing tokens that don't fill a complete batch are
+    dropped.
+    """
+    shard_index, shard_count = _shard(shard_index, shard_count)
+    q: "queue.Queue" = queue.Queue(maxsize=max(readahead, 1))
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        """Queue put that never deadlocks a departed consumer: the
+        consumer's finally drains once, but the watcher may refill —
+        poll `stop` instead of blocking forever."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def watch():
+        seen = set()
+        last_progress = time.monotonic()
+        try:
+            while not stop.is_set():
+                # marker checked BEFORE the glob: shards published
+                # between a glob and a later marker check would be
+                # dropped; this order guarantees the final scan happens
+                # after the marker (writers drop it last)
+                done = os.path.exists(
+                    os.path.join(export_dir, SHARD_DONE_MARKER))
+                files = sorted(
+                    _glob.glob(os.path.join(export_dir, "shard-*.npy")))
+                new = [f for f in files if f not in seen]
+                for f in new:
+                    seen.add(f)
+                    last_progress = time.monotonic()
+                    m = _SHARD_RE.search(f)
+                    if m is None:
+                        continue
+                    if int(m.group(1)) % shard_count != shard_index:
+                        continue
+                    # rename-published: the file is complete once visible
+                    if not put(np.load(f).astype(np.int32)):
+                        return
+                if done and not new:
+                    put(None)
+                    return
+                if time.monotonic() - last_progress > timeout_s:
+                    put(TimeoutError(
+                        f"no new shard in {export_dir} for "
+                        f"{timeout_s:.0f}s and no {SHARD_DONE_MARKER}"))
+                    return
+                # back off only when nothing new landed this scan
+                if not new:
+                    stop.wait(poll_s)
+        except Exception as e:   # surface loader errors to the consumer
+            put(e)
+
+    watcher = threading.Thread(target=watch, daemon=True,
+                               name="tik-shard-watch")
+    watcher.start()
+    per = seq_len + 1
+    buf = np.zeros((0,), np.int32)
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, Exception):
+                raise item
+            buf = np.concatenate([buf, item]) if buf.size else item
+            need = batch_size * per
+            while buf.size >= need:
+                rows = buf[:need].reshape(batch_size, per)
+                buf = buf[need:]
+                yield {"tokens": rows[:, :-1].astype(np.int32),
+                       "labels": rows[:, 1:].astype(np.int32)}
+    finally:
+        stop.set()
+        # unblock a watcher stuck on a full queue
+        while True:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+
+
+def tokenized_file_batches(
+    path: str,
+    batch_size: int,
+    seq_len: int,
+    *,
+    shard_index: Optional[int] = None,
+    shard_count: Optional[int] = None,
+    repeat: bool = True,
+    seed: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Stream fixed-length LM examples from a flat token file (.npy/.bin of
+    int32 token ids).  Each process reads a disjoint strided shard."""
+    shard_index, shard_count = _shard(shard_index, shard_count)
+    tokens = np.load(path, mmap_mode="r") if path.endswith(".npy") else \
+        np.memmap(path, dtype=np.int32, mode="r")
+    n_examples = len(tokens) // (seq_len + 1)
+    indices = np.arange(shard_index, n_examples, shard_count)
+    rng = np.random.default_rng(seed)
+    while True:
+        order = rng.permutation(indices)
+        for start in range(0, len(order) - batch_size + 1, batch_size):
+            batch_idx = order[start:start + batch_size]
+            rows = np.stack([
+                tokens[i * (seq_len + 1):(i + 1) * (seq_len + 1)]
+                for i in batch_idx])
+            yield {"tokens": rows[:, :-1].astype(np.int32),
+                   "labels": rows[:, 1:].astype(np.int32)}
+        if not repeat:
+            return

@@ -2,8 +2,10 @@
 meter, checkpoints and an async input pipeline.
 
 Counterpart of the single-device core of `cloudtik_tpu/train/trainer.py`:
-`ModelSpec`, `transformer_spec`, `bert_spec` (and `models/lora.py`'s
-`lora_spec`), `TrainerConfig`, `Trainer.init_state` /
+`ModelSpec`, `transformer_spec`, `bert_spec`, `resnet_spec`, `ssd_spec`,
+`maskrcnn_spec` (and `models/lora.py`'s `lora_spec`; the image models count
+one "token" an image, so their TrainerConfig has seq_len=1),
+`TrainerConfig`, `Trainer.init_state` /
 `fit` with the same history keys (loss, n_tokens, accuracy, grad_norm,
 step, tokens_per_sec, mfu), gradient accumulation as the mean of the
 micro-batch gradients, and the update `p + u.to(p.dtype)`.  PyTorch runs
@@ -16,11 +18,14 @@ window's wall time is taken after it.
 `StepProfiler` (telemetry/stepprof.py), and saves a checkpoint every
 `checkpoint_every` steps into `checkpoint_dir` (train/checkpoint.py);
 `maybe_resume` restores the newest readable one, and the steps a resume
-re-runs book as `restart_replay`.
+re-runs book as `restart_replay`.  `fit(profile_dir=...)` traces the
+whole call with `torch.profiler` (the CPU, and the card when there is one)
+into `<profile_dir>/trace.json`, a Chrome trace, through the same
+`ProfileCapture` that serves on-demand captures.
 
-Not here yet (ROADMAP A5, A7, A8): the mesh and shardings, the
-overlapped gradient sync, elastic re-meshing, `profile_dir`, and the other
-model families' specs.
+Not here yet (ROADMAP A7, A8): the mesh and shardings, the overlapped
+gradient sync, elastic re-meshing, and the specs of the diffusion, DLRM,
+RNN-T and GraphSAGE families.
 """
 
 from __future__ import annotations
@@ -87,6 +92,40 @@ def bert_spec(cfg, objective: str = "mlm") -> ModelSpec:
         init=lambda gen, device: B.init_params(gen, cfg, device),
         loss_fn=lambda params, batch: loss(params, batch, cfg),
         flops_per_token=cfg.flops_per_token(),
+    )
+
+
+def resnet_spec(cfg) -> ModelSpec:
+    """Image classification: "token" accounting is per image
+    (seq_len=1)."""
+    from cloudtik_tpu_torch.models import resnet as R
+
+    return ModelSpec(
+        init=lambda gen, device: R.init_params(gen, cfg, device),
+        loss_fn=lambda params, batch: R.loss_fn(params, batch, cfg),
+        flops_per_token=cfg.flops_per_image(),
+    )
+
+
+def ssd_spec(cfg) -> ModelSpec:
+    """Single-shot detection (SSD-ResNet34): per-image accounting."""
+    from cloudtik_tpu_torch.models import ssd as S
+
+    return ModelSpec(
+        init=lambda gen, device: S.init_params(gen, cfg, device),
+        loss_fn=lambda params, batch: S.loss_fn(params, batch, cfg),
+        flops_per_token=cfg.flops_per_image(),
+    )
+
+
+def maskrcnn_spec(cfg) -> ModelSpec:
+    """Two-stage detection (Mask R-CNN): per-image accounting."""
+    from cloudtik_tpu_torch.models import maskrcnn as M
+
+    return ModelSpec(
+        init=lambda gen, device: M.init_params(gen, cfg, device),
+        loss_fn=lambda params, batch: M.loss_fn(params, batch, cfg),
+        flops_per_token=cfg.flops_per_image(),
     )
 
 
@@ -259,12 +298,13 @@ class Trainer:
 
     # -- loop ----------------------------------------------------------------
     def fit(self, data_iter: Iterator[Dict[str, np.ndarray]],
-            num_steps: int, callbacks: Optional[list] = None
-            ) -> Dict[str, Any]:
+            num_steps: int, callbacks: Optional[list] = None,
+            profile_dir: Optional[str] = None) -> Dict[str, Any]:
         """Run `num_steps` training steps; returns {"history",
         "final_step"}, one history entry per `log_every` steps (and one for
         a final partial window).  Each `callbacks` entry is called as
-        cb(trainer, entry) after each window."""
+        cb(trainer, entry) after each window.  With `profile_dir`, the
+        whole call is traced into `<profile_dir>/trace.json`."""
         goodput.LEDGER.start_job()
         stepprof.install_compile_tracking()
         if self.params is None:
@@ -276,9 +316,18 @@ class Trainer:
             # step would hold up that step's launches
             self.checkpointer.reserve(self.state)
         prefetcher = None
+        # one capture for the call: the whole window when profile_dir is
+        # given (an on-demand request then waits: poll() skips while a
+        # capture runs), else whatever a request starts
+        capture = stepprof.ProfileCapture()
+        if profile_dir and not capture.start(profile_dir):
+            raise RuntimeError(
+                f"fit(profile_dir={profile_dir!r}): the profiler did not "
+                "start (the log has the reason)")
         try:
             if not isinstance(data_iter, Prefetcher):
-                # token ids as int64, whatever the source gives
+                # integer ids as int64, whatever the source gives; floats
+                # (images, boxes, masks) as they are
                 data_iter = map(_as_long, data_iter)
                 if self.config.prefetch_depth > 0:
                     # max_items: a fit consumes exactly num_steps batches,
@@ -288,21 +337,24 @@ class Trainer:
                         depth=self.config.prefetch_depth,
                         threads=self.config.prefetch_threads,
                         max_items=num_steps)
-            return self._fit_loop(data_iter, num_steps, callbacks or [])
+            return self._fit_loop(data_iter, num_steps, callbacks or [],
+                                  capture)
         finally:
             if prefetcher is not None:
                 prefetcher.close()
+            # after the device has retired the window's work, so the
+            # trace holds all of it
+            capture.stop(tree_leaves(self.params)[0])
             goodput.LEDGER.tick()
             goodput.maybe_write_snapshot()
 
-    def _fit_loop(self, data_iter, num_steps: int,
-                  callbacks: list) -> Dict[str, Any]:
+    def _fit_loop(self, data_iter, num_steps: int, callbacks: list,
+                  capture: stepprof.ProfileCapture) -> Dict[str, Any]:
         tokens_per_step = self.config.global_batch_size * self.config.seq_len
         peak = device_peak_flops(self.device)
         history = []
         profiler = stepprof.StepProfiler(
             goodput.LEDGER, replay_until=self._replay_until)
-        capture = stepprof.ProfileCapture()
         prefetching = isinstance(data_iter, Prefetcher)
         t_window = time.perf_counter()
         window_steps = 0
@@ -364,11 +416,17 @@ class Trainer:
                 flush_window(last_metrics)
         if window_steps and last_metrics is not None:
             flush_window(last_metrics)
-        capture.stop(tree_leaves(self.params)[0])
         return {"history": history, "final_step": self.step}
 
 
 def _as_long(batch: Dict[str, Any]) -> Dict[str, Any]:
-    """Token ids as int64 (numpy on the host, or tensors where they lie)."""
-    return {k: v.long() if isinstance(v, torch.Tensor)
-            else np.asarray(v, dtype=np.int64) for k, v in batch.items()}
+    """Integer arrays as int64 (numpy on the host, or tensors where they
+    lie); floats and bools as they are."""
+    def cast(v):
+        if isinstance(v, torch.Tensor):
+            integer = not (v.is_floating_point() or v.is_complex()
+                           or v.dtype == torch.bool)
+            return v.long() if integer else v
+        v = np.asarray(v)
+        return v.astype(np.int64) if v.dtype.kind in "iu" else v
+    return {k: cast(v) for k, v in batch.items()}

@@ -223,10 +223,17 @@ def test_kernel_det_rehearsal_runs_every_case_on_the_plain_path():
     before = (D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN)
     out = chip_smoke.phase_kernel_det(
         "cpu", _small(chip_smoke.NMS_CASES, B=2, N=300),
-        _small(chip_smoke.ROI_CASES, B=2, R=16, C=64))
+        _small(chip_smoke.ROI_CASES, B=2, R=16, C=64),
+        _small(chip_smoke.ROI_GRAD_CASES, B=2, R=16, C=64))
     assert (D.LAUNCHES_NMS, D.LAUNCHES_ROI_ALIGN) == before
     assert list(out["nms"]) == [c.name for c in chip_smoke.NMS_CASES]
     assert list(out["roi_align"]) == [c.name for c in chip_smoke.ROI_CASES]
+    assert list(out["roi_align_grad"]) == [
+        c.name for c in chip_smoke.ROI_GRAD_CASES]
+    assert all(r["max_abs_err"] <= chip_smoke.ROI_ATOL
+               and r["forward_max_abs_err"] <= chip_smoke.ROI_ATOL
+               and r["route"] is None and r["bound_by"] == "bytes"
+               for r in out["roi_align_grad"].values())
     assert all(r["equal"] and r["max_abs_err"] == 0
                for r in out["nms"].values())
     assert out["nms"]["fewer_than_k"]["kept"] < 2 * 100
@@ -889,3 +896,132 @@ def test_optim_check_flags_a_wrong_update(monkeypatch):
     monkeypatch.setattr(TO, "make_optimizer", skewed)
     with pytest.raises(SystemExit, match="optim sgd"):
         chip_smoke.phase_optim("tiny", 2, 5, "cpu")
+
+
+def test_roi_grad_cases_are_the_maskrcnn_train_shapes():
+    """The backward is held at the shapes one Mask R-CNN train step gives
+    ROIAlign: B=4 x 128 proposals, 1,024 channels of a bf16 32x32 NHWC map,
+    7x7 and 14x14, on the vector route."""
+    from cloudtik_tpu_torch.models import maskrcnn
+
+    cfg = maskrcnn.config("maskrcnn_resnet50")
+    args = chip_smoke.MASKRCNN_TRAIN_LOAD.argv
+    B = int(args[args.index("--batch") + 1])
+    assert [(c.B, c.R, c.C, c.H, c.P, c.sampling, c.dtype, c.layout,
+             c.route) for c in chip_smoke.ROI_GRAD_CASES] == [
+        (B, cfg.num_proposals, cfg.feature_width(), cfg.feature_size(), P,
+         1, "bfloat16", "nhwc", "vector")
+        for P in (cfg.roi_pool, cfg.mask_pool)]
+
+
+def test_vision_loads_are_the_recipes_per_card_batches():
+    """--batch 1024 --data 8, --batch 256 --data 8 and --batch 32 --data 8
+    (the JAX recipes' launch lines) are 128, 32 and 4 images a card, at
+    the recipes' default models and image sizes."""
+    import importlib
+
+    for load, model, size, batch in (
+            (chip_smoke.RESNET_TRAIN_LOAD, "resnet50", 224, 1024 // 8),
+            (chip_smoke.SSD_TRAIN_LOAD, "ssd_resnet34", 300, 256 // 8),
+            (chip_smoke.MASKRCNN_TRAIN_LOAD, "maskrcnn_resnet50", 512,
+             32 // 8)):
+        recipe = importlib.import_module(
+            f"cloudtik_tpu_torch.recipes.{load.recipe}")
+        args = recipe.parser().parse_args(list(load.argv))
+        assert (args.model, args.image_size, args.batch) == (model, size,
+                                                             batch)
+        assert (load.warmup, load.steps) == (2, 5)
+
+
+NO_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+               "nms": 0, "roi_align": 0}
+
+
+@pytest.mark.parametrize("phase", ["resnet", "ssd"])
+def test_vision_train_phase_rehearsal_takes_no_kernel_on_cpu(phase):
+    fn, load = {"resnet": (chip_smoke.phase_resnet_train,
+                           chip_smoke.RESNET_TRAIN_REHEARSAL),
+                "ssd": (chip_smoke.phase_ssd_train,
+                        chip_smoke.SSD_TRAIN_REHEARSAL)}[phase]
+    out = fn(load, "cpu")
+    assert out["launches"] == NO_LAUNCHES
+    assert out["losses"][-1] < out["losses"][0]
+    assert out["images_per_s"] > 0 and out["mfu"] is None
+    assert out["peak_mem_gb"] is None and out["data_wait_ms_per_step"] >= 0
+    assert out["optimizer"]["warmup_steps"] == 0
+    if phase == "ssd":
+        assert min(out["num_pos_per_image"]) >= 1
+
+
+def test_maskrcnn_train_phase_rehearsal_takes_no_kernel_on_cpu():
+    out = chip_smoke.phase_maskrcnn_train(
+        chip_smoke.MASKRCNN_TRAIN_REHEARSAL, "cpu")
+    assert out["launches"] == NO_LAUNCHES
+    assert out["grad_step_launches"] == {"nms": 0, "roi_align": 0}
+    assert out["mask_size"] == 14 and "mask_loss" in out["metrics"]
+    assert max(out["grad_rel_l2_kernel_vs_plain"].values()) <= \
+        chip_smoke.MASKRCNN_F32_GRAD_REL_L2
+    assert out["bf16_grad_rel_l2_kernel_vs_plain_median"] <= \
+        chip_smoke.MASKRCNN_BF16_GRAD_REL_L2_MEDIAN
+    assert max(out["bf16_grad_rel_l2_kernel_vs_plain_max"].values()) <= \
+        chip_smoke.MASKRCNN_BF16_GRAD_REL_L2_MAX
+    # the noise floor: a plain step against one whose pooled maps moved
+    assert out["bf16_witness_grad_rel_l2_max"] > 0
+    assert out["bf16_pooled_kernel_vs_plain_max_abs"] == 0   # one form
+    assert out["backbone_grad_from_heads_share"] >= \
+        chip_smoke.BACKBONE_FROM_HEADS_MIN
+
+
+def test_maskrcnn_train_flags_a_roi_align_gradient_off_by_one_percent(
+        monkeypatch):
+    """The f32 whole-step limit's power: a ROIAlign gradient 1% too large
+    moves the backbone's leaves past it."""
+    real = D.roi_align_grad
+    monkeypatch.setattr(D, "roi_align_grad",
+                        lambda *args: real(*args) * 1.01)
+    with pytest.raises(SystemExit, match="maskrcnn_train: .*f32 gradient"):
+        chip_smoke.phase_maskrcnn_train(chip_smoke.MASKRCNN_TRAIN_REHEARSAL,
+                                        "cpu")
+
+
+def test_kernel_det_flags_a_roi_align_forward_off_at_the_train_shapes(
+        monkeypatch):
+    """The forward is held at the training cases too, not only timed."""
+    real = D.roi_align_batched
+    monkeypatch.setattr(D, "roi_align_batched",
+                        lambda *args, **kw: real(*args, **kw) * (1 + 1e-3))
+    with pytest.raises(SystemExit, match="roi_align_grad .*forward differs"):
+        chip_smoke.phase_kernel_det(
+            "cpu", (), (), _small(chip_smoke.ROI_GRAD_CASES, B=2, R=16,
+                                  C=64))
+
+
+def test_maskrcnn_train_flags_a_roi_align_without_a_gradient(monkeypatch):
+    """The check's power: a ROIAlign whose backward gives the map nothing
+    (as the kernel path gave before it had a gradient) fails the phase."""
+    monkeypatch.setattr(D, "roi_align_grad",
+                        lambda grad, rois, size, *a: torch.zeros(
+                            size, device=grad.device))
+    with pytest.raises(SystemExit, match="maskrcnn_train"):
+        chip_smoke.phase_maskrcnn_train(chip_smoke.MASKRCNN_TRAIN_REHEARSAL,
+                                        "cpu")
+
+
+def test_loaders_phase_rehearsal_takes_no_kernel_on_cpu():
+    out = chip_smoke.phase_loaders(chip_smoke.LOADERS_REHEARSAL, "cpu")
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    assert out["all_equal"] and out["batches_taken"] == out["steps"] == 3
+    assert out["batches_after_marker"] == 0 and out["file_batches"] == 3
+    assert out["trace_bytes"] > 0
+
+
+def test_loaders_load_is_tpu_1b_cut_to_two_layers():
+    from cloudtik_tpu_torch.models import transformer as T
+
+    load = chip_smoke.LOADERS_LOAD
+    cfg = T.config(load.model, n_layers=load.n_layers)
+    full = T.config(load.model)
+    assert (load.model, load.n_layers, load.batch, load.seq) == (
+        "tpu_1b", 2, 8, 2048)
+    assert cfg.d_model == full.d_model and cfg.n_layers < full.n_layers

@@ -8,6 +8,7 @@ ROIAlign in interpret mode and `roi_align_reference` within 1e-5: all f32,
 only the order of the sums differs.  Inputs come from a numpy seed.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -269,3 +270,132 @@ def test_roi_align_route_is_strided_off_the_vector_layout(case):
     if case == "unaligned_base":
         assert feats.data_ptr() % 16 == 2 and feats.shape[1] == 8
     assert TD.roi_align_route(feats, 14, 1) == "strided"
+
+
+# ------------------------------------------------------- ROIAlign grad --
+
+# The features' gradient against `jax.grad` of the reference's "xla" form:
+# f32 within 1e-5 + 1e-5 |ref| (only the order of the sums differs); bf16
+# features get their gradient rounded to bf16 on both sides, so within one
+# bf16 ulp (2**-7 relative).
+GRAD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 1e-6)}
+
+
+def _grad_inputs(C=8, H=10, W=12, R=5, seed=13):
+    """Two images of an NHWC map and ROIs in pixel coordinates, some
+    touching or crossing the map's edges (and one under a pixel)."""
+    rng = np.random.default_rng(seed)
+    nhwc = rng.normal(size=(2, H, W, C)).astype(np.float32)
+    rois = np.empty((2, R, 4), np.float32)
+    rois[..., :2] = rng.uniform(-2.0, 0.6 * W, (2, R, 2))
+    rois[..., 2:] = rois[..., :2] + rng.uniform(0.5, 0.8 * W, (2, R, 2))
+    rois[0, 0] = [0.0, 0.0, W, H]                  # the whole map
+    rois[0, 1] = [W - 3.0, H - 2.5, W + 4.0, H + 1.0]  # over the far edge
+    rois[1, 0] = [-5.0, -4.0, 1.5, 2.0]            # over the near edge
+    rois[1, 1] = [4.2, 3.3, 4.6, 3.5]              # under a pixel
+    grad = rng.normal(size=(2, R, C)).astype(np.float32)
+    return nhwc, rois, grad
+
+
+def _jax_features_grad(nhwc, rois, upstream, dtype, **kw):
+    """jax.grad of sum(roi_align(xla) * upstream) w.r.t. the [B, C, H, W]
+    features, per image (the reference pools one image at a time)."""
+    feats = jnp.asarray(nhwc).transpose(0, 3, 1, 2).astype(dtype)
+
+    def loss(f):
+        out = jax.vmap(lambda fi, ri: JD.roi_align(
+            fi, ri, implementation="xla", **kw))(f, jnp.asarray(rois))
+        return jnp.sum(out * upstream)
+
+    return np.asarray(jax.grad(loss)(feats).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pooled,sampling,scale", [
+    (7, 1, 1.0), (14, 1, 1.0), (7, 2, 0.5)])
+def test_roi_align_grad_matches_jax(dtype, pooled, sampling, scale):
+    nhwc, rois, _ = _grad_inputs()
+    kw = dict(pooled_size=pooled, sampling_ratio=sampling,
+              spatial_scale=scale)
+    rng = np.random.default_rng(pooled + sampling)
+    upstream = rng.normal(size=(2, rois.shape[1], nhwc.shape[-1], pooled,
+                                pooled)).astype(np.float32)
+    want = _jax_features_grad(nhwc, rois / scale, upstream,
+                              getattr(jnp, dtype), **kw)
+    leaf = torch.from_numpy(nhwc).to(getattr(torch, dtype)) \
+        .requires_grad_(True)
+    out = TD.roi_align_batched(leaf.permute(0, 3, 1, 2),
+                               torch.from_numpy(rois / scale), **kw)
+    (out * torch.from_numpy(upstream)).sum().backward()
+    assert leaf.grad.dtype == leaf.dtype
+    got = leaf.grad.float().permute(0, 3, 1, 2).numpy()
+    rtol, atol = GRAD_TOL[dtype]
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    # the ROIs over the edges reach the edge rows and columns
+    assert np.abs(want[..., -1, :]).max() > 0
+    assert np.abs(want[..., :, 0]).max() > 0
+
+
+def test_roi_align_grad_of_the_single_image_entry_matches_jax():
+    nhwc, rois, _ = _grad_inputs()
+    features = np.ascontiguousarray(nhwc[0].transpose(2, 0, 1))
+    upstream = np.random.default_rng(1).normal(
+        size=(rois.shape[1], features.shape[0], 7, 7)).astype(np.float32)
+    want = jax.grad(lambda f: jnp.sum(JD.roi_align(
+        f, jnp.asarray(rois[0]), pooled_size=7, sampling_ratio=2,
+        implementation="xla") * upstream))(jnp.asarray(features))
+    leaf = torch.from_numpy(features).requires_grad_(True)
+    out = TD.roi_align(leaf, torch.from_numpy(rois[0]), pooled_size=7,
+                       sampling_ratio=2)
+    (out * torch.from_numpy(upstream)).sum().backward()
+    np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_roi_align_on_cpu_has_a_grad_fn_only_for_features_that_need_one():
+    nhwc, rois, _ = _grad_inputs()
+    feats = torch.from_numpy(nhwc).permute(0, 3, 1, 2)
+    assert TD.roi_align_batched(feats, torch.from_numpy(rois)).grad_fn \
+        is None
+    out = TD.roi_align_batched(feats.clone().requires_grad_(True),
+                               torch.from_numpy(rois))
+    assert out.grad_fn is not None and out.requires_grad
+    # the gradient of an NHWC map comes back NHWC-contiguous
+    leaf = torch.from_numpy(nhwc).requires_grad_(True)
+    TD.roi_align_batched(leaf.permute(0, 3, 1, 2),
+                         torch.from_numpy(rois)).sum().backward()
+    assert leaf.grad.is_contiguous()
+
+
+def test_roi_align_refuses_rois_that_require_grad():
+    nhwc, rois, _ = _grad_inputs()
+    feats = torch.from_numpy(nhwc).permute(0, 3, 1, 2)
+    r = torch.from_numpy(rois).requires_grad_(True)
+    with pytest.raises(ValueError, match="no gradient for the rois"):
+        TD.roi_align_batched(feats, r)
+    with pytest.raises(ValueError, match="no gradient for the rois"):
+        TD.roi_align(feats[0], r[0])
+    # detached, as the reference's loss passes its proposals, they pool
+    assert TD.roi_align_batched(feats, r.detach()).shape[:2] == (2, 5)
+
+
+@pytest.mark.parametrize("allow", [False, True])
+def test_roi_align_grad_keeps_tf32_off_and_restores_the_flag(allow,
+                                                             monkeypatch):
+    """Inside the backward's contractions TF32 is off; the process-wide
+    flag is left untouched when it was off and restored when it was on."""
+    seen = []
+    real = torch.einsum
+
+    def einsum(*args, **kwargs):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", allow)
+    monkeypatch.setattr(torch, "einsum", einsum)
+    nhwc, rois, _ = _grad_inputs()
+    leaf = torch.from_numpy(nhwc).requires_grad_(True)
+    TD.roi_align_batched(leaf.permute(0, 3, 1, 2),
+                         torch.from_numpy(rois)).sum().backward()
+    assert seen and not any(seen)
+    assert torch.backends.cuda.matmul.allow_tf32 is allow

@@ -1,6 +1,6 @@
-"""The port's training recipes (cloudtik_tpu_torch/recipes/) run one step
-on `tiny` on the CPU, as tests/test_models.py runs the JAX package's:
-argparse, the trainer, the data, the one JSON result line."""
+"""The port's training recipes (cloudtik_tpu_torch/recipes/) run on `tiny`
+on the CPU, as tests/test_models.py runs the JAX package's: argparse, the
+trainer, the data, the one JSON result line."""
 
 import json
 
@@ -9,12 +9,17 @@ import torch
 
 from cloudtik_tpu_torch.recipes import bert_large_pretrain, common
 from cloudtik_tpu_torch.recipes import llama_lora_finetune
+from cloudtik_tpu_torch.recipes import maskrcnn_coco, resnet50_imagenet
+from cloudtik_tpu_torch.recipes import ssd_coco
 
 # one intra-op thread, as every port CPU test
 torch.set_num_threads(1)
 
 RECIPES = {"bert_large_pretrain": bert_large_pretrain,
            "llama_lora_finetune": llama_lora_finetune}
+# the vision recipes: one image a "token"
+VISION = {"resnet50_imagenet": resnet50_imagenet, "ssd_coco": ssd_coco,
+          "maskrcnn_coco": maskrcnn_coco}
 
 
 @pytest.mark.parametrize("name", sorted(RECIPES))
@@ -82,3 +87,64 @@ def test_bert_entry_points_default_to_the_card(no_cuda):
         TB.init_params(torch.Generator(), TB.config("tiny"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TTR.Trainer(TTR.bert_spec(TB.config("tiny")), TTR.TrainerConfig())
+
+
+@pytest.mark.parametrize("name", sorted(VISION))
+def test_vision_recipe_two_steps_on_tiny(name, capsys):
+    result = VISION[name].main(["--model", "tiny", "--device", "cpu",
+                                "--steps", "2", "--batch", "2",
+                                "--log-every", "1"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(line) == result
+    assert result["steps"] == 2 and result["img_per_sec"] > 0
+    assert result["final_loss"] > 0 and "mfu" not in result
+
+
+@pytest.mark.parametrize("name", sorted(VISION))
+def test_vision_recipe_defaults_match_the_jax_recipes(name):
+    args = VISION[name].parser().parse_args([])
+    want = {"steps": 50, "batch": 8, "data": 1, "fsdp": 1, "tensor": 1,
+            "seq": 1, "expert": 1, "checkpoint_dir": None,
+            "checkpoint_every": 0, "log_every": 10, "device": "cuda"}
+    want.update({"resnet50_imagenet": {"model": "resnet50",
+                                       "image_size": 224},
+                 "ssd_coco": {"model": "ssd_resnet34", "image_size": 300},
+                 "maskrcnn_coco": {"model": "maskrcnn_resnet50",
+                                   "image_size": 512}}[name])
+    assert vars(args) == want
+
+
+def test_vision_recipes_build_the_jax_recipes_data():
+    """The builders feed what the JAX recipes feed: images at the config's
+    size, SSD's `max_boxes` gts, Mask R-CNN's masks at twice the mask
+    head's pooled size; one image a "token"."""
+    def built(module, *argv):
+        args = module.parser().parse_args(
+            ["--model", "tiny", "--device", "cpu", "--batch", "2", *argv])
+        return module.build(args)
+
+    trainer, data, cfg = built(resnet50_imagenet, "--image-size", "32")
+    batch = next(data)
+    assert batch["images"].shape == (2, 32, 32, 3)
+    assert trainer.config.seq_len == 1
+    assert trainer.spec.flops_per_token == cfg.flops_per_image()
+    _, data, cfg = built(ssd_coco, "--image-size", "64")
+    assert next(data)["gt_boxes"].shape == (2, cfg.max_boxes, 4)
+    _, data, cfg = built(maskrcnn_coco, "--image-size", "64")
+    masks = next(data)["gt_masks"]
+    assert masks.shape == (2, cfg.max_boxes, 2 * cfg.mask_pool,
+                           2 * cfg.mask_pool)
+
+
+@pytest.mark.parametrize("name", sorted(VISION))
+def test_vision_mesh_axes_other_than_one_name_roadmap_a7(name):
+    args = VISION[name].parser().parse_args(
+        ["--model", "tiny", "--device", "cpu", "--data", "8"])
+    with pytest.raises(ValueError, match="ROADMAP A7"):
+        VISION[name].build(args)
+
+
+@pytest.mark.parametrize("name", sorted(VISION))
+def test_vision_recipe_defaults_to_the_card(no_cuda, name):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VISION[name].main(["--model", "tiny", "--steps", "1"])

@@ -9,6 +9,7 @@ amplifies tiny gradient differences in its first steps.
 """
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -145,3 +146,126 @@ def test_config_defaults_match_jax():
         if field.name != "optimizer":
             assert getattr(ttc, field.name) == getattr(jtc, field.name)
     assert vars(ttc.optimizer) == vars(jtc.optimizer)
+
+
+def test_resnet_history_matches_jax_trainer():
+    """A few `resnet_spec("tiny")` steps (one image a "token") on the same
+    weights and batches: the same history as the JAX Trainer's."""
+    from cloudtik_tpu.models import resnet as JR
+    from cloudtik_tpu_torch.models import resnet as TR
+
+    jcfg = JR.config("tiny", dtype=jax.numpy.float32)
+    tcfg = TR.config("tiny", dtype=torch.float32)
+    opt = dict(learning_rate=1e-2, warmup_steps=2, total_steps=50)
+    jtc = JTR.TrainerConfig(
+        global_batch_size=4, seq_len=1, mesh=MeshConfig(data=1, fsdp=1),
+        optimizer=JO.OptimizerConfig(**opt), log_every=1, prefetch_depth=0)
+    ttc = TTR.TrainerConfig(global_batch_size=4, seq_len=1,
+                            optimizer=TO.OptimizerConfig(**opt), log_every=1)
+    jtrainer = JTR.Trainer(JTR.resnet_spec(jcfg), jtc,
+                           mesh=build_mesh(jtc.mesh,
+                                           devices=jax.devices()[:1]))
+    jtrainer.init_state(jax.random.PRNGKey(0))
+    params = jax.tree.map(np.asarray, jtrainer.state["params"])
+    ttrainer = TTR.Trainer(TTR.resnet_spec(tcfg), ttc, device="cpu")
+    ttrainer.init_state(params=convert.params_from_jax(params, "cpu"))
+
+    jout = jtrainer.fit(JD.synthetic_image_batches(4, 32, 10, seed=3), 4)
+    tout = ttrainer.fit(TD.synthetic_image_batches(4, 32, 10, seed=3), 4)
+    assert len(tout["history"]) == len(jout["history"]) == 4
+    for j, t in zip(jout["history"], tout["history"]):
+        assert set(t) == set(j) - {"mfu"}
+        for key in ("loss", "accuracy", "grad_norm"):
+            np.testing.assert_allclose(t[key], j[key], rtol=1e-4,
+                                       err_msg=key)
+    assert tout["history"][0]["tokens_per_sec"] > 0
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_float_batch_keys_reach_the_loss_unconverted(depth):
+    """Only integer arrays become int64: f32 images (and a bool mask) reach
+    `loss_fn` as they are, through the synchronous path and the
+    prefetcher."""
+    seen = []
+
+    def loss_fn(params, batch):
+        seen.append({k: v.dtype for k, v in batch.items()})
+        loss = (params["w"] * batch["images"].mean()) ** 2
+        return loss, {"loss": loss.detach()}
+
+    spec = TTR.ModelSpec(
+        init=lambda gen, device: {"w": torch.ones((), device=device)},
+        loss_fn=loss_fn)
+    trainer = TTR.Trainer(spec, TTR.TrainerConfig(
+        global_batch_size=2, seq_len=1, log_every=1, prefetch_depth=depth),
+        device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.standard_normal((2, 4, 4, 3)).astype(np.float32),
+             "labels": np.array([1, 2], np.int32),
+             "valid": np.array([True, False])}
+    trainer.fit(iter([batch] * 2), 2)
+    assert seen == [{"images": torch.float32, "labels": torch.int64,
+                     "valid": torch.bool}] * 2
+
+
+def test_as_long_casts_integer_tensors_only():
+    out = TTR._as_long({"a": torch.tensor([1, 2], dtype=torch.int32),
+                        "b": torch.tensor([0.5]),
+                        "c": torch.tensor([True]),
+                        "d": np.array([0.25], np.float32),
+                        "e": np.array([7], np.uint8)})
+    assert out["a"].dtype == torch.int64 and out["b"].dtype == torch.float32
+    assert out["c"].dtype == torch.bool and out["d"].dtype == np.float32
+    assert out["e"].dtype == np.int64
+
+
+def test_fit_profile_dir_writes_a_chrome_trace(tmp_path):
+    import json
+
+    cfg = TT.config("tiny", dtype=torch.float32)
+    tc = TTR.TrainerConfig(global_batch_size=2, seq_len=16, log_every=1)
+    trainer = TTR.Trainer(TTR.transformer_spec(cfg), tc, device="cpu")
+    out = trainer.fit(TD.synthetic_lm_batches(2, 16, cfg.vocab_size), 2,
+                      profile_dir=str(tmp_path / "prof"))
+    assert out["final_step"] == 2
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"train.grads", "train.optimizer"} <= names
+    # a second fit without it leaves no profiler running
+    trainer.fit(TD.synthetic_lm_batches(2, 16, cfg.vocab_size), 1)
+    assert torch.autograd.profiler._is_profiler_enabled is False
+
+
+def test_fit_profile_dir_leaves_an_on_demand_request_pending(tmp_path,
+                                                            monkeypatch):
+    from cloudtik_tpu_torch.telemetry import stepprof
+
+    req = str(tmp_path / "req.json")
+    monkeypatch.setenv(stepprof.REQUEST_ENV, req)
+    cfg = TT.config("tiny", dtype=torch.float32)
+    tc = TTR.TrainerConfig(global_batch_size=2, seq_len=16, log_every=1)
+    trainer = TTR.Trainer(TTR.transformer_spec(cfg), tc, device="cpu")
+    stepprof.request_capture(1, str(tmp_path / "asked"), req)
+    trainer.fit(TD.synthetic_lm_batches(2, 16, cfg.vocab_size), 2,
+                profile_dir=str(tmp_path / "prof"))
+    # the whole-call capture ran; the request waits for the next fit
+    assert (tmp_path / "prof" / "trace.json").exists()
+    assert os.path.exists(req)
+    assert not (tmp_path / "asked" / "trace.json").exists()
+    trainer.fit(TD.synthetic_lm_batches(2, 16, cfg.vocab_size), 2)
+    assert (tmp_path / "asked" / "trace.json").exists()
+    assert torch.autograd.profiler._is_profiler_enabled is False
+
+
+def test_fit_profile_dir_raises_when_the_profiler_cannot_start(tmp_path,
+                                                              monkeypatch):
+    def refuse(*args, **kwargs):
+        raise RuntimeError("profiler unavailable")
+
+    monkeypatch.setattr(torch.profiler, "profile", refuse)
+    cfg = TT.config("tiny", dtype=torch.float32)
+    tc = TTR.TrainerConfig(global_batch_size=2, seq_len=16, log_every=1)
+    trainer = TTR.Trainer(TTR.transformer_spec(cfg), tc, device="cpu")
+    with pytest.raises(RuntimeError, match="did not start"):
+        trainer.fit(TD.synthetic_lm_batches(2, 16, cfg.vocab_size), 1,
+                    profile_dir=str(tmp_path / "prof"))

@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
 """Where the time goes in one training step of the PyTorch port, on one card.
 
-    python3 tools/profile_torch_train.py [--model tpu_1b|bert_large]
-        [--batch 8] [--seq 2048] [--steps 2]
+    python3 tools/profile_torch_train.py [--model tpu_1b|bert_large|
+        resnet50|ssd_resnet34|maskrcnn_resnet50] [--batch 8] [--seq 2048]
+        [--steps 2]
 
 Runs `Trainer` on tpu_1b at [batch, seq] in bench.py's configuration (bf16
-params and Adam moments, save_attn remat), or on bert_large (default B=32,
+params and Adam moments, save_attn remat), on bert_large (default B=32,
 S=512) as `recipes/bert_large_pretrain.py` builds it (f32 params, bf16
-compute, the MLM objective on `synthetic_mlm_batches`), warms up for two
-steps, then profiles (torch.profiler, CPU + CUDA activity) `--steps` steps
-and prints one JSON line: wall time and device time per step, the device's
-busy share of the wall, kernel launches per step, device time per step
-grouped by kind (the flash forward, dq and dk/dv kernels, bf16 matmuls,
-f32 matmuls -- the logits products, BERT's MLM head --, everything else),
+compute, the MLM objective on `synthetic_mlm_batches`), or on a vision
+model as its recipe builds it (`resnet50_imagenet`, `ssd_coco`,
+`maskrcnn_coco`; default B = 128, 32, 4, the per-card batches of the JAX
+recipes' launch lines; AdamW without warmup, one repeated batch), warms up
+for two steps, then profiles (torch.profiler, CPU + CUDA activity)
+`--steps` steps and prints one JSON line: wall time and device time per
+step, the device's busy share of the wall, kernel launches per step,
+device time per step grouped by kind (the flash forward, dq and dk/dv
+kernels, ROIAlign, convolutions, bf16 matmuls, f32 matmuls -- the logits
+products, BERT's MLM head, ROIAlign's backward --, reductions -- batch
+norm's statistics --, everything else),
 the optimizer's span on the device timeline (the trainer's
 `train.optimizer` range), launches per step by kind, and the top kernels
 by name.  Needs a CUDA card; weights are random from seed 0.
@@ -21,6 +27,8 @@ by name.  Needs a CUDA card; weights are random from seed 0.
 from __future__ import annotations
 
 import argparse
+import importlib
+import itertools
 import json
 import os
 import re
@@ -36,13 +44,25 @@ _GEMM = re.compile(r"gemm|cutlass|xmma|nvjet|cublas|sm90_", re.I)
 _F32_GEMM = re.compile(r"f32f32|sgemm|ffma|_sss", re.I)
 _FLASH = (("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
           ("flash_bwd_dq_kernel", "flash_bwd_dq"),
-          ("flash_fwd_kernel", "flash_fwd"))
+          ("flash_fwd_kernel", "flash_fwd"),
+          ("roi_align_", "roi_align"))
+# cuDNN's convolution kernels (forward, data and weight gradients)
+_CONV = re.compile(r"fprop|dgrad|wgrad|conv|implicit", re.I)
+_REDUCE = re.compile(r"reduce_kernel|welford", re.I)
+# vision models: recipe module and default batch
+VISION = {"resnet50": ("resnet50_imagenet", 128),
+          "ssd_resnet34": ("ssd_coco", 32),
+          "maskrcnn_resnet50": ("maskrcnn_coco", 4)}
 
 
 def _kind(name: str) -> str:
     for marker, kind in _FLASH:
         if marker in name:
             return kind
+    if _CONV.search(name):
+        return "conv"
+    if _REDUCE.search(name):
+        return "reduce"
     if _GEMM.search(name):
         return "matmul_f32" if _F32_GEMM.search(name) else "matmul_bf16"
     return "other"
@@ -59,16 +79,18 @@ def _device_us(evt, total: bool = False) -> float:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="tpu_1b",
-                   choices=("tpu_1b", "bert_large"))
+                   choices=("tpu_1b", "bert_large", *VISION))
     p.add_argument("--batch", type=int, default=None,
-                   help="8 for tpu_1b, 32 for bert_large")
+                   help="8 for tpu_1b, 32 for bert_large, the vision "
+                        "models' as VISION says")
     p.add_argument("--seq", type=int, default=None,
                    help="2048 for tpu_1b, 512 for bert_large")
     p.add_argument("--steps", type=int, default=2)
     args = p.parse_args(argv)
     bert = args.model == "bert_large"
-    B = args.batch or (32 if bert else 8)
-    S = args.seq or (512 if bert else 2048)
+    vision = VISION.get(args.model)
+    B = args.batch or (vision[1] if vision else 32 if bert else 8)
+    S = 1 if vision else args.seq or (512 if bert else 2048)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -92,7 +114,16 @@ def main(argv=None) -> int:
                       "nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
     n = args.steps
-    if bert:
+    if vision:
+        recipe = importlib.import_module(
+            f"cloudtik_tpu_torch.recipes.{vision[0]}")
+        rargs = recipe.parser().parse_args(["--batch", str(B)])
+        rtrainer, rdata, cfg = recipe.build(rargs)
+        spec, opt = rtrainer.spec, OptimizerConfig(warmup_steps=0)
+        data = itertools.repeat(next(rdata))
+        head_tflop = None
+        del rtrainer
+    elif bert:
         cfg = BE.config("bert_large", max_seq_len=S)
         spec, opt = bert_spec(cfg), OptimizerConfig()
         data = synthetic_mlm_batches(B, S, cfg.vocab_size)
@@ -154,7 +185,9 @@ def main(argv=None) -> int:
            "launches_per_step_by_kind": counts,
            "optimizer_device_ms_per_step": optimizer_ms,
            "logits_f32_tflop_per_step": head_tflop,
-           "model_tflop_per_step": cfg.flops_per_token() * tokens / 1e12,
+           "model_tflop_per_step": (cfg.flops_per_image() if vision
+                                    else cfg.flops_per_token())
+           * tokens / 1e12,
            "top_kernels": [{"ms_per_step": ms, "count_per_step": c,
                             "name": name} for ms, c, name in kernels[:12]]}
     print(json.dumps(out), flush=True)
