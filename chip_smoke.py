@@ -175,12 +175,42 @@ run with a non-zero exit:
            published, the marker ends the stream, the Chrome trace names
            the three flash kernels, and `tokenized_file_batches` reads the
            same corpus as 3 batches
+  diffusion_train, dlrm_train, rnnt_train, graphsage_train  the model
+           zoo through its recipes' builders at full width: sdxl_mini at
+           B=8 (64x64x4 latents, f32 params, bf16 compute; its attention
+           head dims, 80 and 160, take no flash kernel), criteo_terabyte
+           at B=8,192 (the whole 26 x 100,000 x 128 table stack on the
+           card), rnnt at the JAX launch line's 8 utterances a card of 256
+           frames and 64 labels, graphsage on 4,096-node blocks (then link
+           prediction for 2 steps); 2 warm-up and 5 measured steps on one
+           repeated batch, the loss falling; img/s, examples/s, frames/s or
+           nodes/s, ms/step, MFU, peak memory; no B1-B5 launch.  Each is
+           held to the CPU, f32 with TF32 off, one step's loss and every
+           gradient leaf within 1e-3 relative L2 (diffusion_grads:
+           sdxl_mini's widths at one block a stage and 16x16 latents, B=2;
+           dlrm_grads: 2 tables, B=8,192; rnnt_grads: one encoder layer
+           either side of the reduction, B=2 x 64 frames, where the card's
+           transducer loss must also lie within 1e-4 of the float64 oracle
+           and `greedy_decode` give the CPU's tokens; graphsage_grads: one
+           4,096-node block)
+  gbdt     the default GBDTConfig (100 trees, depth 6, 64 bins, logistic)
+           fit on the card over 1,000,000 synthetic rows of 28 features:
+           the training log-loss falling, ms per tree, predict rows/s; the
+           forest saved with its edges and served by `tik-serve --gbdt`
+           (its own process), whose /v1/predict for 1,000 rows must equal
+           `predict_proba`; a forest without edges refused; then every
+           round of a 20,000-row fit (logistic, and softmax at K=3) grown
+           on the card and on the CPU from the CPU's scores: splits that
+           partition the rows otherwise only at counted near ties, and the
+           scores and probabilities of the rows no flip touched within
+           1e-4; no B1-B5 launch
 
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
 steps of the checkpoint phase; the measured steps of lora_train and of
 bert; the measured detect calls of each model; the measured steps of each
-vision phase; the loaders' fit) and read just after it.
+vision and model-zoo phase and its cross-device check; the loaders' fit;
+the GBDT fit, serve and check) and read just after it.
 The `total` line gives the script's seconds; the last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
@@ -4133,8 +4163,8 @@ def phase_detect(kind: str, name: str, B: int = 8, device: str = "cuda",
 # ---------------------------------------------------- vision training --
 
 @dataclasses.dataclass(frozen=True)
-class VisionLoad:
-    """A vision training phase: `recipes.<recipe>.build` plus `argv` (the
+class RecipeLoad:
+    """A recipe training phase: `recipes.<recipe>.build` plus `argv` (the
     per-card batch of the JAX recipe's launch line), the recipe's AdamW
     with `optimizer`'s overrides (by default no warmup: the recipe's
     100-step warmup gives a learning rate of ~0 to a run of a few steps),
@@ -4148,21 +4178,21 @@ class VisionLoad:
 
 # --batch 1024 --data 8, --batch 256 --data 8 and --batch 32 --data 8: the
 # per-card batches of the JAX recipes' launch lines
-RESNET_TRAIN_LOAD = VisionLoad("resnet50_imagenet", ("--batch", "128"))
-SSD_TRAIN_LOAD = VisionLoad("ssd_coco", ("--batch", "32"))
+RESNET_TRAIN_LOAD = RecipeLoad("resnet50_imagenet", ("--batch", "128"))
+SSD_TRAIN_LOAD = RecipeLoad("ssd_coco", ("--batch", "32"))
 # Mask R-CNN keeps the recipe's 100-step warmup: at 3e-4 from the first
 # step its heads diverge (the loss went 17.3 -> 36.1 -> 87.2 on the card,
 # fc1's fan-in is 50,176), while under the warmup it falls
-MASKRCNN_TRAIN_LOAD = VisionLoad("maskrcnn_coco", ("--batch", "4"),
+MASKRCNN_TRAIN_LOAD = RecipeLoad("maskrcnn_coco", ("--batch", "4"),
                                  optimizer=())
 # the CPU rehearsals at `tiny`
-RESNET_TRAIN_REHEARSAL = VisionLoad(
+RESNET_TRAIN_REHEARSAL = RecipeLoad(
     "resnet50_imagenet", ("--model", "tiny", "--image-size", "32",
                           "--batch", "4"), warmup=1, steps=2)
-SSD_TRAIN_REHEARSAL = VisionLoad(
+SSD_TRAIN_REHEARSAL = RecipeLoad(
     "ssd_coco", ("--model", "tiny", "--image-size", "64", "--batch", "2"),
     warmup=1, steps=2)
-MASKRCNN_TRAIN_REHEARSAL = VisionLoad(
+MASKRCNN_TRAIN_REHEARSAL = RecipeLoad(
     "maskrcnn_coco", ("--model", "tiny", "--image-size", "64", "--batch",
                       "2"), warmup=1, steps=2)
 # the detection kernels' launches per Mask R-CNN train step: its two
@@ -4170,11 +4200,12 @@ MASKRCNN_TRAIN_REHEARSAL = VisionLoad(
 MASKRCNN_STEP_LAUNCHES = {"nms": 0, "roi_align": 2}
 
 
-def _vision_train(name: str, load: VisionLoad, device: str,
+def _recipe_train(name: str, load: RecipeLoad, device: str,
                   nvidia_smi: str = None):
     """The recipe's trainer on one repeated batch of its data: the
     measured steps with every kernel's launch count zeroed just before and
-    read just after.  Returns (result, trainer, host batch, cfg)."""
+    read just after, the loss falling.  Returns (result, trainer, host
+    batch, cfg, parsed args)."""
     import importlib
 
     import torch
@@ -4196,19 +4227,29 @@ def _vision_train(name: str, load: VisionLoad, device: str,
     entry = train.pop("last")
     opt = trainer.config.optimizer
     out = {"model": args.model, "nvidia_smi": nvidia_smi,
-           "recipe": load.recipe, "image_size": cfg.image_size,
-           "batch": args.batch, "dtype": "bfloat16",
+           "recipe": load.recipe, "batch": args.batch,
+           "dtype": str(cfg.dtype).replace("torch.", ""),
            "optimizer": {"name": opt.name, "lr": opt.learning_rate,
                          "warmup_steps": opt.warmup_steps,
                          "weight_decay": opt.weight_decay},
-           "flops_per_image": cfg.flops_per_image(), **train,
-           "images_per_s": train["tokens_per_s"],
+           "flops_per_item": trainer.spec.flops_per_token, **train,
            "metrics": {k: v for k, v in entry.items()
                        if k not in ("step", "tokens_per_sec", "mfu")}}
-    del out["tokens_per_s"]
     out["history"] = train.pop("history")
     require(math.isfinite(entry["loss"]), f"{name}: loss {entry['loss']}")
     _check_losses(name, out["losses"])
+    return out, trainer, batch, cfg, args
+
+
+def _vision_train(name: str, load: RecipeLoad, device: str,
+                  nvidia_smi: str = None):
+    """`_recipe_train` of a vision recipe, its throughput in images.
+    Returns (result, trainer, host batch, cfg)."""
+    out, trainer, batch, cfg, _ = _recipe_train(name, load, device,
+                                                nvidia_smi)
+    out["image_size"] = cfg.image_size
+    out["flops_per_image"] = out.pop("flops_per_item")
+    out["images_per_s"] = out.pop("tokens_per_s")
     return out, trainer, batch, cfg
 
 
@@ -4221,7 +4262,7 @@ def _require_no_launches(name: str, out: dict, allowed=None) -> None:
             f"{want}")
 
 
-def phase_resnet_train(load: VisionLoad = RESNET_TRAIN_LOAD,
+def phase_resnet_train(load: RecipeLoad = RESNET_TRAIN_LOAD,
                        device: str = "cuda", nvidia_smi: str = None) -> dict:
     """ResNet-50 at 224 through `recipes.resnet50_imagenet.build`."""
     out, trainer, _, _ = _vision_train("resnet_train", load, device,
@@ -4233,7 +4274,7 @@ def phase_resnet_train(load: VisionLoad = RESNET_TRAIN_LOAD,
     return out
 
 
-def phase_ssd_train(load: VisionLoad = SSD_TRAIN_LOAD, device: str = "cuda",
+def phase_ssd_train(load: RecipeLoad = SSD_TRAIN_LOAD, device: str = "cuda",
                     nvidia_smi: str = None) -> dict:
     """SSD-ResNet34 at 300 through `recipes.ssd_coco.build`; every image
     of the batch has a positive anchor."""
@@ -4291,7 +4332,7 @@ MASKRCNN_BF16_GRAD_REL_L2_MAX = 0.25
 POOLED_PERTURBATION = 1e-6
 
 
-def phase_maskrcnn_train(load: VisionLoad = MASKRCNN_TRAIN_LOAD,
+def phase_maskrcnn_train(load: RecipeLoad = MASKRCNN_TRAIN_LOAD,
                          device: str = "cuda",
                          nvidia_smi: str = None) -> dict:
     """Mask R-CNN at 512 with masks through `recipes.maskrcnn_coco.build`:
@@ -4597,6 +4638,681 @@ def phase_loaders(load: LoadersLoad = LOADERS_LOAD, device: str = "cuda",
     return out
 
 
+# ------------------------------------------------------------ model zoo --
+
+# sdxl_mini at the recipe's --batch default (the JAX recipe gives no launch
+# line); criteo_terabyte at B=8,192 (at the recipe's default of 8 a step
+# would be the optimizer's 335M-parameter update alone); RNN-T at the JAX
+# launch line's --batch 64 --data 8, 8 utterances a card of 256 frames and
+# 64 labels; GraphSAGE on the recipe's 4,096-node blocks, supervised, then
+# link prediction for 2 steps
+DIFFUSION_TRAIN_LOAD = RecipeLoad("sdxl_fsdp", ("--batch", "8"))
+DLRM_TRAIN_LOAD = RecipeLoad("dlrm_criteo", ("--batch", "8192"))
+RNNT_TRAIN_LOAD = RecipeLoad("rnnt_speech", ("--batch", "8"))
+GRAPHSAGE_TRAIN_LOAD = RecipeLoad("graphsage_nodes")
+GRAPHSAGE_LINK_LOAD = RecipeLoad("graphsage_nodes",
+                                 ("--objective", "link_pred"), warmup=1,
+                                 steps=1)
+# the CPU rehearsals at `tiny`
+DIFFUSION_TRAIN_REHEARSAL = RecipeLoad(
+    "sdxl_fsdp", ("--model", "tiny", "--batch", "2"), warmup=1, steps=2)
+DLRM_TRAIN_REHEARSAL = RecipeLoad(
+    "dlrm_criteo", ("--model", "tiny", "--batch", "64"), warmup=1, steps=2)
+RNNT_TRAIN_REHEARSAL = RecipeLoad(
+    "rnnt_speech", ("--model", "tiny", "--batch", "2", "--max-frames", "16",
+                    "--max-labels", "4"), warmup=1, steps=2)
+GRAPHSAGE_TRAIN_REHEARSAL = RecipeLoad(
+    "graphsage_nodes", ("--model", "tiny", "--nodes", "64"), warmup=1,
+    steps=2)
+GRAPHSAGE_LINK_REHEARSAL = RecipeLoad(
+    "graphsage_nodes", ("--model", "tiny", "--nodes", "64", "--objective",
+                        "link_pred"), warmup=1, steps=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ZooCheck:
+    """A cross-device check: `model` with `overrides` (a depth or size
+    cut, never a width cut) in f32, `batch` examples (for RNN-T `frames`
+    frames and `labels` labels), one step's loss and gradients on the card
+    against the CPU's from the same params."""
+    model: str
+    overrides: tuple = ()
+    batch: int = 2
+    frames: int = 0
+    labels: int = 0
+
+
+DIFFUSION_CHECK = ZooCheck("sdxl_mini", (("blocks_per_stage", 1),
+                                         ("image_size", 16)))
+DLRM_CHECK = ZooCheck("criteo_terabyte", (("num_tables", 2),), batch=8192)
+RNNT_CHECK = ZooCheck("rnnt", (("enc_layers_pre", 1), ("enc_layers_post", 1)),
+                      frames=64, labels=16)
+GRAPHSAGE_CHECK = ZooCheck("graphsage", batch=4096)
+DIFFUSION_CHECK_REHEARSAL = ZooCheck("tiny")
+DLRM_CHECK_REHEARSAL = ZooCheck("tiny", (("num_tables", 2),), batch=64)
+RNNT_CHECK_REHEARSAL = ZooCheck("tiny", frames=16, labels=4)
+GRAPHSAGE_CHECK_REHEARSAL = ZooCheck("tiny", batch=64)
+
+# One step's gradients on the card against the CPU's from the same params,
+# f32 compute with TF32 off, per leaf in relative L2: only the order of the
+# sums differs (cuDNN's, cuBLAS's and the scatter-adds' against the CPU's).
+ZOO_GRAD_REL_L2 = 1e-3
+# The card's transducer loss against the float64 oracle on the same
+# log-probs, relative: the f32 lattice rounds each LSE.
+TRANSDUCER_REL = 1e-4
+
+
+def _zoo_launches() -> dict:
+    return {**_launch_counts(), **_det_launch_counts()}
+
+
+def _zero_zoo_launches() -> None:
+    _zero_launch_counts()
+    _zero_det_launch_counts()
+
+
+def _cross_device_grads(name: str, loss_fn, params, batch: dict,
+                        device: str) -> dict:
+    """One loss and every gradient leaf of `loss_fn(params, batch)` on
+    `device` and then on the CPU, from the same params (a CPU tree) and
+    numpy batch, with TF32 off.  Returns the losses and each leaf's
+    relative L2 distance (a leaf with no gradient on either side must have
+    none on the other)."""
+    import torch
+
+    from cloudtik_tpu_torch.tree import tree_map
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    try:
+        for i, dev in enumerate((device, "cpu")):
+            p = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
+                         params)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            named = _named_leaves(p)
+            loss, _ = loss_fn(p, b)
+            grads = torch.autograd.grad(loss, [t for _, t in named],
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            runs[i] = (loss.item(), [g.detach().cpu().double()
+                                     for g in grads])
+            del p, b, loss, grads
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    rel = {}
+    for (n, _), a, b in zip(named, runs[0][1], runs[1][1]):
+        norm = b.norm()
+        if norm == 0:
+            require(not bool(a.any()), f"{name}: {n} has a gradient on one "
+                    "device only")
+            continue
+        rel[n] = ((a - b).norm() / norm).item()
+    worst = max(rel, key=rel.get)
+    return {"loss_card": runs[0][0], "loss_cpu": runs[1][0],
+            "grad_rel_l2_max": {worst: rel[worst]},
+            "grad_rel_l2_median": sorted(rel.values())[len(rel) // 2],
+            "grad_leaves": len(rel),
+            "zero_grad_leaves": len(named) - len(rel),
+            "tolerance_rel_l2": ZOO_GRAD_REL_L2}
+
+
+def _require_grads(name: str, check: dict) -> None:
+    (leaf, worst), = check["grad_rel_l2_max"].items()
+    require(worst <= ZOO_GRAD_REL_L2,
+            f"{name}: {leaf}'s gradient on the card differs from the CPU's "
+            f"by {worst} (limit {ZOO_GRAD_REL_L2})")
+    require(abs(check["loss_card"] - check["loss_cpu"])
+            <= ZOO_GRAD_REL_L2 * abs(check["loss_cpu"]),
+            f"{name}: loss {check['loss_card']} on the card, "
+            f"{check['loss_cpu']} on the CPU")
+
+
+def _zoo_phase_end(name: str, out: dict, trainer, on_card: bool) -> None:
+    """Emit the phase's line, hold it to no B1-B5 launch, free it."""
+    emit(name, **out)
+    _require_no_launches(name, out)
+    del trainer
+    _collect(on_card)
+
+
+def phase_diffusion_train(load: RecipeLoad = DIFFUSION_TRAIN_LOAD,
+                          device: str = "cuda",
+                          nvidia_smi: str = None) -> dict:
+    """sdxl_mini through `recipes.sdxl_fsdp.build`: f32 params, bf16
+    compute, AdamW; no attention layer takes the flash kernel (head dims
+    80 and 160), so no B1-B5 launch."""
+    from cloudtik_tpu_torch.tree import tree_leaves
+
+    out, trainer, _, cfg, _ = _recipe_train("diffusion_train", load, device,
+                                            nvidia_smi)
+    n_stages = len(cfg.width_mults)
+    out.update(image_size=cfg.image_size,
+               images_per_s=out.pop("tokens_per_s"),
+               num_params=sum(p.numel() for p in tree_leaves(trainer.params)),
+               attention_head_dims=sorted(
+                   {cfg.stage_width(s) // cfg.n_heads
+                    for s in (*cfg.attn_stages, n_stages - 1)}))
+    _zoo_phase_end("diffusion_train", out, trainer, device == "cuda")
+    return out
+
+
+def phase_diffusion_grads(check: ZooCheck = DIFFUSION_CHECK,
+                          device: str = "cuda") -> dict:
+    """sdxl_mini's widths cut to one block a stage at 16x16 latents, f32:
+    one step's gradients on the card against the CPU's."""
+    import torch
+
+    from cloudtik_tpu_torch.models import diffusion as U
+    from cloudtik_tpu_torch.train.data import synthetic_diffusion_batches
+
+    cfg = U.config(check.model, dtype=torch.float32, **dict(check.overrides))
+    params = U.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = next(synthetic_diffusion_batches(check.batch, cfg.image_size,
+                                             cfg.in_channels, seed=1))
+    _zero_zoo_launches()
+    grads = _cross_device_grads(
+        "diffusion_grads", lambda p, b: U.loss_fn(p, b, cfg), params, batch,
+        device)
+    out = {"model": check.model, "overrides": dict(check.overrides),
+           "batch": check.batch, "widths": [cfg.stage_width(s) for s in
+                                             range(len(cfg.width_mults))],
+           **grads, "launches": _zoo_launches()}
+    emit("diffusion_grads", **out)
+    _require_grads("diffusion_grads", out)
+    require(not any(out["launches"].values()),
+            f"diffusion_grads launched {out['launches']}")
+    _collect(device == "cuda")
+    return out
+
+
+def phase_dlrm_train(load: RecipeLoad = DLRM_TRAIN_LOAD,
+                     check: ZooCheck = DLRM_CHECK, device: str = "cuda",
+                     nvidia_smi: str = None) -> dict:
+    """criteo_terabyte through `recipes.dlrm_criteo.build` (the whole
+    table stack on the card, a dense table gradient, AdamW); then the
+    2-table cut in f32, card against CPU."""
+    import torch
+
+    from cloudtik_tpu_torch.models import dlrm as D
+    from cloudtik_tpu_torch.train.data import synthetic_dlrm_batches
+
+    out, trainer, _, cfg, _ = _recipe_train("dlrm_train", load, device,
+                                            nvidia_smi)
+    out.update(examples_per_s=out.pop("tokens_per_s"),
+               num_params=cfg.num_params(),
+               table_params=cfg.num_tables * cfg.rows_per_table
+               * cfg.embed_dim)
+    _zoo_phase_end("dlrm_train", out, trainer, device == "cuda")
+
+    ccfg = D.config(check.model, dtype=torch.float32,
+                    **dict(check.overrides))
+    params = D.init_params(torch.Generator().manual_seed(0), ccfg, "cpu")
+    batch = next(synthetic_dlrm_batches(check.batch, ccfg.num_dense,
+                                        ccfg.num_tables,
+                                        ccfg.rows_per_table, seed=1))
+    grads = _cross_device_grads(
+        "dlrm_grads", lambda p, b: D.loss_fn(p, b, ccfg), params, batch,
+        device)
+    emit("dlrm_grads", model=check.model, overrides=dict(check.overrides),
+         batch=check.batch, **grads)
+    _require_grads("dlrm_grads", grads)
+    out["grads"] = grads
+    _collect(device == "cuda")
+    return out
+
+
+def phase_rnnt_train(load: RecipeLoad = RNNT_TRAIN_LOAD,
+                     check: ZooCheck = RNNT_CHECK, device: str = "cuda",
+                     nvidia_smi: str = None) -> dict:
+    """The rnnt preset through `recipes.rnnt_speech.build`; then, at its
+    width with one encoder layer before and one after the time reduction
+    in f32: the card's transducer loss against the float64 oracle on the
+    card's log-probs, one step's gradients against the CPU's, and
+    `greedy_decode`'s tokens equal to the CPU's."""
+    import torch
+
+    from cloudtik_tpu_torch.models import rnnt as N
+    from cloudtik_tpu_torch.ops import transducer as X
+    from cloudtik_tpu_torch.train.data import synthetic_speech_batches
+    from cloudtik_tpu_torch.tree import tree_map
+
+    on_card = device == "cuda"
+    out, trainer, _, cfg, args = _recipe_train("rnnt_train", load, device,
+                                               nvidia_smi)
+    out.update(frames_per_s=out.pop("tokens_per_s"),
+               max_frames=args.max_frames, max_labels=args.max_labels,
+               num_params=N.num_params(cfg))
+    _zoo_phase_end("rnnt_train", out, trainer, on_card)
+
+    ccfg = N.config(check.model, dtype=torch.float32,
+                    **dict(check.overrides))
+    params = N.init_params(torch.Generator().manual_seed(0), ccfg, "cpu")
+    batch = next(synthetic_speech_batches(
+        check.batch, check.frames, ccfg.feature_dim, ccfg.vocab_size,
+        check.labels, seed=1))
+    _zero_zoo_launches()
+    grads = _cross_device_grads(
+        "rnnt_grads", lambda p, b: N.loss_fn(p, b, ccfg), params, batch,
+        device)
+    dparams = tree_map(lambda t: t.to(device), params)
+    feats = torch.as_tensor(batch["features"], device=device)
+    labels = torch.as_tensor(batch["labels"], device=device)
+    with torch.no_grad():
+        enc = N.encode(dparams, feats, ccfg)
+        lp = N.joint(dparams, enc, N.predict(dparams, labels, ccfg), ccfg)
+        enc_len = torch.clamp(torch.as_tensor(
+            batch["feature_lengths"], device=device).long()
+            // ccfg.time_reduction, 1, enc.shape[1])
+        lab_len = torch.as_tensor(batch["label_lengths"], device=device)
+        loss = X.transducer_loss(lp, labels, enc_len, lab_len).cpu()
+    oracle = X.transducer_loss_reference(lp, labels, enc_len, lab_len)
+    lattice_rel = (abs(loss.double().numpy() - oracle)
+                   / abs(oracle)).max().item()
+    tokens = N.greedy_decode(dparams, feats, ccfg).cpu()
+    cpu_tokens = N.greedy_decode(params, torch.as_tensor(batch["features"]),
+                                 ccfg)
+    check_out = {"model": check.model, "overrides": dict(check.overrides),
+                 "batch": check.batch, "frames": check.frames,
+                 "labels": check.labels,
+                 "lattice": [int(lp.shape[1]), int(lp.shape[2])],
+                 "transducer_rel_err_vs_oracle": lattice_rel,
+                 "transducer_tolerance": TRANSDUCER_REL,
+                 "loss_per_example": loss.tolist(),
+                 "greedy_tokens_equal": bool(torch.equal(tokens,
+                                                         cpu_tokens)),
+                 "greedy_symbols": int((tokens != 0).sum()),
+                 **grads, "launches": _zoo_launches()}
+    emit("rnnt_grads", **check_out)
+    require(lattice_rel <= TRANSDUCER_REL,
+            f"rnnt_grads: the transducer loss differs from the float64 "
+            f"oracle by {lattice_rel} (limit {TRANSDUCER_REL})")
+    _require_grads("rnnt_grads", grads)
+    require(check_out["greedy_tokens_equal"],
+            f"rnnt_grads: greedy_decode on the card gave {tokens.tolist()}, "
+            f"on the CPU {cpu_tokens.tolist()}")
+    require(not any(check_out["launches"].values()),
+            f"rnnt_grads launched {check_out['launches']}")
+    out["check"] = check_out
+    del dparams, enc, lp
+    _collect(on_card)
+    return out
+
+
+def phase_graphsage_train(load: RecipeLoad = GRAPHSAGE_TRAIN_LOAD,
+                          link_load: RecipeLoad = GRAPHSAGE_LINK_LOAD,
+                          check: ZooCheck = GRAPHSAGE_CHECK,
+                          device: str = "cuda",
+                          nvidia_smi: str = None) -> dict:
+    """The graphsage preset through `recipes.graphsage_nodes.build`:
+    supervised node classification, then link prediction; then one f32
+    step of the supervised objective, card against CPU."""
+    import torch
+
+    from cloudtik_tpu_torch.models import graphsage as G
+    from cloudtik_tpu_torch.train.data import synthetic_graph_batches
+
+    on_card = device == "cuda"
+    out, trainer, _, cfg, args = _recipe_train("graphsage_train", load,
+                                               device, nvidia_smi)
+    out.update(nodes_per_s=out.pop("tokens_per_s"), nodes=args.nodes,
+               objective=args.objective)
+    del trainer
+    link, trainer, _, _, link_args = _recipe_train(
+        "graphsage_link_pred", link_load, device, nvidia_smi)
+    out["link_pred"] = {k: link[k] for k in (
+        "losses", "ms_per_step", "launches", "launches_per_step",
+        "metrics")}
+    out["link_pred"]["edges"] = link_args.nodes // 2
+    _require_no_launches("graphsage_link_pred", link)
+    _zoo_phase_end("graphsage_train", out, trainer, on_card)
+
+    ccfg = G.config(check.model, dtype=torch.float32,
+                    **dict(check.overrides))
+    params = G.init_params(torch.Generator().manual_seed(0), ccfg, "cpu")
+    batch = next(synthetic_graph_batches(check.batch, ccfg.in_dim,
+                                         ccfg.num_classes, ccfg.max_degree,
+                                         seed=1))
+    grads = _cross_device_grads(
+        "graphsage_grads", lambda p, b: G.loss_fn(p, b, ccfg), params,
+        batch, device)
+    emit("graphsage_grads", model=check.model, nodes=check.batch, **grads)
+    _require_grads("graphsage_grads", grads)
+    out["grads"] = grads
+    _collect(on_card)
+    return out
+
+
+# ----------------------------------------------------------------- gbdt --
+
+@dataclasses.dataclass(frozen=True)
+class GbdtLoad:
+    """The gbdt phase: the default `GBDTConfig` but `n_trees` (100 trees,
+    depth 6, 64 bins, logistic) fit on `rows` synthetic rows of `features`
+    features (the width of the UCI HIGGS set, whose 11M rows are cut to
+    1M for the script's time), `serve_rows` of them posted to `tik-serve
+    --gbdt`, and the cross-device check on `check_rows` rows, logistic and
+    softmax at K=3."""
+    rows: int = 1_000_000
+    features: int = 28
+    n_trees: int = 100
+    serve_rows: int = 1_000
+    check_rows: int = 20_000
+    seed: int = 0
+
+
+GBDT_LOAD = GbdtLoad()
+GBDT_REHEARSAL = GbdtLoad(rows=4_000, n_trees=10, serve_rows=50,
+                          check_rows=2_000)
+# A split may take another candidate on the card when the CPU's best gain
+# stands less than this share above its runner-up (the card's scatter-adds
+# sum the histograms in another order, ~1e-6 of a gain apart).
+GBDT_NEAR_TIE = 1e-4
+# Over the rows no flip left out: the raw scores' accumulated |card - CPU|
+# (each leaf a sum of gradients in another order, ~1e-7 apart) and the
+# probabilities of the two forests.
+GBDT_SCORE_ATOL = 1e-4
+GBDT_PROBA_ATOL = 1e-4
+
+
+def gbdt_data(rows: int, features: int, seed: int):
+    """Synthetic tabular rows [rows, features] f32 with a binary label and
+    a 3-class label, both functions of a few features' interactions plus
+    noise (so depth-6 trees have something to find)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((rows, features), dtype=np.float32)
+    score = (X[:, 0] * X[:, 1] + np.sin(2 * X[:, 2]) + 0.5 * X[:, 3]
+             - 0.3 * X[:, 4] ** 2
+             + 0.5 * rng.standard_normal(rows, dtype=np.float32))
+    return (X, (score > 0).astype(np.float32),
+            np.digitize(score, [-0.5, 0.5]).astype(np.int32))
+
+
+def node_paths(trees: dict, binned, depth: int):
+    """The node every row reaches at every level of one round's K trees
+    ([K, 2^d - 1] split arrays) over binned rows [N, F]: [K, depth + 1,
+    N], level 0 the root."""
+    import torch
+
+    feats = trees["split_feat"].long()
+    bins = trees["split_bin"].long()
+    X = torch.as_tensor(binned).long()
+    rows = torch.arange(X.shape[0])
+    node = torch.zeros((feats.shape[0], X.shape[0]), dtype=torch.long)
+    paths = [node]
+    for level in range(depth):
+        idx = 2 ** level - 1 + node
+        x = X.t()[feats.gather(1, idx), rows]
+        node = node * 2 + (x > bins.gather(1, idx)).long()
+        paths.append(node)
+    return torch.stack(paths, dim=1)
+
+
+def compare_round(card: dict, cpu: dict, cpu_gaps: list, binned,
+                  depth: int) -> dict:
+    """One round's K trees, grown on the card and on the CPU from the same
+    scores, compared by the partition each split makes of the training
+    rows: a split that differs in (feature, bin) but sends the same rows
+    left is equivalent; a node that partitions its rows otherwise must be
+    one where the CPU's best gain was a near tie (`GBDT_NEAR_TIE`), and
+    its subtree's rows leave the comparison.  Every other row must reach
+    the same leaf: its |card leaf - CPU leaf| is returned per row ([K, N],
+    0 where left out).  Trees as CPU tensors of [K, ...]."""
+    import torch
+
+    pc = node_paths(card, binned, depth)
+    pp = node_paths(cpu, binned, depth)
+    K, _, N = pp.shape
+    flips, at_near_tie = [], True
+    left_out = torch.zeros((K, N), dtype=torch.bool)
+    for k in range(K):
+        for level in range(1, depth + 1):
+            rows = (pc[k, level] != pp[k, level]) & ~left_out[k]
+            for parent in pp[k, level - 1][rows].unique().tolist():
+                gap = float(cpu_gaps[level - 1][k, parent])
+                flips.append({"class": k, "level": level - 1,
+                              "node": parent, "cpu_gain_gap": gap})
+                at_near_tie &= gap < GBDT_NEAR_TIE
+                left_out[k] |= pp[k, level - 1] == parent
+    leaf_card = card["leaf"].gather(1, pc[:, depth])
+    leaf_cpu = cpu["leaf"].gather(1, pp[:, depth])
+    differ = ((card["split_feat"] != cpu["split_feat"])
+              | (card["split_bin"] != cpu["split_bin"]))
+    return {"flips": flips, "at_near_tie": at_near_tie,
+            "left_out": left_out, "split_differences": int(differ.sum()),
+            "leaf_diff": torch.where(left_out, torch.zeros_like(leaf_cpu),
+                                     (leaf_card - leaf_cpu).abs())}
+
+
+def _gbdt_cross_device(X, labels, cfg, device: str) -> dict:
+    """Every round grown twice from the CPU's scores (the CPU's own
+    forest): once on the card, once on the CPU, from the same binned rows
+    and targets, compared by `compare_round`.  Over the rounds: each flip
+    at a near tie, the accumulated |card - CPU| of the raw scores on the
+    rows no flip left out within GBDT_SCORE_ATOL, and the probabilities of
+    the forest of card trees against the CPU's forest on the rows no flip
+    touched within GBDT_PROBA_ATOL."""
+    import torch
+
+    from cloudtik_tpu_torch.models import gbdt as GB
+
+    Xb = torch.as_tensor(GB.apply_bins(X, GB.quantile_bins(X, cfg.n_bins)))
+    xb = Xb.long()
+    xb_card = xb.to(device)
+    base, targets = GB.initial_scores(torch.as_tensor(labels), cfg)
+    K, N = targets.shape
+    scores = base.reshape(-1, 1).expand(K, N).clone()
+    drift = torch.zeros((K, N), dtype=torch.float64)
+    touched = torch.zeros((K, N), dtype=torch.bool)
+    flips, at_near_tie, differences, near_ties = [], True, 0, 0
+    card_trees, cpu_trees = [], []
+    card_s = cpu_s = 0.0
+    for r in range(cfg.n_trees):
+        gaps = []
+        t0 = time.perf_counter()
+        cpu = GB.grow_round(xb, scores, targets, cfg, gaps)
+        cpu_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card = GB.grow_round(xb_card, scores.to(device), targets.to(device),
+                             cfg)
+        card = {k: v.cpu() for k, v in card.items()}        # waits for it
+        card_s += time.perf_counter() - t0
+        c = compare_round(card, cpu, gaps, xb, cfg.depth)
+        flips += [dict(f, round=r) for f in c["flips"]]
+        at_near_tie &= c["at_near_tie"]
+        differences += c["split_differences"]
+        near_ties += sum(int((g < GBDT_NEAR_TIE).sum()) for g in gaps)
+        drift += c["leaf_diff"].double()
+        touched |= c["left_out"]
+        card_trees.append(card)
+        cpu_trees.append(cpu)
+        scores = scores + GB.round_scores(cpu, xb, cfg)
+
+    def forest(trees):
+        f = {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+        if cfg.objective != "softmax":
+            f = {k: v[:, 0] for k, v in f.items()}
+        return dict(f, base_score=base)
+
+    clean = ~touched.any(dim=0)                              # [N]
+    got = GB.predict_proba(forest(card_trees), xb, cfg)
+    want = GB.predict_proba(forest(cpu_trees), xb, cfg)
+    proba_err = float((got - want)[clean].abs().max()) if clean.any() \
+        else float("nan")
+    return {"objective": cfg.objective, "rows": N, "rounds": cfg.n_trees,
+            "grow_s_card": card_s, "grow_s_cpu": cpu_s,
+            "split_differences": differences, "flips": flips[:20],
+            "n_flips": len(flips), "flips_at_near_ties": at_near_tie,
+            "near_ties": near_ties,
+            "rows_left_out": int(touched.any(dim=0).sum()),
+            "score_drift_max": float(drift.max()),
+            "score_tolerance": GBDT_SCORE_ATOL,
+            "proba_max_abs_err": proba_err,
+            "proba_tolerance": GBDT_PROBA_ATOL}
+
+
+def _serve_gbdt(path: str, rows, device: str, root: str) -> list:
+    """`tik-serve --gbdt path` as its own process (the port's `main`),
+    `rows` POSTed to /v1/predict; returns the probabilities it answered.
+    The process is stopped (SIGTERM, then killed) whatever happens."""
+    import queue as queue_mod
+    import signal
+    import threading
+
+    env = dict(os.environ, TIK_REQLOG_PATH=os.path.join(root, "rl.jsonl"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cloudtik_tpu_torch.serve.server", "--gbdt",
+         path, "--host", "127.0.0.1", "--port", "0", "--device", device],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(Path(__file__).resolve().parent))
+    lines = queue_mod.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    try:
+        try:
+            line = lines.get(timeout=180)
+        except queue_mod.Empty:
+            line = ""
+        m = re.search(r"listening on [\d.]+:(\d+)", line)
+        require(m is not None, f"gbdt: tik-serve --gbdt did not start: "
+                f"{line!r} {proc.poll()}")
+        status, body = _http(f"http://127.0.0.1:{m.group(1)}/v1/predict",
+                             {"features": rows})
+        require(status == 200, f"gbdt: /v1/predict answered {status} {body}")
+        proc.send_signal(signal.SIGTERM)
+        require(proc.wait(timeout=60) == 0,
+                f"gbdt: tik-serve exited {proc.returncode} after SIGTERM")
+        return body["probabilities"]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def phase_gbdt(load: GbdtLoad = GBDT_LOAD, device: str = "cuda",
+               nvidia_smi: str = None) -> dict:
+    """The default GBDT fit on the card over `load.rows` synthetic rows:
+    the training log-loss falling tree by tree, ms per tree and predict
+    rows/s; the forest saved with its edges and served by `tik-serve
+    --gbdt`, whose /v1/predict must equal `predict_proba`; a forest saved
+    without edges refused; then the cross-device check
+    (`_gbdt_cross_device`), logistic and softmax.  Launch counts are zeroed just before the fit and read after
+    the check."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cloudtik_tpu_torch.models import gbdt as GB
+    from cloudtik_tpu_torch.serve.server import gbdt_backend
+
+    on_card = device == "cuda"
+    L = load
+    _collect(on_card)
+    X, y, y3 = gbdt_data(L.rows, L.features, L.seed)
+    cfg = GB.config(n_trees=L.n_trees)
+    t0 = time.perf_counter()
+    edges = GB.quantile_bins(X, cfg.n_bins)
+    Xb = GB.apply_bins(X, edges)
+    bin_s = time.perf_counter() - t0
+    _zero_zoo_launches()
+    t0 = time.perf_counter()
+    forest = GB.fit(Xb, y, cfg, device=device)
+    if on_card:
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+
+    Xd = torch.as_tensor(Xb, device=device)
+    yd = torch.as_tensor(y, device=device)
+
+    def log_loss(k):
+        head = {key: (v if key == "base_score" else v[:k])
+                for key, v in forest.items()}
+        p = GB.predict_proba(head, Xd, cfg).clamp(1e-7, 1 - 1e-7)
+        return float(-(yd * torch.log(p) + (1 - yd)
+                       * torch.log(1 - p)).mean())
+
+    checkpoints = sorted({0, 1, L.n_trees // 10, L.n_trees // 2, L.n_trees})
+    losses = [log_loss(k) for k in checkpoints]
+    predict_s = []
+    for _ in range(3):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proba = GB.predict_proba(forest, Xd, cfg)
+        if on_card:
+            torch.cuda.synchronize()
+        predict_s.append(time.perf_counter() - t0)
+    accuracy = float(((proba > 0.5).float() == yd).float().mean())
+    del Xd, yd, proba
+
+    root = tempfile.mkdtemp(prefix="tik-gbdt-")
+    try:
+        path = os.path.join(root, "forest.npz")
+        GB.save(path, forest, edges)
+        rows = X[:L.serve_rows]
+        served = _serve_gbdt(path, rows.tolist(), device, root)
+        direct = GB.predict_proba(forest, GB.apply_bins(rows, edges),
+                                  cfg).cpu().numpy().tolist()
+        bare = os.path.join(root, "bare.npz")
+        GB.save(bare, forest)
+        try:
+            gbdt_backend(bare, device=device)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del forest
+    checks = {"logistic": _gbdt_cross_device(
+        X[:L.check_rows], y[:L.check_rows], GB.config(n_trees=L.n_trees),
+        device),
+              "softmax": _gbdt_cross_device(
+        X[:L.check_rows], y3[:L.check_rows],
+        GB.config(n_trees=L.n_trees, objective="softmax", n_classes=3),
+        device)}
+    launches = _zoo_launches()
+    out = {"nvidia_smi": nvidia_smi, "rows": L.rows,
+           "features": L.features, "config": dataclasses.asdict(cfg),
+           "bin_s": bin_s, "fit_s": fit_s,
+           "ms_per_tree": fit_s / L.n_trees * 1e3,
+           "log_loss_at_trees": dict(zip(checkpoints, losses)),
+           "train_accuracy": accuracy,
+           "predict_ms": min(predict_s) * 1e3,
+           "predict_rows_per_s": L.rows / min(predict_s),
+           "served_rows": len(served),
+           "served_equals_predict_proba": served == direct,
+           "refused_without_edges": refused, "checks": checks,
+           "launches": launches}
+    emit("gbdt", **out)
+    require(all(math.isfinite(x) for x in losses)
+            and all(b < a for a, b in zip(losses, losses[1:])),
+            f"gbdt: the training log-loss did not fall tree by tree: "
+            f"{dict(zip(checkpoints, losses))}")
+    require(out["served_equals_predict_proba"],
+            "gbdt: /v1/predict differs from predict_proba")
+    require(refused is not None and "without bin edges" in refused,
+            f"gbdt: a forest without edges was not refused ({refused})")
+    for name, c in checks.items():
+        require(c["flips_at_near_ties"],
+                f"gbdt {name}: a split partitions the rows otherwise on the "
+                f"card than on the CPU at a node that was not a near tie: "
+                f"{c['flips']}")
+        require(c["score_drift_max"] <= GBDT_SCORE_ATOL
+                and c["proba_max_abs_err"] <= GBDT_PROBA_ATOL,
+                f"gbdt {name}: the card's trees score the rows otherwise "
+                f"than the CPU's: {c}")
+    require(not any(launches.values()), f"gbdt launched {launches}")
+    _collect(on_card)
+    return out
+
+
+
 # -------------------------------------------------------------------- main --
 
 def main() -> int:
@@ -4748,6 +5464,18 @@ def main() -> int:
     maskrcnn_train = phase_maskrcnn_train(nvidia_smi=smi)
     det_launches["roi_align"] += maskrcnn_train["launches"]["roi_align"]
     loaders = phase_loaders(nvidia_smi=smi)
+
+    # ---- the model zoo (counts zeroed and read inside, around the
+    # measured steps, the cross-device checks and the GBDT fit, serve and
+    # check): no B1-B5 launch on any of these paths ----
+    t_zoo = time.perf_counter()
+    phase_diffusion_train(nvidia_smi=smi)
+    phase_diffusion_grads()
+    phase_dlrm_train(nvidia_smi=smi)
+    phase_rnnt_train(nvidia_smi=smi)
+    phase_graphsage_train(nvidia_smi=smi)
+    phase_gbdt(nvidia_smi=smi)
+    emit("zoo", seconds=time.perf_counter() - t_zoo)
 
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]

@@ -5,6 +5,7 @@ server in front of the port's `generate` (one request at a time) or, with
 `--engine`, of the continuous-batching `DecodeEngine` (serve/engine.py):
 
   POST /v1/generate  {"tokens": [[...]], "max_new_tokens": 8, ...}
+  POST /v1/predict   {"features": [[...], ...]}        (--gbdt)
   GET  /healthz                                       liveness
   GET  /v1/models                                     what's loaded
 
@@ -22,8 +23,9 @@ checkpoint with `--checkpoint-dir` (and the draft's with
 package's).  With `--replica-id` and `--state-host` the server heartbeats
 into the serving fabric's replica registry (serve/replicas.py), where the
 prefix-affinity router (`python -m cloudtik_tpu_torch.serve.router`)
-finds it; SIGTERM drains the registration first.  Not here yet: the GBDT
-backend.
+finds it; SIGTERM drains the registration first.  With `--gbdt <path>` it
+serves a saved GBDT forest (models/gbdt.py, either package's npz) on
+`/v1/predict` instead.
 
     python -m cloudtik_tpu_torch.serve.server --model tpu_1b
     python -m cloudtik_tpu_torch.serve.server --engine --model tpu_1b
@@ -33,6 +35,7 @@ backend.
         --disagg --prefill-slots 2
     python -m cloudtik_tpu_torch.serve.server --model tpu_1b \
         --checkpoint-dir /path/to/run/checkpoints
+    python -m cloudtik_tpu_torch.serve.server --gbdt /path/to/forest.npz
 """
 
 from __future__ import annotations
@@ -296,6 +299,44 @@ def engine_backend(model: str = "tiny",
     return backend
 
 
+def gbdt_backend(model_path: str, device=None) -> ModelBackend:
+    """Tabular predict endpoint on a saved GBDT forest: POST
+    {"features": [[...], ...]} (raw floats, binned here with the forest's
+    edges) -> {"probabilities": [...]}.  A forest saved without its bin
+    edges is refused: raw floats cast to bin ids would give confidently
+    wrong probabilities.  A forest of [T, 2^d] leaves is served as the
+    logistic objective, one of [T, K, 2^d] as softmax, as the reference
+    serves them."""
+    import numpy as np
+
+    from cloudtik_tpu_torch.models import gbdt as GB
+
+    forest, edges = GB.load(model_path, device=device)
+    if edges is None:
+        raise ValueError(
+            f"{model_path} was saved without bin edges; save with "
+            "GB.save(path, forest, edges) to serve it")
+    leaf = forest["leaf"]
+    n_bins = int(edges.shape[1]) + 1
+    if leaf.dim() == 3:      # [T, K, 2^d]: a native multiclass forest
+        cfg = GB.config(n_trees=int(leaf.shape[0]),
+                        depth=int(np.log2(leaf.shape[2])),
+                        n_bins=n_bins, objective="softmax",
+                        n_classes=int(leaf.shape[1]))
+    else:
+        cfg = GB.config(n_trees=int(leaf.shape[0]),
+                        depth=int(np.log2(leaf.shape[1])),
+                        n_bins=n_bins)
+
+    def predict(payload: Dict[str, Any]) -> Dict[str, Any]:
+        X = np.asarray(payload["features"], np.float32)
+        binned = GB.apply_bins(X, edges)
+        proba = GB.predict_proba(forest, binned, cfg)
+        return {"probabilities": proba.cpu().numpy().tolist()}
+
+    return ModelBackend("gbdt", {"predict": predict})
+
+
 class _HTTPServer(ThreadingHTTPServer):
     # a listen backlog for a burst of concurrent clients (the stdlib's 5
     # lets a burst of 16 connects be reset before they are accepted)
@@ -459,6 +500,7 @@ def main(argv=None) -> int:
                         "this trainer checkpoint directory")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
+    p.add_argument("--gbdt", default=None, help="saved GBDT .npz path")
     p.add_argument("--engine", action="store_true",
                    help="continuous-batching decode engine (concurrent "
                         "requests share decode steps)")
@@ -530,7 +572,9 @@ def main(argv=None) -> int:
                         "requests finish before exiting")
     args = p.parse_args(argv)
 
-    if args.engine:
+    if args.gbdt:
+        backends = [gbdt_backend(args.gbdt, device=args.device)]
+    elif args.engine:
         tenant_weights = {}
         for entry in args.tenant_weight:
             name, _, weight = entry.partition("=")

@@ -4,7 +4,9 @@ streaming shard hand-off.
 Counterpart of `cloudtik_tpu/train/data.py`, byte for byte: the same numpy
 generators, seeds and draws (`synthetic_lm_batches`,
 `synthetic_mlm_batches`, `synthetic_image_batches`,
-`synthetic_detection_batches`), the same file reader
+`synthetic_detection_batches`, `synthetic_dlrm_batches`,
+`synthetic_diffusion_batches`, `synthetic_speech_batches`,
+`synthetic_graph_batches`), the same file reader
 (`tokenized_file_batches`) and the same streaming protocol
 (`export_token_shard`, `finish_export`, `streaming_shard_batches`: shards
 published by atomic rename, a `_SUCCESS` marker, readahead on a watcher
@@ -14,8 +16,7 @@ its device.  Where the JAX package asks `jax.process_index()` and
 `process_count()` which shards are this host's, the port asks
 `torch.distributed` for its rank and world size when a process group is
 initialised, else 0 and 1.  `global_batches` comes with the parallel layer
-(ROADMAP A7); the generators of the other model families with their
-models.
+(ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -137,6 +138,101 @@ def synthetic_detection_batches(
                                    & (grid[None, :] <= x2))
             batch["gt_masks"] = masks
         yield batch
+
+
+def synthetic_dlrm_batches(
+    batch_size: int,
+    num_dense: int,
+    num_tables: int,
+    rows_per_table: int,
+    seed: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Synthetic click-prediction batches (dense features + sparse ids)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield {
+            "dense": rng.standard_normal(
+                (batch_size, num_dense)).astype(np.float32),
+            "sparse_ids": rng.integers(
+                0, rows_per_table, (batch_size, num_tables),
+                dtype=np.int32),
+            "labels": rng.integers(0, 2, (batch_size,), dtype=np.int32),
+        }
+
+
+def synthetic_diffusion_batches(
+    batch_size: int,
+    image_size: int,
+    channels: int,
+    seed: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Synthetic latent-diffusion batches (latents + noise + timestep)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield {
+            "latents": rng.standard_normal(
+                (batch_size, image_size, image_size, channels)
+            ).astype(np.float32),
+            "noise": rng.standard_normal(
+                (batch_size, image_size, image_size, channels)
+            ).astype(np.float32),
+            "t": rng.uniform(0, 1, (batch_size,)).astype(np.float32),
+        }
+
+
+def synthetic_speech_batches(
+    batch_size: int,
+    max_frames: int,
+    feature_dim: int,
+    vocab_size: int,
+    max_labels: int = 32,
+    seed: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Synthetic RNN-T batches: padded log-mel frames + label sequences."""
+    rng = np.random.default_rng(seed)
+    while True:
+        flen = rng.integers(max_frames // 2, max_frames + 1,
+                            (batch_size,)).astype(np.int32)
+        llen = rng.integers(1, max_labels + 1,
+                            (batch_size,)).astype(np.int32)
+        labels = rng.integers(
+            1, vocab_size, (batch_size, max_labels), dtype=np.int32)
+        for b in range(batch_size):
+            labels[b, llen[b]:] = 0
+        yield {
+            "features": rng.standard_normal(
+                (batch_size, max_frames, feature_dim)).astype(np.float32),
+            "feature_lengths": flen,
+            "labels": labels,
+            "label_lengths": llen,
+        }
+
+
+def synthetic_graph_batches(
+    num_nodes: int,
+    feature_dim: int,
+    num_classes: int,
+    max_degree: int = 10,
+    seed: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Synthetic padded-adjacency graph blocks for GraphSAGE."""
+    rng = np.random.default_rng(seed)
+    while True:
+        deg = rng.integers(1, max_degree + 1, (num_nodes,))
+        neighbors = rng.integers(
+            0, num_nodes, (num_nodes, max_degree), dtype=np.int32)
+        mask = np.arange(max_degree)[None, :] < deg[:, None]
+        neighbors = np.where(
+            mask, neighbors, np.arange(num_nodes)[:, None]).astype(np.int32)
+        yield {
+            "features": rng.standard_normal(
+                (num_nodes, feature_dim)).astype(np.float32),
+            "neighbors": neighbors,
+            "neighbor_mask": mask,
+            "labels": rng.integers(
+                0, num_classes, (num_nodes,), dtype=np.int32),
+            "train_mask": rng.uniform(size=(num_nodes,)) < 0.7,
+        }
 
 
 def process_shard() -> Tuple[int, int]:
@@ -337,3 +433,4 @@ def tokenized_file_batches(
                    "labels": rows[:, 1:].astype(np.int32)}
         if not repeat:
             return
+

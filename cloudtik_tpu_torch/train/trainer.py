@@ -3,8 +3,10 @@ meter, checkpoints and an async input pipeline.
 
 Counterpart of the single-device core of `cloudtik_tpu/train/trainer.py`:
 `ModelSpec`, `transformer_spec`, `bert_spec`, `resnet_spec`, `ssd_spec`,
-`maskrcnn_spec` (and `models/lora.py`'s `lora_spec`; the image models count
-one "token" an image, so their TrainerConfig has seq_len=1),
+`maskrcnn_spec`, `dlrm_spec`, `diffusion_spec`, `rnnt_spec`,
+`graphsage_spec` (and `models/lora.py`'s `lora_spec`; the image, DLRM and
+graph models count one "token" an image, an example or a node, so their
+TrainerConfig has seq_len=1, and RNN-T one a frame),
 `TrainerConfig`, `Trainer.init_state` /
 `fit` with the same history keys (loss, n_tokens, accuracy, grad_norm,
 step, tokens_per_sec, mfu), gradient accumulation as the mean of the
@@ -23,9 +25,8 @@ whole call with `torch.profiler` (the CPU, and the card when there is one)
 into `<profile_dir>/trace.json`, a Chrome trace, through the same
 `ProfileCapture` that serves on-demand captures.
 
-Not here yet (ROADMAP A7, A8): the mesh and shardings, the overlapped
-gradient sync, elastic re-meshing, and the specs of the diffusion, DLRM,
-RNN-T and GraphSAGE families.
+Not here yet (ROADMAP A7): the mesh and shardings, the overlapped
+gradient sync and elastic re-meshing.
 """
 
 from __future__ import annotations
@@ -126,6 +127,53 @@ def maskrcnn_spec(cfg) -> ModelSpec:
         init=lambda gen, device: M.init_params(gen, cfg, device),
         loss_fn=lambda params, batch: M.loss_fn(params, batch, cfg),
         flops_per_token=cfg.flops_per_image(),
+    )
+
+
+def dlrm_spec(cfg) -> ModelSpec:
+    """Click prediction: per-example accounting (seq_len=1)."""
+    from cloudtik_tpu_torch.models import dlrm as D
+
+    return ModelSpec(
+        init=lambda gen, device: D.init_params(gen, cfg, device),
+        loss_fn=lambda params, batch: D.loss_fn(params, batch, cfg),
+        flops_per_token=cfg.flops_per_example(),
+    )
+
+
+def diffusion_spec(cfg) -> ModelSpec:
+    """Latent-diffusion UNet: per-image accounting (seq_len=1)."""
+    from cloudtik_tpu_torch.models import diffusion as U
+
+    return ModelSpec(
+        init=lambda gen, device: U.init_params(gen, cfg, device),
+        loss_fn=lambda params, batch: U.loss_fn(params, batch, cfg),
+        flops_per_token=cfg.flops_per_image(),
+    )
+
+
+def rnnt_spec(cfg) -> ModelSpec:
+    """Speech transducer: per-frame accounting (seq_len = frames)."""
+    from cloudtik_tpu_torch.models import rnnt as N
+
+    return ModelSpec(
+        init=lambda gen, device: N.init_params(gen, cfg, device),
+        loss_fn=lambda params, batch: N.loss_fn(params, batch, cfg),
+        flops_per_token=cfg.flops_per_frame(),
+    )
+
+
+def graphsage_spec(cfg, objective: str = "supervised") -> ModelSpec:
+    """GraphSAGE, node classification ("supervised") or link prediction
+    (any other objective, as the reference reads it): per-node
+    accounting."""
+    from cloudtik_tpu_torch.models import graphsage as G
+
+    loss = G.loss_fn if objective == "supervised" else G.link_pred_loss
+    return ModelSpec(
+        init=lambda gen, device: G.init_params(gen, cfg, device),
+        loss_fn=lambda params, batch: loss(params, batch, cfg),
+        flops_per_token=cfg.flops_per_node(),
     )
 
 

@@ -1025,3 +1025,286 @@ def test_loaders_load_is_tpu_1b_cut_to_two_layers():
     assert (load.model, load.n_layers, load.batch, load.seq) == (
         "tpu_1b", 2, 8, 2048)
     assert cfg.d_model == full.d_model and cfg.n_layers < full.n_layers
+
+
+# ------------------------------------------------------------ model zoo --
+
+def test_zoo_loads_are_the_recipes_per_card_batches():
+    """sdxl_mini at the recipe's batch default of 8; criteo_terabyte at
+    8,192; RNN-T at the JAX launch line's --batch 64 --data 8 (8 a card)
+    with 256 frames and 64 labels; GraphSAGE on 4,096-node blocks; each
+    2 warm-up and 5 measured steps (link prediction 1 and 1)."""
+    import importlib
+
+    for load, model, batch in (
+            (chip_smoke.DIFFUSION_TRAIN_LOAD, "sdxl_mini", 8),
+            (chip_smoke.DLRM_TRAIN_LOAD, "criteo_terabyte", 8192),
+            (chip_smoke.RNNT_TRAIN_LOAD, "rnnt", 64 // 8),
+            (chip_smoke.GRAPHSAGE_TRAIN_LOAD, "graphsage", 4096)):
+        recipe = importlib.import_module(
+            f"cloudtik_tpu_torch.recipes.{load.recipe}")
+        args = recipe.parser().parse_args(list(load.argv))
+        assert args.model == model
+        assert (args.nodes if model == "graphsage" else args.batch) == batch
+        assert (load.warmup, load.steps) == (2, 5)
+        if model == "rnnt":
+            assert (args.max_frames, args.max_labels) == (256, 64)
+    link = chip_smoke.GRAPHSAGE_LINK_LOAD
+    assert "link_pred" in link.argv and link.warmup + link.steps == 2
+
+
+def test_zoo_checks_cut_depth_or_size_never_width():
+    from cloudtik_tpu_torch.models import diffusion, dlrm, rnnt
+
+    c = chip_smoke.DIFFUSION_CHECK
+    cut = diffusion.config(c.model, **dict(c.overrides))
+    full = diffusion.config(c.model)
+    assert (cut.base_width, cut.width_mults, cut.n_heads) == (
+        full.base_width, full.width_mults, full.n_heads)
+    assert (cut.blocks_per_stage, cut.image_size, c.batch) == (1, 16, 2)
+    c = chip_smoke.DLRM_CHECK
+    cut = dlrm.config(c.model, **dict(c.overrides))
+    assert cut.num_tables == 2 and cut.embed_dim == 128 \
+        and cut.rows_per_table == 100_000
+    c = chip_smoke.RNNT_CHECK
+    cut = rnnt.config(c.model, **dict(c.overrides))
+    assert (cut.enc_hidden, cut.pred_hidden, cut.joint_dim) == (1024, 512,
+                                                                512)
+    assert (cut.enc_layers_pre, cut.enc_layers_post, c.batch, c.frames) == (
+        1, 1, 2, 64)
+    load = chip_smoke.GBDT_LOAD
+    assert (load.rows, load.features, load.n_trees, load.check_rows) == (
+        1_000_000, 28, 100, 20_000)
+
+
+def test_diffusion_phases_rehearsal_take_no_kernel_on_cpu():
+    out = chip_smoke.phase_diffusion_train(
+        chip_smoke.DIFFUSION_TRAIN_REHEARSAL, "cpu")
+    assert out["launches"] == NO_LAUNCHES
+    assert out["losses"][-1] < out["losses"][0]
+    assert out["images_per_s"] > 0 and out["mfu"] is None
+    assert out["attention_head_dims"] == [16]
+    grads = chip_smoke.phase_diffusion_grads(
+        chip_smoke.DIFFUSION_CHECK_REHEARSAL, "cpu")
+    assert grads["grad_leaves"] == 49 and grads["zero_grad_leaves"] == 0
+    assert grads["launches"] == NO_LAUNCHES
+
+
+def test_sdxl_mini_attention_takes_no_flash_kernel():
+    """Head dims 80 and 160: the auto rule keeps the plain path on the card
+    in bf16, as the reference's `_use_flash` does on a TPU."""
+    from cloudtik_tpu_torch.models import diffusion
+    from cloudtik_tpu_torch.ops.attention import use_flash_kernel
+
+    cfg = diffusion.config("sdxl_mini")
+    for stage, size in ((1, 32), (2, 16)):
+        D = cfg.stage_width(stage) // cfg.n_heads
+        shape = (8, cfg.n_heads, size * size, D)
+        assert D in (80, 160)
+        assert not use_flash_kernel("cuda", torch.bfloat16, shape, shape,
+                                    False)
+
+
+def test_dlrm_phase_rehearsal_takes_no_kernel_on_cpu():
+    out = chip_smoke.phase_dlrm_train(chip_smoke.DLRM_TRAIN_REHEARSAL,
+                                      chip_smoke.DLRM_CHECK_REHEARSAL, "cpu")
+    assert out["launches"] == NO_LAUNCHES
+    assert out["examples_per_s"] > 0
+    assert out["grads"]["grad_leaves"] == 11
+    assert out["grads"]["loss_card"] == out["grads"]["loss_cpu"]
+
+
+def test_rnnt_phase_rehearsal_takes_no_kernel_on_cpu():
+    out = chip_smoke.phase_rnnt_train(chip_smoke.RNNT_TRAIN_REHEARSAL,
+                                      chip_smoke.RNNT_CHECK_REHEARSAL, "cpu")
+    assert out["launches"] == NO_LAUNCHES
+    assert out["frames_per_s"] > 0 and out["max_frames"] == 16
+    check = out["check"]
+    assert check["transducer_rel_err_vs_oracle"] <= chip_smoke.TRANSDUCER_REL
+    assert check["greedy_tokens_equal"] and check["launches"] == NO_LAUNCHES
+
+
+def test_graphsage_phase_rehearsal_takes_no_kernel_on_cpu():
+    out = chip_smoke.phase_graphsage_train(
+        chip_smoke.GRAPHSAGE_TRAIN_REHEARSAL,
+        chip_smoke.GRAPHSAGE_LINK_REHEARSAL,
+        chip_smoke.GRAPHSAGE_CHECK_REHEARSAL, "cpu")
+    assert out["launches"] == NO_LAUNCHES
+    assert out["link_pred"]["launches"] == NO_LAUNCHES
+    assert out["link_pred"]["losses"][-1] < out["link_pred"]["losses"][0]
+    assert "auc_proxy" in out["link_pred"]["metrics"]
+    assert out["nodes_per_s"] > 0 and out["grads"]["grad_leaves"] == 6
+
+
+def test_gbdt_phase_rehearsal_serves_through_tik_serve():
+    out = chip_smoke.phase_gbdt(chip_smoke.GBDT_REHEARSAL, "cpu")
+    assert out["launches"] == NO_LAUNCHES
+    assert out["served_rows"] == 50 and out["served_equals_predict_proba"]
+    assert "without bin edges" in out["refused_without_edges"]
+    losses = list(out["log_loss_at_trees"].values())
+    assert losses == sorted(losses, reverse=True)
+    for check in out["checks"].values():
+        assert check["split_differences"] == check["n_flips"] == 0
+        assert check["score_drift_max"] == check["proba_max_abs_err"] == 0
+        assert check["rounds"] == 10 and check["rows_left_out"] == 0
+
+
+def _first_call_only(monkeypatch, module, name, planted):
+    """Patch `module.name` so its first call (the card's, in a
+    cross-device check) runs `planted(real, *args)` and later calls (the
+    CPU's) the real function."""
+    real = getattr(module, name)
+    calls = []
+
+    def patched(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 1:
+            return planted(real, *args, **kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, patched)
+
+
+def _planted_in_check(monkeypatch, module, name, planted):
+    """`_first_call_only` armed when the cross-device check starts, so the
+    training steps before it run the real function."""
+    real_check = chip_smoke._cross_device_grads
+
+    def check(*args, **kwargs):
+        with monkeypatch.context() as m:
+            _first_call_only(m, module, name, planted)
+            return real_check(*args, **kwargs)
+
+    monkeypatch.setattr(chip_smoke, "_cross_device_grads", check)
+
+
+def test_diffusion_grads_flag_an_upsample_on_the_wrong_pixel(monkeypatch):
+    """The cross-device check's power: an upsample whose output i reads
+    input (i + 1) // 2 (the wrong half-pixel rule) on the card alone."""
+    from cloudtik_tpu_torch.models import diffusion as U
+
+    def shifted(x):
+        up = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        return torch.cat([up[:, 1:], up[:, -1:]], dim=1)
+
+    def planted(real, *args, **kwargs):
+        with monkeypatch.context() as m:
+            m.setattr(U, "upsample_nearest_2x", shifted)
+            return real(*args, **kwargs)
+
+    _planted_in_check(monkeypatch, U, "loss_fn", planted)
+    with pytest.raises(SystemExit, match="diffusion_grads: .*gradient"):
+        chip_smoke.phase_diffusion_grads(
+            chip_smoke.DIFFUSION_CHECK_REHEARSAL, "cpu")
+
+
+def test_dlrm_grads_flag_an_embedding_row_off_by_one(monkeypatch):
+    from cloudtik_tpu_torch.models import dlrm as D
+
+    def planted(real, tables, ids):
+        return real(tables, (ids.long() + 1) % tables.shape[1])
+
+    _planted_in_check(monkeypatch, D, "gather_embed", planted)
+    with pytest.raises(SystemExit, match="dlrm_grads"):
+        chip_smoke.phase_dlrm_train(chip_smoke.DLRM_TRAIN_REHEARSAL,
+                                    chip_smoke.DLRM_CHECK_REHEARSAL, "cpu")
+
+
+def test_rnnt_check_flags_a_lattice_row_shifted_by_one(monkeypatch):
+    """A transducer loss that reads every label one position on (on both
+    devices alike, so the gradients agree) is caught by the float64
+    oracle."""
+    from cloudtik_tpu_torch.models import rnnt as N
+    from cloudtik_tpu_torch.ops import transducer as X
+
+    real = X.transducer_loss
+
+    def shifted(lp, labels, *args, **kwargs):
+        return real(lp, torch.roll(labels, 1, dims=1), *args, **kwargs)
+
+    monkeypatch.setattr(X, "transducer_loss", shifted)
+    monkeypatch.setattr(N, "transducer_loss", shifted)
+    with pytest.raises(SystemExit, match="float64 oracle"):
+        chip_smoke.phase_rnnt_train(chip_smoke.RNNT_TRAIN_REHEARSAL,
+                                    chip_smoke.RNNT_CHECK_REHEARSAL, "cpu")
+
+
+def test_rnnt_check_flags_a_greedy_decode_that_differs(monkeypatch):
+    from cloudtik_tpu_torch.models import rnnt as N
+
+    def planted(real, *args, **kwargs):
+        out = real(*args, **kwargs)
+        out[0, 0] = out[0, 0] % 7 + 1
+        return out
+
+    _first_call_only(monkeypatch, N, "greedy_decode", planted)
+    with pytest.raises(SystemExit, match="greedy_decode on the card"):
+        chip_smoke.phase_rnnt_train(chip_smoke.RNNT_TRAIN_REHEARSAL,
+                                    chip_smoke.RNNT_CHECK_REHEARSAL, "cpu")
+
+
+def test_graphsage_grads_flag_a_mean_over_padding(monkeypatch):
+    from cloudtik_tpu_torch.models import graphsage as G
+
+    def planted(real, params, batch, cfg):
+        batch = dict(batch, neighbor_mask=torch.ones_like(
+            batch["neighbor_mask"]))
+        return real(params, batch, cfg)
+
+    _planted_in_check(monkeypatch, G, "loss_fn", planted)
+    with pytest.raises(SystemExit, match="graphsage_grads"):
+        chip_smoke.phase_graphsage_train(
+            chip_smoke.GRAPHSAGE_TRAIN_REHEARSAL,
+            chip_smoke.GRAPHSAGE_LINK_REHEARSAL,
+            chip_smoke.GRAPHSAGE_CHECK_REHEARSAL, "cpu")
+
+
+def test_gbdt_check_flags_a_threshold_off_by_one_bin(monkeypatch):
+    """The card's rounds (every `grow_round` without `gaps`) with the
+    first usable split's threshold one bin low: not a near tie, so the
+    check fails."""
+    from cloudtik_tpu_torch.models import gbdt as GB
+
+    real = GB.grow_round
+
+    def planted(binned, scores, targets, cfg, gaps=None):
+        trees = real(binned, scores, targets, cfg, gaps)
+        if gaps is None:
+            bins = trees["split_bin"].reshape(-1)
+            bins[int(torch.nonzero(bins < cfg.n_bins)[0, 0])] -= 1
+        return trees
+
+    monkeypatch.setattr(GB, "grow_round", planted)
+    with pytest.raises(SystemExit, match="not a near tie"):
+        chip_smoke.phase_gbdt(chip_smoke.GBDT_REHEARSAL, "cpu")
+
+
+def _round(feat, thr, leaf):
+    return {"split_feat": torch.tensor([feat], dtype=torch.int32),
+            "split_bin": torch.tensor([thr], dtype=torch.int32),
+            "leaf": torch.tensor([leaf])}
+
+
+def test_compare_round_accepts_a_flip_only_at_a_near_tie():
+    """Depth 1 over 4 rows of 2 features: a root on another feature that
+    partitions the rows alike is equivalent; one that partitions them
+    otherwise passes only where the CPU's gain gap was a near tie, and its
+    rows leave the leaf comparison."""
+    binned = torch.tensor([[0, 0], [1, 1], [2, 3], [3, 2]])
+    cpu = _round([0], [1], [0.5, -0.5])
+    gaps = [torch.tensor([[0.5]])]
+    same = chip_smoke.compare_round(_round([1], [1], [0.5, -0.5]), cpu, gaps,
+                                    binned, 1)
+    assert same["split_differences"] == 1 and not same["flips"]
+    assert same["at_near_tie"] and float(same["leaf_diff"].max()) == 0
+    other = _round([0], [2], [0.5, -0.5])
+    out = chip_smoke.compare_round(other, cpu, gaps, binned, 1)
+    assert out["flips"] == [{"class": 0, "level": 0, "node": 0,
+                             "cpu_gain_gap": 0.5}]
+    assert not out["at_near_tie"] and bool(out["left_out"].all())
+    near = [torch.tensor([[chip_smoke.GBDT_NEAR_TIE / 10]])]
+    assert chip_smoke.compare_round(other, cpu, near, binned, 1)[
+        "at_near_tie"]
+    moved = chip_smoke.compare_round(_round([0], [1], [0.5, -0.25]), cpu,
+                                     gaps, binned, 1)
+    assert moved["leaf_diff"].tolist() == [[0.0, 0.0, 0.25, 0.25]]

@@ -1,7 +1,7 @@
 """Port parity: the port's data loaders against the JAX package's.
 
-The image and detection generators yield the JAX package's batches byte
-for byte from the same seed; `tokenized_file_batches` reads the same
+The image, detection, DLRM, diffusion, speech and graph generators yield
+the JAX package's batches byte for byte from the same seed; `tokenized_file_batches` reads the same
 batches from the same `.npy` (or `.bin`) and seed; `streaming_shard_batches`
 reads what `export_token_shard` published, while it is published, and is
 held to the cases of `tests/test_streaming_data.py` (a concurrent writer,
@@ -44,6 +44,22 @@ def test_synthetic_detection_batches_equal_jax(mask_size):
         got, want = next(its[0]), next(its[1])
         _assert_batches_equal(got, want)
         assert ("gt_masks" in got) == bool(mask_size)
+
+
+ZOO_GENERATORS = {
+    "dlrm": ("synthetic_dlrm_batches", (5, 13, 26, 1000)),
+    "diffusion": ("synthetic_diffusion_batches", (3, 8, 4)),
+    "speech": ("synthetic_speech_batches", (4, 20, 8, 29, 6)),
+    "graph": ("synthetic_graph_batches", (40, 8, 4, 5)),
+}
+
+
+@pytest.mark.parametrize("family", sorted(ZOO_GENERATORS))
+def test_model_zoo_generators_equal_jax(family):
+    name, args = ZOO_GENERATORS[family]
+    its = [getattr(m, name)(*args, seed=7) for m in (TD, JD)]
+    for _ in range(3):
+        _assert_batches_equal(next(its[0]), next(its[1]))
 
 
 def _corpus(tmp_path, n=2000, suffix=".npy", seed=0):

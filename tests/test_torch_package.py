@@ -13,10 +13,15 @@ import torch
 
 from cloudtik_tpu_torch import convert
 from cloudtik_tpu_torch.device import resolve_device
+from cloudtik_tpu_torch.models import diffusion as TU
+from cloudtik_tpu_torch.models import dlrm as TDL
+from cloudtik_tpu_torch.models import gbdt as TGB
 from cloudtik_tpu_torch.models import generate as TG
+from cloudtik_tpu_torch.models import graphsage as TGS
 from cloudtik_tpu_torch.models import lora as TL
 from cloudtik_tpu_torch.models import maskrcnn as TMR
 from cloudtik_tpu_torch.models import resnet as TRN
+from cloudtik_tpu_torch.models import rnnt as TN
 from cloudtik_tpu_torch.models import ssd as TSD
 from cloudtik_tpu_torch.models import transformer as TT
 from cloudtik_tpu_torch.serve import engine as TE
@@ -106,13 +111,23 @@ def test_resolve_device(no_cuda):
                                   TL.LoRAConfig()),
     lambda: TL.init_adapter_planes(TT.config("tiny"), TL.LoRAConfig(), 2),
     lambda: TS.engine_backend("tiny", spec_model="tiny"),
+    lambda: TU.init_params(torch.Generator(), TU.config("tiny")),
+    lambda: TDL.init_params(torch.Generator(), TDL.config("tiny")),
+    lambda: TN.init_params(torch.Generator(), TN.config("tiny")),
+    lambda: TGS.init_params(torch.Generator(), TGS.config("tiny")),
+    lambda: TGB.fit(np.zeros((4, 2), np.uint8), np.zeros(4, np.float32),
+                    TGB.config(n_trees=1, depth=1)),
+    lambda: TTR.Trainer(TTR.dlrm_spec(TDL.config("tiny")),
+                        TTR.TrainerConfig()),
 ], ids=["init_params", "init_cache", "params_from_jax",
         "transformer_backend", "engine_backend", "DecodeEngine",
         "init_block_pool", "Trainer", "resnet.init_params",
         "ssd.init_params", "maskrcnn.init_params", "ssd.detect",
         "maskrcnn.detect", "lora.init_lora_params",
         "lora.random_lora_params", "lora.init_adapter_planes",
-        "engine_backend.spec_model"])
+        "engine_backend.spec_model", "diffusion.init_params",
+        "dlrm.init_params", "rnnt.init_params", "graphsage.init_params",
+        "gbdt.fit", "Trainer.dlrm_spec"])
 def test_entry_points_without_device_raise_off_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()

@@ -11,6 +11,8 @@ from cloudtik_tpu_torch.recipes import bert_large_pretrain, common
 from cloudtik_tpu_torch.recipes import llama_lora_finetune
 from cloudtik_tpu_torch.recipes import maskrcnn_coco, resnet50_imagenet
 from cloudtik_tpu_torch.recipes import ssd_coco
+from cloudtik_tpu_torch.recipes import (dlrm_criteo, graphsage_nodes,
+                                        rnnt_speech, sdxl_fsdp)
 
 # one intra-op thread, as every port CPU test
 torch.set_num_threads(1)
@@ -148,3 +150,86 @@ def test_vision_mesh_axes_other_than_one_name_roadmap_a7(name):
 def test_vision_recipe_defaults_to_the_card(no_cuda, name):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         VISION[name].main(["--model", "tiny", "--steps", "1"])
+
+
+# the model-zoo recipes: argv at `tiny` on the CPU, the unit of the result
+ZOO = {
+    "sdxl_fsdp": (sdxl_fsdp, ["--batch", "2"], "img"),
+    "dlrm_criteo": (dlrm_criteo, ["--batch", "16"], "examples"),
+    "rnnt_speech": (rnnt_speech, ["--batch", "2", "--max-frames", "16",
+                                  "--max-labels", "4"], "frame"),
+    "graphsage_nodes": (graphsage_nodes, ["--nodes", "64"], "node"),
+    "graphsage_nodes/link_pred": (graphsage_nodes, [
+        "--nodes", "64", "--objective", "link_pred"], "node"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_zoo_recipe_two_steps_on_tiny(name, capsys):
+    module, argv, unit = ZOO[name]
+    result = module.main(["--model", "tiny", "--device", "cpu", "--steps",
+                          "2", "--log-every", "1", *argv])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(line) == result
+    assert result["steps"] == 2 and result[f"{unit}_per_sec"] > 0
+    assert result["final_loss"] > 0 and "mfu" not in result
+
+
+@pytest.mark.parametrize("name", ["sdxl_fsdp", "dlrm_criteo", "rnnt_speech",
+                                  "graphsage_nodes"])
+def test_zoo_recipe_defaults_match_the_jax_recipes(name):
+    args = ZOO[name][0].parser().parse_args([])
+    want = {"steps": 50, "batch": 8, "data": 1, "fsdp": 1, "tensor": 1,
+            "seq": 1, "expert": 1, "checkpoint_dir": None,
+            "checkpoint_every": 0, "log_every": 10, "device": "cuda"}
+    want.update({"sdxl_fsdp": {"model": "sdxl_mini"},
+                 "dlrm_criteo": {"model": "criteo_terabyte"},
+                 "rnnt_speech": {"model": "rnnt", "max_frames": 256,
+                                 "max_labels": 64},
+                 "graphsage_nodes": {"model": "graphsage", "nodes": 4096,
+                                     "objective": "supervised"}}[name])
+    assert vars(args) == want
+
+
+def test_zoo_recipes_build_the_jax_recipes_data():
+    """The builders feed what the JAX recipes feed, with the accounting of
+    the JAX recipes: one image, example or node a "token", one frame for
+    RNN-T (seq_len = --max-frames); GraphSAGE's batch is --nodes."""
+    def built(module, *argv):
+        args = module.parser().parse_args(
+            ["--model", "tiny", "--device", "cpu", *argv])
+        return args, module.build(args)
+
+    _, (trainer, data, cfg) = built(sdxl_fsdp, "--batch", "2")
+    assert next(data)["latents"].shape == (2, cfg.image_size,
+                                           cfg.image_size, cfg.in_channels)
+    assert trainer.config.seq_len == 1
+    assert trainer.spec.flops_per_token == cfg.flops_per_image()
+    _, (trainer, data, cfg) = built(dlrm_criteo, "--batch", "4")
+    assert next(data)["sparse_ids"].shape == (4, cfg.num_tables)
+    assert trainer.spec.flops_per_token == cfg.flops_per_example()
+    _, (trainer, data, cfg) = built(rnnt_speech, "--max-frames", "20")
+    assert next(data)["features"].shape == (8, 20, cfg.feature_dim)
+    assert trainer.config.seq_len == 20
+    args, (trainer, data, cfg) = built(graphsage_nodes, "--nodes", "32",
+                                       "--objective", "link_pred")
+    batch = next(data)
+    assert args.batch == trainer.config.global_batch_size == 32
+    assert batch["src"].shape == batch["neg_dst"].shape == (16,)
+    assert trainer.spec.flops_per_token == cfg.flops_per_node()
+
+
+@pytest.mark.parametrize("name", ["sdxl_fsdp", "dlrm_criteo", "rnnt_speech",
+                                  "graphsage_nodes"])
+def test_zoo_mesh_axes_other_than_one_name_roadmap_a7(name):
+    args = ZOO[name][0].parser().parse_args(
+        ["--model", "tiny", "--device", "cpu", "--fsdp", "8"])
+    with pytest.raises(ValueError, match="ROADMAP A7"):
+        ZOO[name][0].build(args)
+
+
+@pytest.mark.parametrize("name", ["sdxl_fsdp", "dlrm_criteo", "rnnt_speech",
+                                  "graphsage_nodes"])
+def test_zoo_recipe_defaults_to_the_card(no_cuda, name):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ZOO[name][0].main(["--model", "tiny", "--steps", "1"])

@@ -269,3 +269,76 @@ def test_fit_profile_dir_raises_when_the_profiler_cannot_start(tmp_path,
     with pytest.raises(RuntimeError, match="did not start"):
         trainer.fit(TD.synthetic_lm_batches(2, 16, cfg.vocab_size), 1,
                     profile_dir=str(tmp_path / "prof"))
+
+
+def _zoo_case(family):
+    """(JAX spec, port spec, seq_len, batches) of one model-zoo family at
+    `tiny` in f32; the batches are the generators' (equal in both
+    packages) with link prediction's edges added."""
+    from cloudtik_tpu.models import diffusion as JU
+    from cloudtik_tpu.models import dlrm as JDL
+    from cloudtik_tpu.models import graphsage as JG
+    from cloudtik_tpu.models import rnnt as JN
+    from cloudtik_tpu_torch.models import diffusion as TU
+    from cloudtik_tpu_torch.models import dlrm as TDL
+    from cloudtik_tpu_torch.models import graphsage as TGS
+    from cloudtik_tpu_torch.models import rnnt as TN
+    from cloudtik_tpu_torch.recipes.graphsage_nodes import with_edges
+
+    f32 = {"dtype": jax.numpy.float32}
+    t32 = {"dtype": torch.float32}
+    if family == "diffusion":
+        j, t = JU.config("tiny", **f32), TU.config("tiny", **t32)
+        return (JTR.diffusion_spec(j), TTR.diffusion_spec(t), 1,
+                TD.synthetic_diffusion_batches(4, j.image_size,
+                                               j.in_channels, seed=3))
+    if family == "dlrm":
+        j, t = JDL.config("tiny", **f32), TDL.config("tiny", **t32)
+        return (JTR.dlrm_spec(j), TTR.dlrm_spec(t), 1,
+                TD.synthetic_dlrm_batches(16, j.num_dense, j.num_tables,
+                                          j.rows_per_table, seed=3))
+    if family == "rnnt":
+        j, t = JN.config("tiny", **f32), TN.config("tiny", **t32)
+        return (JTR.rnnt_spec(j), TTR.rnnt_spec(t), 12,
+                TD.synthetic_speech_batches(3, 12, j.feature_dim,
+                                            j.vocab_size, 4, seed=3))
+    objective = family.split("/")[1]
+    j, t = JG.config("tiny", **f32), TGS.config("tiny", **t32)
+    data = TD.synthetic_graph_batches(32, j.in_dim, j.num_classes,
+                                      j.max_degree, seed=3)
+    if objective == "link_pred":
+        data = with_edges(data, 32)
+    return (JTR.graphsage_spec(j, objective),
+            TTR.graphsage_spec(t, objective), 1, data)
+
+
+@pytest.mark.parametrize("family", ["diffusion", "dlrm", "rnnt",
+                                    "graphsage/supervised",
+                                    "graphsage/link_pred"])
+def test_model_zoo_history_matches_jax_trainer(family):
+    """Three steps of each model-zoo spec on the same weights and batches:
+    the JAX Trainer's losses within 1e-5, its grad norms within 1e-4."""
+    jspec, tspec, seq, data = _zoo_case(family)
+    batches = [next(data) for _ in range(3)]
+    opt = dict(learning_rate=1e-2, warmup_steps=1, total_steps=50)
+    jtc = JTR.TrainerConfig(
+        global_batch_size=4, seq_len=seq, mesh=MeshConfig(data=1, fsdp=1),
+        optimizer=JO.OptimizerConfig(**opt), log_every=1, prefetch_depth=0)
+    ttc = TTR.TrainerConfig(global_batch_size=4, seq_len=seq,
+                            optimizer=TO.OptimizerConfig(**opt), log_every=1)
+    jtrainer = JTR.Trainer(jspec, jtc, mesh=build_mesh(
+        jtc.mesh, devices=jax.devices()[:1]))
+    jtrainer.init_state(jax.random.PRNGKey(0))
+    params = jax.tree.map(np.asarray, jtrainer.state["params"])
+    ttrainer = TTR.Trainer(tspec, ttc, device="cpu")
+    ttrainer.init_state(params=convert.params_from_jax(params, "cpu"))
+    jout = jtrainer.fit(iter([dict(b) for b in batches]), 3)
+    tout = ttrainer.fit(iter([dict(b) for b in batches]), 3)
+    assert len(tout["history"]) == len(jout["history"]) == 3
+    for j, t in zip(jout["history"], tout["history"]):
+        assert set(t) == set(j) - {"mfu"}
+        np.testing.assert_allclose(t["loss"], j["loss"], rtol=1e-5)
+        np.testing.assert_allclose(t["grad_norm"], j["grad_norm"],
+                                   rtol=1e-4)
+    losses = [h["loss"] for h in tout["history"]]
+    assert all(np.isfinite(losses))

@@ -2,23 +2,27 @@
 """Where the time goes in one training step of the PyTorch port, on one card.
 
     python3 tools/profile_torch_train.py [--model tpu_1b|bert_large|
-        resnet50|ssd_resnet34|maskrcnn_resnet50] [--batch 8] [--seq 2048]
-        [--steps 2]
+        resnet50|ssd_resnet34|maskrcnn_resnet50|sdxl_mini|criteo_terabyte|
+        rnnt|graphsage] [--batch 8] [--seq 2048] [--steps 2]
 
 Runs `Trainer` on tpu_1b at [batch, seq] in bench.py's configuration (bf16
 params and Adam moments, save_attn remat), on bert_large (default B=32,
 S=512) as `recipes/bert_large_pretrain.py` builds it (f32 params, bf16
 compute, the MLM objective on `synthetic_mlm_batches`), or on a vision
-model as its recipe builds it (`resnet50_imagenet`, `ssd_coco`,
-`maskrcnn_coco`; default B = 128, 32, 4, the per-card batches of the JAX
-recipes' launch lines; AdamW without warmup, one repeated batch), warms up
+model or a model-zoo family as its recipe builds it (`resnet50_imagenet`,
+`ssd_coco`, `maskrcnn_coco`, `sdxl_fsdp`, `dlrm_criteo`, `rnnt_speech`,
+`graphsage_nodes`; default B = 128, 32, 4, the per-card batches of the JAX
+recipes' launch lines, 8 for the UNet, 8,192 for DLRM, 8 utterances of 256
+frames for RNN-T and 4,096 nodes for GraphSAGE; AdamW without warmup, one
+repeated batch), warms up
 for two steps, then profiles (torch.profiler, CPU + CUDA activity)
 `--steps` steps and prints one JSON line: wall time and device time per
 step, the device's busy share of the wall, kernel launches per step,
 device time per step grouped by kind (the flash forward, dq and dk/dv
 kernels, ROIAlign, convolutions, bf16 matmuls, f32 matmuls -- the logits
 products, BERT's MLM head, ROIAlign's backward --, reductions -- batch
-norm's statistics --, everything else),
+norm's and group norm's statistics --, gathers and scatters -- DLRM's
+embedding rows and their gradient --, everything else),
 the optimizer's span on the device timeline (the trainer's
 `train.optimizer` range), launches per step by kind, and the top kernels
 by name.  Needs a CUDA card; weights are random from seed 0.
@@ -49,10 +53,16 @@ _FLASH = (("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
 # cuDNN's convolution kernels (forward, data and weight gradients)
 _CONV = re.compile(r"fprop|dgrad|wgrad|conv|implicit", re.I)
 _REDUCE = re.compile(r"reduce_kernel|welford", re.I)
-# vision models: recipe module and default batch
-VISION = {"resnet50": ("resnet50_imagenet", 128),
-          "ssd_resnet34": ("ssd_coco", 32),
-          "maskrcnn_resnet50": ("maskrcnn_coco", 4)}
+_INDEX = re.compile(r"index|scatter|gather", re.I)
+# models trained through a recipe: recipe module, default batch and the
+# recipe's flag that sets it
+RECIPES = {"resnet50": ("resnet50_imagenet", 128, "--batch"),
+           "ssd_resnet34": ("ssd_coco", 32, "--batch"),
+           "maskrcnn_resnet50": ("maskrcnn_coco", 4, "--batch"),
+           "sdxl_mini": ("sdxl_fsdp", 8, "--batch"),
+           "criteo_terabyte": ("dlrm_criteo", 8192, "--batch"),
+           "rnnt": ("rnnt_speech", 8, "--batch"),
+           "graphsage": ("graphsage_nodes", 4096, "--nodes")}
 
 
 def _kind(name: str) -> str:
@@ -63,6 +73,8 @@ def _kind(name: str) -> str:
         return "conv"
     if _REDUCE.search(name):
         return "reduce"
+    if _INDEX.search(name):
+        return "index"
     if _GEMM.search(name):
         return "matmul_f32" if _F32_GEMM.search(name) else "matmul_bf16"
     return "other"
@@ -79,18 +91,18 @@ def _device_us(evt, total: bool = False) -> float:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="tpu_1b",
-                   choices=("tpu_1b", "bert_large", *VISION))
+                   choices=("tpu_1b", "bert_large", *RECIPES))
     p.add_argument("--batch", type=int, default=None,
-                   help="8 for tpu_1b, 32 for bert_large, the vision "
-                        "models' as VISION says")
+                   help="8 for tpu_1b, 32 for bert_large, the recipe "
+                        "models' as RECIPES says")
     p.add_argument("--seq", type=int, default=None,
                    help="2048 for tpu_1b, 512 for bert_large")
     p.add_argument("--steps", type=int, default=2)
     args = p.parse_args(argv)
     bert = args.model == "bert_large"
-    vision = VISION.get(args.model)
-    B = args.batch or (vision[1] if vision else 32 if bert else 8)
-    S = 1 if vision else args.seq or (512 if bert else 2048)
+    recipe_of = RECIPES.get(args.model)
+    B = args.batch or (recipe_of[1] if recipe_of else 32 if bert else 8)
+    S = args.seq or (512 if bert else 2048)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -114,12 +126,14 @@ def main(argv=None) -> int:
                       "nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
     n = args.steps
-    if vision:
+    if recipe_of:
         recipe = importlib.import_module(
-            f"cloudtik_tpu_torch.recipes.{vision[0]}")
-        rargs = recipe.parser().parse_args(["--batch", str(B)])
+            f"cloudtik_tpu_torch.recipes.{recipe_of[0]}")
+        rargs = recipe.parser().parse_args([recipe_of[2], str(B)])
         rtrainer, rdata, cfg = recipe.build(rargs)
         spec, opt = rtrainer.spec, OptimizerConfig(warmup_steps=0)
+        # a "token" is an image, an example, a node or (RNN-T) a frame
+        S = rtrainer.config.seq_len
         data = itertools.repeat(next(rdata))
         head_tflop = None
         del rtrainer
@@ -185,8 +199,7 @@ def main(argv=None) -> int:
            "launches_per_step_by_kind": counts,
            "optimizer_device_ms_per_step": optimizer_ms,
            "logits_f32_tflop_per_step": head_tflop,
-           "model_tflop_per_step": (cfg.flops_per_image() if vision
-                                    else cfg.flops_per_token())
+           "model_tflop_per_step": (spec.flops_per_token or 0.0)
            * tokens / 1e12,
            "top_kernels": [{"ms_per_step": ms, "count_per_step": c,
                             "name": name} for ms, c, name in kernels[:12]]}
