@@ -205,12 +205,41 @@ run with a non-zero exit:
            scores and probabilities of the rows no flip touched within
            1e-4; no B1-B5 launch
 
+  moe_serve  the MoE inference path at tpu_moe_8x1b's full width and
+           depth (16 layers, 8 experts, top-2, 4.73B parameters; f32
+           parameters, bf16 compute): a prefill-shaped `forward` over 4
+           prompts of 128 (16 B1 launches, logits held to the reference
+           attention routed alike), `tik-serve` answering them (32
+           greedy tokens each, equal to a direct `generate`; TTFT, TPOT,
+           tokens/s), then
+           `tik-serve --engine` with 8 concurrent clients, every answer
+           tie-aware and every decode step's logits against a teacher that
+           prefills and steps as `generate` does (MoE routes each call's
+           rows), routed as the engine routed (in bf16 a third of the
+           tokens route otherwise somewhere in 16 layers when two paths
+           round differently), and a planted fault the logits check must
+           flag in every lane; generation and the engine launch no B1-B5
+           (einsums, as in the reference)
+  moe_train  `Trainer.fit` on tpu_moe_8x1b at full width cut to 8 layers
+           (f32 parameters, gradients and AdamW moments: 38.9 GB), B=8,
+           S=2048, bf16 compute, save_attn remat: 2 warm-up and 5 measured
+           steps on one repeated batch, 8 launches of each of B1-B3 a
+           step, `loss_with_aux` falling; ms/step, tokens/s, MFU by
+           `flops_per_token` (top-k experts; dispatch and combine not
+           counted), peak memory, drop fraction
+  moe_grads  tpu_moe_8x1b's widths at 2 layers, B=2, S=256, f32, TF32
+           off: every gradient leaf on the card within 1e-3 relative L2
+           of the CPU's; every token whose routing differs between the
+           two at a near tie of router probabilities (the gaps reported);
+           greedy `generate` tokens equal
+
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
 steps of the checkpoint phase; the measured steps of lora_train and of
 bert; the measured detect calls of each model; the measured steps of each
 vision and model-zoo phase and its cross-device check; the loaders' fit;
-the GBDT fit, serve and check) and read just after it.
+the GBDT fit, serve and check; moe_serve's forward, server and engine;
+moe_train's measured steps) and read just after it.
 The `total` line gives the script's seconds; the last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
@@ -906,11 +935,122 @@ def check_tie_aware(name: str, gaps: list) -> float:
     return worst
 
 
+def generate_teacher(params, cfg, prompt, tokens, device, pinned=None):
+    """[len(tokens), vocab] f32 as `generate` computes them: the prompt's
+    prefill, then one step per emitted token (teacher-forced).  The
+    teacher of a MoE model, whose routing groups are each call's rows:
+    one forward over prompt + tokens would route the whole sequence at
+    once, and neither `generate` nor the engine does.  `pinned`: for each
+    of those calls, every MoE layer's router probabilities to route by
+    (`EngineRoutes.calls`) instead of its own."""
+    import torch
+
+    from cloudtik_tpu_torch.models import generate as G
+    from cloudtik_tpu_torch.ops import moe as TM
+
+    real, seen = TM.router_probs, []
+
+    def pinned_probs(x, w):
+        probs, logits = real(x, w)
+        call, layer = divmod(len(seen), cfg.n_layers)
+        seen.append(1)
+        return pinned[call][layer].to(probs.device), logits
+
+    if pinned is not None:
+        TM.router_probs = pinned_probs
+    cache = G.init_cache(cfg, 1, len(prompt) + len(tokens), device)
+    rows = []
+    try:
+        with torch.no_grad():
+            logits, _ = G.forward_step(
+                params, torch.tensor([list(prompt)], device=device), cache,
+                cfg)
+            rows.append(logits[0, -1])
+            for t in tokens[:-1]:
+                logits, _ = G.forward_step(
+                    params, torch.tensor([[t]], device=device), cache, cfg)
+                rows.append(logits[0, -1])
+    finally:
+        TM.router_probs = real
+    return torch.stack(rows)
+
+
+class EngineRoutes:
+    """Records, while entered, the router probabilities of every MoE call
+    `engine` makes: each prefill chunk's (with its tokens and start) and
+    each decode step's (with its lanes, as StepLogits numbers them).  In
+    bf16 a token near a routing tie may route otherwise in the engine's
+    B=slots step than in a B=1 teacher and change its logits whole, which
+    says nothing of the engine's KV; a teacher pinned to the engine's own
+    routes (`calls`) leaves only that."""
+
+    def __init__(self, engine):
+        self.engine, self.prefills, self.steps = engine, [], []
+
+    def __enter__(self):
+        from cloudtik_tpu_torch.models import generate as G
+        from cloudtik_tpu_torch.ops import moe as TM
+        from cloudtik_tpu_torch.serve import engine as E
+
+        self._mods = (TM, G, E)
+        self._orig = (TM.router_probs, G.paged_prefill_chunk,
+                      E.decode_logits)
+        current = []
+
+        def router_probs(x, w):
+            probs, logits = self._orig[0](x, w)
+            current.append(probs.detach().clone())
+            return probs, logits
+
+        def prefill(params, kp, vp, table, tokens, start, cfg, lora=None):
+            current.clear()
+            out = self._orig[1](params, kp, vp, table, tokens, start, cfg,
+                                lora=lora)
+            self.prefills.append((tokens[0].tolist(), int(start),
+                                  list(current)))
+            return out
+
+        def decode(params, tokens, kp, vp, tables, lengths, active, cfg,
+                   block_size, lora=None):
+            lanes = [(b, s.request.request_id, len(s.request.tokens))
+                     for b, s in enumerate(self.engine._slots)
+                     if s is not None and s.decoding]
+            current.clear()
+            out = self._orig[2](params, tokens, kp, vp, tables, lengths,
+                                active, cfg, block_size, lora=lora)
+            self.steps.append((lanes, list(current)))
+            return out
+
+        TM.router_probs, G.paged_prefill_chunk, E.decode_logits = (
+            router_probs, prefill, decode)
+        return self
+
+    def __exit__(self, *exc):
+        TM, G, E = self._mods
+        TM.router_probs, G.paged_prefill_chunk, E.decode_logits = self._orig
+
+    def calls(self, prompt, request_id, n_tokens) -> list:
+        """The routes of `generate_teacher`'s calls for one answer: the
+        prompt's prefill (one chunk from position 0), then the decode step
+        that chose each token after the first."""
+        pre = [probs for toks, start, probs in self.prefills
+               if start == 0 and toks == list(prompt)]
+        require(len(pre) == 1, f"request {request_id}: {len(pre)} one-chunk "
+                "prefills of its prompt recorded, expected 1")
+        steps = {k: [p[b:b + 1] for p in probs]
+                 for lanes, probs in self.steps
+                 for b, rid, k in lanes if rid == request_id}
+        missing = [k for k in range(1, n_tokens) if k not in steps]
+        require(not missing, f"request {request_id}: no decode step "
+                f"recorded for tokens {missing}")
+        return pre + [steps[k] for k in range(1, n_tokens)]
+
+
 def check_answer(name, params, cfg, prompt, tokens, recorder, request_id,
-                 device) -> tuple:
+                 device, teacher_fn=teacher_logits) -> tuple:
     """The tie-aware greedy check and the logits check of one answer;
     returns (largest tie gap, largest logits difference)."""
-    teacher = teacher_logits(params, cfg, prompt, tokens, device)
+    teacher = teacher_fn(params, cfg, prompt, tokens, device)
     gap = check_tie_aware(name, tie_gaps(params, cfg, prompt, tokens,
                                          device, teacher))
     diff = logits_diff(teacher, recorder.rows(request_id))
@@ -5315,6 +5455,482 @@ def phase_gbdt(load: GbdtLoad = GBDT_LOAD, device: str = "cuda",
 
 # -------------------------------------------------------------------- main --
 
+# -------------------------------------------------------------------- MoE --
+
+@dataclasses.dataclass(frozen=True)
+class MoeServeLoad:
+    """The moe_serve phase: `model` at full width and depth (the server's
+    dtypes: f32 parameters, bf16 compute).  `requests` prompts of `prompt`
+    tokens (a prefill bucket, so the engine prefills each in one unpadded
+    chunk and routes it as `generate` does), `new` greedy tokens each: a
+    prefill `forward` over them, the plain server, then `--engine` with
+    `clients` concurrent clients of their own prompts."""
+    model: str = "tpu_moe_8x1b"
+    overrides: tuple = ()
+    requests: int = 4
+    prompt: int = 128
+    new: int = 32
+    clients: int = 8
+    slots: int = 8
+    max_len: int = 256
+    block_size: int = 16
+    short_new: int = 8        # the planted-fault run's requests
+
+
+MOE_SERVE_LOAD = MoeServeLoad()
+MOE_SERVE_REHEARSAL = MoeServeLoad(model="tiny_moe", prompt=16, new=6,
+                                   clients=4, slots=4, max_len=64,
+                                   block_size=8, short_new=4)
+
+
+def moe_planted_fault(params, cfg, load, prompts, device) -> dict:
+    """The MoE logits check's power: `load.slots` requests through an
+    engine whose decode step gets its block tables rolled one lane on (a
+    lane reading another slot's KV), each answer against the teacher
+    pinned to the engine's routes; returns the smallest lane's largest
+    logits difference and how many lanes the check flags."""
+    from cloudtik_tpu_torch.serve.engine import (
+        DecodeEngine, EngineConfig, Request)
+
+    eng = DecodeEngine(params, cfg, EngineConfig(
+        slots=load.slots, max_len=load.max_len,
+        block_size=load.block_size), device=device)
+    reqs = [eng.submit(Request(p, max_new_tokens=load.short_new))
+            for p in prompts[:load.slots]]
+    with StepLogits(eng, "tables") as rec, EngineRoutes(eng) as routes:
+        eng.start()
+        try:
+            outs = [r.wait(timeout=600) for r in reqs]
+        finally:
+            eng.stop()
+    diffs = []
+    for r, toks in zip(reqs, outs):
+        teacher = generate_teacher(params, cfg, r.prompt, toks, device,
+                                   pinned=routes.calls(
+                                       r.prompt, r.request_id, len(toks)))
+        diffs.append(logits_diff(teacher, rec.rows(r.request_id)))
+    return {"fault": "tables", "lanes": len(reqs),
+            "logits_diff_min_lane": min(diffs),
+            "lanes_flagged_by_logits": sum(d > ENGINE_LOGITS_MAX_ABS
+                                           for d in diffs)}
+
+
+def phase_moe_serve(load: MoeServeLoad = MOE_SERVE_LOAD,
+                    device: str = "cuda", nvidia_smi: str = None) -> dict:
+    """The MoE inference path.  First the check: the flash `forward` over
+    the requests' prompts against the reference-attention forward routed
+    as the flash forward routed (the forward's limits: in bf16 the two
+    attentions round at different places, so a token near a routing tie
+    may route otherwise on each path and change its logits whole, which
+    says nothing of attention; how many do, when the reference routes
+    itself, is reported).  Then, counts zeroed just before and read just
+    after: that `forward` timed (n_layers B1 launches), then
+    `tik-serve`'s plain backend answering them (tokens equal a direct
+    `generate`; TTFT from a one-token request, TPOT from the rest), then
+    `tik-serve --engine` with `clients` concurrent clients (every answer
+    tie-aware and every decode step's logits against `generate_teacher`
+    pinned to the engine's own routes, `EngineRoutes`), then a planted
+    fault (tables rolled one lane on) that the logits check must flag in
+    every lane.  Generation and the engine attend with
+    einsums, as the reference does: B1 runs in the forward only."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cloudtik_tpu_torch.models import generate as G
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.ops import flash_attention as FA
+    from cloudtik_tpu_torch.serve.server import (ServeServer,
+                                                 engine_backend,
+                                                 transformer_backend)
+
+    L = load
+    on_card = device == "cuda"
+    _collect(on_card)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    over = dict(L.overrides)
+    backend = transformer_backend(L.model, device=device, **over)
+    cfg, params = backend.cfg, backend.params
+    V = cfg.vocab_size
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, V, (max(L.requests, L.clients),
+                                  L.prompt)).tolist()
+    out = {"model": L.model, "nvidia_smi": nvidia_smi,
+           "n_layers": cfg.n_layers, "n_experts": cfg.n_experts,
+           "top_k": cfg.moe_top_k, "num_params": cfg.num_params(),
+           "param_dtype": str(cfg.param_dtype).replace("torch.", ""),
+           "dtype": str(cfg.dtype).replace("torch.", ""),
+           "prompt": L.prompt, "new": L.new}
+    tokens = torch.tensor(prompts[:L.requests], device=device)
+    # the check first (its launches are comparisons, not the path)
+    ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    logits, routes = forward_routes(params, tokens, cfg)
+    ref, _ = forward_routes(params, tokens, ref_cfg, pinned=routes)
+    own = router_flips(routes, forward_routes(params, tokens, ref_cfg)[1],
+                       cfg.moe_top_k)
+    diff = (logits - ref).abs().max().item()
+    rel = ((logits - ref).norm() / ref.norm()).item()
+    require(bool(torch.isfinite(logits).all()), "moe_serve: non-finite "
+            "logits")
+    require(diff <= LOGITS_MAX_ABS and rel <= LOGITS_REL_L2,
+            f"moe_serve: forward logits differ from the reference path "
+            f"routed alike: max {diff}, rel {rel}")
+    del logits, ref, routes
+    _zero_launch_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        T.forward(params, tokens, cfg).cpu()
+        out["forward_ms"] = (time.perf_counter() - t0) * 1e3
+    forward_launches = FA.LAUNCHES
+    out["forward"] = {"batch": L.requests, "seq": L.prompt,
+                      "flash_launches": forward_launches,
+                      "logits_max_abs_diff_vs_reference": diff,
+                      "logits_rel_l2_vs_reference": rel,
+                      "tolerance": {"max_abs": LOGITS_MAX_ABS,
+                                    "rel_l2": LOGITS_REL_L2},
+                      "reference_routing_itself": {
+                          "tokens": own["tokens"],
+                          "tokens_routed_otherwise": len(own["flips"]),
+                          "first_flip_gaps_max": max(
+                              [f["gap"] for f in own["flips"]],
+                              default=None)}}
+
+    server = ServeServer([backend], host="127.0.0.1", port=0)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}/v1/generate"
+    try:
+        status, _ = _http(url, {"tokens": [prompts[0][:8]],
+                                "max_new_tokens": 2})
+        require(status == 200, f"moe_serve warm-up status {status}")
+        plain = []
+        for i in range(L.requests):
+            t0 = time.perf_counter()
+            status, body = _http(url, {"tokens": [prompts[i]],
+                                       "max_new_tokens": 1})
+            ttft = time.perf_counter() - t0
+            require(status == 200, f"moe_serve request {i}: {status}")
+            t0 = time.perf_counter()
+            status, body = _http(url, {"tokens": [prompts[i]],
+                                       "max_new_tokens": L.new})
+            wall = time.perf_counter() - t0
+            require(status == 200, f"moe_serve request {i}: {status} {body}")
+            got = body["tokens"][0]
+            direct = G.generate(params, torch.tensor([prompts[i]],
+                                                     device=device), cfg,
+                                max_new_tokens=L.new)[0].tolist()
+            require(got == direct, f"moe_serve request {i}: served tokens "
+                    "differ from a direct generate")
+            plain.append({"ttft_ms": ttft * 1e3, "wall_ms": wall * 1e3,
+                          "tpot_ms": (wall - ttft) / (L.new - 1) * 1e3})
+        out["plain"] = {
+            "requests": L.requests,
+            "tokens_per_s": L.requests * L.new
+            / sum(p["wall_ms"] for p in plain) * 1e3,
+            "ttft_ms": _percentiles([p["ttft_ms"] for p in plain]),
+            "tpot_ms": _percentiles([p["tpot_ms"] for p in plain]),
+            "equal_direct_generate": True}
+    finally:
+        server.stop()
+
+    ebackend = engine_backend(L.model, slots=L.slots, max_len=L.max_len,
+                              block_size=L.block_size, device=device,
+                              params=params, **over)
+    engine = ebackend.engine
+    server = ServeServer([ebackend], host="127.0.0.1", port=0)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}/v1/generate"
+    try:
+        # a warm-up of its own tokens: no block of it is any prompt's prefix
+        status, _ = _http(url, {"tokens": [[V - 1] * 8],
+                                "max_new_tokens": 2})
+        require(status == 200, f"moe_serve engine warm-up status {status}")
+        results = [None] * L.clients
+
+        def client(i):
+            results[i] = (time.perf_counter(), _http(
+                url, {"tokens": [prompts[i]], "max_new_tokens": L.new}),
+                time.perf_counter())
+
+        with StepLogits(engine) as rec, EngineRoutes(engine) as routes:
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(L.clients)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+        require(not any(t.is_alive() for t in threads), "a client hung")
+        gaps, diffs, exact, lat = [], [], 0, []
+        for i, (ts, (status, body), te) in enumerate(results):
+            require(status == 200, f"moe_serve engine request {i}: {status}")
+            got = body["tokens"][0]
+            require(len(got) == L.new and all(0 <= t < V for t in got),
+                    f"moe_serve engine request {i}: {got}")
+            pinned = routes.calls(prompts[i], body["request_id"], len(got))
+            gap, d = check_answer(
+                f"moe_serve engine request {i}", params, cfg, prompts[i],
+                got, rec, body["request_id"], device,
+                teacher_fn=lambda *a, pinned=pinned: generate_teacher(
+                    *a, pinned=pinned))
+            gaps.append(gap)
+            diffs.append(d)
+            lat.append((te - ts) * 1e3)
+            exact += got == G.generate(
+                params, torch.tensor([prompts[i]], device=device), cfg,
+                max_new_tokens=L.new)[0].tolist()
+        fault = moe_planted_fault(params, cfg, L, prompts, device)
+        require(fault["lanes_flagged_by_logits"] == fault["lanes"],
+                f"moe_serve: the logits check missed a planted fault: "
+                f"{fault}")
+        out["engine"] = {
+            "clients": L.clients, "slots": L.slots,
+            "tokens_per_s": L.clients * L.new / wall,
+            "wall_s": wall, "request_ms": _percentiles(lat),
+            "tpot_ms_mean": wall / L.new * 1e3,
+            "tie_gap_max": max(gaps), "logits_diff_max": max(diffs),
+            "tolerance": {"tie_gap": ENGINE_TIE_GAP,
+                          "logits_max_abs": ENGINE_LOGITS_MAX_ABS},
+            "exact_generate_matches": exact, "planted_fault": fault}
+    finally:
+        server.stop()
+    out["launches"] = _launch_counts()
+    out["launches_forward"] = forward_launches
+    out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if on_card else None)
+    emit("moe_serve", **out)
+    want = cfg.n_layers if on_card else 0
+    require(forward_launches == want and out["launches"] == {
+        "flash_fwd": want, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+        f"moe_serve launched {out['launches']} ({forward_launches} in the "
+        f"forward), expected {want} B1 launches in the forward and none "
+        "in generation or the engine")
+    # the recorders hold the engine and so the weights: all go before the
+    # next phase
+    del backend, ebackend, engine, params, rec, routes
+    _collect(on_card)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeTrainLoad:
+    """The moe_train phase: `model` at full width cut to `n_layers` (f32
+    parameters, gradients and AdamW moments of tpu_moe_8x1b take 75.7 GB
+    at 16 layers, 38.9 GB at 8), bf16 compute, save_attn remat, AdamW at
+    `lr` with no warmup (f32 moments: the trainer updates the state in
+    place, leaf by leaf); `warmup` then `steps` measured steps on one
+    repeated batch."""
+    model: str = "tpu_moe_8x1b"
+    n_layers: int = 8
+    batch: int = 8
+    seq: int = 2048
+    warmup: int = 2
+    steps: int = 5
+    lr: float = 1e-3
+
+
+MOE_TRAIN_LOAD = MoeTrainLoad()
+MOE_TRAIN_REHEARSAL = MoeTrainLoad(model="tiny_moe", n_layers=2, batch=2,
+                                   seq=64, lr=1e-2)
+
+
+def phase_moe_train(load: MoeTrainLoad = MOE_TRAIN_LOAD,
+                    device: str = "cuda", nvidia_smi: str = None) -> dict:
+    """`Trainer.fit` on the MoE model: counts zeroed just before the
+    measured steps and read just after, n_layers launches of each of
+    B1-B3 a step (save_attn never re-runs the forward kernel), and
+    `loss_with_aux` falling on the repeated batch."""
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.train.data import synthetic_lm_batches
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.train.trainer import (
+        Trainer, TrainerConfig, transformer_spec)
+
+    L = load
+    on_card = device == "cuda"
+    _collect(on_card)
+    before_gb = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    cfg = T.config(L.model, n_layers=L.n_layers, max_seq_len=L.seq,
+                   remat=True)
+    trainer = Trainer(transformer_spec(cfg), TrainerConfig(
+        global_batch_size=L.batch, seq_len=L.seq, log_every=1,
+        optimizer=OptimizerConfig(learning_rate=L.lr, warmup_steps=1,
+                                  schedule="constant")),
+        device=device)
+    trainer.init_state(torch.Generator(device=device).manual_seed(0))
+    batch = next(synthetic_lm_batches(L.batch, L.seq, cfg.vocab_size,
+                                      seed=1))
+    train = _train_measured(trainer, iter([batch] * (L.warmup + L.steps)),
+                            L.warmup, L.steps, on_card)
+    entry = train.pop("last")
+    losses = [h["loss_with_aux"] for h in train.pop("history")]
+    out = {"model": L.model, "n_layers": L.n_layers,
+           "n_experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+           "batch": L.batch, "seq": L.seq, "nvidia_smi": nvidia_smi,
+           "allocated_before_gb": before_gb,
+           "param_dtype": "float32", "dtype": "bfloat16",
+           "moment_dtype": "float32",
+           "remat_policy": cfg.remat_policy,
+           "num_params": cfg.num_params(),
+           "active_params": cfg.num_params(active_only=True),
+           "flops_per_token": cfg.flops_per_token(),
+           "capacity_per_row": cfg.moe_config().capacity(L.seq),
+           **train, "losses_with_aux": losses,
+           "moe_drop_fraction": entry["moe_drop_fraction"],
+           "moe_aux_loss": entry["moe_aux_loss"],
+           "moe_z_loss": entry["moe_z_loss"],
+           "grad_norm": entry["grad_norm"]}
+    emit("moe_train", **out)
+    _check_losses("moe_train", losses)
+    n = L.n_layers if on_card else 0
+    require(out["launches_per_step"] == {"flash_fwd": n, "flash_bwd_dq": n,
+                                         "flash_bwd_dkv": n},
+            f"moe_train step launches {out['launches_per_step']}, expected "
+            f"{n} of each kernel")
+    del trainer
+    _collect(on_card)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeGradsLoad:
+    """The moe_grads phase: `model`'s widths at `n_layers`, f32 with TF32
+    off, one batch on the card and on the CPU; greedy `generate` of
+    `gen_new` tokens after a `gen_prompt`-token prompt on both."""
+    model: str = "tpu_moe_8x1b"
+    n_layers: int = 2
+    batch: int = 2
+    seq: int = 256
+    gen_prompt: int = 32
+    gen_new: int = 16
+
+
+MOE_GRADS_LOAD = MoeGradsLoad()
+MOE_GRADS_REHEARSAL = MoeGradsLoad(model="tiny_moe", seq=32, gen_prompt=8,
+                                   gen_new=6)
+# A token's top-k choice may differ between the card and the CPU only at a
+# near tie: where two of its first k+1 router probabilities (in f32, TF32
+# off) lie within MOE_TIE_GAP.  Either side's f32 router logits differ by
+# ~1e-6; a wrong router weight moves them by far more.
+MOE_TIE_GAP = 1e-4
+
+
+def forward_routes(params, tokens, cfg, pinned: list = None):
+    """(logits, every MoE layer's router probabilities [B, S, E] on the
+    CPU) of one forward of `tokens`; with `pinned` (such a list) every
+    MoE layer routes by those probabilities instead of its own."""
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.ops import moe as TM
+
+    real, seen = TM.router_probs, []
+
+    def recording(x, w):
+        probs, logits = real(x, w)
+        if pinned is not None:
+            probs = pinned[len(seen)].to(probs.device)
+        seen.append(probs.detach().cpu())
+        return probs, logits
+
+    TM.router_probs = recording
+    try:
+        with torch.no_grad():
+            logits = T.forward(params, tokens, cfg)
+    finally:
+        TM.router_probs = real
+    return logits, seen
+
+
+def router_flips(got: list, ref: list, top_k: int,
+                 limit: float = MOE_TIE_GAP) -> dict:
+    """Tokens whose ordered top-k experts differ between `got`'s and
+    `ref`'s router probabilities (per layer), each with its gap: on each
+    side the smallest between two adjacent ones of its first k+1
+    probabilities, the larger side's (a near tie must be one on both
+    sides).  A token is taken at its first differing layer (what follows
+    from there is that flip's doing).  `all_at_near_tie`: every token's
+    first flip lies at a gap <= `limit`."""
+    import torch
+
+    def adjacent_gaps(p):
+        top = torch.topk(p, top_k + 1, dim=-1)
+        return top, (top.values[..., :-1] - top.values[..., 1:]).min(-1).values
+
+    flips, seen = [], set()
+    for layer, (a, b) in enumerate(zip(got, ref)):
+        (ka, gaps_a), (kb, gaps_b) = adjacent_gaps(a), adjacent_gaps(b)
+        differ = (ka.indices[..., :top_k] != kb.indices[..., :top_k]).any(-1)
+        gaps = torch.maximum(gaps_a, gaps_b)
+        for idx in differ.nonzero().tolist():
+            if tuple(idx) in seen:
+                continue
+            seen.add(tuple(idx))
+            flips.append({"layer": layer, "row": idx[0], "pos": idx[1],
+                          "gap": float(gaps[tuple(idx)])})
+    return {"tokens": got[0].shape[0] * got[0].shape[1] if got else 0,
+            "flips": flips, "limit": limit,
+            "all_at_near_tie": all(f["gap"] <= limit for f in flips)}
+
+
+def phase_moe_grads(load: MoeGradsLoad = MOE_GRADS_LOAD,
+                    device: str = "cuda") -> dict:
+    """The MoE model at `load.model`'s widths, `n_layers` deep, f32: every
+    gradient leaf on the card within ZOO_GRAD_REL_L2 relative L2 of the
+    CPU's from the same parameters; every token whose routing differs at a
+    near tie of router probabilities; greedy `generate` equal."""
+    import torch
+
+    from cloudtik_tpu_torch.models import generate as G
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.train.data import synthetic_lm_batches
+    from cloudtik_tpu_torch.tree import tree_map
+
+    L = load
+    _collect(device == "cuda")
+    cfg = T.config(L.model, n_layers=L.n_layers, max_seq_len=L.seq,
+                   dtype=torch.float32, remat=False)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = next(synthetic_lm_batches(L.batch, L.seq, cfg.vocab_size,
+                                      seed=1))
+    grads = _cross_device_grads(
+        "moe_grads", lambda p, b: T.loss_fn(p, b, cfg), params, batch,
+        device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        on_dev = tree_map(lambda t: t.to(device), params)
+        tokens = torch.as_tensor(batch["tokens"]).long()
+        probs = [forward_routes(p, tokens.to(p["embed"].device), cfg)[1]
+                 for p in (on_dev, params)]
+        flips = router_flips(*probs, cfg.moe_top_k)
+        prompt = tokens[:1, :L.gen_prompt]
+        gen = [G.generate(p, prompt.to(p["embed"].device), cfg,
+                          max_new_tokens=L.gen_new)[0].tolist()
+               for p in (on_dev, params)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out = {"model": L.model, "n_layers": L.n_layers, "batch": L.batch,
+           "seq": L.seq, **grads, "routed_tokens_per_layer":
+           flips["tokens"], "routing_flips": flips["flips"],
+           "tie_gap_limit": MOE_TIE_GAP, "generate_card": gen[0],
+           "generate_cpu": gen[1]}
+    emit("moe_grads", **out)
+    _require_grads("moe_grads", grads)
+    require(flips["all_at_near_tie"],
+            f"moe_grads: a token's routing differs between the card and the "
+            f"CPU away from a near tie: {flips['flips'][:5]}")
+    require(gen[0] == gen[1], f"moe_grads: greedy tokens differ: card "
+            f"{gen[0]}, CPU {gen[1]}")
+    del on_dev, params
+    _collect(device == "cuda")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5477,11 +6093,20 @@ def main() -> int:
     phase_gbdt(nvidia_smi=smi)
     emit("zoo", seconds=time.perf_counter() - t_zoo)
 
+    # ---- mixture-of-experts (counts zeroed and read inside, around the
+    # serving path and the measured train steps) ----
+    t_moe = time.perf_counter()
+    moe_train = phase_moe_train(nvidia_smi=smi)
+    moe_serve = phase_moe_serve(nvidia_smi=smi)
+    phase_moe_grads()
+    emit("moe", seconds=time.perf_counter() - t_moe)
+
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]
     launches = {k: inference[k] + train["launches"][k]
                 + checkpoint["launches"][k] + lora_train["launches"][k]
                 + bert["launches"][k] + loaders["launches"][k]
+                + moe_serve["launches"][k] + moe_train["launches"][k]
                 for k in inference}
 
     def bwd_err(grads):

@@ -20,8 +20,9 @@ update the pools in place.  `gather_block_planes` / `scatter_block_planes`
 move a request's raw blocks out of one pool and into another (KV-block
 migration, serve/migration.py).  `draft_propose` is the draft half of
 speculative decoding, and `lora=` applies the gathered batched-adapter
-delta (models/lora.py) next to the base projections.  Not here yet: MoE
-layers.
+delta (models/lora.py) next to the base projections.  MoE layers route
+each call by its own length (ops/moe.py: capacity per batch row), as the
+reference's shape-generic `moe_ffn` does.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import torch.nn.functional as F
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.models import lora as LO
 from cloudtik_tpu_torch.models.transformer import (
-    TransformerConfig, _check_dense, _embed_lookup, _mlp, _proj,
+    TransformerConfig, _embed_lookup, _mlp, _proj,
     _rms_norm, _rope, layer_params, logits_f32)
 
 Params = Dict[str, Any]
@@ -139,7 +140,6 @@ def forward_step(params: Params, tokens: torch.Tensor,
     `lora` enables the gathered batched-adapter path: {"planes": {target:
     {a: [L, A, ...], b: [L, A, ...]}}, "idx": [B] int, "scale": float} —
     N heterogeneous adapters in one forward."""
-    _check_dense(cfg)
     start = cache["length"]
     x = _embed_lookup(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):

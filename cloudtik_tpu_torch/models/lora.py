@@ -62,6 +62,21 @@ _LAYOUTS = {
 }
 
 
+def lora_logical_axes(cfg: TransformerConfig,
+                      lora: LoRAConfig) -> Dict[str, Any]:
+    """Logical axes of the adapter tree (the reference's): a's input rows
+    and b's output columns carry the target's own axes, the rank none."""
+    axes = {}
+    for t in lora.targets:
+        rows, cols = _LAYOUTS[t]
+        a = ("layers", "embed", None) if rows == "in_embed" \
+            else ("layers", "heads", "kv", None)
+        b = ("layers", None, "heads", "kv") if cols == "out_heads" \
+            else ("layers", None, "embed")
+        axes[t] = {"a": a, "b": b}
+    return axes
+
+
 def _pair_shapes(cfg: TransformerConfig, lora: LoRAConfig, t: str,
                  lead: Tuple[int, ...]) -> Tuple[Tuple[int, ...], ...]:
     """(a, b) shapes of target `t` behind the leading axes `lead`."""
@@ -240,6 +255,7 @@ def lora_spec(base_params: Params, cfg: TransformerConfig,
     return ModelSpec(
         init=lambda gen, device: init_lora_params(gen, cfg, lora, device),
         loss_fn=lambda p, batch: lora_loss_fn(p, base, batch, cfg, lora),
+        logical_axes=lora_logical_axes(cfg, lora),
         # frozen base: the backward computes activation grads only (~2N),
         # not weight grads, 4N in all against full training's 6N
         flops_per_token=cfg.flops_per_token() * 4.0 / 6.0,

@@ -8,9 +8,15 @@ copy); the layers run as a Python loop over that stack.  Attention
 dispatches to the Hopper flash kernels on the card (ops/attention.py).
 Matmuls take bf16 operands; RMSNorm, RoPE and the softmax run in f32.
 
-Not here yet: MoE (`n_experts > 1`) and the pipeline come with the
-parallel slice.  JAX's sharding constraints have no counterpart on one
-card; its checkpoint names become the layer split of `_remat_layer`.
+MoE layers (`n_experts > 1`) run `ops/moe.py`'s routed experts in place
+of the dense MLP, and `hidden_states` returns their router losses averaged
+over the layers.  On a mesh (parallel/sharding.py `use_mesh`) the model
+reads its seq shard's global positions, attention takes the ring over
+`seq`, `loss_fn` normalises by the global count of valid labels, and a
+stacked leaf split over `fsdp` is gathered layer by layer where the layer
+reads it (parallel/fsdp.py).  Not here yet: the one-hot embedding and the
+pipe path (slice 12 of the port).  JAX's checkpoint names become the layer
+split of `_remat_layer`.
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ from torch.utils.checkpoint import checkpoint
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.ops.attention import attention
+from cloudtik_tpu_torch.ops.moe import MoEConfig, moe_ffn
+from cloudtik_tpu_torch.parallel import collectives, fsdp, sharding
+from cloudtik_tpu_torch.parallel.mesh import TOKEN_AXES
 
 Params = Dict[str, Any]
 
@@ -45,15 +54,17 @@ class TransformerConfig:
     tie_embeddings: bool = False
     # Fields marked "(not read)" are kept so that the presets and their
     # overrides carry over from the JAX package; the port does not read
-    # them (the layers are a Python loop, not a scan; MoE and the pipeline
-    # come with the parallel slice).
+    # them (the layers are a Python loop, not a scan; the pipeline comes
+    # with slice 12 of the port).
     remat: bool = True                 # recompute layers in the backward
     remat_policy: str = "save_attn"    # "save_attn" | "full" | "dots"
     scan_unroll: int = 1               # (not read)
-    attention_impl: Optional[str] = None  # None=auto, "flash", "reference"
-    n_experts: int = 1                 # > 1 (MoE) raises
-    moe_top_k: int = 2                 # (not read)
-    moe_capacity_factor: float = 1.25  # (not read)
+    attention_impl: Optional[str] = None  # None=auto, "flash",
+    #                                       "reference", "ring"
+    # n_experts > 1 turns every MLP into a routed MoE block (ops/moe.py)
+    n_experts: int = 1
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
     pipeline_microbatches: int = 0     # (not read)
     pipeline_schedule: str = "gpipe"   # (not read)
 
@@ -65,11 +76,17 @@ class TransformerConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 1
 
+    def moe_config(self) -> MoEConfig:
+        return MoEConfig(num_experts=self.n_experts, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor)
+
     def flops_per_token(self) -> float:
         """Approximate training FLOPs per token (fwd+bwd), 6N_active.
 
-        Counts matmul params (incl. the lm-head projection) plus the
-        attention score/value matmuls; embedding gather excluded.
+        Counts matmul params (incl. the lm-head projection; for MoE the
+        top-k experts and the router) plus the attention score/value
+        matmuls; the embedding gather and MoE's dispatch and combine
+        einsums are not counted, as in the reference.
         """
         n_params = self.num_params(include_embed=False, active_only=True)
         n_params += self.d_model * self.vocab_size  # lm head (tied or not)
@@ -128,22 +145,48 @@ def config(name: str, **overrides) -> TransformerConfig:
     return dataclasses.replace(PRESETS[name], **overrides)
 
 
-def _check_dense(cfg: TransformerConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (parallel slice)")
-
-
 # --------------------------------------------------------------------------
 # Parameters
 # --------------------------------------------------------------------------
+
+def param_logical_axes(cfg: TransformerConfig) -> Params:
+    """Tree (same structure as params) of logical-axis tuples."""
+    layers = {
+        "wq": ("layers", "embed", "heads", "kv"),
+        "wk": ("layers", "embed", "heads", "kv"),
+        "wv": ("layers", "embed", "heads", "kv"),
+        "wo": ("layers", "heads", "kv", "embed"),
+        "ln_attn": ("layers", "norm"),
+        "ln_mlp": ("layers", "norm"),
+    }
+    if cfg.is_moe:
+        layers.update({
+            "w_router": ("layers", "embed", None),
+            "w_gate": ("layers", "expert", "embed", "mlp"),
+            "w_up": ("layers", "expert", "embed", "mlp"),
+            "w_down": ("layers", "expert", "mlp", "embed"),
+        })
+    else:
+        layers.update({
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        })
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": layers,
+        "final_norm": ("norm",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig,
                 device: DeviceLike = None) -> Params:
     """Same shapes and dtypes as the JAX `init_params`: truncated normal in
     [-2, 2] times fan_in**-0.5, in `param_dtype`.  Draws come from
     `generator` (on `device`), so they differ from jax.random's."""
-    _check_dense(cfg)
     dev = resolve_device(device)
     d, f = cfg.d_model, cfg.d_ff
     H, Hkv, Dh, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
@@ -165,10 +208,21 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
         "wo": dense_init((L, H, Dh, d), H * Dh),
         "ln_attn": ones((L, d)),
         "ln_mlp": ones((L, d)),
-        "w_gate": dense_init((L, d, f), d),
-        "w_up": dense_init((L, d, f), d),
-        "w_down": dense_init((L, f, d), f),
     }
+    if cfg.is_moe:
+        E = cfg.n_experts
+        params["layers"].update({
+            "w_router": dense_init((L, d, E), d),
+            "w_gate": dense_init((L, E, d, f), d),
+            "w_up": dense_init((L, E, d, f), d),
+            "w_down": dense_init((L, E, f, d), f),
+        })
+    else:
+        params["layers"].update({
+            "w_gate": dense_init((L, d, f), d),
+            "w_up": dense_init((L, d, f), d),
+            "w_down": dense_init((L, f, d), f),
+        })
     params["final_norm"] = ones((d,))
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init((d, cfg.vocab_size), d)
@@ -176,8 +230,13 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
 
 
 def layer_params(params: Params, i: int) -> Params:
-    """Layer i's slice of the stacked layer parameters (views, no copy)."""
-    return {k: w[i] for k, w in params["layers"].items()}
+    """Layer i's slice of the stacked layer parameters (views, no copy);
+    a stack with leaves split over `fsdp` gives a `LazyLayer`, which
+    gathers each leaf's slice where the layer reads it."""
+    layers = params["layers"]
+    if fsdp.has_shards(layers):
+        return fsdp.LazyLayer(layers, i)
+    return {k: w[i] for k, w in layers.items()}
 
 
 # --------------------------------------------------------------------------
@@ -223,12 +282,23 @@ def _proj(h: torch.Tensor, w: torch.Tensor,
     return out.reshape(*h.shape[:-1], *w.shape[1:])
 
 
-def _mlp(h: torch.Tensor, layer: Params,
-         cfg: TransformerConfig) -> torch.Tensor:
-    """Dense SwiGLU."""
+def _ffn(h: torch.Tensor, layer: Params, cfg: TransformerConfig
+         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The MLP block: dense SwiGLU, or MoE's routed experts with their
+    router losses."""
+    if cfg.is_moe:
+        return moe_ffn(h, layer["w_router"], layer["w_gate"], layer["w_up"],
+                       layer["w_down"], cfg.moe_config())
     gate = _proj(h, layer["w_gate"], cfg)
     up = _proj(h, layer["w_up"], cfg)
-    return _proj(F.silu(gate) * up, layer["w_down"], cfg)
+    return _proj(F.silu(gate) * up, layer["w_down"], cfg), {}
+
+
+def _mlp(h: torch.Tensor, layer: Params,
+         cfg: TransformerConfig) -> torch.Tensor:
+    """The MLP block's output (generation and serving drop the router
+    losses)."""
+    return _ffn(h, layer, cfg)[0]
 
 
 def _attn_inputs(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
@@ -251,17 +321,21 @@ def _attend(cfg: TransformerConfig, q: torch.Tensor, k: torch.Tensor,
 
 
 def _layer_out(cfg: TransformerConfig, x: torch.Tensor, o: torch.Tensor,
-               layer: Params) -> torch.Tensor:
-    """The layer after attention: output projection, residual, MLP."""
+               layer: Params
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The layer after attention: output projection, residual, MLP; with
+    the MoE router losses (empty when dense)."""
     B, S, d = x.shape
     wo = layer["wo"].to(cfg.dtype)
     x = x + o.reshape(B, S, -1) @ wo.reshape(-1, d)
     h = _rms_norm(x, layer["ln_mlp"], cfg.norm_eps)
-    return x + _mlp(h, layer, cfg)
+    down, aux = _ffn(h, layer, cfg)
+    return x + down, aux
 
 
 def _layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor
+           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     q, k, v = _attn_inputs(cfg, x, layer, positions)
     return _layer_out(cfg, x, _attend(cfg, q, k, v), layer)
 
@@ -273,7 +347,8 @@ def _checkpoint(fn, *args):
 
 
 def _remat_layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One layer under `cfg.remat_policy` (JAX: `_remat_policy`).
 
     save_attn: keeps the post-RoPE q, k, v, o and lse (JAX's names
@@ -307,18 +382,25 @@ def hidden_states(
     cfg: TransformerConfig,
     positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """tokens [B, S] int -> final-norm hidden states [B, S, d] + aux
-    (empty: aux carries MoE router losses, not ported yet)."""
-    _check_dense(cfg)
+    """tokens [B, S] int -> final-norm hidden states [B, S, d] + aux (the
+    MoE router losses, each the mean over the layers; empty when dense).
+    On a seq-sharded mesh tokens are this rank's slice of the sequence and
+    the default positions are its global ones."""
     B, S = tokens.shape
     if positions is None:
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        start = sharding.axis_rank("seq") * S
+        positions = (start + torch.arange(S, device=tokens.device)
+                     ).expand(B, S)
     x = _embed_lookup(params["embed"], tokens, cfg)
     layer_fn = _remat_layer if cfg.remat and torch.is_grad_enabled() \
         else _layer
+    per_layer = []
     for i in range(cfg.n_layers):
-        x = layer_fn(cfg, x, layer_params(params, i), positions)
-    return _rms_norm(x, params["final_norm"], cfg.norm_eps), {}
+        x, aux = layer_fn(cfg, x, layer_params(params, i), positions)
+        per_layer.append(aux)
+    aux = {k: torch.stack([a[k] for a in per_layer]).mean()
+           for k in per_layer[0]} if per_layer and per_layer[0] else {}
+    return _rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def _lm_head(params: Params, cfg: TransformerConfig) -> torch.Tensor:
@@ -384,14 +466,22 @@ def loss_fn(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal LM loss.  batch: tokens [B, S], labels [B, S] (-100 = ignore),
     on the parameters' device.  Returns (loss, {"loss", "n_tokens",
-    "accuracy"}), the metrics detached.
+    "accuracy"}, and for MoE the router losses and "loss_with_aux", the
+    loss plus both router losses, which is what is returned to
+    differentiate), the metrics detached.
+
+    On a mesh the batch is this rank's shard: the loss is the global
+    sum of the nll over the global count of valid labels (summed over the
+    data, fsdp and seq axes; never a mean of per-rank means, since masked
+    labels make the counts differ).  Its backward is each rank's own
+    share, and the trainer sums the gradients over those axes.
 
     The cross entropy runs over sequence chunks (`_chunk_size`), each under
     a checkpoint, so the full [B, S, vocab] f32 logits are never resident
     (2 GB at B=8, S=2048) and each chunk's logits are recomputed in the
     backward pass, as in the JAX package.
     """
-    x, _ = hidden_states(params, batch["tokens"], cfg)
+    x, aux = hidden_states(params, batch["tokens"], cfg)
     head = _lm_head(params, cfg).to(cfg.dtype).float()
     labels = batch["labels"]
     S = x.shape[1]
@@ -408,8 +498,13 @@ def loss_fn(
         loss_sum = loss_sum + nll
         n_valid = n_valid + nv
         n_correct = n_correct + nc
-    n_valid = torch.clamp(n_valid, min=1)
-    loss = loss_sum / n_valid
+    n_valid = torch.clamp(collectives.all_reduce(n_valid, TOKEN_AXES), min=1)
+    n_correct = collectives.all_reduce(n_correct, TOKEN_AXES)
+    loss = collectives.reduce_sum(loss_sum, TOKEN_AXES) / n_valid
     metrics = {"loss": loss.detach(), "n_tokens": n_valid,
                "accuracy": n_correct / n_valid}
+    if aux:
+        metrics.update({k: v.detach() for k, v in aux.items()})
+        loss = loss + aux["moe_aux_loss"] + aux["moe_z_loss"]
+        metrics["loss_with_aux"] = loss.detach()
     return loss, metrics

@@ -1,6 +1,7 @@
 """Attention entry point: one call, best available implementation.
 
-Counterpart of `cloudtik_tpu/ops/attention.py`.  Auto mode takes the Hopper
+Counterpart of `cloudtik_tpu/ops/attention.py`.  Auto mode takes the ring
+(ops/ring_attention.py) when the ambient mesh splits `seq`, else the Hopper
 flash kernel (ops/flash_attention.py) where it applies and the plain
 reference elsewhere.  Shapes follow [batch, num_heads, seq, head_dim]
 ("BHSD"); kv tensors may have fewer heads (num_kv_heads divides num_heads).
@@ -92,8 +93,9 @@ def attention(
     """Multi-head / grouped-query attention.
 
     implementation: None (auto), "flash" (the CUDA kernel, or its plain
-    version on the CPU), "reference".  "ring" (sequence-parallel) comes
-    with the parallel slice.
+    version on the CPU), "reference", "ring" (sequence-parallel over the
+    ambient mesh's `seq` axis; it raises without one).  Auto picks ring
+    whenever the ambient mesh splits `seq`.
 
     return_residuals=True returns (out, lse_or_None): the flash path's
     logsumexp (a statistic with no gradient), None on the reference path.
@@ -104,12 +106,21 @@ def attention(
     """
     impl = implementation
     if impl is None:
-        impl = "flash" if use_flash_kernel(
-            q.device.type, q.dtype, q.shape, k.shape, causal) \
-            else "reference"
+        from cloudtik_tpu_torch.parallel.sharding import mesh_axis_size
+
+        if mesh_axis_size("seq") > 1:
+            impl = "ring"
+        else:
+            impl = "flash" if use_flash_kernel(
+                q.device.type, q.dtype, q.shape, k.shape, causal) \
+                else "reference"
     if impl == "ring":
-        raise NotImplementedError(
-            "ring attention is not ported yet (parallel slice)")
+        from cloudtik_tpu_torch.ops.ring_attention import \
+            ring_attention_sharded
+
+        out = ring_attention_sharded(q, k, v, causal=causal,
+                                     sm_scale=sm_scale)
+        return (out, None) if return_residuals else out
     if impl == "flash":
         from cloudtik_tpu_torch.ops.flash_attention import flash_attention
 

@@ -2,7 +2,10 @@
 
     python -m cloudtik_tpu_torch.recipes.llama_lora_finetune
 
-(on the CPU add `--model tiny --device cpu`).
+(on the CPU add `--model tiny --device cpu`); on N cards
+`torchrun --nproc-per-node N -m cloudtik_tpu_torch.recipes.llama_lora_finetune
+--fsdp N` (every rank builds the same base and trains its shard of the
+adapters and of each global batch).
 
 Counterpart of `examples/recipes/llama_lora_finetune.py`: a frozen base
 (random weights from seed 0, where a run would restore a checkpoint) and
@@ -16,11 +19,11 @@ from __future__ import annotations
 
 import torch
 
-from cloudtik_tpu_torch.device import resolve_device
 from cloudtik_tpu_torch.models import transformer as T
 from cloudtik_tpu_torch.models.lora import LoRAConfig, lora_spec
 from cloudtik_tpu_torch.recipes.common import (build_recipe_trainer,
                                                recipe_argparser,
+                                               recipe_device,
                                                run_and_report)
 from cloudtik_tpu_torch.train.data import synthetic_lm_batches
 
@@ -38,7 +41,7 @@ def build(args, optimizer=None):
     """(trainer, data, cfg, base params, LoRAConfig) for parsed `args`;
     `optimizer` is an `OptimizerConfig`, the default unless given."""
     cfg = T.config(args.model, max_seq_len=args.seq_len)
-    device = resolve_device(args.device)
+    device = recipe_device(args)
     # a base checkpoint would be restored here; synthetic init for the bench
     base = T.init_params(torch.Generator(device=device).manual_seed(0), cfg,
                          device)

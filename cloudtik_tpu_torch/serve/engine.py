@@ -85,7 +85,7 @@ from cloudtik_tpu_torch.models import generate as G
 from cloudtik_tpu_torch.models import lora as LO
 from cloudtik_tpu_torch.models.generate import _NEG
 from cloudtik_tpu_torch.models.transformer import (
-    TransformerConfig, _check_dense, _embed_lookup, _mlp, _rms_norm, _rope,
+    TransformerConfig, _embed_lookup, _mlp, _rms_norm, _rope,
     layer_params, logits_f32)
 from cloudtik_tpu_torch.serve import kvcache, migration, reqlog
 from cloudtik_tpu_torch.serve.adapters import (
@@ -363,7 +363,6 @@ def decode_logits(params: Params, tokens: torch.Tensor, kp: torch.Tensor,
     kp/vp [L,N,bs,Hkv,Dh] pools (written in place), tables [B,M],
     lengths/active [B] -> logits [B, vocab] f32.  `lora` as in
     `generate.forward_step`: {"planes", "idx" [B], "scale"}."""
-    _check_dense(cfg)
     x = _embed_lookup(params["embed"], tokens[:, None], cfg)
     for i in range(cfg.n_layers):
         layer_lora = None if lora is None else (
@@ -442,7 +441,6 @@ class DecodeEngine:
             raise ValueError(
                 f"unknown admission policy {self.ec.admission!r}; "
                 "expected 'fifo' or 'wfq'")
-        _check_dense(cfg)
         self.device = resolve_device(device)
         for what, tree in (("params", params),
                            ("the draft's params", draft and draft[0]),
@@ -559,7 +557,6 @@ class DecodeEngine:
                     f"SpecConfig.k ({self._spec.k}) must not exceed the "
                     f"prefill chunk ({chunk_max} tokens)")
             self._draft_params, self._draft_cfg = draft
-            _check_dense(self._draft_cfg)
             if self._draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError(
                     f"draft vocab ({self._draft_cfg.vocab_size}) must "

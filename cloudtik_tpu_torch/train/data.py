@@ -15,8 +15,10 @@ on identical batches.  Batches are numpy arrays; the trainer moves them to
 its device.  Where the JAX package asks `jax.process_index()` and
 `process_count()` which shards are this host's, the port asks
 `torch.distributed` for its rank and world size when a process group is
-initialised, else 0 and 1.  `global_batches` comes with the parallel layer
-(ROADMAP A7).
+initialised, else 0 and 1.  `global_batches` hands each rank of a mesh
+its shard of every global batch (`local_batch`): the rows JAX's batch
+sharding over (data, fsdp) gives that shard, and on a `seq` axis its
+slice of the sequence.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import queue
 import re
 import threading
 import time
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -250,6 +252,61 @@ def _shard(shard_index: Optional[int],
     rank, world = process_shard()
     return (rank if shard_index is None else shard_index,
             world if shard_count is None else shard_count)
+
+
+def local_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """This rank's shard of a global batch on `mesh` (a DeviceMesh):
+    the rows of batch shard `data_index * fsdp + fsdp_index` (row-major
+    over the batch axes, as a PartitionSpec tuple lays them out) and, with
+    `seq` > 1, the seq_index-th slice of dimension 1 of each [B, S, ...]
+    array.  Ranks along `expert` take the same rows.  numpy arrays or
+    tensors, sliced without a copy."""
+    from cloudtik_tpu_torch.parallel.mesh import DATA_AXES, axis_sizes_of
+
+    sizes = axis_sizes_of(mesh)
+    shards, index = 1, 0
+    for a in DATA_AXES:
+        n = sizes.get(a, 1)
+        index = index * n + (mesh.get_local_rank(a) if n > 1 else 0)
+        shards *= n
+    n_seq = sizes.get("seq", 1)
+    seq_index = mesh.get_local_rank("seq") if n_seq > 1 else 0
+    out = {}
+    for k, v in batch.items():
+        rows = v.shape[0]
+        if rows % shards:
+            raise ValueError(f"batch {k!r} of {rows} rows does not split "
+                             f"over {shards} batch shards")
+        per = rows // shards
+        v = v[index * per:(index + 1) * per]
+        if n_seq > 1 and v.ndim >= 2:
+            if v.shape[1] % n_seq:
+                raise ValueError(f"batch {k!r} of length {v.shape[1]} does "
+                                 f"not split over {n_seq} seq shards")
+            s = v.shape[1] // n_seq
+            v = v[:, seq_index * s:(seq_index + 1) * s]
+        out[k] = v
+    return out
+
+
+def global_batches(data_iter: Iterator[Dict[str, Any]], mesh,
+                   device=None) -> Iterator[Dict[str, Any]]:
+    """Each global batch of `data_iter` as this rank's shard
+    (`local_batch`), as tensors on `device` (this rank's card unless
+    given); integer arrays as int64."""
+    import torch
+
+    from cloudtik_tpu_torch.parallel.distributed import rank_device
+
+    def put(v):
+        t = torch.as_tensor(np.ascontiguousarray(v)
+                            if isinstance(v, np.ndarray) else v)
+        integer = not (t.is_floating_point() or t.dtype == torch.bool)
+        return (t.long() if integer else t).to(dev)
+
+    dev = rank_device(device)
+    for batch in data_iter:
+        yield {k: put(v) for k, v in local_batch(batch, mesh).items()}
 
 
 # ---------------------------------------------------------------------------

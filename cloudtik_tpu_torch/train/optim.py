@@ -166,6 +166,10 @@ class Optimizer:
         self.schedule = make_schedule(cfg)
         self.mu_dtype = (getattr(torch, cfg.moment_dtype)
                          if cfg.moment_dtype else None)
+        # set by `update_` for the length of its call: the params the
+        # updates go into, and the clip's (divisor, multiplier)
+        self._sink = None
+        self._clip = None
 
     def init(self, params: Tree) -> Dict[str, Any]:
         raise NotImplementedError
@@ -175,25 +179,72 @@ class Optimizer:
         raise NotImplementedError
 
     @torch.no_grad()
-    def update(self, grads: Tree, state: Dict[str, Any], params: Tree
+    def update(self, grads: Tree, state: Dict[str, Any], params: Tree,
+               g_norm: Optional[torch.Tensor] = None
                ) -> Tuple[Tree, Dict[str, Any], torch.Tensor]:
         """(updates, new state, pre-clip `global_norm` of the grads); params
         are read for the weight decay and Adafactor's scale.  The clip is
         chosen on the device, so the host never waits for the norm: g / d
         * m with (d, m) = (||g||, max_norm) is optax's clipped branch, and
-        (1, 1) leaves g exact."""
+        (1, 1) leaves g exact.  `g_norm` is the global norm when the
+        grads are shards of it (the sharded trainer sums the shards' squares
+        over their group)."""
         cfg = self.cfg
-        g_norm = global_norm(grads)
+        if g_norm is None:
+            g_norm = global_norm(grads)
         if cfg.grad_clip_norm:
             keep = g_norm < cfg.grad_clip_norm
             div = torch.where(keep, 1.0, g_norm)
             mul = torch.where(keep, 1.0,
                               torch.full_like(g_norm, cfg.grad_clip_norm))
-            grads = tree_map(
-                lambda g: g / div.to(g.dtype) * mul.to(g.dtype), grads)
+            if self._sink is None:
+                grads = tree_map(
+                    lambda g: g / div.to(g.dtype) * mul.to(g.dtype), grads)
+            else:
+                self._clip = (div, mul)
         updates, state = self._apply(grads, state, params,
                                      self.schedule(state["count"]))
         return updates, state, g_norm
+
+    @torch.no_grad()
+    def update_(self, grads: Tree, state: Dict[str, Any], params: Tree,
+                g_norm: Optional[torch.Tensor] = None
+                ) -> Tuple[Dict[str, Any], torch.Tensor]:
+        """`update` in place, for a caller that owns params and state (the
+        trainer): leaf by leaf, the update is added to the parameter and
+        the new state written over the old, so one leaf's temporaries are
+        live at a time instead of a second copy of the grads, the state
+        and the updates (what the reference's donated buffers give).  The
+        same arithmetic as `update` then `p + u`; returns (state, the
+        pre-clip global norm)."""
+        self._sink = params
+        try:
+            _, state, g_norm = self.update(grads, state, params, g_norm)
+        finally:
+            self._sink, self._clip = None, None
+        return state, g_norm
+
+    def _each(self, fn, *trees: Tree) -> Tuple[Tree, ...]:
+        """`_leafwise` over (grads, *state trees[, params]) whose fn
+        returns (update, *new state leaves); inside `update_` each leaf's
+        update goes into its parameter and its new state over the old at
+        once (the returned updates are then None)."""
+        if self._sink is None:
+            return _leafwise(fn, *trees)
+        clip, outs = self._clip, []
+
+        def one(g, *rest):
+            *rest, p = rest
+            if clip is not None:
+                g = g / clip[0].to(g.dtype) * clip[1].to(g.dtype)
+            u, *news = fn(g, *rest)
+            for old, new in zip(rest, news):
+                old.copy_(new)
+            p.add_(u.to(p.dtype))
+            outs.append(len(news))
+
+        tree_map(one, *trees, self._sink)
+        return (None,) + trees[1:1 + (outs[0] if outs else 0)]
 
 
 class AdamW(Optimizer):
@@ -222,7 +273,7 @@ class AdamW(Optimizer):
             u = _c(-lr, u) * u
             return u, (mu.to(self.mu_dtype) if self.mu_dtype else mu), nu
 
-        updates, mu, nu = _leafwise(leaf, grads, state["mu"], state["nu"],
+        updates, mu, nu = self._each(leaf, grads, state["mu"], state["nu"],
                                     params)
         return updates, {"count": count, "mu": mu, "nu": nu}
 
@@ -243,7 +294,7 @@ class SGD(Optimizer):
             return (_c(-lr, t) * t,
                     t.to(self.mu_dtype) if self.mu_dtype else t)
 
-        updates, trace = _leafwise(leaf, grads, state["trace"])
+        updates, trace = self._each(leaf, grads, state["trace"])
         return updates, {"count": state["count"] + 1, "trace": trace}
 
 
@@ -325,7 +376,7 @@ class Adafactor(Optimizer):
             u = u * scale
             return -u, v_row, v_col, v
 
-        updates, v_row, v_col, v = _leafwise(
+        updates, v_row, v_col, v = self._each(
             leaf, grads, state["v_row"], state["v_col"], state["v"], params)
         return updates, {"count": count + 1, "v_row": v_row,
                          "v_col": v_col, "v": v}
@@ -353,7 +404,7 @@ class Lion(Optimizer):
             return (_c(-lr, u) * u,
                     mu.to(self.mu_dtype) if self.mu_dtype else mu)
 
-        updates, mu = _leafwise(leaf, grads, state["mu"], params)
+        updates, mu = self._each(leaf, grads, state["mu"], params)
         return updates, {"count": state["count"] + 1, "mu": mu}
 
 

@@ -1,5 +1,5 @@
-"""The training loop on one card: a step of grads + the optimizer, an MFU
-meter, checkpoints and an async input pipeline.
+"""The training loop on one card or a mesh of ranks: a step of grads + the
+optimizer, an MFU meter, checkpoints and an async input pipeline.
 
 Counterpart of the single-device core of `cloudtik_tpu/train/trainer.py`:
 `ModelSpec`, `transformer_spec`, `bert_spec`, `resnet_spec`, `ssd_spec`,
@@ -10,8 +10,11 @@ TrainerConfig has seq_len=1, and RNN-T one a frame),
 `TrainerConfig`, `Trainer.init_state` /
 `fit` with the same history keys (loss, n_tokens, accuracy, grad_norm,
 step, tokens_per_sec, mfu), gradient accumulation as the mean of the
-micro-batch gradients, and the update `p + u.to(p.dtype)`.  PyTorch runs
-eagerly, so a step is the loss's forward and backward, then the optimizer;
+micro-batch gradients, and the update `p + u.to(p.dtype)`, applied in
+place leaf by leaf with the new optimizer state written over the old
+(`Optimizer.update_`: no second copy of the state is ever resident).
+PyTorch runs eagerly, so a step is the loss's forward and backward, then
+the optimizer;
 the float() of the metrics at a log window waits for the device, and the
 window's wall time is taken after it.
 
@@ -25,8 +28,32 @@ whole call with `torch.profiler` (the CPU, and the card when there is one)
 into `<profile_dir>/trace.json`, a Chrome trace, through the same
 `ProfileCapture` that serves on-demand captures.
 
-Not here yet (ROADMAP A7): the mesh and shardings, the overlapped
-gradient sync and elastic re-meshing.
+On a mesh (`TrainerConfig.mesh`, or `mesh=`: one process per card,
+`torch.distributed` up) the trainer is the sharded loop of the reference
+for the data, fsdp, expert and seq axes.  Each parameter is placed by
+`tree_to_shardings_safe` of the spec's logical axes and held as this
+rank's shard; the optimizer state mirrors it and AdamW runs on the shards.
+A step issues what GSPMD derives there:
+
+* fsdp: a stacked layer leaf is gathered layer by layer where the layer
+  reads it (parallel/fsdp.py), every other sharded leaf at the step's
+  start; its gradient comes back reduce-scattered.
+* every gradient is summed over the token axes (data, fsdp, seq) it is
+  not split on: each rank's loss is its share of the global loss
+  (models/transformer.py `loss_fn`), so the sum is the global gradient.
+* expert: each rank holds E/n experts and keeps their gradients; leaves
+  replicated over `expert` get identical gradients there, not summed.
+* seq: each rank takes its slice of the sequence (`data.local_batch`);
+  attention runs the ring.
+* the clip's global norm sums the shards' squares over their group.
+
+`fit` takes global batches (every rank the same stream) and hands each
+rank its shard.  A checkpoint gathers each leaf and rank 0 writes the
+port's format; a restore reads it on every rank and re-shards.  MFU
+divides by the world size.  Only specs with logical axes (the
+transformer, LoRA) train on a mesh; the tensor and pipe axes, the
+overlapped gradient sync, elastic re-meshing and per-rank checkpoint shards
+wait for slices 12-13 of the port.
 """
 
 from __future__ import annotations
@@ -37,15 +64,29 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from cloudtik_tpu_torch import telemetry
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
+from cloudtik_tpu_torch.parallel import collectives, fsdp, sharding
+from cloudtik_tpu_torch.parallel.distributed import (process_count,
+                                                     rank_device)
+from cloudtik_tpu_torch.parallel.mesh import (TOKEN_AXES, MeshConfig,
+                                              axis_sizes_of, build_mesh,
+                                              check_ported,
+                                              local_batch_slice)
+from cloudtik_tpu_torch.parallel.sharding import (AxisRules, DEFAULT_RULES,
+                                                  spec_axes,
+                                                  tree_to_shardings_safe)
 from cloudtik_tpu_torch.telemetry import events, goodput, stepprof
 from cloudtik_tpu_torch.telemetry import instruments as ti
 from cloudtik_tpu_torch.train.checkpoint import (CheckpointConfig,
                                                  Checkpointer)
-from cloudtik_tpu_torch.train.optim import OptimizerConfig, make_optimizer
+from cloudtik_tpu_torch.train.data import local_batch
+from cloudtik_tpu_torch.train.optim import (Adafactor, OptimizerConfig,
+                                            _norm_accumulator,
+                                            make_optimizer)
 from cloudtik_tpu_torch.train.prefetch import Prefetcher, put_device_batch
 from cloudtik_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -71,6 +112,9 @@ class ModelSpec:
     loss_fn: Callable[[Any, Dict[str, torch.Tensor]],
                       Tuple[torch.Tensor, Dict]]
     flops_per_token: Optional[float] = None                # fwd+bwd
+    # tree of logical-axes tuples (same structure as params); a spec that
+    # has them has a loss that reads the ambient mesh, and trains on one
+    logical_axes: Any = None
 
 
 def transformer_spec(cfg) -> ModelSpec:
@@ -80,6 +124,7 @@ def transformer_spec(cfg) -> ModelSpec:
         init=lambda gen, device: T.init_params(gen, cfg, device),
         loss_fn=lambda params, batch: T.loss_fn(params, batch, cfg),
         flops_per_token=cfg.flops_per_token(),
+        logical_axes=T.param_logical_axes(cfg),
     )
 
 
@@ -181,8 +226,12 @@ def graphsage_spec(cfg, objective: str = "supervised") -> ModelSpec:
 class TrainerConfig:
     global_batch_size: int = 8
     seq_len: int = 2048
+    # the mesh over the process group's ranks (fsdp fills); one process
+    # (no group) is the one-card trainer
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=OptimizerConfig)
+    rules: AxisRules = DEFAULT_RULES
     log_every: int = 10
     checkpoint_every: int = 0          # 0 = disabled
     checkpoint_dir: Optional[str] = None
@@ -196,15 +245,49 @@ class TrainerConfig:
     prefetch_threads: int = 1
 
 
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where one parameter's shards lie: (dim, mesh axis) pairs."""
+
+    dims: Tuple[Tuple[int, str], ...] = ()
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return tuple(a for _, a in self.dims)
+
+    def dim_of(self, axis: str) -> Optional[int]:
+        return next((d for d, a in self.dims if a == axis), None)
+
+
+NEXT_SLICES = "slices 12-13 of the port (ROADMAP A7)"
+
+
+def _mesh_for(config: MeshConfig):
+    """The DeviceMesh `config` asks for over the process group, or None
+    for one process.  A mesh that needs more ranks than there are
+    raises (axis_sizes), so no parallel path runs on one rank."""
+    check_ported({a: getattr(config, a) for a in ("tensor", "pipe")})
+    check_ported(config.axis_sizes(process_count()))
+    return None if process_count() == 1 else build_mesh(config)
+
+
 class Trainer:
-    """Holds params and optimizer state on one device and runs the loop."""
+    """Holds params and optimizer state on one device (or this rank's
+    shards on a mesh) and runs the loop."""
 
     def __init__(self, spec: ModelSpec, config: TrainerConfig,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.spec = spec
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else _mesh_for(config.mesh)
         self.optimizer = make_optimizer(config.optimizer)
+        self._placements = None
+        if self.mesh is None:
+            self.device = resolve_device(device)
+        else:
+            check_ported(axis_sizes_of(self.mesh))
+            self.device = rank_device(device)
+            self._placements = self._place()
         self.params = None
         self.opt_state = None
         self.step = 0
@@ -218,6 +301,68 @@ class Trainer:
                 directory=config.checkpoint_dir,
                 save_interval_steps=config.checkpoint_every))
 
+    # -- placement ----------------------------------------------------------
+    def _axis(self, axis: str) -> int:
+        return axis_sizes_of(self.mesh).get(axis, 1)
+
+    def _place(self):
+        """A Placement per parameter from the spec's logical axes."""
+        if self.spec.logical_axes is None:
+            raise NotImplementedError(
+                "this model family has no logical axes yet: training it on "
+                f"a mesh comes with {NEXT_SLICES}")
+        shapes = self.spec.init(torch.Generator(), torch.device("meta"))
+        specs = tree_to_shardings_safe(self.mesh, self.spec.logical_axes,
+                                       shapes, self.config.rules)
+
+        def one(params, spec):
+            if isinstance(params, dict):
+                return {k: one(v, spec[k]) for k, v in params.items()}
+            if isinstance(params, (list, tuple)):
+                return type(params)(one(v, spec[i])
+                                    for i, v in enumerate(params))
+            dims = []
+            for dim, entry in enumerate(spec):
+                axes = spec_axes(entry)
+                if len(axes) > 1 or (axes and axes[0] not in
+                                     ("fsdp", "expert")):
+                    raise NotImplementedError(
+                        f"a parameter split over {axes}: only fsdp and "
+                        f"expert placements are ported ({NEXT_SLICES})")
+                if axes:
+                    dims.append((dim, axes[0]))
+            return Placement(tuple(dims))
+
+        placements = one(shapes, specs)
+        if isinstance(self.optimizer, Adafactor) and any(
+                p.dims for p in tree_leaves(placements)):
+            raise NotImplementedError(
+                "Adafactor factors whole leaves; on sharded parameters it "
+                f"comes with {NEXT_SLICES}")
+        return placements
+
+    def _shard(self, full: torch.Tensor, pl: Placement) -> torch.Tensor:
+        for dim, axis in pl.dims:
+            full = full.chunk(self._axis(axis), dim)[
+                self.mesh.get_local_rank(axis)]
+        return full.contiguous()
+
+    def _gather(self, local, pl: Placement):
+        """The whole leaf from this rank's shard (every rank calls it)."""
+        for dim, axis in reversed(pl.dims):
+            local = collectives.gather_full(local, dim,
+                                            self.mesh.get_group(axis))
+        return local
+
+    def _map_state(self, fn, state: Dict[str, Any]) -> Dict[str, Any]:
+        """fn(leaf, placement) over params and the optimizer state's
+        param-shaped trees (every entry but the step count)."""
+        opt = {k: (tree_map(fn, v, self._placements)
+                   if isinstance(v, (dict, list)) else v)
+               for k, v in state["opt_state"].items()}
+        return {"params": tree_map(fn, state["params"], self._placements),
+                "opt_state": opt}
+
     # -- state -------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None,
                    params=None) -> None:
@@ -228,8 +373,14 @@ class Trainer:
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
             params = self.spec.init(generator, self.device)
+        if self.mesh is not None:
+            # every rank makes (or is handed) the same whole tree and keeps
+            # its shard
+            params = tree_map(lambda p, pl: self._shard(
+                p.detach().to(self.device), pl), params, self._placements)
         self.params = tree_map(
             lambda p: p.detach().to(self.device).requires_grad_(True), params)
+        self._follow_params()
         self.opt_state = self.optimizer.init(self.params)
         self.step = 0
 
@@ -239,9 +390,36 @@ class Trainer:
         return {"params": self.params, "opt_state": self.opt_state}
 
     def _set_state(self, state: Dict[str, Any]) -> None:
+        """Take a whole restored state (this rank's shard of it on a
+        mesh)."""
+        if self.mesh is not None:
+            state = self._map_state(lambda x, pl: self._shard(x, pl), state)
         self.params = tree_map(lambda p: p.detach().requires_grad_(True),
                                state["params"])
         self.opt_state = state["opt_state"]
+        self._follow_params()
+
+    def _follow_params(self) -> None:
+        """Re-key the placements in the params' own order (a tree from
+        JAX comes with sorted keys), so their leaves pair up in order."""
+        if self._placements is not None:
+            self._placements = tree_map(lambda _, pl: pl, self.params,
+                                        self._placements)
+
+    def full_state(self) -> Dict[str, Any]:
+        """{params, opt_state} whole: on a mesh every leaf gathered (every
+        rank must call it)."""
+        if self.mesh is None:
+            return self.state
+        return self._map_state(self._gather, self.state)
+
+    def _save(self, step: int, force: bool = False) -> bool:
+        """Save the whole state: on a mesh each leaf is gathered and rank
+        0 writes it."""
+        state = self.full_state()
+        if self.mesh is not None and dist.get_rank() != 0:
+            return False
+        return self.checkpointer.save(step, state, force=force)
 
     # -- checkpoint --------------------------------------------------------
     def save_checkpoint(self, force: bool = False) -> bool:
@@ -249,7 +427,7 @@ class Trainer:
         if self.checkpointer is None:
             raise RuntimeError("checkpointing not configured "
                                "(set checkpoint_dir + checkpoint_every)")
-        return self.checkpointer.save(self.step, self.state, force=force)
+        return self._save(self.step, force=force)
 
     def restore_checkpoint(self, step: Optional[int] = None) -> int:
         """Restore the state onto the trainer's device; returns the step.
@@ -301,6 +479,8 @@ class Trainer:
 
     # -- one step ------------------------------------------------------------
     def _grads(self, batch: Dict[str, torch.Tensor]):
+        if self.mesh is not None:
+            return self._sharded_grads(batch)
         loss, metrics = self.spec.loss_fn(self.params, batch)
         leaves = tree_leaves(self.params)
         # a leaf the loss never reads (BERT's mlm_bias) gets a zero
@@ -308,6 +488,59 @@ class Trainer:
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
         return tree_unflatten(self.params, list(grads)), metrics
+
+    def _use_tree(self):
+        """The tree the loss reads: fsdp-split layer-stack leaves as
+        `LayerShards` (gathered per layer), other fsdp-split leaves
+        gathered now; expert-split leaves stay this rank's."""
+        group = self.mesh.get_group("fsdp") if self._axis("fsdp") > 1 \
+            else None
+
+        def use(in_layers, p, pl):
+            d = pl.dim_of("fsdp")
+            if d is None or group is None:
+                return p
+            if in_layers:
+                return fsdp.LayerShards(p, d, group)
+            return collectives.gather_dim(p, d, group)
+
+        params, placements = self.params, self._placements
+        if isinstance(params, dict):
+            return {k: tree_map(lambda p, pl, lay=(k == "layers"):
+                                use(lay, p, pl), v, placements[k])
+                    for k, v in params.items()}
+        return tree_map(lambda p, pl: use(False, p, pl), params, placements)
+
+    def _sharded_grads(self, batch: Dict[str, torch.Tensor]):
+        leaves = tree_leaves(self.params)
+        with sharding.use_mesh(self.mesh):
+            loss, metrics = self.spec.loss_fn(self._use_tree(), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        synced = []
+        for g, pl in zip(grads, tree_leaves(self._placements)):
+            for axis in TOKEN_AXES:
+                if axis not in pl.axes and self._axis(axis) > 1:
+                    dist.all_reduce(g, group=self.mesh.get_group(axis))
+            synced.append(g)
+        return tree_unflatten(self.params, synced), metrics
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        """The global norm from this rank's gradient shards: the squares of
+        the leaves split over the same axes are summed, then over those
+        axes' groups."""
+        by_axes: Dict[Tuple[str, ...], torch.Tensor] = {}
+        for g, pl in zip(tree_leaves(grads), tree_leaves(self._placements)):
+            sq = torch.square(torch.linalg.vector_norm(
+                g, dtype=_norm_accumulator(g)))
+            by_axes[pl.axes] = by_axes[pl.axes] + sq \
+                if pl.axes in by_axes else sq
+        total = 0.0
+        for axes, sq in by_axes.items():
+            for axis in axes:
+                dist.all_reduce(sq, group=self.mesh.get_group(axis))
+            total = total + sq
+        return torch.sqrt(total).float()
 
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
@@ -319,11 +552,10 @@ class Trainer:
         with record_function("train.grads"):
             grads, metrics = self._accumulated_grads(batch, accum)
         with record_function("train.optimizer"):
-            updates, self.opt_state, grad_norm = self.optimizer.update(
-                grads, self.opt_state, self.params)
-            with torch.no_grad():
-                tree_map(lambda p, u: p.add_(u.to(p.dtype)), self.params,
-                         updates)
+            g_norm = None if self.mesh is None else self._global_norm(grads)
+            # in place, leaf by leaf: no second copy of the state
+            self.opt_state, grad_norm = self.optimizer.update_(
+                grads, self.opt_state, self.params, g_norm=g_norm)
         return {**metrics, "grad_norm": grad_norm}
 
     def _accumulated_grads(self, batch: Dict[str, torch.Tensor], accum: int):
@@ -358,7 +590,7 @@ class Trainer:
         if self.params is None:
             self.init_state()
         every = self.config.checkpoint_every
-        if (self.checkpointer is not None and every
+        if (self.checkpointer is not None and every and self.mesh is None
                 and (self.step + num_steps) // every > self.step // every):
             # before the loop: pinning its host buffers under a running
             # step would hold up that step's launches
@@ -374,6 +606,12 @@ class Trainer:
                 "start (the log has the reason)")
         try:
             if not isinstance(data_iter, Prefetcher):
+                if self.mesh is not None:
+                    # global batches in, this rank's shard on
+                    local_batch_slice(self.mesh,
+                                      self.config.global_batch_size)
+                    data_iter = map(
+                        lambda b: local_batch(b, self.mesh), data_iter)
                 # integer ids as int64, whatever the source gives; floats
                 # (images, boxes, masks) as they are
                 data_iter = map(_as_long, data_iter)
@@ -400,6 +638,8 @@ class Trainer:
                   capture: stepprof.ProfileCapture) -> Dict[str, Any]:
         tokens_per_step = self.config.global_batch_size * self.config.seq_len
         peak = device_peak_flops(self.device)
+        if peak and self.mesh is not None:
+            peak *= process_count()
         history = []
         profiler = stepprof.StepProfiler(
             goodput.LEDGER, replay_until=self._replay_until)
@@ -459,7 +699,7 @@ class Trainer:
             if (self.checkpointer is not None
                     and self.config.checkpoint_every
                     and self.step % self.config.checkpoint_every == 0):
-                self.checkpointer.save(self.step, self.state)
+                self._save(self.step)
             if self.step % self.config.log_every == 0:
                 flush_window(last_metrics)
         if window_steps and last_metrics is not None:

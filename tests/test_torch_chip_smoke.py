@@ -1308,3 +1308,113 @@ def test_compare_round_accepts_a_flip_only_at_a_near_tie():
     moved = chip_smoke.compare_round(_round([0], [1], [0.5, -0.25]), cpu,
                                      gaps, binned, 1)
     assert moved["leaf_diff"].tolist() == [[0.0, 0.0, 0.25, 0.25]]
+
+
+def test_moe_loads_keep_the_full_width():
+    """tpu_moe_8x1b at full width: serving at full depth, training cut
+    to 8 layers, the gradient check to 2; never a narrower model."""
+    assert chip_smoke.MOE_SERVE_LOAD.model == "tpu_moe_8x1b"
+    assert chip_smoke.MOE_SERVE_LOAD.overrides == ()
+    assert (chip_smoke.MOE_SERVE_LOAD.requests,
+            chip_smoke.MOE_SERVE_LOAD.prompt, chip_smoke.MOE_SERVE_LOAD.new,
+            chip_smoke.MOE_SERVE_LOAD.clients) == (4, 128, 32, 8)
+    train = chip_smoke.MOE_TRAIN_LOAD
+    assert (train.model, train.n_layers, train.batch, train.seq,
+            train.warmup, train.steps) == ("tpu_moe_8x1b", 8, 8, 2048, 2, 5)
+    grads = chip_smoke.MOE_GRADS_LOAD
+    assert (grads.model, grads.n_layers, grads.batch, grads.seq) == (
+        "tpu_moe_8x1b", 2, 2, 256)
+
+
+def test_moe_serve_phase_rehearsal_takes_no_kernel_on_cpu():
+    out = chip_smoke.phase_moe_serve(chip_smoke.MOE_SERVE_REHEARSAL, "cpu")
+    assert out["plain"]["equal_direct_generate"]
+    eng = out["engine"]
+    assert eng["tie_gap_max"] <= chip_smoke.ENGINE_TIE_GAP
+    assert eng["logits_diff_max"] <= chip_smoke.ENGINE_LOGITS_MAX_ABS
+    fault = eng["planted_fault"]
+    assert fault["lanes_flagged_by_logits"] == fault["lanes"] == 4
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+
+
+def test_moe_train_phase_rehearsal_takes_no_kernel_on_cpu():
+    out = chip_smoke.phase_moe_train(chip_smoke.MOE_TRAIN_REHEARSAL, "cpu")
+    assert out["losses_with_aux"][-1] < out["losses_with_aux"][0]
+    assert out["launches_per_step"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                        "flash_bwd_dkv": 0}
+    assert 0 <= out["moe_drop_fraction"] < 1
+
+
+def test_moe_grads_rehearsal():
+    out = chip_smoke.phase_moe_grads(chip_smoke.MOE_GRADS_REHEARSAL, "cpu")
+    assert out["routing_flips"] == []
+    assert out["generate_card"] == out["generate_cpu"]
+    (_, worst), = out["grad_rel_l2_max"].items()
+    assert worst == 0.0
+
+
+def test_moe_grads_flag_a_dispatch_one_slot_short(monkeypatch):
+    """The cross-device check's power: capacity one slot short on the card
+    alone drops tokens the CPU keeps."""
+    from cloudtik_tpu_torch.ops import moe as TM
+
+    def planted(real, probs, cfg, capacity):
+        return real(probs, cfg, max(capacity - 1, 1))
+
+    _planted_in_check(monkeypatch, TM, "_top_k_dispatch", planted)
+    with pytest.raises(SystemExit, match="moe_grads: .*gradient"):
+        chip_smoke.phase_moe_grads(chip_smoke.MOE_GRADS_REHEARSAL, "cpu")
+
+
+def test_moe_grads_flag_routing_that_differs_away_from_a_tie(monkeypatch):
+    """The routing check's power: the card's router probabilities with two
+    experts swapped route tokens otherwise, away from any near tie."""
+    real = chip_smoke.forward_routes
+    calls = []
+
+    def planted(*args):
+        logits, probs = real(*args)
+        calls.append(1)
+        if len(calls) == 1:
+            probs = [p[..., [1, 0, *range(2, p.shape[-1])]] for p in probs]
+        return logits, probs
+
+    monkeypatch.setattr(chip_smoke, "forward_routes", planted)
+    with pytest.raises(SystemExit, match="routing differs"):
+        chip_smoke.phase_moe_grads(chip_smoke.MOE_GRADS_REHEARSAL, "cpu")
+
+
+def test_router_flips_accept_only_near_ties():
+    card = [torch.tensor([[[0.5, 0.3, 0.2], [0.4, 0.4 - 1e-6, 0.2]]])]
+    cpu = [torch.tensor([[[0.5, 0.3, 0.2], [0.4 - 1e-6, 0.4, 0.2]]])]
+    out = chip_smoke.router_flips(card, cpu, 1)
+    assert [f["pos"] for f in out["flips"]] == [1] and out["all_at_near_tie"]
+    # a near tie on the CPU's side only: the card's router is far off
+    far = [torch.tensor([[[0.5, 0.3, 0.2], [0.7, 0.1, 0.2]]])]
+    out = chip_smoke.router_flips(far, cpu, 1)
+    assert len(out["flips"]) == 1 and not out["all_at_near_tie"]
+
+
+def test_moe_serve_flags_a_forward_that_routes_otherwise(monkeypatch):
+    """The forward check's power: a reference forward pinned to routes
+    with experts 0 and 1 swapped (as a flash forward whose router read the
+    wrong expert would route) is flagged."""
+    real = chip_smoke.forward_routes
+
+    def planted(params, tokens, cfg, pinned=None):
+        if pinned is not None:
+            pinned = [p[..., [1, 0, *range(2, p.shape[-1])]] for p in pinned]
+        return real(params, tokens, cfg, pinned=pinned)
+
+    monkeypatch.setattr(chip_smoke, "forward_routes", planted)
+    with pytest.raises(SystemExit, match="forward logits differ"):
+        chip_smoke.phase_moe_serve(chip_smoke.MOE_SERVE_REHEARSAL, "cpu")
+
+
+def test_moe_train_flags_a_step_that_learns_nothing():
+    """The loss check's power: with no learning rate the repeated batch's
+    loss_with_aux cannot fall."""
+    load = dataclasses.replace(chip_smoke.MOE_TRAIN_REHEARSAL, lr=0.0)
+    with pytest.raises(SystemExit, match="moe_train: the loss did not fall"):
+        chip_smoke.phase_moe_train(load, "cpu")

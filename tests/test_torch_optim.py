@@ -279,3 +279,37 @@ def test_global_norm_is_accurate_on_a_large_cpu_leaf():
     assert got.dtype == torch.float32
     np.testing.assert_allclose(float(got), np.sqrt(want ** 2 + 3),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["adamw", "sgd", "adafactor", "lion"])
+@pytest.mark.parametrize("moment_dtype", [None, "bfloat16"])
+def test_update_in_place_equals_update_then_add(name, moment_dtype):
+    """`update_` (the trainer's: leaf by leaf, params and state written in
+    place) is bit for bit `update` followed by p + u, over 3 steps with
+    the clip engaged on the first."""
+    shapes = FACTOR_SHAPES if name == "adafactor" else SHAPES
+    cfg = TO.OptimizerConfig(name=name, learning_rate=1e-2, warmup_steps=1,
+                             schedule="constant", grad_clip_norm=1.0,
+                             moment_dtype=moment_dtype)
+    rng = np.random.default_rng(3)
+    params = tree_map(torch.from_numpy, _tree(rng, shapes=shapes))
+    grads = [tree_map(torch.from_numpy, _tree(rng, scale=s, shapes=shapes))
+             for s in (10.0, 0.1, 0.1)]
+    opt = TO.make_optimizer(cfg)
+    p_ref = tree_map(torch.clone, params)
+    s_ref = opt.init(p_ref)
+    p_in = tree_map(torch.clone, params)
+    s_in = opt.init(p_in)
+    for g in grads:
+        updates, s_ref, n_ref = opt.update(g, s_ref, p_ref)
+        p_ref = tree_map(lambda p, u: p + u.to(p.dtype), p_ref, updates)
+        s_in, n_in = opt.update_(g, s_in, p_in)
+        assert torch.equal(n_in, n_ref)
+    for a, b in zip(jax.tree.leaves(p_in), jax.tree.leaves(p_ref)):
+        assert torch.equal(a, b)
+    assert s_in["count"] == s_ref["count"] == 3
+    for key in s_ref:
+        if key != "count":
+            for a, b in zip(jax.tree.leaves(s_in[key]),
+                            jax.tree.leaves(s_ref[key])):
+                assert a.dtype == b.dtype and torch.equal(a, b), key

@@ -13,6 +13,7 @@ import torch
 
 from cloudtik_tpu_torch import convert
 from cloudtik_tpu_torch.device import resolve_device
+from cloudtik_tpu_torch.parallel.distributed import rank_device
 from cloudtik_tpu_torch.models import diffusion as TU
 from cloudtik_tpu_torch.models import dlrm as TDL
 from cloudtik_tpu_torch.models import gbdt as TGB
@@ -37,7 +38,9 @@ PORT = ROOT / "cloudtik_tpu_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_inference.py",
     ROOT / "tools" / "profile_torch_train.py",
-    ROOT / "tools" / "profile_torch_detect.py"]
+    ROOT / "tools" / "profile_torch_detect.py",
+    ROOT / "tools" / "torch_parallel_cases.py",
+    ROOT / "tools" / "probe_torch_gloo_cuda.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
     .replace(".__init__", "") for p in PORT.rglob("*.py"))
@@ -119,6 +122,11 @@ def test_resolve_device(no_cuda):
                     TGB.config(n_trees=1, depth=1)),
     lambda: TTR.Trainer(TTR.dlrm_spec(TDL.config("tiny")),
                         TTR.TrainerConfig()),
+    lambda: TT.init_params(torch.Generator(), TT.config("tiny_moe")),
+    lambda: TS.engine_backend("tiny_moe"),
+    lambda: TTR.Trainer(TTR.transformer_spec(TT.config("tiny_moe")),
+                        TTR.TrainerConfig()),
+    lambda: rank_device(),
 ], ids=["init_params", "init_cache", "params_from_jax",
         "transformer_backend", "engine_backend", "DecodeEngine",
         "init_block_pool", "Trainer", "resnet.init_params",
@@ -127,7 +135,8 @@ def test_resolve_device(no_cuda):
         "lora.random_lora_params", "lora.init_adapter_planes",
         "engine_backend.spec_model", "diffusion.init_params",
         "dlrm.init_params", "rnnt.init_params", "graphsage.init_params",
-        "gbdt.fit", "Trainer.dlrm_spec"])
+        "gbdt.fit", "Trainer.dlrm_spec", "init_params.moe",
+        "engine_backend.moe", "Trainer.moe", "rank_device"])
 def test_entry_points_without_device_raise_off_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()

@@ -233,3 +233,49 @@ def test_zoo_mesh_axes_other_than_one_name_roadmap_a7(name):
 def test_zoo_recipe_defaults_to_the_card(no_cuda, name):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ZOO[name][0].main(["--model", "tiny", "--steps", "1"])
+
+
+def test_lm_generate_reports_tokens_per_second_for_moe(capsys):
+    from cloudtik_tpu_torch.recipes import lm_generate
+
+    result = lm_generate.main([
+        "--model", "tiny_moe", "--prompt-len", "16", "--max-new", "8",
+        "--steps", "2", "--batch", "2", "--device", "cpu"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(line) == result
+    assert result["tokens_per_sec"] > 0 and result["max_new"] == 8
+    args = lm_generate.parser().parse_args([])
+    assert (args.model, args.prompt_len, args.max_new, args.temperature,
+            args.top_k) == ("tpu_1b", 128, 128, 0.0, 0)
+    with pytest.raises(ValueError, match="one card"):
+        lm_generate.main(["--model", "tiny", "--device", "cpu", "--fsdp",
+                          "2"])
+
+
+def test_lora_recipe_on_two_ranks_matches_one_card(capsys):
+    """`--fsdp 2` under a two-rank launch (gloo, the CPU): every rank trains
+    its shard of the adapters and of each global batch, to the one-card
+    run's losses."""
+    from pathlib import Path
+
+    from cloudtik_tpu_torch.parallel.launch import run_ranks
+
+    argv = ["--model", "tiny", "--seq-len", "32", "--rank", "4", "--steps",
+            "2", "--batch", "4", "--log-every", "1", "--device", "cpu"]
+    one = llama_lora_finetune.main(argv)
+    capsys.readouterr()
+    outs = run_ranks(["-m", "cloudtik_tpu_torch.recipes.llama_lora_finetune",
+                      *argv, "--fsdp", "2"], 2, 120,
+                     cwd=str(Path(__file__).resolve().parents[1]))
+    for out in outs:
+        got = json.loads([ln for ln in out.splitlines()
+                          if ln.startswith("{")][-1])
+        assert got["final_loss"] == one["final_loss"]
+
+
+def test_mesh_flags_wider_than_the_launch_are_refused():
+    args = llama_lora_finetune.parser().parse_args(
+        ["--model", "tiny", "--seq-len", "32", "--device", "cpu", "--data",
+         "2"])
+    with pytest.raises(ValueError, match="devices"):
+        llama_lora_finetune.build(args)

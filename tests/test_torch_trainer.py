@@ -143,9 +143,11 @@ def test_peak_flops_by_card_name(monkeypatch):
 def test_config_defaults_match_jax():
     jtc, ttc = JTR.TrainerConfig(), TTR.TrainerConfig()
     for field in dataclasses.fields(TTR.TrainerConfig):
-        if field.name != "optimizer":
+        if field.name not in ("optimizer", "mesh"):
             assert getattr(ttc, field.name) == getattr(jtc, field.name)
+    # the config dataclasses are each package's own
     assert vars(ttc.optimizer) == vars(jtc.optimizer)
+    assert vars(ttc.mesh) == vars(jtc.mesh)
 
 
 def test_resnet_history_matches_jax_trainer():

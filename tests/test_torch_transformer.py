@@ -151,9 +151,18 @@ def test_tied_embeddings_match_jax():
 
 
 def test_moe_is_not_ported_yet():
-    cfg = TT.config("tiny_moe")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TT.init_params(torch.Generator(), cfg, "cpu")
+    """MoE is ported (tests/test_torch_moe.py) but for a seq-sharded mesh,
+    where a routing group would span the sequence shards."""
+    from cloudtik_tpu_torch.parallel.sharding import use_mesh
+
+    cfg = TT.config("tiny_moe", dtype=torch.float32,
+                    attention_impl="reference")
+    params = TT.init_params(torch.Generator(), cfg, "cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    positions = torch.arange(8)[None]
+    with use_mesh({"seq": 2}), pytest.raises(NotImplementedError,
+                                             match="MoE"):
+        TT.forward(params, tokens, cfg, positions=positions)
 
 
 def test_params_round_trip_through_numpy():

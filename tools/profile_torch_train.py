@@ -2,13 +2,18 @@
 """Where the time goes in one training step of the PyTorch port, on one card.
 
     python3 tools/profile_torch_train.py [--model tpu_1b|bert_large|
-        resnet50|ssd_resnet34|maskrcnn_resnet50|sdxl_mini|criteo_terabyte|
-        rnnt|graphsage] [--batch 8] [--seq 2048] [--steps 2]
+        tpu_moe_8x1b|resnet50|ssd_resnet34|maskrcnn_resnet50|sdxl_mini|
+        criteo_terabyte|rnnt|graphsage] [--batch 8] [--seq 2048]
+        [--steps 2] [--layers 8]
 
 Runs `Trainer` on tpu_1b at [batch, seq] in bench.py's configuration (bf16
 params and Adam moments, save_attn remat), on bert_large (default B=32,
 S=512) as `recipes/bert_large_pretrain.py` builds it (f32 params, bf16
-compute, the MLM objective on `synthetic_mlm_batches`), or on a vision
+compute, the MLM objective on `synthetic_mlm_batches`), on tpu_moe_8x1b
+at full width cut to `--layers` (default 8, as chip_smoke's moe_train:
+f32 params and moments, bf16 compute, AdamW without warmup, one
+repeated batch), or
+on a vision
 model or a model-zoo family as its recipe builds it (`resnet50_imagenet`,
 `ssd_coco`, `maskrcnn_coco`, `sdxl_fsdp`, `dlrm_criteo`, `rnnt_speech`,
 `graphsage_nodes`; default B = 128, 32, 4, the per-card batches of the JAX
@@ -24,8 +29,10 @@ products, BERT's MLM head, ROIAlign's backward --, reductions -- batch
 norm's and group norm's statistics --, gathers and scatters -- DLRM's
 embedding rows and their gradient --, everything else),
 the optimizer's span on the device timeline (the trainer's
-`train.optimizer` range), launches per step by kind, and the top kernels
-by name.  Needs a CUDA card; weights are random from seed 0.
+`train.optimizer` range), for MoE the device time of the forward's
+ranges (ops/moe.py: moe.route, moe.dispatch, moe.experts, moe.combine;
+the forward and its remat recompute, not the backward), launches per step
+by kind, and the top kernels by name.  Needs a CUDA card; weights are random from seed 0.
 """
 
 from __future__ import annotations
@@ -91,13 +98,16 @@ def _device_us(evt, total: bool = False) -> float:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="tpu_1b",
-                   choices=("tpu_1b", "bert_large", *RECIPES))
+                   choices=("tpu_1b", "bert_large", "tpu_moe_8x1b",
+                            *RECIPES))
     p.add_argument("--batch", type=int, default=None,
                    help="8 for tpu_1b, 32 for bert_large, the recipe "
                         "models' as RECIPES says")
     p.add_argument("--seq", type=int, default=None,
                    help="2048 for tpu_1b, 512 for bert_large")
     p.add_argument("--steps", type=int, default=2)
+    p.add_argument("--layers", type=int, default=8,
+                   help="tpu_moe_8x1b's depth (its width is kept)")
     args = p.parse_args(argv)
     bert = args.model == "bert_large"
     recipe_of = RECIPES.get(args.model)
@@ -147,6 +157,14 @@ def main(argv=None) -> int:
         # and the input and weight gradients
         head_tflop = 3 * 2 * B * P * cfg.d_model * (
             cfg.d_model + cfg.vocab_size) / 1e12
+    elif args.model == "tpu_moe_8x1b":
+        cfg = T.config("tpu_moe_8x1b", n_layers=args.layers, max_seq_len=S)
+        spec = transformer_spec(cfg)
+        opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=1,
+                              schedule="constant")
+        data = itertools.repeat(next(synthetic_lm_batches(
+            B, S, cfg.vocab_size, seed=1)))
+        head_tflop = 4 * 2 * B * S * cfg.d_model * cfg.vocab_size / 1e12
     else:
         cfg = T.config("tpu_1b", max_seq_len=S, param_dtype=torch.bfloat16)
         spec = transformer_spec(cfg)
@@ -170,7 +188,11 @@ def main(argv=None) -> int:
     kernels = []
     launches = 0
     optimizer_ms = None
+    moe_ms: dict = {}
     for evt in prof.key_averages():
+        if evt.key.startswith("moe."):
+            moe_ms[evt.key] = _device_us(evt, total=True) / 1e3 / n
+            continue
         if evt.key.startswith("train."):
             # the trainer's ranges also show on the device timeline as
             # spans: not kernels, kept out of the sums
@@ -198,6 +220,7 @@ def main(argv=None) -> int:
            "device_ms_per_step_by_kind": by_kind,
            "launches_per_step_by_kind": counts,
            "optimizer_device_ms_per_step": optimizer_ms,
+           "moe_forward_device_ms_per_step": moe_ms or None,
            "logits_f32_tflop_per_step": head_tflop,
            "model_tflop_per_step": (spec.flops_per_token or 0.0)
            * tokens / 1e12,
