@@ -233,13 +233,37 @@ run with a non-zero exit:
            two at a near tie of router probabilities (the gaps reported);
            greedy `generate` tokens equal
 
+  parallel_2rank  the tensor and pipe axes: two ranks share card 0 over
+           gloo (NCCL refuses two ranks on one card; every time here is
+           that arrangement's, host-staged, not a multi-GPU number), spawned
+           by `parallel.launch.run_ranks` with a deadline.  Each collective's
+           ms at 32 MiB and the route the shift takes.  tensor=2 at tpu_1b's
+           full width and depth (8 heads, 2,752 d_ff columns and 16,000 vocab
+           rows a rank), B=4 x 2048, bf16: one step's loss and every
+           gradient leaf within 0.05 relative L2 of one rank on the card,
+           then 1 + 2 steps on a repeated batch, 16 launches of each of
+           B1-B3 a step and rank at q [4,8,2048,128], the loss falling;
+           ms/step, tokens/s, MFU against one card, peak GB a rank.  pipe=2
+           at full depth (8 layers a stage), B=8 x 2048, 4 microbatches,
+           under GPipe and 1F1B: the same checks, 1 + 2 steps, launches a
+           rank and step of 32/32/32 (GPipe) and 64/32/32 (1F1B re-runs
+           each stage's forward in its backward); peak GB a rank at 8
+           microbatches, 1F1B's below GPipe's.  In f32 at 2 layers with
+           TF32 off: tensor, pipe (both schedules) and seq=2 (the ring
+           through the shift) within 1e-3 of one rank, and two planted
+           faults (x reaching the split head without `copy_to`; the
+           head's gradient summed over pipe) flagged.  data=2 with 2
+           accumulated microbatches at 2 layers: 3 steps with the
+           overlapped sync and 3 without, losses equal bit for bit
+
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
 steps of the checkpoint phase; the measured steps of lora_train and of
 bert; the measured detect calls of each model; the measured steps of each
 vision and model-zoo phase and its cross-device check; the loaders' fit;
 the GBDT fit, serve and check; moe_serve's forward, server and engine;
-moe_train's measured steps) and read just after it.
+moe_train's measured steps; in each rank of parallel_2rank, the
+measured steps of the tensor and pipe paths) and read just after it.
 The `total` line gives the script's seconds; the last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
@@ -5931,10 +5955,525 @@ def phase_moe_grads(load: MoeGradsLoad = MOE_GRADS_LOAD,
     return out
 
 
+# ---------------------------------------------------------- parallel_2rank --
+# Two ranks share card 0 over gloo (NCCL refuses two ranks on one device):
+# every time in this phase is a time of that arrangement, host-staged
+# collectives included, and none is a multi-GPU number.
+PARALLEL_LABEL = ("two ranks sharing one H100 over gloo (host-staged), "
+                  "not NCCL")
+# One step's gradients on two ranks against one rank, per leaf in relative
+# L2: in bf16 compute (train_grads' limit: the split rounds each rank's
+# partial products to bf16 before their sum), and in f32 with TF32 off,
+# where only the order of the sums differs.
+PARALLEL_BF16_REL_L2 = GRADS_REL_L2
+PARALLEL_F32_REL_L2 = 1e-3
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelLoad:
+    """The parallel_2rank phase.  `model` at full width throughout: the
+    tensor=2 step at full depth (`tensor_batch` x `seq`, `steps` measured
+    after one warm-up); pipe=2 at full depth (`pipe_batch` x `seq`,
+    `pipe_micro` microbatches, `steps` measured after one warm-up) under
+    GPipe and 1F1B, and both again at `pipe_micro_peak` for the peak; the
+    f32 checks (tensor, pipe under
+    each schedule, seq) at `check_layers` layers, `check_batch` x
+    `check_seq`; data=2 with 2 accumulated microbatches at `check_layers`
+    layers, `overlap_steps` steps with the overlapped sync and without;
+    each collective's cost at `collective_mib` MiB of f32."""
+    model: str = "tpu_1b"
+    device: str = "cuda:0"
+    seq: int = 2048
+    tensor_batch: int = 4
+    steps: int = 2
+    pipe_batch: int = 8
+    pipe_micro: int = 4
+    pipe_micro_peak: int = 8
+    check_layers: int = 2
+    check_batch: int = 2
+    check_seq: int = 1024
+    overlap_batch: int = 4
+    overlap_steps: int = 3
+    lr: float = 1e-3
+    collective_mib: int = 32
+    deadline_s: float = 600.0
+
+
+PARALLEL_LOAD = ParallelLoad()
+PARALLEL_REHEARSAL = ParallelLoad(
+    model="tiny", device="cpu", seq=64, tensor_batch=2, pipe_batch=4,
+    pipe_micro=2, pipe_micro_peak=4, check_batch=2, check_seq=32,
+    lr=1e-2, collective_mib=1, deadline_s=300.0)
+
+
+def _rank_batch(B: int, S: int, vocab: int, seed: int) -> dict:
+    from cloudtik_tpu_torch.train.data import synthetic_lm_batches
+
+    return next(synthetic_lm_batches(B, S, vocab, seed=seed))
+
+
+def _on(batch: dict, device) -> dict:
+    import torch
+
+    return {k: torch.as_tensor(v).long().to(device) for k, v in batch.items()}
+
+
+def _reference_grads(cfg, params, batch: dict, chunks: int):
+    """One rank's loss and gradients of `batch` (on the device), summed
+    over `chunks` row chunks: every row has as many valid labels, so the
+    mean of the chunks' losses is the batch's."""
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    leaves = tree_leaves(p)
+    rows = batch["tokens"].shape[0] // chunks
+    total, loss_sum = None, 0.0
+    for c in range(chunks):
+        sub = {k: v[c * rows:(c + 1) * rows] for k, v in batch.items()}
+        loss, _ = T.loss_fn(p, sub, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        loss_sum += float(loss)
+        total = [g.float() / chunks for g in grads] if total is None else [
+            t + g.float() / chunks for t, g in zip(total, grads)]
+    return loss_sum / chunks, tree_unflatten(params, total)
+
+
+def _sharded_gaps(trainer, grads, ref) -> dict:
+    """{leaf: relative L2 of this mesh's gradient to the one-rank one}
+    over each whole leaf: each rank's squared sums over its slice, summed
+    over the axes the leaf is split on."""
+    import torch
+    import torch.distributed as dist
+
+    from cloudtik_tpu_torch.tree import tree_leaves
+
+    out = {}
+    for (name, r), g, pl in zip(_named_leaves(ref), tree_leaves(grads),
+                                tree_leaves(trainer._placements)):
+        r = trainer._shard(r, pl).float()
+        sums = torch.stack([(g.float() - r).square().sum(),
+                            r.square().sum()]).double()
+        for axis in pl.axes:
+            dist.all_reduce(sums, group=trainer.mesh.get_group(axis))
+        out[name] = math.sqrt(float(sums[0]) / max(float(sums[1]), 1e-300))
+    return out
+
+
+def _mesh_trainer(cfg, mesh: dict, B: int, S: int, device, lr: float,
+                  **config):
+    from cloudtik_tpu_torch.parallel.mesh import MeshConfig
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.train.trainer import (
+        Trainer, TrainerConfig, transformer_spec)
+
+    return Trainer(transformer_spec(cfg), TrainerConfig(
+        global_batch_size=B, seq_len=S, mesh=MeshConfig(**{"fsdp": 1,
+                                                           **mesh}),
+        optimizer=OptimizerConfig(learning_rate=lr, warmup_steps=1,
+                                  schedule="constant"),
+        log_every=1, prefetch_depth=0, **config), device=device)
+
+
+def _init(cfg, device):
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+
+    return T.init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                         device)
+
+
+class _PlantedHeadNoCopy:
+    """models/transformer.py's `collectives` with x reaching the split lm
+    head without `copy_to`: its gradient then holds this rank's vocab
+    slice only."""
+
+    def __init__(self, real):
+        self.real = real
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def copy_to(self, x, axes):
+        if sys._getframe(1).f_code.co_name == "loss_fn":
+            return x
+        return self.real.copy_to(x, axes)
+
+
+def _check_step(load: ParallelLoad, device, mesh: dict, bf16: bool,
+                fault=None, batch: int = None, **overrides) -> dict:
+    """One step's loss and gradients on `mesh` against one rank's on the
+    same card: at full depth in bf16 (`batch` rows, by default
+    `tensor_batch`), or at `check_layers` in f32."""
+    import torch
+    import torch.distributed as dist
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.train.data import local_batch
+
+    if bf16:
+        cfg = T.config(load.model, max_seq_len=load.seq, **overrides)
+        B, S = batch or load.tensor_batch, load.seq
+    else:
+        cfg = T.config(load.model, n_layers=load.check_layers,
+                       dtype=torch.float32, max_seq_len=load.check_seq,
+                       **overrides)
+        B, S = load.check_batch, load.check_seq
+    full = _init(cfg, device)
+    rows = _rank_batch(B, S, cfg.vocab_size, seed=1)
+    ref_loss, ref = _reference_grads(cfg, full, _on(rows, device),
+                                     chunks=max(B // 2, 1))
+    trainer = _mesh_trainer(cfg, mesh, B, S, device, load.lr)
+    trainer.init_state(params=full)
+    mine = _on(local_batch(rows, trainer.mesh), device)
+    real = T.collectives
+    if fault == "head_no_copy":
+        T.collectives = _PlantedHeadNoCopy(real)
+    try:
+        grads, metrics = trainer._grads(mine)
+    finally:
+        T.collectives = real
+    if fault == "head_pipe_summed":
+        dist.all_reduce(grads["lm_head"], group=trainer.mesh.get_group("pipe"))
+    gaps = _sharded_gaps(trainer, grads, ref)
+    worst = max(gaps, key=gaps.get)
+    out = {"mesh": mesh, "dtype": "bfloat16" if bf16 else "float32",
+           "n_layers": cfg.n_layers, "batch": B, "seq": S, "fault": fault,
+           "loss": float(metrics["loss"]), "reference_loss": ref_loss,
+           "loss_rel": abs(float(metrics["loss"]) - ref_loss) / ref_loss,
+           "max_leaf_rel_l2": gaps[worst], "worst_leaf": worst,
+           "median_leaf_rel_l2": sorted(gaps.values())[len(gaps) // 2]}
+    del trainer, grads, ref, full
+    _collect(torch.device(device).type == "cuda")
+    return out
+
+
+def _q_shapes():
+    """Record the q shape of every B1 launch (a set, filled as they run)."""
+    from cloudtik_tpu_torch.ops import flash_attention as FA
+
+    seen = set()
+    real = FA._kernel_fwd
+
+    def recorded(q, *args, **kwargs):
+        seen.add(tuple(q.shape))
+        return real(q, *args, **kwargs)
+
+    FA._kernel_fwd = recorded
+    return seen, lambda: setattr(FA, "_kernel_fwd", real)
+
+
+def _train_on_mesh(load: ParallelLoad, device, cfg, mesh: dict, B: int,
+                   warmup: int, steps: int) -> dict:
+    """`Trainer.fit` on `mesh`: `warmup` steps, then `steps` measured with
+    the launch counts zeroed just before and read just after; B1's q
+    shapes; the losses on the repeated batch; ms/step, tokens/s, peak."""
+    import torch
+
+    on_card = torch.device(device).type == "cuda"
+    trainer = _mesh_trainer(cfg, mesh, B, load.seq, device, load.lr)
+    trainer.init_state(params=_init(cfg, device))
+    batch = _rank_batch(B, load.seq, cfg.vocab_size, seed=1)
+    shapes, undo = _q_shapes()
+    try:
+        train = _train_measured(trainer, iter([batch] * (warmup + steps)),
+                                warmup, steps, on_card)
+    finally:
+        undo()
+    entry = train.pop("last")
+    train.pop("history")
+    out = {**train, "q_shapes": sorted(shapes),
+           "mfu_one_card": (cfg.flops_per_token() * entry["tokens_per_sec"]
+                            / PEAK_BF16_FLOPS) if on_card else None,
+           "grad_norm": entry["grad_norm"]}
+    out.pop("mfu", None)
+    del trainer
+    _collect(on_card)
+    return out
+
+
+def _peak_of_grads(load: ParallelLoad, device, cfg, mesh: dict,
+                   B: int) -> float:
+    """Peak GB of one step's gradients on `mesh` (None off the card)."""
+    import torch
+
+    from cloudtik_tpu_torch.train.data import local_batch
+
+    on_card = torch.device(device).type == "cuda"
+    trainer = _mesh_trainer(cfg, mesh, B, load.seq, device, load.lr)
+    trainer.init_state(params=_init(cfg, device))
+    batch = _on(local_batch(_rank_batch(B, load.seq, cfg.vocab_size, 1),
+                            trainer.mesh), device)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    grads, _ = trainer._grads(batch)
+    peak = None
+    if on_card:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    del trainer, grads
+    _collect(on_card)
+    return peak
+
+
+def _collective_costs(load: ParallelLoad, device) -> dict:
+    """ms of each collective the layer issues, over the world group, at
+    `collective_mib` MiB of f32 a rank, and the route a shift takes."""
+    import torch
+    import torch.distributed as dist
+
+    from cloudtik_tpu_torch.parallel import collectives
+
+    n = load.collective_mib * (1 << 20) // 4
+    world = dist.get_world_size()
+    group = dist.group.WORLD
+    x = torch.ones(n, device=device)
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            x.new_empty(n * world), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            x.new_empty(n // world), x),
+        "shift": lambda: collectives.shift_many([x], group, 1),
+    }
+    out = {"mib": load.collective_mib,
+           "shift_route": collectives.shift_route(group, x.device)}
+    for name, fn in ops.items():
+        fn()
+        _sync_all(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        _sync_all(device)
+        out[f"{name}_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    try:        # 16-bit reductions run in f32 (collectives._sum_over)
+        dist.all_reduce(x[:1024].to(torch.bfloat16))
+        out["bf16_all_reduce"] = "ok"
+    except Exception as e:  # recorded: the port never depends on it
+        out["bf16_all_reduce"] = f"{type(e).__name__}: {e}"[:200]
+    return out
+
+
+def _sync_all(device) -> None:
+    import torch
+    import torch.distributed as dist
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    dist.barrier()
+
+
+def _overlap_runs(load: ParallelLoad, device) -> dict:
+    """data=2, 2 accumulated microbatches, `check_layers` layers of
+    `model` in bf16: `overlap_steps` steps with the overlapped sync and
+    with the sequential one, from one state and one data stream."""
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.train.data import synthetic_lm_batches
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = T.config(load.model, n_layers=load.check_layers,
+                   max_seq_len=load.seq)
+    out = {}
+    for overlap in (False, True):
+        trainer = _mesh_trainer(cfg, {"data": 2}, load.overlap_batch,
+                                load.seq, device, load.lr,
+                                grad_accum_steps=2,
+                                overlap_grad_sync=overlap)
+        trainer.init_state(params=_init(cfg, device))
+        t0 = time.perf_counter()
+        hist = trainer.fit(synthetic_lm_batches(
+            load.overlap_batch, load.seq, cfg.vocab_size, seed=2),
+            load.overlap_steps)["history"]
+        out["overlap" if overlap else "sequential"] = {
+            "enabled": trainer.overlap_enabled(),
+            "losses": [h["loss"] for h in hist],
+            "ms_per_step": (time.perf_counter() - t0)
+            / load.overlap_steps * 1e3,
+            "last_sync_ms": trainer._last_sync_s * 1e3}
+        del trainer
+        _collect(on_card)
+    return out
+
+
+def parallel_rank(load: ParallelLoad, out_dir: str) -> int:
+    """One rank of the parallel_2rank phase (run by `phase_parallel_2rank`
+    through `parallel.launch.run_ranks`); writes rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.parallel import distributed
+
+    distributed.auto_initialize(backend="gloo")
+    device = torch.device(load.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    rank = dist.get_rank()
+    full = T.config(load.model)
+    L = full.n_layers
+    res = {"rank": rank, "label": PARALLEL_LABEL,
+           "collectives": _collective_costs(load, device)}
+    # ---- tensor=2 at full depth: gradients, then the measured steps ----
+    t0 = time.perf_counter()
+    res["tensor_grads"] = _check_step(load, device, {"tensor": 2}, True)
+    res["tensor_train"] = _train_on_mesh(
+        load, device, T.config(load.model, max_seq_len=load.seq),
+        {"tensor": 2}, load.tensor_batch, 1, load.steps)
+    res["tensor_f32"] = _check_step(load, device, {"tensor": 2}, False)
+    res["tensor_f32_fault"] = _check_step(load, device, {"tensor": 2},
+                                          False, fault="head_no_copy")
+    res["tensor_s"] = time.perf_counter() - t0
+    # ---- pipe=2 at full depth under both schedules ----
+    t0 = time.perf_counter()
+    res["pipe"] = {}
+    for schedule in ("gpipe", "1f1b"):
+        over = dict(pipeline_schedule=schedule,
+                    pipeline_microbatches=load.pipe_micro)
+        cfg = T.config(load.model, max_seq_len=load.seq, **over)
+        res["pipe"][schedule] = {
+            "grads": _check_step(load, device, {"pipe": 2}, True,
+                                 batch=load.pipe_batch, **over),
+            "train": _train_on_mesh(load, device, cfg, {"pipe": 2},
+                                    load.pipe_batch, 1, load.steps),
+            "f32": _check_step(load, device, {"pipe": 2}, False,
+                               pipeline_schedule=schedule,
+                               pipeline_microbatches=2),
+            "peak_gb_at_peak_micro": _peak_of_grads(
+                load, device, T.config(
+                    load.model, max_seq_len=load.seq,
+                    pipeline_schedule=schedule,
+                    pipeline_microbatches=load.pipe_micro_peak),
+                {"pipe": 2}, load.pipe_batch)}
+    res["pipe_f32_fault"] = _check_step(
+        load, device, {"pipe": 2}, False, fault="head_pipe_summed",
+        pipeline_microbatches=2)
+    res["pipe_s"] = time.perf_counter() - t0
+    # ---- seq=2 (the ring through the shift) and the overlapped sync ----
+    t0 = time.perf_counter()
+    res["seq_f32"] = _check_step(load, device, {"seq": 2}, False)
+    res["overlap"] = _overlap_runs(load, device)
+    res["rest_s"] = time.perf_counter() - t0
+    res["n_layers"] = L
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel_2rank(load: ParallelLoad = PARALLEL_LOAD,
+                         nvidia_smi: str = None) -> dict:
+    """Two ranks on card 0 over gloo (`parallel_rank`), both spawned by
+    `run_ranks` with the load's deadline; their results checked here."""
+    import tempfile
+
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.parallel.launch import run_ranks
+
+    on_card = load.device.startswith("cuda")
+    _collect(on_card)
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = Path(tmp) / "load.json"
+        spec.write_text(json.dumps(dataclasses.asdict(load)))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(root)] + [p for p in env.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
+        run_ranks([str(root / "chip_smoke.py"), "--parallel-rank",
+                   str(spec), tmp], 2, load.deadline_s, env=env,
+                  cwd=str(root))
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    wall_s = time.perf_counter() - t0
+    cfg = T.config(load.model)
+    L, H, Dh = cfg.n_layers, cfg.n_heads, cfg.head_dim
+    M = load.pipe_micro
+    # per rank and step: the tensor step runs every layer on H/2 heads;
+    # a pipe stage runs its L/2 layers once a microbatch, and 1F1B's
+    # backward recomputes each stage's forward (B1 again)
+    want = {"tensor": dict.fromkeys(
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), L),
+            "gpipe": dict.fromkeys(
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), L // 2 * M),
+            "1f1b": {"flash_fwd": 2 * (L // 2) * M,
+                     "flash_bwd_dq": L // 2 * M,
+                     "flash_bwd_dkv": L // 2 * M}}
+    out = {"model": load.model, "label": PARALLEL_LABEL,
+           "nvidia_smi": nvidia_smi, "wall_s": wall_s,
+           "expected_launches_per_step": want, "ranks": ranks}
+    emit("parallel_2rank", **out)
+    launches = {k: 0 for k in want["tensor"]}
+    for r in ranks:
+        got = {"tensor": r["tensor_train"]["launches_per_step"],
+               "gpipe": r["pipe"]["gpipe"]["train"]["launches_per_step"],
+               "1f1b": r["pipe"]["1f1b"]["train"]["launches_per_step"]}
+        for path in (r["tensor_train"], r["pipe"]["gpipe"]["train"],
+                     r["pipe"]["1f1b"]["train"]):
+            for k in launches:
+                launches[k] += path["launches"][k]
+        if on_card:
+            require(got == want, f"rank {r['rank']}: launches per step "
+                    f"{got}, expected {want}")
+            q = [load.tensor_batch, H // 2, load.seq, Dh]
+            require(r["tensor_train"]["q_shapes"] == [q],
+                    f"tensor step B1 q shapes {r['tensor_train']['q_shapes']}"
+                    f", expected {q}")
+        _check_losses("parallel_2rank tensor", r["tensor_train"]["losses"])
+        for schedule in ("gpipe", "1f1b"):
+            _check_losses(f"parallel_2rank pipe {schedule}",
+                          r["pipe"][schedule]["train"]["losses"])
+        for name, c in (("tensor", r["tensor_grads"]),
+                        ("gpipe", r["pipe"]["gpipe"]["grads"]),
+                        ("1f1b", r["pipe"]["1f1b"]["grads"])):
+            require(c["max_leaf_rel_l2"] <= PARALLEL_BF16_REL_L2
+                    and c["loss_rel"] <= PARALLEL_BF16_REL_L2,
+                    f"{name} bf16 step against one rank: {c}")
+        for name, c in (("tensor", r["tensor_f32"]),
+                        ("gpipe", r["pipe"]["gpipe"]["f32"]),
+                        ("1f1b", r["pipe"]["1f1b"]["f32"]),
+                        ("seq", r["seq_f32"])):
+            require(c["max_leaf_rel_l2"] <= PARALLEL_F32_REL_L2
+                    and c["loss_rel"] <= PARALLEL_F32_REL_L2,
+                    f"{name} f32 step against one rank: {c}")
+        for name in ("tensor_f32_fault", "pipe_f32_fault"):
+            require(r[name]["max_leaf_rel_l2"] > PARALLEL_F32_REL_L2,
+                    f"the planted fault {name} was not flagged: {r[name]}")
+        ov = r["overlap"]
+        require(ov["overlap"]["enabled"] and not ov["sequential"]["enabled"]
+                and ov["overlap"]["losses"] == ov["sequential"]["losses"],
+                f"overlapped and sequential losses differ: {ov}")
+        if on_card:
+            peaks = {s: r["pipe"][s]["peak_gb_at_peak_micro"]
+                     for s in ("gpipe", "1f1b")}
+            require(peaks["1f1b"] < peaks["gpipe"],
+                    f"rank {r['rank']}: 1F1B peaks at {peaks['1f1b']} GB, "
+                    f"GPipe at {peaks['gpipe']} GB")
+    out["launches"] = launches
+    emit("parallel_2rank_launches", launches=launches)
+    return out
+
+
 def main() -> int:
     import torch
 
     t_script = time.perf_counter()
+    if len(sys.argv) == 4 and sys.argv[1] == "--parallel-rank":
+        load = ParallelLoad(**json.loads(Path(sys.argv[2]).read_text()))
+        return parallel_rank(load, sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke runs on the "
               "card", file=sys.stderr)
@@ -6101,12 +6640,20 @@ def main() -> int:
     phase_moe_grads()
     emit("moe", seconds=time.perf_counter() - t_moe)
 
+    # ---- the tensor and pipe axes: two ranks sharing the card over gloo
+    # (counts zeroed and read inside each rank, around the measured
+    # steps) ----
+    t_par = time.perf_counter()
+    parallel = phase_parallel_2rank(nvidia_smi=smi)
+    emit("parallel", seconds=time.perf_counter() - t_par)
+
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]
     launches = {k: inference[k] + train["launches"][k]
                 + checkpoint["launches"][k] + lora_train["launches"][k]
                 + bert["launches"][k] + loaders["launches"][k]
                 + moe_serve["launches"][k] + moe_train["launches"][k]
+                + parallel["launches"][k]
                 for k in inference}
 
     def bwd_err(grads):

@@ -16,12 +16,17 @@ the loss merges them into the frozen base inside the step, and the base
 lives in the spec's closure, detached, so it never enters the trainer's
 params, the optimizer state or a checkpoint (a checkpoint holds the
 adapters and their optimizer state, which `serve/adapters.py`'s
-`checkpoint_loader` reads back).
+`checkpoint_loader` reads back).  On a mesh the trainer holds the
+adapters split by `lora_logical_axes` under its rule table, and hands the
+spec that mesh and table once (`ModelSpec.bind_mesh`): the spec then
+keeps this rank's views of the base over `tensor` and `pipe`, placed by
+the transformer's axes under the same table (`_local_base`), so that
+merged weights and adapters split alike (a mismatch fails the merge's
+shapes).
 
 Here the planes are written in place (`write_adapter_slot`,
 `clear_adapter_slot`), where the JAX functions return new trees, and
-random draws come from a `torch.Generator`.  Not here yet:
-`lora_logical_axes` (ROADMAP A7, the parallel layer).
+random draws come from a `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ import torch
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.models.transformer import (
-    TransformerConfig, loss_fn as base_loss_fn)
+    TransformerConfig, loss_fn as base_loss_fn, param_logical_axes)
+from cloudtik_tpu_torch.parallel import sharding
+from cloudtik_tpu_torch.parallel.mesh import axis_sizes_of
 
 Params = Dict[str, Any]
 
@@ -237,10 +244,56 @@ def lora_loss_fn(lora_params: Params, base_params: Params,
                  lora: LoRAConfig
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The transformer loss on the base with the adapters merged in; only
-    `lora_params` carry gradients."""
+    `lora_params` carry gradients.  On a mesh `base_params` is this rank's
+    slice (`_local_base`)."""
     params = dict(base_params)
-    params["layers"] = merge_lora(base_params["layers"], lora_params, lora)
+    params["layers"] = merge_lora(params["layers"],
+                                  _tensor_inputs(lora_params, cfg), lora)
     return base_loss_fn(params, batch, cfg)
+
+
+def _tensor_inputs(lora_params: Params, cfg: TransformerConfig) -> Params:
+    """The adapters with the factor that stays whole over `tensor` passed
+    through `copy_to` where the other one is split on heads (a of wq/wk/wv,
+    b of wo): each rank's merged heads then send that factor's gradient
+    for its own heads, and the sum over `tensor` completes it."""
+    if sharding.mesh_axis_size("tensor") == 1:
+        return lora_params
+    from cloudtik_tpu_torch.parallel import collectives
+
+    out = {}
+    for t, pair in lora_params.items():
+        a, b = pair["a"], pair["b"]
+        heads = cfg.n_heads if t in ("wq", "wo") else cfg.n_kv_heads
+        if _LAYOUTS[t][0] == "in_embed" and b.shape[-2] != heads:
+            a = collectives.copy_to(a, ("tensor",))
+        elif _LAYOUTS[t][0] == "in_heads" and a.shape[-3] != heads:
+            b = collectives.copy_to(b, ("tensor",))
+        out[t] = {"a": a, "b": b}
+    return out
+
+
+def _local_base(base: Params, cfg: TransformerConfig, mesh,
+                rules) -> Params:
+    """This rank's views of the whole base over `mesh`'s `tensor` and
+    `pipe` axes, placed by the transformer's logical axes under `rules`
+    (a shallow copy of `base` where neither axis is split)."""
+    from cloudtik_tpu_torch.tree import tree_map
+
+    sizes = axis_sizes_of(mesh)
+    axes = [a for a in ("tensor", "pipe") if sizes.get(a, 1) > 1]
+    if not axes:
+        return dict(base)
+    specs = sharding.tree_to_shardings_safe(mesh, param_logical_axes(cfg),
+                                            base, rules)
+
+    def one(w, spec):
+        for dim, entry in enumerate(spec):
+            for a in sharding.spec_axes(entry):
+                if a in axes:
+                    w = w.chunk(sizes[a], dim)[mesh.get_local_rank(a)]
+        return w
+    return tree_map(one, dict(base), specs)
 
 
 def lora_spec(base_params: Params, cfg: TransformerConfig,
@@ -252,9 +305,17 @@ def lora_spec(base_params: Params, cfg: TransformerConfig,
     from cloudtik_tpu_torch.tree import tree_map
 
     base = tree_map(lambda p: p.detach(), base_params)
+    # the whole base until a trainer on a mesh binds this rank's slice
+    held = {"base": base}
+
+    def bind_mesh(mesh, rules):
+        held["base"] = _local_base(base, cfg, mesh, rules)
+
     return ModelSpec(
         init=lambda gen, device: init_lora_params(gen, cfg, lora, device),
-        loss_fn=lambda p, batch: lora_loss_fn(p, base, batch, cfg, lora),
+        loss_fn=lambda p, batch: lora_loss_fn(p, held["base"], batch, cfg,
+                                              lora),
+        bind_mesh=bind_mesh,
         logical_axes=lora_logical_axes(cfg, lora),
         # frozen base: the backward computes activation grads only (~2N),
         # not weight grads, 4N in all against full training's 6N

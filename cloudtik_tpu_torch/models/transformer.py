@@ -14,9 +14,21 @@ over the layers.  On a mesh (parallel/sharding.py `use_mesh`) the model
 reads its seq shard's global positions, attention takes the ring over
 `seq`, `loss_fn` normalises by the global count of valid labels, and a
 stacked leaf split over `fsdp` is gathered layer by layer where the layer
-reads it (parallel/fsdp.py).  Not here yet: the one-hot embedding and the
-pipe path (slice 12 of the port).  JAX's checkpoint names become the layer
-split of `_remat_layer`.
+reads it (parallel/fsdp.py).
+
+The `tensor` axis is Megatron's split, with the collectives GSPMD derives
+from the reference's placements issued here: each rank holds its H/t heads
+of wq/wk/wv/wo and its d_ff/t columns of the MLP (an expert's too), the
+normed input enters a split block through `collectives.copy_to` (its
+gradient summed over `tensor`) and the block's output is a partial sum
+completed by `collectives.reduce_sum`.  RMSNorm and the router stay
+replicated and get equal gradients on every tensor rank.  A block whose
+weights did not divide runs whole on every rank.  The vocab splits too:
+the embedding is a masked local lookup summed over `tensor`, and the loss
+a vocab-parallel log-softmax (`_chunk_stats_split`).  The `pipe` axis runs
+the layer stack as a pipeline (parallel/pipeline.py) in
+`hidden_states`.  JAX's checkpoint names become the layer split of
+`_remat_layer`.
 """
 
 from __future__ import annotations
@@ -34,6 +46,8 @@ from cloudtik_tpu_torch.ops.attention import attention
 from cloudtik_tpu_torch.ops.moe import MoEConfig, moe_ffn
 from cloudtik_tpu_torch.parallel import collectives, fsdp, sharding
 from cloudtik_tpu_torch.parallel.mesh import TOKEN_AXES
+from cloudtik_tpu_torch.parallel.pipeline import (pipe_axis_size,
+                                                  pipeline_apply)
 
 Params = Dict[str, Any]
 
@@ -54,8 +68,7 @@ class TransformerConfig:
     tie_embeddings: bool = False
     # Fields marked "(not read)" are kept so that the presets and their
     # overrides carry over from the JAX package; the port does not read
-    # them (the layers are a Python loop, not a scan; the pipeline comes
-    # with slice 12 of the port).
+    # them (the layers are a Python loop, not a scan).
     remat: bool = True                 # recompute layers in the backward
     remat_policy: str = "save_attn"    # "save_attn" | "full" | "dots"
     scan_unroll: int = 1               # (not read)
@@ -65,8 +78,10 @@ class TransformerConfig:
     n_experts: int = 1
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
-    pipeline_microbatches: int = 0     # (not read)
-    pipeline_schedule: str = "gpipe"   # (not read)
+    # on a pipe mesh: microbatches a step (0 = the stage count) and the
+    # schedule, "gpipe" or "1f1b" (parallel/pipeline.py)
+    pipeline_microbatches: int = 0
+    pipeline_schedule: str = "gpipe"
 
     @property
     def head_dim(self) -> int:
@@ -233,10 +248,19 @@ def layer_params(params: Params, i: int) -> Params:
     """Layer i's slice of the stacked layer parameters (views, no copy);
     a stack with leaves split over `fsdp` gives a `LazyLayer`, which
     gathers each leaf's slice where the layer reads it."""
-    layers = params["layers"]
+    return _stack_layer(params["layers"], i)
+
+
+def _stack_layer(layers: Params, i: int) -> Params:
     if fsdp.has_shards(layers):
         return fsdp.LazyLayer(layers, i)
     return {k: w[i] for k, w in layers.items()}
+
+
+def _stack_depth(layers: Params) -> int:
+    """Layers in a stack (this rank's stage on a pipe mesh)."""
+    w = next(iter(layers.values()))
+    return (w.local if isinstance(w, fsdp.LayerShards) else w).shape[0]
 
 
 # --------------------------------------------------------------------------
@@ -267,11 +291,30 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
     return rotated.to(x.dtype)
 
 
+TENSOR = ("tensor",)
+
+
+def _vocab_start(v_local: int) -> int:
+    """The first vocab row of this rank's slice over `tensor`."""
+    return sharding.axis_rank("tensor") * v_local
+
+
 def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
                   cfg: TransformerConfig) -> torch.Tensor:
-    """Token embedding gather (the one-hot path of the JAX package is for
-    vocab-sharded meshes and comes with the parallel slice)."""
-    return embed[tokens].to(cfg.dtype)
+    """Token embedding lookup.  With the vocab split over `tensor` (this
+    rank holds V/t rows), each rank looks up the tokens in its slice, zero
+    elsewhere, and the sum over `tensor` completes the rows: the
+    reference's one-hot contraction, whose every output is one product
+    with 1.0, gives the same values.  The gradient (identity through the
+    sum) lands on each rank's own rows."""
+    V = embed.shape[0]
+    if V == cfg.vocab_size:
+        return embed[tokens].to(cfg.dtype)
+    local = tokens - _vocab_start(V)
+    mine = (local >= 0) & (local < V)
+    rows = embed[local.clamp(0, V - 1)].to(cfg.dtype)
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return collectives.reduce_sum(rows, TENSOR)
 
 
 def _proj(h: torch.Tensor, w: torch.Tensor,
@@ -285,13 +328,21 @@ def _proj(h: torch.Tensor, w: torch.Tensor,
 def _ffn(h: torch.Tensor, layer: Params, cfg: TransformerConfig
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The MLP block: dense SwiGLU, or MoE's routed experts with their
-    router losses."""
+    router losses.  With its d_ff columns split over `tensor` the input
+    enters through `copy_to` and the output is summed over `tensor` (in
+    `moe_ffn` for the experts)."""
+    w_gate = layer["w_gate"]
+    split = w_gate.shape[-1] != cfg.d_ff
     if cfg.is_moe:
-        return moe_ffn(h, layer["w_router"], layer["w_gate"], layer["w_up"],
-                       layer["w_down"], cfg.moe_config())
-    gate = _proj(h, layer["w_gate"], cfg)
+        return moe_ffn(h, layer["w_router"], w_gate, layer["w_up"],
+                       layer["w_down"], cfg.moe_config(),
+                       tensor_split=split)
+    if split:
+        h = collectives.copy_to(h, TENSOR)
+    gate = _proj(h, w_gate, cfg)
     up = _proj(h, layer["w_up"], cfg)
-    return _proj(F.silu(gate) * up, layer["w_down"], cfg), {}
+    down = _proj(F.silu(gate) * up, layer["w_down"], cfg)
+    return (collectives.reduce_sum(down, TENSOR) if split else down), {}
 
 
 def _mlp(h: torch.Tensor, layer: Params,
@@ -301,14 +352,43 @@ def _mlp(h: torch.Tensor, layer: Params,
     return _ffn(h, layer, cfg)[0]
 
 
+def _local_kv(cfg: TransformerConfig, wq: torch.Tensor, wk: torch.Tensor,
+              wv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wk, wv for this rank's q heads when wq is split over `tensor`.
+
+    Split alike (n_kv_heads divides t), each rank's kv heads are the ones
+    its q heads read.  Kept whole (it does not), each rank takes the kv
+    heads of its q heads h by h // group, through `copy_to` so that the
+    whole leaf's gradient sums every rank's share."""
+    H_loc, Hkv = wq.shape[-2], wk.shape[-2]
+    if Hkv != cfg.n_kv_heads:
+        return wk, wv
+    group = cfg.n_heads // cfg.n_kv_heads
+    h0 = sharding.axis_rank("tensor") * H_loc
+    wk = collectives.copy_to(wk, TENSOR)
+    wv = collectives.copy_to(wv, TENSOR)
+    if H_loc % group == 0 or group % H_loc == 0:
+        lo = h0 // group
+        n = max(H_loc // group, 1)
+        return wk[..., lo:lo + n, :], wv[..., lo:lo + n, :]
+    idx = torch.div(torch.arange(h0, h0 + H_loc, device=wk.device), group,
+                    rounding_mode="floor")
+    return wk.index_select(-2, idx), wv.index_select(-2, idx)
+
+
 def _attn_inputs(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
                  positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The layer up to attention: post-RoPE q, k, v, [B, S, heads, Dh]."""
+    """The layer up to attention: post-RoPE q, k, v, [B, S, heads, Dh]
+    (this rank's heads when they are split over `tensor`)."""
     h = _rms_norm(x, layer["ln_attn"], cfg.norm_eps)
-    q = _rope(_proj(h, layer["wq"], cfg), positions, cfg.rope_theta)
-    k = _rope(_proj(h, layer["wk"], cfg), positions, cfg.rope_theta)
-    v = _proj(h, layer["wv"], cfg)
+    wq, wk, wv = layer["wq"], layer["wk"], layer["wv"]
+    if wq.shape[-2] != cfg.n_heads:
+        h = collectives.copy_to(h, TENSOR)
+        wk, wv = _local_kv(cfg, wq, wk, wv)
+    q = _rope(_proj(h, wq, cfg), positions, cfg.rope_theta)
+    k = _rope(_proj(h, wk, cfg), positions, cfg.rope_theta)
+    v = _proj(h, wv, cfg)
     return q, k, v
 
 
@@ -326,8 +406,11 @@ def _layer_out(cfg: TransformerConfig, x: torch.Tensor, o: torch.Tensor,
     """The layer after attention: output projection, residual, MLP; with
     the MoE router losses (empty when dense)."""
     B, S, d = x.shape
-    wo = layer["wo"].to(cfg.dtype)
-    x = x + o.reshape(B, S, -1) @ wo.reshape(-1, d)
+    wo = layer["wo"]
+    out = o.reshape(B, S, -1) @ wo.to(cfg.dtype).reshape(-1, d)
+    if wo.shape[0] != cfg.n_heads:      # this rank's heads: a partial sum
+        out = collectives.reduce_sum(out, TENSOR)
+    x = x + out
     h = _rms_norm(x, layer["ln_mlp"], cfg.norm_eps)
     down, aux = _ffn(h, layer, cfg)
     return x + down, aux
@@ -385,13 +468,32 @@ def hidden_states(
     """tokens [B, S] int -> final-norm hidden states [B, S, d] + aux (the
     MoE router losses, each the mean over the layers; empty when dense).
     On a seq-sharded mesh tokens are this rank's slice of the sequence and
-    the default positions are its global ones."""
+    the default positions are its global ones.  On a pipe mesh the stack
+    runs as a pipeline of `cfg.pipeline_microbatches` (default: the stage
+    count) under `cfg.pipeline_schedule`; positions ride with each
+    microbatch, and MoE's losses are the mean over layers and microbatches
+    of per-microbatch statistics, as in the reference."""
     B, S = tokens.shape
     if positions is None:
         start = sharding.axis_rank("seq") * S
         positions = (start + torch.arange(S, device=tokens.device)
                      ).expand(B, S)
     x = _embed_lookup(params["embed"], tokens, cfg)
+    n_stages = pipe_axis_size()
+    if n_stages > 1:
+        n_micro = cfg.pipeline_microbatches or n_stages
+        aux_init = dict.fromkeys(MOE_AUX, 0.0) if cfg.is_moe else None
+        result = pipeline_apply(
+            functools.partial(_stage, cfg), params["layers"], x,
+            n_microbatches=n_micro, extras=positions, aux_init=aux_init,
+            schedule=cfg.pipeline_schedule)
+        if cfg.is_moe:
+            x, aux_sum = result
+            aux = {k: v / (cfg.n_layers * n_micro)
+                   for k, v in aux_sum.items()}
+        else:
+            x, aux = result, {}
+        return _rms_norm(x, params["final_norm"], cfg.norm_eps), aux
     layer_fn = _remat_layer if cfg.remat and torch.is_grad_enabled() \
         else _layer
     per_layer = []
@@ -401,6 +503,26 @@ def hidden_states(
     aux = {k: torch.stack([a[k] for a in per_layer]).mean()
            for k in per_layer[0]} if per_layer and per_layer[0] else {}
     return _rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+MOE_AUX = ("moe_aux_loss", "moe_z_loss", "moe_drop_fraction")
+
+
+def _stage(cfg: TransformerConfig, layers: Params, x: torch.Tensor,
+           positions: torch.Tensor):
+    """One pipeline stage: its layers over one microbatch; with MoE, the
+    router losses summed over them.  Remat is chosen per call: the 1F1B
+    forward runs under no_grad and its backward recomputes with grad."""
+    layer_fn = _remat_layer if cfg.remat and torch.is_grad_enabled() \
+        else _layer
+    per_layer = []
+    for i in range(_stack_depth(layers)):
+        x, aux = layer_fn(cfg, x, _stack_layer(layers, i), positions)
+        per_layer.append(aux)
+    if not cfg.is_moe:
+        return x
+    return x, {k: torch.stack([a[k] for a in per_layer]).float().sum()
+               for k in MOE_AUX}
 
 
 def _lm_head(params: Params, cfg: TransformerConfig) -> torch.Tensor:
@@ -446,6 +568,42 @@ def _chunk_size(S: int, target: int = 512) -> int:
     return S
 
 
+def _chunk_stats_split(x: torch.Tensor, labels: torch.Tensor,
+                       head: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`_chunk_stats` with the vocab split over `tensor`: head is this
+    rank's [d, V/t] columns, so its logits are [B, C, V/t].
+
+    The log-softmax takes the max over the whole vocab (all-reduced, no
+    gradient) and the sum of exps over `tensor` (`reduce_sum`, identity
+    backward: every rank holds the whole loss and its cotangent); the
+    token's shifted logit is picked on the rank that holds it and summed
+    over `tensor`, which is the reference's one-hot contraction.  x came
+    through `copy_to`, so its gradient sums the vocab slices.  Accuracy's
+    argmax is the reference's, the first index over the whole vocab: the
+    largest value over the ranks, the lowest global index on ties."""
+    logits = x.float() @ head
+    V = logits.shape[-1]
+    v0 = _vocab_start(V)
+    valid = labels != -100
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    m = collectives.all_reduce(logits.detach().amax(-1), TENSOR, op="max")
+    shifted = logits - m[..., None]
+    total = collectives.reduce_sum(shifted.exp().sum(-1), TENSOR)
+    local = safe - v0
+    mine = (local >= 0) & (local < V)
+    picked = shifted.gather(-1, local.clamp(0, V - 1)[..., None].long())
+    picked = torch.where(mine, picked[..., 0], torch.zeros_like(m))
+    token_logp = collectives.reduce_sum(picked, TENSOR) - torch.log(total)
+    best, where = logits.detach().max(-1)
+    top = collectives.all_reduce(best, TENSOR, op="max")
+    index = torch.where(best == top, where + v0,
+                        torch.full_like(where, torch.iinfo(where.dtype).max))
+    argmax = collectives.all_reduce(index, TENSOR, op="min")
+    correct = (argmax == labels) & valid
+    return -(token_logp * valid).sum(), valid.sum(), correct.sum()
+
+
 def _chunk_stats(x: torch.Tensor, labels: torch.Tensor, head: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(summed nll, valid tokens, correct tokens) of one sequence chunk.
@@ -483,6 +641,10 @@ def loss_fn(
     """
     x, aux = hidden_states(params, batch["tokens"], cfg)
     head = _lm_head(params, cfg).to(cfg.dtype).float()
+    stats = _chunk_stats
+    if head.shape[-1] != cfg.vocab_size:    # the vocab split over tensor
+        stats = _chunk_stats_split
+        x = collectives.copy_to(x, TENSOR)
     labels = batch["labels"]
     S = x.shape[1]
     C = _chunk_size(S)
@@ -492,9 +654,9 @@ def loss_fn(
     for c0 in range(0, S, C):
         args = (x[:, c0:c0 + C], labels[:, c0:c0 + C], head)
         if torch.is_grad_enabled():
-            nll, nv, nc = _checkpoint(_chunk_stats, *args)
+            nll, nv, nc = _checkpoint(stats, *args)
         else:
-            nll, nv, nc = _chunk_stats(*args)
+            nll, nv, nc = stats(*args)
         loss_sum = loss_sum + nll
         n_valid = n_valid + nv
         n_correct = n_correct + nc

@@ -24,6 +24,10 @@ collectives GSPMD derives in the reference:
   the global batch, reduced before their product; the z-loss is the
   global mean.  Each rank's loss differentiates its own tokens' share
   (identity backward) and the trainer sums the gradients.
+* `tensor` > 1: each expert's d_ff columns are split (its `mlp` axis);
+  the tokens and the combine weights enter through `copy_to` over
+  `tensor` and the output is summed over it, with `expert`'s in one
+  reduction; the router stays replicated.
 * `seq` > 1 is refused: a routing group is a whole row, and its capacity
   slots would span the sequence shards.
 
@@ -112,13 +116,18 @@ def _top_k_dispatch(probs: torch.Tensor, cfg: MoEConfig, capacity: int
 
 
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
-            w_up: torch.Tensor, w_down: torch.Tensor, cfg: MoEConfig
+            w_up: torch.Tensor, w_down: torch.Tensor, cfg: MoEConfig,
+            tensor_split: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Expert SwiGLU feed-forward.
 
     x: [B,S,d]; w_router: [d,E]; w_gate/w_up: [E_local,d,f]; w_down:
     [E_local,f,d], where E_local is E, or E/n on an `expert` axis of n
-    (this rank's experts).  Returns (y [B,S,d] in x's dtype, metrics:
+    (this rank's experts), and f is d_ff, or this rank's d_ff/t columns
+    when `tensor_split` (the experts' `mlp` dimension split over
+    `tensor`: the tokens and the combine weights enter through `copy_to`
+    and the output is summed over `tensor`, as over `expert`; the router
+    stays replicated).  Returns (y [B,S,d] in x's dtype, metrics:
     moe_aux_loss, moe_z_loss, moe_drop_fraction)."""
     if sharding.mesh_axis_size("seq") > 1:
         raise NotImplementedError(
@@ -151,14 +160,17 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
         dispatch_c = dispatch.to(dtype)
         combine_c = combine.to(dtype)
         E_local = w_gate.shape[0]
+        split = (("expert",) if E_local != E else ()) \
+            + (("tensor",) if tensor_split else ())
+        if split:
+            x = collectives.copy_to(x, split)
+            combine_c = collectives.copy_to(combine_c, split)
         if E_local != E:
             if sharding.mesh_axis_size("expert") * E_local != E:
                 raise ValueError(
                     f"{E_local} local experts of {E} on an expert axis of "
                     f"{sharding.mesh_axis_size('expert')}")
             lo = sharding.axis_rank("expert") * E_local
-            x = collectives.copy_to(x, ("expert",))
-            combine_c = collectives.copy_to(combine_c, ("expert",))
             dispatch_c = dispatch_c[:, :, lo:lo + E_local]
             combine_c = combine_c[:, :, lo:lo + E_local]
 
@@ -171,8 +183,8 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
         expert_out = torch.einsum("ebcf,efd->ebcd", act, w_down.to(dtype))
     with record_function("moe.combine"):
         y = torch.einsum("bsec,ebcd->bsd", combine_c, expert_out)
-    if E_local != E:
-        y = collectives.reduce_sum(y, ("expert",))
+    if split:
+        y = collectives.reduce_sum(y, split)
 
     metrics = {
         "moe_aux_loss": aux_loss,

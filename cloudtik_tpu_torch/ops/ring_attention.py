@@ -2,7 +2,8 @@
 
 Counterpart of `cloudtik_tpu/ops/ring_attention.py`.  Each rank holds its
 S/n slice of q, k and v; k and v rotate around the `seq` group (rank i
-receives from i+1 and sends to i-1, by `batch_isend_irecv`), and each step
+receives from i+1 and sends to i-1, by `collectives.shift_many`: P2P, or
+an all-gather under gloo on the card), and each step
 merges one block with the online-softmax recurrence, in f32, on the
 grouped-query view [B, Hkv, G, S, D].  The causal mask compares global
 positions (i*S + arange); `where(mask, p, 0)` keeps a fully masked block
@@ -25,32 +26,21 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
-from cloudtik_tpu_torch.parallel import sharding
+from cloudtik_tpu_torch.parallel import collectives, sharding
 
 NEG_INF = -1e30
 
 
-def _ring_peers(group) -> tuple:
-    """(rank along the ring, n, global rank to send to, global rank to
-    receive from)."""
+def _ring_index(group) -> tuple:
+    """(rank along the ring, n)."""
     ranks = dist.get_process_group_ranks(group)
-    n = len(ranks)
-    i = ranks.index(dist.get_rank())
-    return i, n, ranks[(i - 1) % n], ranks[(i + 1) % n]
+    return ranks.index(dist.get_rank()), len(ranks)
 
 
-def _rotate(tensors: List[torch.Tensor], group, send_to: int,
-            recv_from: int) -> List[torch.Tensor]:
-    """Send each tensor to `send_to` and receive its neighbour's from
-    `recv_from` (one step around the ring)."""
-    out = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
-           for t in tensors]
-    ops = [dist.P2POp(dist.isend, t.contiguous(), send_to, group)
-           for t in tensors]
-    ops += [dist.P2POp(dist.irecv, o, recv_from, group) for o in out]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return out
+def _rotate(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """One step around the ring: each tensor goes to rank i - 1 and its
+    neighbour's comes from i + 1 (`collectives.shift_many`, offset -1)."""
+    return collectives.shift_many(tensors, group, -1)
 
 
 def _mask(i: int, j: int, S: int, device) -> torch.Tensor:
@@ -62,7 +52,7 @@ def _mask(i: int, j: int, S: int, device) -> torch.Tensor:
 class _Ring(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, group, causal, sm_scale):
-        i, n, send_to, recv_from = _ring_peers(group)
+        i, n = _ring_index(group)
         B, H, S, D = q.shape
         Hkv = k.shape[1]
         G = H // Hkv
@@ -87,7 +77,7 @@ class _Ring(torch.autograd.Function):
             acc = acc * corr[..., None] + torch.einsum(
                 "bhgst,bhtd->bhgsd", p, v_c.float())
             m = m_new
-            k_c, v_c = _rotate([k_c, v_c], group, send_to, recv_from)
+            k_c, v_c = _rotate([k_c, v_c], group)
         l = torch.clamp(l, min=1e-30)
         out = acc / l[..., None]
         ctx.save_for_backward(q, k, v, out, m, l)
@@ -98,7 +88,7 @@ class _Ring(torch.autograd.Function):
     def backward(ctx, d_out):
         q, k, v, out, m, l = ctx.saved_tensors
         group, causal, scale = ctx.group, ctx.causal, ctx.sm_scale
-        i, n, send_to, recv_from = _ring_peers(group)
+        i, n = _ring_index(group)
         B, H, S, D = q.shape
         Hkv = k.shape[1]
         G = H // Hkv
@@ -122,8 +112,7 @@ class _Ring(torch.autograd.Function):
             ds = p * (dp - delta[..., None])
             dq = dq + torch.einsum("bhgst,bhtd->bhgsd", ds, kf)
             dk_c = dk_c + torch.einsum("bhgst,bhgsd->bhtd", ds, qf)
-            k_c, v_c, dk_c, dv_c = _rotate([k_c, v_c, dk_c, dv_c], group,
-                                           send_to, recv_from)
+            k_c, v_c, dk_c, dv_c = _rotate([k_c, v_c, dk_c, dv_c], group)
         dq = (dq * scale).reshape(B, H, S, D)
         return (dq.to(q.dtype), dk_c.to(k.dtype), dv_c.to(v.dtype), None,
                 None, None)

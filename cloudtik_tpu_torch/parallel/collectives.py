@@ -16,12 +16,27 @@ so its backward never reads the ambient mesh.
 * `gather_dim`     forward: all-gather along one dimension; backward:
                    reduce-scatter (sum) back to the shard.  FSDP's
                    gather-on-use.
-* `all_reduce`     a plain sum, no gradient (counts, gradient sync).
+* `all_reduce`     a plain sum (or max, min), no gradient (counts,
+                   gradient sync, the split vocab's max and argmax).
+* `shift_many`     each rank takes the tensors of the rank `offset`
+                   places before it along a group, cyclically
+                   (`lax.ppermute` with a cyclic perm), no gradient.  The
+                   pipeline's stage-to-stage hand-off and the ring's
+                   rotation; each writes out its own backward, in which
+                   the cotangents take the opposite shift.
+
+A shift runs on one of two routes, chosen from the group's backend and the
+tensor's device before any call (never on a failure): point-to-point
+(`batch_isend_irecv`) under NCCL and under gloo on CPU tensors, and an
+`all_gather_into_tensor` over the group, each rank taking its source's
+slot, under gloo on CUDA tensors, where gloo refuses point-to-point
+(tools/probe_torch_gloo_cuda.py).  The gather moves n times the bytes.
+Reductions run in the tensor's own dtype on every backend.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,17 +55,24 @@ def groups_for(axes: Sequence[str]) -> Tuple:
     return tuple(out)
 
 
-def _sum_over(x: torch.Tensor, groups: Tuple) -> torch.Tensor:
-    x = x.clone()
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
+
+
+def _sum_over(x: torch.Tensor, groups: Tuple, op: str = "sum"
+              ) -> torch.Tensor:
+    y = x.clone()
     for g in groups:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
-    return x
+        dist.all_reduce(y, op=_OPS[op], group=g)
+    return y
 
 
-def all_reduce(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
-    """Sum of x over the ambient mesh's `axes` (no gradient)."""
+def all_reduce(x: torch.Tensor, axes: Sequence[str],
+               op: str = "sum") -> torch.Tensor:
+    """x reduced over the ambient mesh's `axes` by `op` ("sum", "max" or
+    "min"), no gradient."""
     groups = groups_for(axes)
-    return _sum_over(x.detach(), groups) if groups else x
+    return _sum_over(x.detach(), groups, op) if groups else x
 
 
 class _ReduceSum(torch.autograd.Function):
@@ -127,3 +149,45 @@ def gather_full(x: torch.Tensor, dim: int, group: Optional[object]
                 ) -> torch.Tensor:
     """All-gather without a gradient (checkpoints)."""
     return x if group is None else _gather(x.detach(), dim, group)
+
+
+# ------------------------------------------------------------------ shift --
+
+def shift_route(group, device: torch.device) -> str:
+    """"p2p" or "all_gather": the route a shift over `group` takes for a
+    tensor on `device` (see the module docstring)."""
+    gloo_cuda = (dist.get_backend(group) == "gloo"
+                 and torch.device(device).type == "cuda")
+    return "all_gather" if gloo_cuda else "p2p"
+
+
+def shift_many(tensors: List[torch.Tensor], group, offset: int
+               ) -> List[torch.Tensor]:
+    """Each tensor from the rank `offset` places before this one along
+    `group` (cyclic, in the group's rank order): rank i sends to
+    i + offset and receives from i - offset.  No gradient."""
+    ranks = dist.get_process_group_ranks(group)
+    n = len(ranks)
+    i = ranks.index(dist.get_rank())
+    src = (i - offset) % n
+    if not tensors or src == i:
+        return [t.clone() for t in tensors]
+    if shift_route(group, tensors[0].device) == "all_gather":
+        out = []
+        for t in tensors:
+            # flat: gloo takes only the concatenated output layout
+            flat = t.contiguous().reshape(-1)
+            slots = flat.new_empty(n * flat.numel())
+            dist.all_gather_into_tensor(slots, flat, group=group)
+            out.append(slots[src * flat.numel():(src + 1) * flat.numel()]
+                       .view(t.shape))
+        return out
+    out = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+           for t in tensors]
+    ops = [dist.P2POp(dist.isend, t.contiguous(), ranks[(i + offset) % n],
+                      group) for t in tensors]
+    ops += [dist.P2POp(dist.irecv, o, ranks[src], group) for o in out]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+

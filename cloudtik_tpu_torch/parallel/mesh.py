@@ -9,9 +9,9 @@ the ranks of the default process group, one rank per card, laid out in
     data    — pure data parallelism (gradient all-reduce)
     fsdp    — data parallelism with parameter/optimizer sharding (ZeRO-3)
     seq     — sequence parallelism (ring attention over this axis)
-    tensor  — tensor parallelism within a layer (not ported yet)
+    tensor  — tensor parallelism within a layer (Megatron's split)
     expert  — expert parallelism for MoE
-    pipe    — pipeline stages (not ported yet)
+    pipe    — pipeline stages (parallel/pipeline.py)
 
 With `num_slices > 1` the ranks are slice-major (slice k holds a
 contiguous run of ranks), so the outermost `data` axis is the one that
@@ -38,9 +38,8 @@ DATA_AXES: Tuple[str, ...] = ("data", "fsdp")
 # gradients over them.
 TOKEN_AXES: Tuple[str, ...] = DATA_AXES + ("seq",)
 
-# The axes the port runs; tensor and pipe come with the next slice.
-PORTED_AXES: Tuple[str, ...] = ("data", "fsdp", "expert", "seq")
-NEXT_SLICE = "slice 12 of the port (ROADMAP A7)"
+# What the port still refuses on a mesh names this slice.
+NEXT_SLICE = "slice 13 of the port (ROADMAP A7)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,17 +95,6 @@ def axis_sizes_of(mesh: AnyMesh) -> Dict[str, int]:
     return {a: int(s) for a, s in zip(mesh.mesh_dim_names, mesh.shape)}
 
 
-def check_ported(sizes: Mapping[str, int]) -> None:
-    """tensor > 1 and pipe > 1 are refused, naming the slice that ports
-    them."""
-    wide = {a: s for a, s in sizes.items()
-            if s > 1 and a not in PORTED_AXES}
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {wide}: the tensor and pipe axes come with "
-            f"{NEXT_SLICE}")
-
-
 def _per_slice_shape(shape: Tuple[int, ...],
                      num_slices: int) -> Tuple[int, ...]:
     # `data` is the outermost axis (index 0): divide it across slices.
@@ -134,7 +122,6 @@ def build_mesh(config: Optional[MeshConfig] = None,
     config = config or MeshConfig()
     world = dist.get_world_size()
     sizes = config.axis_sizes(world)
-    check_ported(sizes)
     shape = tuple(sizes[a] for a in MESH_AXES)
     if config.num_slices > 1:
         # ranks are slice-major, so an outer data axis that divides by

@@ -2,13 +2,14 @@
 
 Counterpart of `examples/recipes/common.py`: the same flags and defaults
 and the same one JSON result line.  With every mesh flag at 1 a recipe
-trains on one card.  With `--data --fsdp --seq --expert` above 1 it is one
-rank of a mesh: run it under `torchrun --nproc-per-node N` (or tik-run,
-one process per card: parallel/distributed.py maps the env), and the
-flags' product must be the world size.  `--tensor` takes only 1 (slice 12
-of the port), and a family without logical axes trains on one card only
-(slice 13).  `--device` picks the card (the default; on a mesh
-cuda:LOCAL_RANK) or the CPU (gloo).
+trains on one card.  With `--data --fsdp --tensor --seq --expert` above 1
+it is one rank of a mesh: run it under `torchrun --nproc-per-node N` (or
+tik-run, one process per card: parallel/distributed.py maps the env), and
+the flags' product must be the world size.  As in the reference there is
+no `--pipe` flag (the pipe axis is `MeshConfig(pipe=...)`), and a family
+without logical axes trains on one card only (slice 13).  `--device`
+picks the card (the default; on a mesh cuda:LOCAL_RANK) or the CPU
+(gloo).
 """
 
 from __future__ import annotations
@@ -55,11 +56,8 @@ def mesh_config(args) -> Optional[MeshConfig]:
     wide = _wide(args)
     if not wide:
         return None
-    if args.tensor != 1:
-        raise ValueError(f"mesh axes {wide}: --tensor comes with slice 12 "
-                         "of the port (ROADMAP A7)")
     return MeshConfig(data=args.data, fsdp=args.fsdp, seq=args.seq,
-                      expert=args.expert)
+                      expert=args.expert, tensor=args.tensor)
 
 
 def recipe_device(args) -> torch.device:

@@ -147,6 +147,17 @@ class StepProfiler:
         self.ledger.attribute(goodput.BUCKET_HOST_TRANSFER, transfer_s)
         self.ledger.attribute(goodput.BUCKET_STEP_COMPUTE, dispatch_attr)
 
+    def record_grad_sync(self, step: int, seconds: float) -> None:
+        """An accumulated step's gradient-sync tail (the `train.grad_sync`
+        seam and the closing gather): the grad_sync bucket, or replay
+        behind the horizon."""
+        if not core.STATE.enabled:
+            return
+        ti.TRAIN_GRAD_SYNC_SECONDS.observe(seconds)
+        bucket = goodput.BUCKET_RESTART_REPLAY \
+            if step <= self.replay_until else goodput.BUCKET_GRAD_SYNC
+        self.ledger.attribute(bucket, seconds)
+
     def record_sync(self, step: int, seconds: float) -> None:
         """The blocking window boundary: queued device work retiring
         under the host transfer of the metrics is compute (or replay

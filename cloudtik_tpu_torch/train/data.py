@@ -254,13 +254,20 @@ def _shard(shard_index: Optional[int],
             world if shard_count is None else shard_count)
 
 
-def local_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
+def local_batch(batch: Dict[str, Any], mesh,
+                microbatches: int = 1) -> Dict[str, Any]:
     """This rank's shard of a global batch on `mesh` (a DeviceMesh):
     the rows of batch shard `data_index * fsdp + fsdp_index` (row-major
     over the batch axes, as a PartitionSpec tuple lays them out) and, with
     `seq` > 1, the seq_index-th slice of dimension 1 of each [B, S, ...]
     array.  Ranks along `expert` take the same rows.  numpy arrays or
-    tensors, sliced without a copy."""
+    tensors, sliced without a copy.
+
+    With `microbatches` > 1 the global batch is that many blocks of
+    consecutive rows (the reference's accumulated step reshapes the global
+    batch), and this rank takes its shard of each block, in order: its
+    rows, split into `microbatches` blocks, are each microbatch's shard
+    (a copy)."""
     from cloudtik_tpu_torch.parallel.mesh import DATA_AXES, axis_sizes_of
 
     sizes = axis_sizes_of(mesh)
@@ -274,11 +281,17 @@ def local_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
     out = {}
     for k, v in batch.items():
         rows = v.shape[0]
-        if rows % shards:
+        if rows % (shards * microbatches):
             raise ValueError(f"batch {k!r} of {rows} rows does not split "
-                             f"over {shards} batch shards")
-        per = rows // shards
-        v = v[index * per:(index + 1) * per]
+                             f"over {shards} batch shards"
+                             + (f" in each of {microbatches} microbatches"
+                                if microbatches > 1 else ""))
+        per = rows // (shards * microbatches)
+        if microbatches == 1:
+            v = v[index * per:(index + 1) * per]
+        else:
+            v = v.reshape(microbatches, shards, per, *v.shape[1:])[
+                :, index].reshape(microbatches * per, *v.shape[1:])
         if n_seq > 1 and v.ndim >= 2:
             if v.shape[1] % n_seq:
                 raise ValueError(f"batch {k!r} of length {v.shape[1]} does "

@@ -30,7 +30,7 @@ into `<profile_dir>/trace.json`, a Chrome trace, through the same
 
 On a mesh (`TrainerConfig.mesh`, or `mesh=`: one process per card,
 `torch.distributed` up) the trainer is the sharded loop of the reference
-for the data, fsdp, expert and seq axes.  Each parameter is placed by
+over all six axes.  Each parameter is placed by
 `tree_to_shardings_safe` of the spec's logical axes and held as this
 rank's shard; the optimizer state mirrors it and AdamW runs on the shards.
 A step issues what GSPMD derives there:
@@ -45,15 +45,30 @@ A step issues what GSPMD derives there:
   replicated over `expert` get identical gradients there, not summed.
 * seq: each rank takes its slice of the sequence (`data.local_batch`);
   attention runs the ring.
-* the clip's global norm sums the shards' squares over their group.
+* tensor: each rank holds its heads, d_ff columns and vocab rows, and the
+  model issues Megatron's collectives (models/transformer.py); leaves
+  replicated over `tensor` get equal gradients there, not summed.
+* pipe: each rank holds its stage's L/P layers (the stack's leading
+  dimension, composed with fsdp on `embed`) and the model runs the
+  pipeline (parallel/pipeline.py); every other leaf gets the same
+  gradient on every pipe rank, not summed.  Every rank of a tensor or pipe
+  group reads the same rows.
+* the clip's global norm sums the shards' squares over their groups; a
+  leaf replicated over an axis counts once.
+* with `grad_accum_steps` > 1 and `overlap_grad_sync` resolved on
+  (parallel/overlap.py), each microbatch's gradients are reduce-scattered
+  over `data` in buckets while the next microbatch runs, and one
+  all-gather closes the step.  Every accumulated step fires the
+  `train.grad_sync` seam; the sync tail books to the goodput ledger's
+  `grad_sync` bucket.
 
 `fit` takes global batches (every rank the same stream) and hands each
 rank its shard.  A checkpoint gathers each leaf and rank 0 writes the
 port's format; a restore reads it on every rank and re-shards.  MFU
 divides by the world size.  Only specs with logical axes (the
-transformer, LoRA) train on a mesh; the tensor and pipe axes, the
-overlapped gradient sync, elastic re-meshing and per-rank checkpoint shards
-wait for slices 12-13 of the port.
+transformer, LoRA) train on a mesh; the other families' axes, Adafactor
+on split leaves, elastic re-meshing and per-rank checkpoint shards wait
+for slice 13 of the port.
 """
 
 from __future__ import annotations
@@ -69,13 +84,14 @@ from torch.profiler import record_function
 
 from cloudtik_tpu_torch import telemetry
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
-from cloudtik_tpu_torch.parallel import collectives, fsdp, sharding
+from cloudtik_tpu_torch.parallel import collectives, fsdp
+from cloudtik_tpu_torch.parallel import overlap as overlap_lib
+from cloudtik_tpu_torch.parallel import sharding
 from cloudtik_tpu_torch.parallel.distributed import (process_count,
                                                      rank_device)
-from cloudtik_tpu_torch.parallel.mesh import (TOKEN_AXES, MeshConfig,
-                                              axis_sizes_of, build_mesh,
-                                              check_ported,
-                                              local_batch_slice)
+from cloudtik_tpu_torch.parallel.mesh import (NEXT_SLICE, TOKEN_AXES,
+                                              MeshConfig, axis_sizes_of,
+                                              build_mesh, local_batch_slice)
 from cloudtik_tpu_torch.parallel.sharding import (AxisRules, DEFAULT_RULES,
                                                   spec_axes,
                                                   tree_to_shardings_safe)
@@ -115,6 +131,11 @@ class ModelSpec:
     # tree of logical-axes tuples (same structure as params); a spec that
     # has them has a loss that reads the ambient mesh, and trains on one
     logical_axes: Any = None
+    # bind_mesh(mesh, rules), called once by a trainer on a mesh before
+    # any step, with the rule table it places the params by: a spec that
+    # holds tensors outside the params (LoRA's frozen base) takes this
+    # rank's slices of them there
+    bind_mesh: Optional[Callable[[Any, AxisRules], None]] = None
 
 
 def transformer_spec(cfg) -> ModelSpec:
@@ -238,6 +259,13 @@ class TrainerConfig:
     # Each optimizer step averages the gradients of this many sequential
     # micro-batches (the batch splits on its leading dim).
     grad_accum_steps: int = 1
+    # Overlapped gradient sync (parallel/overlap.py): with accum > 1 each
+    # microbatch's gradients are reduce-scattered over `data` in buckets
+    # while the next microbatch runs; one all-gather closes the step.
+    # None = auto (on when accum > 1 and the mesh has a data axis); False
+    # = the sequential path (each microbatch's gradients all-reduced).
+    overlap_grad_sync: Optional[bool] = None
+    overlap_bucket_bytes: int = overlap_lib.DEFAULT_BUCKET_BYTES
     # Async input pipeline (train/prefetch.py): batches are pulled and
     # copied to the card on background threads, behind a bounded queue
     # of this depth.  0 = the synchronous input path.
@@ -259,15 +287,11 @@ class Placement:
         return next((d for d, a in self.dims if a == axis), None)
 
 
-NEXT_SLICES = "slices 12-13 of the port (ROADMAP A7)"
-
-
 def _mesh_for(config: MeshConfig):
     """The DeviceMesh `config` asks for over the process group, or None
     for one process.  A mesh that needs more ranks than there are
     raises (axis_sizes), so no parallel path runs on one rank."""
-    check_ported({a: getattr(config, a) for a in ("tensor", "pipe")})
-    check_ported(config.axis_sizes(process_count()))
+    config.axis_sizes(process_count())
     return None if process_count() == 1 else build_mesh(config)
 
 
@@ -285,12 +309,17 @@ class Trainer:
         if self.mesh is None:
             self.device = resolve_device(device)
         else:
-            check_ported(axis_sizes_of(self.mesh))
             self.device = rank_device(device)
             self._placements = self._place()
+            if spec.bind_mesh is not None:
+                spec.bind_mesh(self.mesh, config.rules)
         self.params = None
         self.opt_state = None
         self.step = 0
+        self._plan = None
+        # seconds of the last accumulated step's sync tail (the seam and
+        # the closing gather), booked to the grad_sync bucket
+        self._last_sync_s = 0.0
         # steps <= this were already run before a restart (resume from an
         # older checkpoint): the goodput ledger books them as
         # restart_replay, not progress
@@ -310,7 +339,7 @@ class Trainer:
         if self.spec.logical_axes is None:
             raise NotImplementedError(
                 "this model family has no logical axes yet: training it on "
-                f"a mesh comes with {NEXT_SLICES}")
+                f"a mesh comes with {NEXT_SLICE}")
         shapes = self.spec.init(torch.Generator(), torch.device("meta"))
         specs = tree_to_shardings_safe(self.mesh, self.spec.logical_axes,
                                        shapes, self.config.rules)
@@ -324,11 +353,10 @@ class Trainer:
             dims = []
             for dim, entry in enumerate(spec):
                 axes = spec_axes(entry)
-                if len(axes) > 1 or (axes and axes[0] not in
-                                     ("fsdp", "expert")):
+                if len(axes) > 1:
                     raise NotImplementedError(
-                        f"a parameter split over {axes}: only fsdp and "
-                        f"expert placements are ported ({NEXT_SLICES})")
+                        f"a parameter dimension split over {axes}: one mesh "
+                        f"axis a dimension is ported ({NEXT_SLICE})")
                 if axes:
                     dims.append((dim, axes[0]))
             return Placement(tuple(dims))
@@ -338,7 +366,7 @@ class Trainer:
                 p.dims for p in tree_leaves(placements)):
             raise NotImplementedError(
                 "Adafactor factors whole leaves; on sharded parameters it "
-                f"comes with {NEXT_SLICES}")
+                f"comes with {NEXT_SLICE}")
         return placements
 
     def _shard(self, full: torch.Tensor, pl: Placement) -> torch.Tensor:
@@ -511,7 +539,12 @@ class Trainer:
                     for k, v in params.items()}
         return tree_map(lambda p, pl: use(False, p, pl), params, placements)
 
-    def _sharded_grads(self, batch: Dict[str, torch.Tensor]):
+    def _sharded_grads(self, batch: Dict[str, torch.Tensor],
+                       sum_axes=TOKEN_AXES):
+        """This rank's gradients, summed over the token axes in `sum_axes`
+        that each leaf is not split on (never over tensor or pipe: the
+        model's collectives already leave every rank its leaves' whole
+        gradients there)."""
         leaves = tree_leaves(self.params)
         with sharding.use_mesh(self.mesh):
             loss, metrics = self.spec.loss_fn(self._use_tree(), batch)
@@ -519,7 +552,7 @@ class Trainer:
                                         materialize_grads=True)
         synced = []
         for g, pl in zip(grads, tree_leaves(self._placements)):
-            for axis in TOKEN_AXES:
+            for axis in sum_axes:
                 if axis not in pl.axes and self._axis(axis) > 1:
                     dist.all_reduce(g, group=self.mesh.get_group(axis))
             synced.append(g)
@@ -558,19 +591,62 @@ class Trainer:
                 grads, self.opt_state, self.params, g_norm=g_norm)
         return {**metrics, "grad_norm": grad_norm}
 
+    def overlap_enabled(self) -> bool:
+        """Whether accumulated steps run the overlapped gradient sync
+        (`overlap_grad_sync` resolved against the mesh)."""
+        accum = max(int(self.config.grad_accum_steps), 1)
+        return self.mesh is not None and overlap_lib.should_overlap(
+            self.config.overlap_grad_sync, accum, self.mesh,
+            self.config.rules)
+
+    def overlap_plan(self) -> overlap_lib.OverlapPlan:
+        """The bucket plan of this rank's parameter shards (built once)."""
+        if self._plan is None:
+            self._plan = overlap_lib.plan_overlap(
+                self.params, {} if self.mesh is None else self.mesh,
+                self.config.rules, self.config.overlap_bucket_bytes)
+        return self._plan
+
+    def _fence(self) -> None:
+        """Wait until the card has done the work queued so far."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _accumulated_grads(self, batch: Dict[str, torch.Tensor], accum: int):
+        self._last_sync_s = 0.0
         if accum == 1:
             return self._grads(batch)
         # the mean of the micro-batch grads, summed in f32 (the JAX
-        # package's sequential reference path)
+        # package's sequential reference path), or with the overlapped
+        # sync the same sums reduce-scattered over `data` in buckets.  On
+        # a mesh `fit` hands this rank its shard of each global
+        # microbatch in turn (`local_batch(..., microbatches=accum)`)
         micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
                  for k, v in batch.items()}
+        overlap = self.overlap_enabled()
+        sync = overlap_lib.BucketSync(
+            self.overlap_plan(), self.mesh.get_group("data")) \
+            if overlap else None
         grads, stacked = None, []
         for i in range(accum):
-            g, m = self._grads({k: v[i] for k, v in micro.items()})
-            grads = tree_map(lambda x: x.float(), g) if grads is None \
-                else tree_map(torch.add, grads, g)
+            one = {k: v[i] for k, v in micro.items()}
+            if sync is not None:
+                g, m = self._sharded_grads(
+                    one, tuple(a for a in TOKEN_AXES if a != "data"))
+                sync.add(g)
+            else:
+                g, m = self._grads(one)
+                grads = tree_map(lambda x: x.float(), g) if grads is None \
+                    else tree_map(torch.add, grads, g)
             stacked.append(m)
+        t_sync = time.perf_counter()
+        plan = self.overlap_plan()
+        overlap_lib.fire_grad_sync_seam(
+            self.step, overlap, overlap_lib.deferred_sync_bytes(
+                plan, overlap), fence=self._fence)
+        if sync is not None:
+            grads = sync.finish(self.params)
+        self._last_sync_s = time.perf_counter() - t_sync
         grads = tree_map(lambda g: g / accum, grads)
         metrics = {k: torch.stack([m[k].float() for m in stacked]).mean()
                    for k in stacked[0]}
@@ -607,11 +683,14 @@ class Trainer:
         try:
             if not isinstance(data_iter, Prefetcher):
                 if self.mesh is not None:
-                    # global batches in, this rank's shard on
+                    # global batches in, this rank's shard on (of each
+                    # microbatch, when the step accumulates)
                     local_batch_slice(self.mesh,
                                       self.config.global_batch_size)
+                    accum = max(int(self.config.grad_accum_steps), 1)
                     data_iter = map(
-                        lambda b: local_batch(b, self.mesh), data_iter)
+                        lambda b: local_batch(b, self.mesh, accum),
+                        data_iter)
                 # integer ids as int64, whatever the source gives; floats
                 # (images, boxes, masks) as they are
                 data_iter = map(_as_long, data_iter)
@@ -690,10 +769,13 @@ class Trainer:
             ti.TRAIN_STEP_SECONDS.observe(t_dispatch - t_step)
             ti.TRAIN_STEPS.inc()
             wait_s = t_data - t_step
+            sync_s = self._last_sync_s
             profiler.record_step(
                 self.step, 0.0 if prefetching else wait_s,
-                t_put - t_data, t_dispatch - t_put,
+                t_put - t_data, max(t_dispatch - t_put - sync_s, 0.0),
                 prefetch_wait_s=wait_s if prefetching else 0.0)
+            if sync_s:
+                profiler.record_grad_sync(self.step, sync_s)
             if capture.active:
                 capture.step_done(tree_leaves(self.params)[0])
             if (self.checkpointer is not None

@@ -1418,3 +1418,30 @@ def test_moe_train_flags_a_step_that_learns_nothing():
     load = dataclasses.replace(chip_smoke.MOE_TRAIN_REHEARSAL, lr=0.0)
     with pytest.raises(SystemExit, match="moe_train: the loss did not fall"):
         chip_smoke.phase_moe_train(load, "cpu")
+
+
+def test_parallel_2rank_phase_rehearsal():
+    """The phase's two ranks over gloo on the CPU at tiny size: every
+    check it makes on the card but the launch counts, the q shapes and
+    the peaks (no kernel runs here)."""
+    out = chip_smoke.phase_parallel_2rank(chip_smoke.PARALLEL_REHEARSAL)
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    want = out["expected_launches_per_step"]
+    assert want["1f1b"]["flash_fwd"] == 2 * want["gpipe"]["flash_fwd"]
+    for r in out["ranks"]:
+        assert r["collectives"]["shift_route"] == "p2p"
+        assert r["tensor_f32"]["max_leaf_rel_l2"] <= 1e-5
+        assert r["tensor_f32_fault"]["max_leaf_rel_l2"] > 0.1
+        assert r["pipe_f32_fault"]["worst_leaf"] == "lm_head"
+        assert r["overlap"]["overlap"]["losses"] == \
+            r["overlap"]["sequential"]["losses"]
+
+
+def test_parallel_load_is_tpu_1b_at_full_width():
+    load = chip_smoke.PARALLEL_LOAD
+    assert load.model == "tpu_1b" and load.seq == 2048
+    assert (load.tensor_batch, load.pipe_batch, load.pipe_micro,
+            load.pipe_micro_peak) == (4, 8, 4, 8)
+    assert load.device == "cuda:0"
+

@@ -200,6 +200,30 @@ def test_local_batch_rows_are_jax_batch_sharding_rows(kw):
             got["tokens"], want[:, coords["seq"] * s:(coords["seq"] + 1) * s])
 
 
+@pytest.mark.parametrize("as_tensor", [False, True])
+@pytest.mark.parametrize("kw", [dict(data=2, fsdp=2, expert=2),
+                                dict(data=8, fsdp=1)])
+def test_local_batch_microbatches_are_each_blocks_sharding_rows(kw,
+                                                                as_tensor):
+    """With microbatches, a rank's rows split into that many blocks, and
+    block i is what JAX's batch sharding puts at its position of the
+    global batch's i-th block of consecutive rows (the reference's
+    accumulated step reshapes the global batch)."""
+    jmesh = _jax_mesh(**kw)
+    tokens = np.arange(16 * 4).reshape(16, 4)
+    sizes = TM.MeshConfig(**kw).axis_sizes(8)
+    for pos in np.ndindex(*jmesh.devices.shape):
+        coords = dict(zip(jmesh.axis_names, pos))
+        got = local_batch({"tokens": torch.as_tensor(tokens) if as_tensor
+                           else tokens}, _Coords(sizes, coords), 2)["tokens"]
+        got = np.asarray(got).reshape(2, -1, 4)
+        for i, block in enumerate(tokens.reshape(2, 8, 4)):
+            arr = jax.device_put(block, JS.batch_sharding(jmesh))
+            want = {s.device: np.asarray(s.data)
+                    for s in arr.addressable_shards}[jmesh.devices[pos]]
+            np.testing.assert_array_equal(got[i], want)
+
+
 def test_slice_groups_and_elastic_config_match_jax():
     devs = jax.devices()
     want = JM.slice_device_groups(devs, num_slices=2)
@@ -218,10 +242,26 @@ def test_slice_groups_and_elastic_config_match_jax():
 
 
 def test_tensor_and_pipe_are_refused_naming_the_next_slice():
+    """Both axes are admitted now (the mesh check that refused them is
+    gone); what the next slice (13) ports still raises, naming it: MoE on
+    a seq mesh here, Adafactor on split leaves and the other families in
+    tests/test_torch_sharded_trainer.py."""
+    assert not hasattr(TM, "check_ported")
     for axis in ("tensor", "pipe"):
-        with pytest.raises(NotImplementedError, match="slice 12"):
-            TM.check_ported({axis: 2})
-    TM.check_ported({"data": 2, "fsdp": 2, "expert": 2, "seq": 2})
+        sizes = TM.MeshConfig(fsdp=1, **{axis: 2}).axis_sizes(2)
+        assert TM.mesh_summary(sizes) == {axis: 2}
+        with TS.use_mesh(sizes):
+            assert TS.mesh_axis_size(axis) == 2
+    assert "slice 13" in TM.NEXT_SLICE
+    from cloudtik_tpu_torch.ops.moe import MoEConfig, moe_ffn
+
+    x = torch.zeros(1, 4, 8)
+    w = torch.zeros(8, 2)
+    with TS.use_mesh({"seq": 2}):
+        with pytest.raises(NotImplementedError, match="slice 13"):
+            moe_ffn(x, w, torch.zeros(2, 8, 4), torch.zeros(2, 8, 4),
+                    torch.zeros(2, 4, 8), MoEConfig(num_experts=2,
+                                                    top_k=1))
 
 
 def test_ambient_mesh_probes():
@@ -389,6 +429,20 @@ def test_collective_gradients(spawned):
         assert torch.equal(res["reduce_sum_grad"],
                            torch.full((2,), float(r + 1)))
         assert torch.equal(res["copy_to_grad"], torch.full((2,), 3.0))
+
+
+def test_shift_and_max_min(spawned):
+    """shift_many: each rank takes its predecessor's tensor (cyclic, as
+    `lax.ppermute`), and the opposite shift takes a cotangent back to the
+    rank that sent it; all_reduce's max and min."""
+    for name, axis in (("data2_fsdp2", "fsdp"), ("expert2_seq2", "seq")):
+        for res in spawned[name]:
+            r = res["coords"][axis]
+            assert torch.equal(res["shift"],
+                               torch.full((2,), float((r - 1) % 2 + 1)))
+            assert torch.equal(res["shift_grad"],
+                               torch.full((2,), float((r + 1) % 2 + 1)))
+            assert float(res["max"]) == 1.0 and float(res["min"]) == 0.0
 
 
 def test_global_batches_yield_each_ranks_rows_as_int64_tensors():

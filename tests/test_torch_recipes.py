@@ -273,6 +273,30 @@ def test_lora_recipe_on_two_ranks_matches_one_card(capsys):
         assert got["final_loss"] == one["final_loss"]
 
 
+def test_tensor_recipe_on_two_ranks_matches_one_card(capsys):
+    """`--tensor 2` under a two-rank launch (gloo, the CPU): each rank
+    holds its heads of the base and of the adapters, to the one-card
+    run's loss within 1e-3 relative.  The recipe computes in bf16, and the
+    split rounds each rank's partial products to bf16 before their sum,
+    where one card rounds the whole product once."""
+    from pathlib import Path
+
+    from cloudtik_tpu_torch.parallel.launch import run_ranks
+
+    argv = ["--model", "tiny", "--seq-len", "32", "--rank", "4", "--steps",
+            "2", "--batch", "4", "--log-every", "1", "--device", "cpu"]
+    one = llama_lora_finetune.main(argv)
+    capsys.readouterr()
+    outs = run_ranks(["-m", "cloudtik_tpu_torch.recipes.llama_lora_finetune",
+                      *argv, "--tensor", "2"], 2, 120,
+                     cwd=str(Path(__file__).resolve().parents[1]))
+    for out in outs:
+        got = json.loads([ln for ln in out.splitlines()
+                          if ln.startswith("{")][-1])
+        assert abs(got["final_loss"] - one["final_loss"]) <= \
+            1e-3 * one["final_loss"]
+
+
 def test_mesh_flags_wider_than_the_launch_are_refused():
     args = llama_lora_finetune.parser().parse_args(
         ["--model", "tiny", "--seq-len", "32", "--device", "cpu", "--data",
