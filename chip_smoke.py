@@ -255,6 +255,26 @@ run with a non-zero exit:
            head's gradient summed over pipe) flagged.  data=2 with 2
            accumulated microbatches at 2 layers: 3 steps with the
            overlapped sync and 3 without, losses equal bit for bit
+  elastic_2rank  elastic training: two ranks share card 0 over gloo,
+           each one slice (per-slice layout data=1, fsdp=1), their
+           coordinators agreeing through a FileStore in the phase's
+           directory.  tpu_1b at full width and depth, global batch 8 x
+           2048 (4 rows a rank at K=2, 8 at K=1), the train phase's
+           configuration (bf16 params and moments, save_attn), a per-rank
+           shard save every 2 steps; the step-4 save tears, slice 1 is
+           lost at boundary 4 (its process leaves), rank 0 re-meshes to
+           K=1 from the commit at step 2 and trains to step 6, slice 1
+           returns as a new process, is handed the live state, and the
+           job trains at K=2 to step 8.  Steps and slices as the
+           reference's story; the K=1 losses equal to a fresh one-card
+           trainer restored from step 2 (within twice the checkpoint
+           phase's probe gap when that probe was not bitwise); both
+           replicas' state bit for bit equal after the expand; 16 launches
+           of each of B1-B3 a step and rank at both K; the goodput buckets
+           elastic_remesh and restart_replay > 0; room on disk for the
+           shards.  ms/step at K=2 and K=1, the shrink's and the expand's
+           seconds (wait, restore, the rest), the GB the shards write and
+           read, the peak GB a rank
 
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
@@ -263,7 +283,8 @@ bert; the measured detect calls of each model; the measured steps of each
 vision and model-zoo phase and its cross-device check; the loaders' fit;
 the GBDT fit, serve and check; moe_serve's forward, server and engine;
 moe_train's measured steps; in each rank of parallel_2rank, the
-measured steps of the tensor and pipe paths) and read just after it.
+measured steps of the tensor and pipe paths; in each process of
+elastic_2rank, its `fit_elastic`) and read just after it.
 The `total` line gives the script's seconds; the last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
@@ -6467,6 +6488,392 @@ def phase_parallel_2rank(load: ParallelLoad = PARALLEL_LOAD,
     return out
 
 
+# ----------------------------------------------------------- elastic_2rank --
+@dataclasses.dataclass(frozen=True)
+class ElasticLoad:
+    """The elastic_2rank phase: `model` at full width and full depth, two
+    ranks on one card over gloo, each a slice of per-slice layout data=1,
+    fsdp=1; global batch `batch` x `seq` in the train phase's
+    configuration (bf16 params and moments, save_attn), a save every
+    `every` steps.  The save of `torn_at` tears, slice 1 is lost at
+    boundary `lost_at`, the survivor re-meshes to K=1 and trains to
+    `return_at`, slice 1 returns as a fresh process and the job expands to
+    K=2 and trains to `steps`."""
+    model: str = "tpu_1b"
+    device: str = "cuda:0"
+    seq: int = 2048
+    batch: int = 8
+    steps: int = 8
+    every: int = 2
+    torn_at: int = 4
+    lost_at: int = 4
+    return_at: int = 6
+    deadline_s: float = 900.0
+
+
+ELASTIC_LOAD = ElasticLoad()
+ELASTIC_REHEARSAL = ElasticLoad(model="tiny", device="cpu", seq=64,
+                                deadline_s=300.0)
+ELASTIC_LABEL = ("two processes sharing one H100 over gloo (host-staged), "
+                 "not NCCL")
+
+
+def _elastic_trainer(load: ElasticLoad, device, checkpoint_dir: str,
+                     every: int, mesh=None):
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.train.trainer import (
+        Trainer, TrainerConfig, transformer_spec)
+
+    cfg = T.config(load.model, max_seq_len=load.seq,
+                   param_dtype=torch.bfloat16)
+    return Trainer(transformer_spec(cfg), TrainerConfig(
+        global_batch_size=load.batch, seq_len=load.seq, log_every=1,
+        optimizer=OptimizerConfig(moment_dtype="bfloat16"),
+        checkpoint_every=every, checkpoint_dir=checkpoint_dir,
+        prefetch_depth=0), device=device, mesh=mesh), cfg
+
+
+def _elastic_data(load: ElasticLoad, vocab: int):
+    from cloudtik_tpu_torch.train.data import synthetic_lm_batches
+
+    def factory(step):
+        return itertools.islice(synthetic_lm_batches(
+            load.batch, load.seq, vocab, seed=5), step, None)
+    return factory
+
+
+def _state_digest(state) -> dict:
+    """{leaf path: sha256 of its bytes} of a state on any device."""
+    import hashlib
+
+    import torch
+
+    from cloudtik_tpu_torch.train.checkpoint import _flatten
+
+    out = {}
+    for path, leaf in _flatten(state):
+        key = ".".join(map(str, path))
+        if isinstance(leaf, torch.Tensor):
+            data = leaf.detach().contiguous().cpu().reshape(-1)
+            out[key] = hashlib.sha256(
+                data.view(torch.uint8).numpy().tobytes()).hexdigest()
+        else:
+            out[key] = repr(leaf)
+    return out
+
+
+def elastic_rank(load: ElasticLoad, out_dir: str) -> int:
+    """One process of the elastic_2rank phase (run by
+    `phase_elastic_2rank` through `run_ranks`): rank 0
+    survives; rank 1's first process leaves at the lost boundary (writes
+    rank1.left.json and exits `launch.LEFT`) and its second joins at the
+    return; each writes rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from cloudtik_tpu_torch import telemetry
+    from cloudtik_tpu_torch.faults import seams
+    from cloudtik_tpu_torch.faults.plan import FaultPlan, FaultPoint
+    from cloudtik_tpu_torch.parallel import distributed, launch
+    from cloudtik_tpu_torch.parallel.mesh import MeshConfig
+    from cloudtik_tpu_torch.telemetry import events, goodput
+    from cloudtik_tpu_torch.train import checkpoint as ckpt_lib
+    from cloudtik_tpu_torch.train.elastic import (ElasticCoordinator,
+                                                  StoreMembership)
+
+    rank = int(os.environ["RANK"])
+    joining = launch.incarnation() > 0
+    device = torch.device(load.device)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    else:
+        torch.set_num_threads(1)
+    telemetry.enable()
+    out = Path(out_dir)
+    events.install(str(out / f"events.rank{rank}.{int(joining)}.jsonl"))
+    store = distributed.elastic_store(str(out / "store"), load.deadline_s)
+    groups = {0: [0], 1: [1]}
+    membership = StoreMembership(store, groups)
+    coord = ElasticCoordinator(
+        membership, mesh_config=MeshConfig(data=1, fsdp=1),
+        slice_devices=groups, store=store, rank=rank, backend="gloo",
+        remesh_dwell_s=0.0, checkpoint_wait_s=load.deadline_s,
+        timeout_s=load.deadline_s)
+    ckpt_dir = str(out / "ckpt")
+    if joining:
+        trainer, cfg = _elastic_trainer(load, device, ckpt_dir, load.every)
+    else:
+        mesh = coord.build_mesh()
+        trainer, cfg = _elastic_trainer(load, device, ckpt_dir, load.every,
+                                        mesh=mesh)
+        trainer.init_state(torch.Generator(device=device).manual_seed(0))
+    factory = _elastic_data(load, cfg.vocab_size)
+    # the GB the shards write and read, each re-mesh's seconds by part
+    io = {"written_bytes": 0, "read_bytes": 0}
+    save, read_file = trainer.checkpointer.save, ckpt_lib._read_file
+
+    def counted_save(step, state, force=False, shard=None):
+        started = save(step, state, force=force, shard=shard)
+        if started:
+            io["written_bytes"] += sum(
+                v.numel() * v.element_size() for _, v in state
+                if isinstance(v, torch.Tensor))
+        return started
+
+    def counted_read(root, entry):
+        t = read_file(root, entry)
+        io["read_bytes"] += t.numel() * t.element_size()
+        return t
+
+    trainer.checkpointer.save = counted_save
+    ckpt_lib._read_file = counted_read
+    remeshes = []
+    apply_remesh = trainer._apply_remesh
+    buckets = (goodput.BUCKET_CHECKPOINT_SAVE,
+               goodput.BUCKET_CHECKPOINT_RESTORE,
+               goodput.BUCKET_ELASTIC_REMESH, goodput.BUCKET_COMPILE)
+
+    def timed_remesh(decision, coordinator):
+        before = [goodput.LEDGER.total(b) for b in buckets]
+        t0 = time.perf_counter()
+        apply_remesh(decision, coordinator)
+        wall = time.perf_counter() - t0
+        wait, restore, rest, compiled = (
+            goodput.LEDGER.total(b) - a for b, a in zip(buckets, before))
+        remeshes.append({"direction": decision.direction,
+                         "to_slices": list(decision.to_slices),
+                         "step": trainer.step, "wall_s": wall,
+                         "wait_s": wait, "restore_s": restore,
+                         "rest_s": rest, "compile_s": compiled})
+        if decision.direction == "shrink" and rank == 0:
+            # the restored commit, kept (hard links) for the fresh one-card
+            # run the K=1 era is held to: retention deletes it later
+            import shutil
+
+            shutil.copytree(trainer.checkpointer._step_dir(trainer.step),
+                            out / "ref" / str(trainer.step),
+                            copy_function=os.link)
+
+    trainer._apply_remesh = timed_remesh
+    marks = []
+    fired = {"back": False}
+
+    def callback(t, entry):
+        marks.append({"step": entry["step"], "slices": len(coord.current),
+                      "launches": _launch_counts()})
+        if (entry["step"] != load.return_at or fired["back"]
+                or len(coord.current) != 1):
+            return
+        # the survivor brings slice 1 back: a fresh process, which
+        # registers before this boundary's poll
+        fired["back"] = True
+        (out / "return.rank1.json").write_text(json.dumps({"case": "e"}))
+        launch.request_return(1)
+        deadline = time.monotonic() + load.deadline_s
+        while 1 not in membership.alive_slices():
+            require(time.monotonic() < deadline,
+                    "elastic_2rank: slice 1 did not come back")
+            time.sleep(0.05)
+
+    plan = FaultPlan([
+        FaultPoint("checkpoint.save", "torn_write", times=1,
+                   match={"step": load.torn_at}),
+        FaultPoint("elastic.slice_lost", "drop", times=1,
+                   match={"slice": 1, "step": load.lost_at})], seed=42)
+    # ---- the main path: counts zeroed just before, read just after ----
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    with seams.armed(plan):
+        res = trainer.fit_elastic(factory, load.steps, coord,
+                                  callbacks=[callback], join=joining)
+    wall_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    prev = dict.fromkeys(launches, 0)
+    per_step = []
+    for m in marks:
+        per_step.append({"step": m["step"], "slices": m["slices"], **{
+            k: m["launches"][k] - prev[k] for k in launches}})
+        prev = m["launches"]
+    result = {"rank": rank, "joined": joining, "label": ELASTIC_LABEL,
+              "history": res["history"], "launches": launches,
+              "launches_by_step": per_step, "remeshes": remeshes,
+              "wall_s": wall_s, **io,
+              "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                          if on_card else None)}
+    if res.get("left"):
+        result["left_at"] = res["final_step"]
+        (out / f"rank{rank}.left.json").write_text(json.dumps(result))
+        return launch.LEFT
+    trainer.checkpointer.wait()
+    dist.barrier()      # every rank's last shard is in
+    result.update(
+        final_step=res["final_step"], slices=list(coord.current),
+        world=dist.get_world_size(),
+        buckets=dict(goodput.LEDGER.snapshot()["buckets"]),
+        committed=trainer.checkpointer.all_steps(),
+        events=[e for e in events.read_events()
+                if e["name"] in ("tik_elastic_remesh", "tik_train_resume")],
+        digest=_state_digest(trainer.state))
+    trainer.checkpointer.close()
+    (out / f"rank{rank}.json").write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_elastic_2rank(load: ElasticLoad = ELASTIC_LOAD,
+                        nvidia_smi: str = None,
+                        determinism: dict = None) -> dict:
+    """The elastic story over two processes on one card (`elastic_rank`,
+    spawned by `run_ranks` with the load's deadline),
+    checked here; then a fresh one-card trainer restored from the commit
+    the shrink resumed from runs the K=1 era's steps, whose losses the
+    survivor's must equal (within twice the checkpoint phase's probe gap
+    when `determinism` says that probe was not bitwise)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cloudtik_tpu_torch.parallel.launch import run_ranks
+    from cloudtik_tpu_torch.tree import tree_leaves
+
+    on_card = load.device.startswith("cuda")
+    _collect(on_card)
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tik-elastic-")
+    try:
+        # ---- room for max_to_keep + 1 steps of a replica's state, or a
+        # loud failure ----
+        probe, _ = _elastic_trainer(load, "cpu", str(Path(tmp) / "x"), 1)
+        keep = probe.checkpointer.config.max_to_keep
+        state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+            probe._abstract_state()) if isinstance(t, torch.Tensor))
+        del probe
+        free = shutil.disk_usage(tmp).free
+        need = (keep + 1) * state_bytes
+        disk = {"state_bytes": state_bytes, "free_bytes": free,
+                "needed_bytes": need}
+        require(free >= need, f"elastic_2rank: {free} bytes free under "
+                f"{tmp}, {need} needed for {keep + 1} steps")
+        spec = Path(tmp) / "load.json"
+        spec.write_text(json.dumps(dataclasses.asdict(load)))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(root)] + [p for p in env.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
+        run_ranks([str(root / "chip_smoke.py"), "--elastic-rank", str(spec),
+                   tmp], 2, load.deadline_s, env=env, cwd=str(root))
+        survivor = json.loads((Path(tmp) / "rank0.json").read_text())
+        joiner = json.loads((Path(tmp) / "rank1.json").read_text())
+        left = json.loads((Path(tmp) / "rank1.left.json").read_text())
+        spawn_s = time.perf_counter() - t0
+        # ---- the fresh one-card run from the commit the shrink resumed
+        # from, over the K=1 era's steps ----
+        shrink = survivor["remeshes"][0]
+        era = [h for h in survivor["history"] if h["slices"] == 1]
+        fresh, cfg = _elastic_trainer(load, load.device,
+                                      str(Path(tmp) / "ref"), 1000)
+        fresh.restore_checkpoint(step=shrink["step"])
+        fresh_losses = [h["loss"] for h in fresh.fit(
+            _elastic_data(load, cfg.vocab_size)(shrink["step"]),
+            len(era))["history"]]
+        del fresh
+        _collect(on_card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    L = cfg.n_layers
+    B, S = load.batch, load.seq
+
+    def ms_by_k(r, k):
+        return [B * S / h["tokens_per_sec"] * 1e3 for h in r["history"]
+                if h["slices"] == k]
+
+    tol = 0.0
+    if determinism and not determinism.get("bitwise", True):
+        tol = determinism["resume_tolerance"]
+    k1_losses = [h["loss"] for h in era]
+    out = {"model": load.model, "label": ELASTIC_LABEL,
+           "nvidia_smi": nvidia_smi, "batch": B, "seq": S,
+           "param_dtype": "bfloat16", "moment_dtype": "bfloat16",
+           "disk": disk, "wall_s": time.perf_counter() - t0,
+           "spawn_s": spawn_s,
+           "ms_per_step": {"k2": ms_by_k(survivor, 2),
+                           "k1": ms_by_k(survivor, 1),
+                           "k2_joiner": ms_by_k(joiner, 2)},
+           "remeshes": {"survivor": survivor["remeshes"],
+                        "joiner": joiner["remeshes"]},
+           "shards_gb": {"written": (survivor["written_bytes"]
+                                     + left["written_bytes"]
+                                     + joiner["written_bytes"]) / 1e9,
+                         "read": (survivor["read_bytes"]
+                                  + joiner["read_bytes"]) / 1e9},
+           "peak_gb": {"survivor": survivor["peak_gb"],
+                       "left": left["peak_gb"], "joiner": joiner["peak_gb"]},
+           "k1_losses": k1_losses, "fresh_losses": fresh_losses,
+           "loss_tolerance": tol,
+           "steps": [(h["step"], h["slices"]) for h in survivor["history"]],
+           "buckets": survivor["buckets"], "committed": survivor["committed"],
+           "launches_by_step": {"survivor": survivor["launches_by_step"],
+                                "left": left["launches_by_step"],
+                                "joiner": joiner["launches_by_step"]}}
+    emit("elastic_2rank", **out)
+    # ---- the checks ----
+    lost, back = load.lost_at, load.return_at
+    restored = lost - load.every
+    want = ([(s, 2) for s in range(1, lost + 1)]
+            + [(s, 1) for s in range(restored + 1, back + 1)]
+            + [(s, 2) for s in range(back + 1, load.steps + 1)])
+    require(out["steps"] == want, f"elastic_2rank steps and slices "
+            f"{out['steps']}, expected {want}")
+    require([(h["step"], h["slices"]) for h in joiner["history"]]
+            == want[-(load.steps - back):], "elastic_2rank: the returned "
+            f"process ran {joiner['history']}")
+    require(left["left_at"] == lost and [h["step"] for h in left["history"]]
+            == list(range(1, lost + 1)), f"elastic_2rank: the lost "
+            f"process left at {left.get('left_at')}")
+    require(shrink["direction"] == "shrink" and shrink["step"] == restored
+            and [r["direction"] for r in survivor["remeshes"]]
+            == ["shrink", "expand"], f"elastic_2rank re-meshes "
+            f"{survivor['remeshes']}")
+    require(len(fresh_losses) == len(k1_losses) and all(
+        abs(a - b) <= tol for a, b in zip(k1_losses, fresh_losses)),
+        f"elastic_2rank: K=1 losses {k1_losses}, a fresh one-card run from "
+        f"step {restored}: {fresh_losses} (tolerance {tol})")
+    for a, b in zip(k1_losses, k1_losses[1:]):
+        require(math.isfinite(a) and math.isfinite(b), "elastic_2rank: "
+                f"K=1 losses {k1_losses}")
+    require(survivor["digest"] == joiner["digest"], "elastic_2rank: the "
+            "two replicas' state differs after the expand: " + str(
+                [k for k in survivor["digest"]
+                 if survivor["digest"][k] != joiner["digest"].get(k)][:5]))
+    require(survivor["buckets"]["elastic_remesh"] > 0
+            and survivor["buckets"]["restart_replay"] > 0,
+            f"elastic_2rank goodput {survivor['buckets']}")
+    launches = {k: survivor["launches"][k] + left["launches"][k]
+                + joiner["launches"][k] for k in survivor["launches"]}
+    if on_card:
+        each = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                             L)
+        for who, steps in out["launches_by_step"].items():
+            for m in steps:
+                got = {k: m[k] for k in each}
+                require(got == each, f"elastic_2rank {who} step "
+                        f"{m['step']} (K={m['slices']}) launched {got}, "
+                        f"expected {each}")
+    out["launches"] = launches
+    emit("elastic_2rank_launches", launches=launches)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6474,6 +6881,9 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--parallel-rank":
         load = ParallelLoad(**json.loads(Path(sys.argv[2]).read_text()))
         return parallel_rank(load, sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] == "--elastic-rank":
+        load = ElasticLoad(**json.loads(Path(sys.argv[2]).read_text()))
+        return elastic_rank(load, sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke runs on the "
               "card", file=sys.stderr)
@@ -6647,13 +7057,21 @@ def main() -> int:
     parallel = phase_parallel_2rank(nvidia_smi=smi)
     emit("parallel", seconds=time.perf_counter() - t_par)
 
+    # ---- elastic training: two processes sharing the card, one lost and
+    # returned (counts zeroed and read inside each process, around its
+    # fit_elastic) ----
+    t_el = time.perf_counter()
+    elastic = phase_elastic_2rank(nvidia_smi=smi,
+                                  determinism=checkpoint.get("determinism"))
+    emit("elastic", seconds=time.perf_counter() - t_el)
+
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]
     launches = {k: inference[k] + train["launches"][k]
                 + checkpoint["launches"][k] + lora_train["launches"][k]
                 + bert["launches"][k] + loaders["launches"][k]
                 + moe_serve["launches"][k] + moe_train["launches"][k]
-                + parallel["launches"][k]
+                + parallel["launches"][k] + elastic["launches"][k]
                 for k in inference}
 
     def bwd_err(grads):

@@ -277,23 +277,29 @@ def _local_base(base: Params, cfg: TransformerConfig, mesh,
                 rules) -> Params:
     """This rank's views of the whole base over `mesh`'s `tensor` and
     `pipe` axes, placed by the transformer's logical axes under `rules`
-    (a shallow copy of `base` where neither axis is split)."""
+    where the model reads the split (`sharding.reads_split`,
+    `megatron_split`: a base dimension split over two axes, or every
+    tensor split under rules that give `tensor` to `embed`, stays whole);
+    a shallow copy of `base` where neither axis is split."""
     from cloudtik_tpu_torch.tree import tree_map
 
     sizes = axis_sizes_of(mesh)
     axes = [a for a in ("tensor", "pipe") if sizes.get(a, 1) > 1]
     if not axes:
         return dict(base)
-    specs = sharding.tree_to_shardings_safe(mesh, param_logical_axes(cfg),
-                                            base, rules)
+    logical = param_logical_axes(cfg)
+    specs = sharding.tree_to_shardings_safe(mesh, logical, base, rules)
+    if not sharding.megatron_split(specs, logical):
+        axes = [a for a in axes if a != "tensor"]
 
-    def one(w, spec):
+    def one(w, spec, names):
         for dim, entry in enumerate(spec):
-            for a in sharding.spec_axes(entry):
+            if sharding.reads_split(entry, names[dim]):
+                (a,) = sharding.spec_axes(entry)
                 if a in axes:
                     w = w.chunk(sizes[a], dim)[mesh.get_local_rank(a)]
         return w
-    return tree_map(one, dict(base), specs)
+    return tree_map(one, dict(base), specs, logical)
 
 
 def lora_spec(base_params: Params, cfg: TransformerConfig,

@@ -28,8 +28,17 @@ collectives GSPMD derives in the reference:
   the tokens and the combine weights enter through `copy_to` over
   `tensor` and the output is summed over it, with `expert`'s in one
   reduction; the router stays replicated.
-* `seq` > 1 is refused: a routing group is a whole row, and its capacity
-  slots would span the sequence shards.
+* `seq` > 1: a routing group stays the whole row, as in the reference.
+  Each rank holds S/n of a row's tokens; the capacity is the whole row's
+  (`capacity(S x n)`), and in each routing round a token's slot is its
+  place among the row's tokens for that expert: the local cumulative
+  count plus the counts of the earlier `seq` shards (an exclusive scan of
+  the per-(row, expert) counts over `seq`) plus the row's slots taken in
+  earlier rounds.  Each shard's tokens fill their own slots of the whole
+  buffer, so a sum over `seq` completes it (forward and backward: every
+  shard's tokens read the experts' outputs of every shard's slots); each
+  rank runs the experts on the whole buffer and combines its own tokens.
+  The statistics are over the global batch, `seq` included.
 
 The forward's three parts are `torch.profiler` ranges (moe.route: router,
 dispatch and combine tensors, the losses; moe.dispatch and moe.combine:
@@ -83,14 +92,27 @@ def router_probs(x: torch.Tensor, w_router: torch.Tensor
     return torch.softmax(logits, dim=-1), logits
 
 
+def _earlier_shards(counts: torch.Tensor) -> torch.Tensor:
+    """The sum of `counts` [B,E] over the `seq` shards before this one (an
+    exclusive scan along the ambient mesh's `seq` axis; zeros without
+    one)."""
+    group = sharding.axis_group("seq")
+    if group is None:
+        return torch.zeros_like(counts)
+    every = collectives.gather_full(counts[None].contiguous(), 0, group)
+    return every[:sharding.axis_rank("seq")].sum(0)
+
+
 def _top_k_dispatch(probs: torch.Tensor, cfg: MoEConfig, capacity: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Grouped dispatch/combine tensors (group = batch row).
 
-    probs: [B,S,E] f32.  Returns (dispatch [B,S,E,C] 0/1 f32, combine
-    [B,S,E,C] f32, the per-expert dispatch counts [E] of this call).
-    Round r's tokens stack after round r-1's in each expert's buffer;
-    argmax takes the first expert on ties, as in the reference."""
+    probs: [B,S,E] f32, this rank's S tokens of each row on a `seq` mesh.
+    Returns (dispatch [B,S,E,C] 0/1 f32, combine [B,S,E,C] f32, the
+    per-expert dispatch counts [E] of these tokens).  Round r's tokens
+    stack after round r-1's in each expert's buffer, a shard's after the
+    earlier shards'; argmax takes the first expert on ties, as in the
+    reference."""
     B, S, E = probs.shape
     dispatch = probs.new_zeros((B, S, E, capacity))
     combine = probs.new_zeros((B, S, E, capacity))
@@ -101,8 +123,9 @@ def _top_k_dispatch(probs: torch.Tensor, cfg: MoEConfig, capacity: int
         gate = remaining.gather(-1, expert[..., None])[..., 0]    # [B,S]
         onehot = F.one_hot(expert, E).float()                     # [B,S,E]
         pos_in_expert = onehot.cumsum(dim=1) - 1.0
+        before = used + _earlier_shards(onehot.sum(1).long())     # [B,E]
         pos = (pos_in_expert * onehot).sum(-1).long() \
-            + used.gather(1, expert)                              # [B,S]
+            + before.gather(1, expert)                            # [B,S]
         keep = pos < capacity
         pos = pos.clamp(0, capacity - 1)
         slot = F.one_hot(pos, capacity).float()                   # [B,S,C]
@@ -110,7 +133,8 @@ def _top_k_dispatch(probs: torch.Tensor, cfg: MoEConfig, capacity: int
             * slot[..., None, :]                                  # [B,S,E,C]
         dispatch = dispatch + contrib
         combine = combine + contrib * gate[..., None, None]
-        used = used + (onehot * keep[..., None]).sum(1).long()
+        used = used + collectives.all_reduce(
+            (onehot * keep[..., None]).sum(1).long(), ("seq",))
         remaining = remaining * (1.0 - onehot)
     return dispatch, combine, dispatch.sum((0, 1, 3))
 
@@ -129,18 +153,16 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     and the output is summed over `tensor`, as over `expert`; the router
     stays replicated).  Returns (y [B,S,d] in x's dtype, metrics:
     moe_aux_loss, moe_z_loss, moe_drop_fraction)."""
-    if sharding.mesh_axis_size("seq") > 1:
-        raise NotImplementedError(
-            "MoE on a seq-sharded mesh: a routing group is a whole row and "
-            "its capacity slots would span the seq shards (not ported; "
-            "slice 13 of the port, ROADMAP A7)")
     B, S, _ = x.shape
     E = cfg.num_experts
-    capacity = cfg.capacity(S)          # per group (per batch row)
+    n_seq = sharding.mesh_axis_size("seq")
+    capacity = cfg.capacity(S * n_seq)  # per group (a whole batch row)
     dtype = x.dtype
-    # tokens in the global batch: the batch axes split the rows evenly
+    # tokens in the global batch: the batch axes split the rows evenly,
+    # `seq` the rows' tokens
+    stat_axes = DATA_AXES + ("seq",)
     n_tokens = B * S * math.prod(sharding.mesh_axis_size(a)
-                                 for a in DATA_AXES)
+                                 for a in stat_axes)
 
     with record_function("moe.route"):
         probs, logits = router_probs(x, w_router)
@@ -148,14 +170,14 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
 
         # Aux losses: load balance (Switch eq. 4) + router z-loss, over the
         # global batch: both means are reduced before their product.
-        fraction = collectives.all_reduce(counts, DATA_AXES) / n_tokens
+        fraction = collectives.all_reduce(counts, stat_axes) / n_tokens
         mean_prob = collectives.reduce_sum(probs.sum((0, 1)),
-                                           DATA_AXES) / n_tokens
+                                           stat_axes) / n_tokens
         aux_loss = E * torch.sum(fraction * mean_prob) * cfg.aux_loss_weight
         z = torch.logsumexp(logits, dim=-1)
         z_loss = collectives.reduce_sum(
-            (z ** 2).sum(), DATA_AXES) / n_tokens * cfg.z_loss_weight
-        dispatched = collectives.all_reduce(dispatch.sum(), DATA_AXES)
+            (z ** 2).sum(), stat_axes) / n_tokens * cfg.z_loss_weight
+        dispatched = collectives.all_reduce(dispatch.sum(), stat_axes)
 
         dispatch_c = dispatch.to(dtype)
         combine_c = combine.to(dtype)
@@ -176,6 +198,11 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
 
     with record_function("moe.dispatch"):
         expert_in = torch.einsum("bsec,bsd->ebcd", dispatch_c, x)
+        if n_seq > 1:
+            # each shard filled its tokens' slots: the sum is the whole
+            # buffer, and its gradient is every shard's
+            expert_in = collectives.copy_to(
+                collectives.reduce_sum(expert_in, ("seq",)), ("seq",))
     with record_function("moe.experts"):
         gate = torch.einsum("ebcd,edf->ebcf", expert_in, w_gate.to(dtype))
         up = torch.einsum("ebcd,edf->ebcf", expert_in, w_up.to(dtype))

@@ -15,7 +15,11 @@ so its backward never reads the ambient mesh.
                    of one token on several `expert` ranks).
 * `gather_dim`     forward: all-gather along one dimension; backward:
                    reduce-scatter (sum) back to the shard.  FSDP's
-                   gather-on-use.
+                   gather-on-use.  With `summed=False` the backward takes
+                   this rank's slice of the cotangent instead: a leaf
+                   gathered over an axis whose ranks read the same tokens
+                   (tensor, pipe, expert) gets the same whole gradient on
+                   each of them, which a sum would multiply.
 * `all_reduce`     a plain sum (or max, min), no gradient (counts,
                    gradient sync, the split vocab's max and argmax).
 * `shift_many`     each rank takes the tensors of the rank `offset`
@@ -128,21 +132,30 @@ def _scatter_sum(g: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def _own_slice(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    return g.chunk(n, dim)[dist.get_group_rank(
+        group, dist.get_rank())].contiguous()
+
+
 class _GatherDim(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
+    def forward(ctx, x, dim, group, summed):
+        ctx.dim, ctx.group, ctx.summed = dim, group, summed
         return _gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter_sum(g, ctx.dim, ctx.group), None, None
+        back = _scatter_sum if ctx.summed else _own_slice
+        return back(g, ctx.dim, ctx.group), None, None, None
 
 
-def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def gather_dim(x: torch.Tensor, dim: int, group,
+               summed: bool = True) -> torch.Tensor:
     """All-gather x's shards along `dim` over `group`; the gradient comes
-    back reduce-scattered (summed) to the shard."""
-    return _GatherDim.apply(x, dim, group)
+    back reduce-scattered (summed) to the shard, or with `summed=False`
+    as this rank's slice of it."""
+    return _GatherDim.apply(x, dim, group, summed)
 
 
 def gather_full(x: torch.Tensor, dim: int, group: Optional[object]

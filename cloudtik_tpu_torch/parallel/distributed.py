@@ -18,6 +18,18 @@ process per card.  The mapping:
 The backend is NCCL when CUDA is up and gloo otherwise (or as asked), and
 every group gets an explicit `timeout`.  `slice_index` / `slice_count`
 read the env the launcher exports; off a launch they are the defaults.
+
+Elastic training (train/elastic.py) re-forms the group over the live
+ranks at each re-mesh (`reform_group`): the default group cannot shrink
+or grow, so the old one is torn down and a new one formed, ranks
+renumbered densely in the order the caller gives (slice-major).  Each
+group's rendezvous lives under its own generation's prefix of one store
+that outlives every rank (`elastic_store`: a FileStore in a shared
+directory, or a TCPStore the launcher hosts), never rank 0's TCPStore,
+since slice 0 may be the slice that is lost.  A collective over the old
+group would hang once a member is gone, so nothing is issued on it, and
+a DeviceMesh (whose creation is collective over the whole default group)
+is built only after the new group exists.
 """
 
 from __future__ import annotations
@@ -99,6 +111,39 @@ def auto_initialize(coordinator_address: Optional[str] = None,
     logger.info("torch.distributed initialised: %d/%d (%s) @ %s",
                 rank, world, backend, init_method)
     return True
+
+
+def elastic_store(path: str, timeout_s: float = DEFAULT_TIMEOUT_S):
+    """A key-value store in the file `path` (in a directory every rank
+    reaches) that no rank owns or deletes: the rendezvous of every
+    generation of an elastic job, and its coordinators' agreement."""
+    store = dist.FileStore(path, -1)
+    store.set_timeout(datetime.timedelta(seconds=timeout_s))
+    return store
+
+
+def reform_group(store, generation: int, rank: int, world: int,
+                 backend: Optional[str] = None,
+                 timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+    """Tear down the default process group (if any) and form generation
+    `generation`'s over `world` ranks, this process at `rank`.  Every
+    member calls it with the same generation; its keys live under their
+    own prefix of `store` (`elastic_store`).  No collective runs on the
+    old group."""
+    if backend is None:
+        backend = dist.get_backend() if dist.is_initialized() else (
+            "nccl" if torch.cuda.is_available() else "gloo")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if backend == "nccl":
+        torch.cuda.set_device(local_rank())
+    dist.init_process_group(
+        backend=backend, store=dist.PrefixStore(f"tik-gen{generation}",
+                                                store),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    logger.info("torch.distributed generation %d formed: %d/%d (%s)",
+                generation, rank, world, backend)
 
 
 def rank_device(device=None) -> torch.device:

@@ -1,7 +1,9 @@
 """FSDP's gather-on-use for the stacked layer parameters.
 
 The trainer keeps each parameter as this rank's shard.  A leaf of the
-`[L, ...]` layer stack that is split over `fsdp` becomes a `LayerShards`;
+`[L, ...]` layer stack with a dimension the model does not read split
+(over `fsdp`, or over `tensor` where that is not a Megatron dimension)
+becomes a `LayerShards`;
 the model's layer loop reads it through `LazyLayer` (what
 `models/transformer.layer_params` returns for such a stack), which gathers
 one layer's slice where the layer reads it.  Inside a checkpointed layer
@@ -13,7 +15,7 @@ its use; the gradient comes back reduce-scattered to the shard
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -21,14 +23,20 @@ from cloudtik_tpu_torch.parallel.collectives import gather_dim
 
 
 class LayerShards:
-    """A stacked `[L, ...]` leaf held as this rank's shard along `dim`
-    (never 0, the layer axis) over `group`."""
+    """A stacked `[L, ...]` leaf held as this rank's shard.  `gathers`
+    lists the (dim, group, summed) all-gathers that make one layer whole,
+    in order (dims of the stacked leaf, never 0, the layer axis; a
+    dimension split over two mesh axes gathers over the inner one first);
+    `summed` is `gather_dim`'s gradient mode."""
 
-    def __init__(self, local: torch.Tensor, dim: int, group):
-        self.local, self.dim, self.group = local, dim, group
+    def __init__(self, local: torch.Tensor, gathers: Tuple):
+        self.local, self.gathers = local, tuple(gathers)
 
     def layer(self, i: int) -> torch.Tensor:
-        return gather_dim(self.local[i], self.dim - 1, self.group)
+        w = self.local[i]
+        for dim, group, summed in self.gathers:
+            w = gather_dim(w, dim - 1, group, summed)
+        return w
 
 
 class LazyLayer(Mapping):

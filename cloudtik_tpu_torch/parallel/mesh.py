@@ -39,7 +39,7 @@ DATA_AXES: Tuple[str, ...] = ("data", "fsdp")
 TOKEN_AXES: Tuple[str, ...] = DATA_AXES + ("seq",)
 
 # What the port still refuses on a mesh names this slice.
-NEXT_SLICE = "slice 13 of the port (ROADMAP A7)"
+NEXT_SLICE = "slice 14 of the port (ROADMAP A7)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,8 +153,9 @@ def slice_device_groups(ranks: Optional[Sequence[int]] = None,
 
 def elastic_mesh_config(per_slice: MeshConfig, num_slices: int) -> MeshConfig:
     """The K-slice mesh config derived from ONE slice's layout: the data
-    axis times the number of live slices (the reference's rule; the
-    elastic re-mesh itself comes with slice 13)."""
+    axis times the number of live slices (the data axis is the only one
+    that spans slices, so shrinking or growing K changes nothing inside a
+    slice)."""
     if per_slice.data == -1:
         raise ValueError(
             "elastic meshes need an explicit per-slice data axis "
@@ -164,6 +165,44 @@ def elastic_mesh_config(per_slice: MeshConfig, num_slices: int) -> MeshConfig:
     return dataclasses.replace(
         per_slice, data=per_slice.data * num_slices,
         num_slices=num_slices)
+
+
+def elastic_ranks(groups: Mapping[int, Sequence[int]],
+                  alive: Sequence[int]) -> List[int]:
+    """The ranks of the live slices, slice-major (sorted slice id, then
+    the group's own order): the order in which an elastic generation's
+    group numbers them.  Refuses an empty set, unknown slice ids and live
+    slices of unequal size, as the reference's `build_elastic_mesh`."""
+    alive = sorted(set(alive))
+    if not alive:
+        raise ValueError("cannot build a mesh over zero live slices")
+    missing = [s for s in alive if s not in groups]
+    if missing:
+        raise ValueError(f"unknown slice ids {missing}; "
+                         f"known: {sorted(groups)}")
+    sizes = {len(groups[s]) for s in alive}
+    if len(sizes) != 1:
+        raise ValueError(f"live slices differ in size: "
+                         f"{ {s: len(groups[s]) for s in alive} }")
+    return [r for s in alive for r in groups[s]]
+
+
+def build_elastic_mesh(per_slice: MeshConfig,
+                       groups: Mapping[int, Sequence[int]],
+                       alive: Sequence[int]):
+    """Mesh over the ranks of the live slices only: `elastic_mesh_config`
+    over the default process group, which must be the live slices' group,
+    ranked slice-major (`elastic_ranks`; `distributed.reform_group` forms
+    it so).  The outermost `data` axis then maps slice to slice and every
+    intra-slice axis stays inside one slice."""
+    import torch.distributed as dist
+
+    order = elastic_ranks(groups, alive)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != len(order):
+        raise ValueError(f"the process group has {world} ranks; the live "
+                         f"slices {sorted(set(alive))} have {len(order)}")
+    return build_mesh(elastic_mesh_config(per_slice, len(set(alive))))
 
 
 def mesh_summary(mesh: AnyMesh) -> Dict[str, int]:

@@ -114,7 +114,7 @@ def _rebuild(stacked: Any, tensors: List[torch.Tensor]) -> Any:
     """`stacked` with its leaf tensors replaced, LayerShards kept."""
     def one(w, t):
         if isinstance(w, fsdp.LayerShards):
-            return fsdp.LayerShards(t, w.dim, w.group)
+            return fsdp.LayerShards(t, w.gathers)
         return t
     return tree_map(one, stacked, tree_unflatten(stacked, tensors))
 

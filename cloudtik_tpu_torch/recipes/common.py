@@ -7,7 +7,7 @@ it is one rank of a mesh: run it under `torchrun --nproc-per-node N` (or
 tik-run, one process per card: parallel/distributed.py maps the env), and
 the flags' product must be the world size.  As in the reference there is
 no `--pipe` flag (the pipe axis is `MeshConfig(pipe=...)`), and a family
-without logical axes trains on one card only (slice 13).  `--device`
+without logical axes trains on one card only (slice 14).  `--device`
 picks the card (the default; on a mesh cuda:LOCAL_RANK) or the CPU
 (gloo).
 """
@@ -23,7 +23,7 @@ import torch
 
 from cloudtik_tpu_torch.device import resolve_device
 from cloudtik_tpu_torch.parallel import distributed
-from cloudtik_tpu_torch.parallel.mesh import MeshConfig
+from cloudtik_tpu_torch.parallel.mesh import NEXT_SLICE, MeshConfig
 from cloudtik_tpu_torch.train.optim import OptimizerConfig
 from cloudtik_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -82,7 +82,7 @@ def build_recipe_trainer(spec, args, seq_len: int = 1,
     if mesh is not None and spec.logical_axes is None:
         raise ValueError(
             f"mesh axes {_wide(args)}: this model family trains on "
-            "one card until slice 13 of the port (ROADMAP A7)")
+            f"one card until {NEXT_SLICE}")
     return Trainer(spec, TrainerConfig(
         global_batch_size=args.batch, seq_len=seq_len,
         mesh=mesh or MeshConfig(),

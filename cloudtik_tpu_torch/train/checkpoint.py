@@ -27,6 +27,26 @@ whose length is not its manifest's makes `restore` raise, so a torn step
 never restores short data.  `tools/import_jax_checkpoint.py` turns the JAX
 package's orbax checkpoints into this format.
 
+On a mesh every rank writes its own shard of a step (`save(...,
+shard=ShardWrite)`), with no collective and no single writer:
+
+    <directory>/<step>/shards-<token>/<r>.json    rank r's manifest
+    <directory>/<step>/shards-<token>/<r>-<i>.bin its pieces' bytes
+
+A rank writes the pieces no other rank holds before it (index 0 on every
+mesh axis the leaf is replicated over; the trainer decides), and its
+manifest lists each piece's leaf `path`, the leaf's whole `shape`, its
+`dtype` and the `region` of the whole it holds ([start, stop) per
+dimension); rank 0's lists the number leaves too.  The manifest is written
+last and renamed into place.  `<token>` is one save's own, so shards of
+two attempts at a step never mix.  A step counts as committed only when
+all `shards` manifests of one token are in, and a missing or short shard
+file makes the whole step unreadable on every rank alike (each restore
+checks every shard's lengths, not just the pieces it reads).  A restore
+into any placement (`restore(..., regions=)`) reads the pieces that
+overlap each rank's region; without regions it assembles whole leaves, so
+one rank restores a mesh's checkpoint and a mesh restores a one-card one.
+
 On the card the offloaded save clones each leaf on the step's stream (so
 the in-place update of the next step cannot change it), and a worker
 thread copies the clone into page-locked host buffers on a side stream
@@ -41,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import os
 import queue
 import shutil
@@ -84,6 +105,30 @@ class CheckpointConfig:
     # the write run on the worker thread.  Sync saves and torn-write
     # drills take the in-line path.
     offload_d2h: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class Region:
+    """A block of a leaf: [start, stop) per dimension."""
+
+    bounds: Tuple[Tuple[int, int], ...]
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(e - s for s, e in self.bounds)
+
+
+@dataclasses.dataclass
+class ShardWrite:
+    """One rank's part of a step saved from a mesh: its `rank` of `count`
+    writers, the save's `token` (the same on every rank), and per index
+    of the leaves it writes (in the order handed to `save`), the leaf's
+    whole shape and the Region this rank holds."""
+
+    rank: int
+    count: int
+    token: str
+    pieces: Dict[int, Tuple[Tuple[int, ...], Region]]
 
 
 @dataclasses.dataclass
@@ -167,9 +212,12 @@ class Checkpointer:
             return False
         return step % self.config.save_interval_steps == 0 or newest is None
 
-    def save(self, step: int, state: Any, force: bool = False) -> bool:
+    def save(self, step: int, state: Any, force: bool = False,
+             shard: Optional[ShardWrite] = None) -> bool:
         """Save `state` (nested dicts and lists of tensors and Python
-        numbers) at `step`; returns True if a save started.
+        numbers) at `step`; returns True if a save started.  With `shard`,
+        `state` is this rank's list of (path, leaf) pairs: its pieces and,
+        on rank 0, the number leaves.
 
         With ``offload_d2h`` (and async saves) the call stages an
         on-device snapshot and returns: the device->host copy and the
@@ -185,8 +233,9 @@ class Checkpointer:
                                directory=self.config.directory)
         offload = (self.config.async_save and self.config.offload_d2h
                    and directive != DIRECTIVE_TORN_WRITE)
+        leaves = state if shard is not None else _flatten(state)
         if not offload:
-            self._save_inline(step, state,
+            self._save_inline(step, leaves, shard,
                               torn=directive == DIRECTIVE_TORN_WRITE)
             self._note_staged(step)
             if directive == DIRECTIVE_TORN_WRITE:
@@ -194,7 +243,7 @@ class Checkpointer:
                 # data is truncated: what a host dying between the data
                 # write and the flush leaves behind
                 self.wait()
-                self._tear_step(step)
+                self._tear_step(step, shard)
             return True
         t0 = time.perf_counter()
         with telemetry.span("checkpoint.save", step=step,
@@ -203,8 +252,8 @@ class Checkpointer:
             # when save(N) returns, save(N-1) is committed and readable
             self._d2h_join()
             self._reraise_d2h_error()
-            snapshot = self._device_snapshot(_flatten(state))
-            self._enqueue(step, snapshot, on_device=True)
+            snapshot = self._device_snapshot(leaves)
+            self._enqueue(step, snapshot, on_device=True, shard=shard)
         self._note_staged(step)
         dt = time.perf_counter() - t0
         ti.CHECKPOINT_SAVE_SECONDS.observe(dt)
@@ -215,7 +264,8 @@ class Checkpointer:
         self._staged = step if self._staged is None \
             else max(self._staged, step)
 
-    def _save_inline(self, step: int, state: Any, torn: bool) -> None:
+    def _save_inline(self, step: int, leaves, shard: Optional[ShardWrite],
+                     torn: bool) -> None:
         """The device->host copy in the caller; the write too for sync
         saves and the torn-write drill, else on the worker."""
         t0 = time.perf_counter()
@@ -227,17 +277,16 @@ class Checkpointer:
             # the pinned buffers are the worker's until its save is done
             self._d2h_join()
             self._reraise_d2h_error()
-            leaves = _flatten(state)
             with telemetry.span("checkpoint.d2h", step=step):
                 host = self._host_copy(leaves, _ready_event(leaves),
                                        owned=False)
             if background:
-                self._enqueue(step, host, on_device=False)
+                self._enqueue(step, host, on_device=False, shard=shard)
             else:
                 with telemetry.span("checkpoint.save", step=step,
                                     async_save=False, offload=False,
                                     part="write"):
-                    self._write(step, host)
+                    self._write_any(step, host, shard)
         dt = time.perf_counter() - t0
         ti.CHECKPOINT_SAVE_SECONDS.observe(dt)
         compiled = max(goodput.LEDGER.total(goodput.BUCKET_COMPILE)
@@ -286,7 +335,8 @@ class Checkpointer:
                         for p, leaf in leaves]
         return snapshot, _ready_event(snapshot)
 
-    def _enqueue(self, step: int, leaves, on_device: bool) -> None:
+    def _enqueue(self, step: int, leaves, on_device: bool,
+                 shard: Optional[ShardWrite] = None) -> None:
         with self._d2h_lock:
             self._d2h_pending += 1
         if self._d2h_thread is None:
@@ -294,14 +344,14 @@ class Checkpointer:
                 target=self._d2h_worker, name="tik-checkpoint-d2h",
                 daemon=True)
             self._d2h_thread.start()
-        self._d2h_queue.put((step, leaves, on_device))
+        self._d2h_queue.put((step, leaves, on_device, shard))
 
     def _d2h_worker(self) -> None:
         while True:
             item = self._d2h_queue.get()
             if item is None:
                 return
-            step, leaves, on_device = item
+            step, leaves, on_device, shard = item
             item = None
             try:
                 if on_device:
@@ -319,7 +369,7 @@ class Checkpointer:
                 with telemetry.span("checkpoint.save", step=step,
                                     async_save=True, offload=on_device,
                                     part="write"):
-                    self._write(step, leaves)
+                    self._write_any(step, leaves, shard)
                 goodput.attribute(goodput.BUCKET_CHECKPOINT_SAVE,
                                   time.perf_counter() - t1)
             except BaseException as e:
@@ -371,9 +421,65 @@ class Checkpointer:
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
 
-    def _write(self, step: int, host_leaves) -> None:
+    def _write_any(self, step: int, host_leaves,
+                   shard: Optional[ShardWrite]) -> None:
+        if shard is None:
+            self._write(step, host_leaves)
+        else:
+            self._write(step, host_leaves, shard)
+
+    def _write(self, step: int, host_leaves,
+               shard: Optional[ShardWrite] = None) -> None:
+        """Write one step (or this rank's shard of it) and apply retention
+        (the one writer, or shard rank 0)."""
+        try:
+            if shard is None:
+                self._write_whole(step, host_leaves)
+            else:
+                self._write_shard(step, host_leaves, shard)
+        except BaseException:
+            ti.CHECKPOINT_SAVES.inc(result="failed")
+            events.emit("tik_checkpoint_commit", step=step,
+                        result="failed", directory=self.config.directory)
+            raise
+        ti.CHECKPOINT_SAVES.inc(result="ok")
+        events.emit("tik_checkpoint_commit", step=step, result="ok",
+                    directory=self.config.directory)
+        if shard is None or shard.rank == 0:
+            self._apply_retention()
+
+    def _entries(self, folder: str, host_leaves, prefix: str,
+                 shard: Optional[ShardWrite]) -> list:
+        """Write each tensor leaf's bytes into `folder` (fsynced); the
+        manifest entries."""
+        entries = []
+        for i, (path, leaf) in enumerate(host_leaves):
+            if not isinstance(leaf, _HostLeaf):
+                if not isinstance(leaf, (int, float, bool, str,
+                                         type(None))):
+                    raise TypeError(f"checkpoint leaf at {path} is a "
+                                    f"{type(leaf).__name__}")
+                entries.append({"path": list(path), "value": leaf})
+                continue
+            name = f"{prefix}{i}.bin"
+            with open(os.path.join(folder, name), "wb") as f:
+                f.write(memoryview(leaf.data.numpy()))
+                f.flush()
+                os.fsync(f.fileno())
+            entry = {"path": list(path), "file": name,
+                     "dtype": _dtype_name(leaf.dtype),
+                     "shape": list(leaf.shape),
+                     "nbytes": leaf.data.numel()}
+            if shard is not None:
+                shape, region = shard.pieces[i]
+                entry.update(shape=list(shape),
+                             region=[list(b) for b in region.bounds])
+            entries.append(entry)
+        return entries
+
+    def _write_whole(self, step: int, host_leaves) -> None:
         """Write one step under a temporary name, fsync it, rename it into
-        place, then apply retention."""
+        place."""
         final = self._step_dir(step)
         tmp = f"{final}.tmp-{uuid.uuid4().hex[:8]}"
         try:
@@ -381,24 +487,7 @@ class Checkpointer:
                 raise FileExistsError(
                     f"checkpoint step {step} already exists at {final}")
             os.makedirs(tmp)   # and the directory, at the first save
-            entries = []
-            for i, (path, leaf) in enumerate(host_leaves):
-                if not isinstance(leaf, _HostLeaf):
-                    if not isinstance(leaf, (int, float, bool, str,
-                                             type(None))):
-                        raise TypeError(f"checkpoint leaf at {path} is a "
-                                        f"{type(leaf).__name__}")
-                    entries.append({"path": list(path), "value": leaf})
-                    continue
-                name = f"{i}.bin"
-                with open(os.path.join(tmp, name), "wb") as f:
-                    f.write(memoryview(leaf.data.numpy()))
-                    f.flush()
-                    os.fsync(f.fileno())
-                entries.append({"path": list(path), "file": name,
-                                "dtype": _dtype_name(leaf.dtype),
-                                "shape": list(leaf.shape),
-                                "nbytes": leaf.data.numel()})
+            entries = self._entries(tmp, host_leaves, "", None)
             with open(os.path.join(tmp, MANIFEST), "w") as f:
                 json.dump({"format": FORMAT, "step": step,
                            "leaves": entries}, f)
@@ -409,14 +498,50 @@ class Checkpointer:
             _fsync_dir(self.directory)
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
-            ti.CHECKPOINT_SAVES.inc(result="failed")
-            events.emit("tik_checkpoint_commit", step=step,
-                        result="failed", directory=self.config.directory)
             raise
-        ti.CHECKPOINT_SAVES.inc(result="ok")
-        events.emit("tik_checkpoint_commit", step=step, result="ok",
-                    directory=self.config.directory)
-        self._apply_retention()
+
+    def _write_shard(self, step: int, host_leaves,
+                     shard: ShardWrite) -> None:
+        """This rank's pieces into the save's shard folder, its manifest
+        last under a temporary name, renamed into place."""
+        folder = os.path.join(self._step_dir(step), f"shards-{shard.token}")
+        os.makedirs(folder, exist_ok=True)
+        entries = self._entries(folder, host_leaves, f"{shard.rank}-", shard)
+        final = os.path.join(folder, f"{shard.rank}.json")
+        tmp = f"{final}.tmp-{uuid.uuid4().hex[:8]}"
+        with open(tmp, "w") as f:
+            json.dump({"format": FORMAT, "step": step, "shard": shard.rank,
+                       "shards": shard.count, "leaves": entries}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.rename(tmp, final)
+        _fsync_dir(folder)
+
+    def _shard_set(self, step: int) -> Optional[str]:
+        """The folder of a complete shard set of `step` (every manifest of
+        its count in), or None."""
+        root = self._step_dir(step)
+        try:
+            names = sorted(os.listdir(root))
+        except (FileNotFoundError, NotADirectoryError):
+            return None
+        for name in names:
+            if not name.startswith("shards-"):
+                continue
+            folder = os.path.join(root, name)
+            try:
+                with open(os.path.join(folder, "0.json")) as f:
+                    count = int(json.load(f)["shards"])
+            except (OSError, ValueError, KeyError):
+                # rank 0's manifest not in yet, or torn: a torn one makes
+                # the set incomplete on every rank alike
+                if os.path.isfile(os.path.join(folder, "0.json")):
+                    return folder
+                continue
+            if all(os.path.isfile(os.path.join(folder, f"{r}.json"))
+                   for r in range(count)):
+                return folder
+        return None
 
     def _apply_retention(self) -> None:
         steps = self.all_steps()
@@ -428,19 +553,30 @@ class Checkpointer:
             if step not in keep:
                 shutil.rmtree(self._step_dir(step), ignore_errors=True)
 
-    def _tear_step(self, step: int) -> None:
-        """Truncate the largest leaf file of a committed step in place."""
+    def _tear_step(self, step: int,
+                   shard: Optional[ShardWrite] = None) -> None:
+        """Truncate the largest leaf file of a committed step in place (of
+        this rank's shard with `shard`; its manifest when it holds no
+        piece)."""
         root = self._step_dir(step)
+        prefix = ""
+        if shard is not None:
+            root = os.path.join(root, f"shards-{shard.token}")
+            prefix = f"{shard.rank}-"
         largest, largest_size = None, -1
         for name in os.listdir(root):
-            if name == MANIFEST:
+            if name == MANIFEST or not name.startswith(prefix) \
+                    or not name.endswith(".bin"):
                 continue
             path = os.path.join(root, name)
             size = os.path.getsize(path)
             if size > largest_size:
                 largest, largest_size = path, size
         if largest is None:
-            return
+            if shard is None:
+                return
+            largest = os.path.join(root, f"{shard.rank}.json")
+            largest_size = os.path.getsize(largest)
         with open(largest, "r+b") as f:
             f.truncate(max(largest_size // 2, 1))
         logger.warning("torn-write fault: truncated %s (%d -> %d bytes)",
@@ -502,13 +638,14 @@ class Checkpointer:
     # -- restore -----------------------------------------------------------
     def all_steps(self) -> List[int]:
         """Committed steps, oldest first: directories named by an integer
-        that hold a manifest."""
+        that hold a manifest or a complete shard set."""
         try:
             names = os.listdir(self.directory)
         except FileNotFoundError:
             return []
-        return sorted(int(n) for n in names if n.isdigit() and os.path.isfile(
-            os.path.join(self.directory, n, MANIFEST)))
+        return sorted(int(n) for n in names if n.isdigit() and (
+            os.path.isfile(os.path.join(self.directory, n, MANIFEST))
+            or self._shard_set(int(n)) is not None))
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -516,7 +653,8 @@ class Checkpointer:
 
     def restore(self, state_like: Any, step: Optional[int] = None,
                 partial: bool = False,
-                device: Optional[torch.device] = None) -> Any:
+                device: Optional[torch.device] = None,
+                regions: Any = None) -> Any:
         """The saved state in the structure of `state_like`.
 
         `state_like`'s tensor leaves give each restored leaf's shape
@@ -526,7 +664,10 @@ class Checkpointer:
         own device (the CPU for a "meta" one).  With `partial=True`,
         `state_like` may name some subtrees of the saved state only
         (e.g. {"params": ...} out of a trainer's {"params",
-        "opt_state"}), and only their files are read."""
+        "opt_state"}), and only their files are read.  `regions` (a tree
+        like `state_like` of `Region`s, None for a whole leaf) restores
+        each leaf's block only: a rank's shard in any placement, from a
+        whole-leaf step or from the pieces of a sharded one."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(
@@ -536,7 +677,8 @@ class Checkpointer:
         try:
             with telemetry.span("checkpoint.restore", step=step,
                                 partial=partial):
-                return self._read(step, state_like, partial, device)
+                return self._read(step, state_like, partial, device,
+                                  regions)
         finally:
             # a FAILED attempt (a torn step restore_latest_good walks
             # past) is restore work too
@@ -547,23 +689,52 @@ class Checkpointer:
             goodput.attribute(goodput.BUCKET_CHECKPOINT_RESTORE,
                               max(dt - compiled, 0.0))
 
-    def _read(self, step: int, state_like: Any, partial: bool,
-              device: Optional[torch.device]) -> Any:
+    def _manifests(self, step: int) -> Tuple[str, List[Dict[str, Any]]]:
+        """(folder, manifests) of a committed step: its one manifest, or
+        every shard's (rank order) with each file's length checked first,
+        so a torn shard fails the step on every rank."""
         root = self._step_dir(step)
-        with open(os.path.join(root, MANIFEST)) as f:
-            manifest = json.load(f)
-        if manifest.get("format") != FORMAT:
-            raise ValueError(f"{root}: not a {FORMAT} checkpoint "
-                             f"(format {manifest.get('format')!r})")
-        entries = {tuple(e["path"]): e for e in manifest["leaves"]}
+        whole = os.path.join(root, MANIFEST)
+        folder = root if os.path.isfile(whole) else self._shard_set(step)
+        if folder is None:
+            raise FileNotFoundError(f"checkpoint step {step} under "
+                                    f"{self.config.directory} is not "
+                                    "committed")
+        if folder == root:
+            names = [MANIFEST]
+        else:
+            with open(os.path.join(folder, "0.json")) as f:
+                count = int(json.load(f)["shards"])
+            names = [f"{r}.json" for r in range(count)]
+        manifests = []
+        for name in names:
+            with open(os.path.join(folder, name)) as f:
+                manifest = json.load(f)
+            if manifest.get("format") != FORMAT:
+                raise ValueError(f"{folder}: not a {FORMAT} checkpoint "
+                                 f"(format {manifest.get('format')!r})")
+            manifests.append(manifest)
+        if folder != root:
+            for manifest in manifests:
+                for entry in manifest["leaves"]:
+                    _check_length(folder, entry)
+        return folder, manifests
+
+    def _read(self, step: int, state_like: Any, partial: bool,
+              device: Optional[torch.device], regions: Any = None) -> Any:
+        root, manifests = self._manifests(step)
+        pieces: Dict[Path, list] = {}
+        for manifest in manifests:
+            for e in manifest["leaves"]:
+                pieces.setdefault(tuple(e["path"]), []).append(e)
         like = _flatten(state_like)
-        missing = [p for p, _ in like if p not in entries]
+        missing = [p for p, _ in like if p not in pieces]
         if missing:
             raise KeyError(f"checkpoint step {step} under "
                            f"{self.config.directory} has no leaf at "
                            f"{missing[:3]}")
-        if not partial and len(like) != len(entries):
-            extra = sorted(set(entries) - {p for p, _ in like},
+        if not partial and len(like) != len(pieces):
+            extra = sorted(set(pieces) - {p for p, _ in like},
                            key=str)[:3]
             raise ValueError(
                 f"checkpoint step {step} holds leaves state_like does not "
@@ -572,10 +743,41 @@ class Checkpointer:
         # every named file's length first: a torn step fails before a
         # byte of it is read
         for p, _ in like:
-            _check_length(root, entries[p])
-        values = [_read_leaf(root, entries[p], leaf, device)
+            for e in pieces[p]:
+                _check_length(root, e)
+        wanted = dict(_flatten(regions)) if regions is not None else {}
+        values = [_read_leaf(root, pieces[p], leaf, device, wanted.get(p))
                   for p, leaf in like]
         return tree_unflatten(state_like, values)
+
+    def readable_steps(self) -> List[int]:
+        """Committed steps, oldest first, whose manifests parse and whose
+        every file has its manifest's length (no data is read)."""
+        good = []
+        for step in self.all_steps():
+            try:
+                root, manifests = self._manifests(step)
+                for manifest in manifests:
+                    for e in manifest["leaves"]:
+                        _check_length(root, e)
+            except (OSError, ValueError, KeyError):
+                continue
+            good.append(step)
+        return good
+
+    def rewind(self, step: int, remove: bool = False) -> None:
+        """Forget the saves started after `step` (a run resumed there saves
+        those steps again) and, with `remove`, delete the committed-looking
+        steps after it (the unreadable ones a restore walked past)."""
+        if self._staged is not None and self._staged > step:
+            self._staged = None
+        if not remove:
+            return
+        for bad in self.all_steps():
+            if bad > step:
+                shutil.rmtree(self._step_dir(bad), ignore_errors=True)
+                logger.warning("removed unreadable checkpoint step %d so "
+                               "the re-run can commit it again", bad)
 
     def restore_latest_good(self, state_like: Any, partial: bool = False,
                             remove_unreadable: bool = False,
@@ -613,6 +815,7 @@ class Checkpointer:
                     logger.warning(
                         "removed unreadable checkpoint step %d so the "
                         "re-run can commit it again", bad)
+                self.rewind(step)
             return restored, step
         raise RuntimeError(
             f"none of the {len(steps)} checkpoints under "
@@ -630,22 +833,62 @@ def _check_length(root: str, entry: Dict[str, Any]) -> None:
                          f"{entry['nbytes']} (torn write?)")
 
 
-def _read_leaf(root: str, entry: Dict[str, Any], like: Any,
-               device: Optional[torch.device]) -> Any:
-    if "value" in entry:
-        return entry["value"]
+def _read_file(root: str, entry: Dict[str, Any]) -> torch.Tensor:
+    """One file's tensor, in its saved dtype and shape (a piece's: its
+    region's extents)."""
     path = os.path.join(root, entry["file"])
     nbytes = int(entry["nbytes"])
-    shape = tuple(entry["shape"])
-    if isinstance(like, torch.Tensor) and tuple(like.shape) != shape:
-        raise ValueError(f"{path}: saved shape {shape}, state_like's "
-                         f"{tuple(like.shape)}")
     buf = torch.empty(nbytes, dtype=torch.uint8)
     with open(path, "rb") as f:
         got = f.readinto(memoryview(buf.numpy()))
     if got != nbytes:
         raise ValueError(f"{path}: read {got} of {nbytes} bytes")
-    t = buf.view(getattr(torch, entry["dtype"])).reshape(shape)
+    shape = tuple(e - s for s, e in entry["region"]) if "region" in entry \
+        else tuple(entry["shape"])
+    return buf.view(getattr(torch, entry["dtype"])).reshape(shape)
+
+
+def _read_leaf(root: str, entries: List[Dict[str, Any]], like: Any,
+               device: Optional[torch.device],
+               region: Optional[Region] = None) -> Any:
+    """A leaf (or its `region`) from its entries: a whole file, or the
+    pieces that overlap the region."""
+    first = entries[0]
+    if "value" in first:
+        return first["value"]
+    shape = tuple(first["shape"])
+    if isinstance(like, torch.Tensor) and tuple(like.shape) != shape:
+        raise ValueError(f"{os.path.join(root, first['file'])}: saved "
+                         f"shape {shape}, state_like's {tuple(like.shape)}")
+    bounds = region.bounds if region is not None else tuple(
+        (0, n) for n in shape)
+    t = None
+    for e in entries:
+        have = tuple(map(tuple, e.get("region", [(0, n) for n in shape])))
+        if have == bounds:
+            t = _read_file(root, e)
+            break
+    if t is None:
+        t = torch.empty([b - a for a, b in bounds],
+                        dtype=getattr(torch, first["dtype"]))
+        covered = 0
+        for e in entries:
+            have = e.get("region", [(0, n) for n in shape])
+            over = [(max(a, c), min(b, d))
+                    for (a, b), (c, d) in zip(bounds, have)]
+            if any(lo >= hi for lo, hi in over):
+                continue
+            piece = _read_file(root, e)
+            src = tuple(slice(lo - c, hi - c)
+                        for (lo, hi), (c, _) in zip(over, have))
+            dst = tuple(slice(lo - a, hi - a)
+                        for (lo, hi), (a, _) in zip(over, bounds))
+            t[dst] = piece[src]
+            covered += math.prod(hi - lo for lo, hi in over)
+        if covered != t.numel():
+            raise ValueError(f"{root}: the pieces of {first['path']} cover "
+                             f"{covered} of {t.numel()} entries of "
+                             f"{bounds}")
     if isinstance(like, torch.Tensor):
         dev = device if device is not None else (
             like.device if like.device.type != "meta"

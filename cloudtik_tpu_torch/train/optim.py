@@ -33,6 +33,16 @@ Per optimizer (optax's defaults as the JAX package calls them):
 - lion: sign((1 - b1) g + b1 mu) with b1 = 0.9, then mu = b2 mu +
   (1 - b2) g with b2 = 0.99, stored in `moment_dtype`; plus wd * p.
 
+On a mesh (train/trainer.py) each leaf is this rank's shard of a
+parameter.  The trainer hands the optimizer each leaf's `LeafLayout` (its
+whole shape and the process groups each dimension is split over), and
+Adafactor decides factoring from the whole shape, sums its row and column
+second moments over the shards along the averaged dimensions, and takes
+its block-RMS clip and parameter scale over the whole leaf; the other
+optimizers are elementwise and need none of it.  `state_dim` says how a
+parameter dimension maps into each state tree's leaves, so the trainer
+can place the state.
+
 The states keep optax's layout: {"count", "mu", "nu"} (adamw), {"count",
 "trace"} (sgd: the count is the schedule's), {"count", "v_row", "v_col",
 "v"} (adafactor, with optax's (1,)-shaped placeholders where a leaf does
@@ -53,6 +63,27 @@ from cloudtik_tpu_torch.tree import (Tree, tree_leaves, tree_map,
                                      tree_unflatten)
 
 Schedule = Callable[[int], float]
+
+
+@dataclasses.dataclass
+class LeafLayout:
+    """A parameter leaf held as a shard: its whole shape, and per split
+    dimension the process groups it is split over (summing over each in
+    turn sums over all of its pieces)."""
+
+    shape: Tuple[int, ...]
+    groups: Dict[int, Tuple[Any, ...]]
+
+    def all_groups(self) -> Tuple[Any, ...]:
+        return tuple(g for d in sorted(self.groups) for g in self.groups[d])
+
+
+def _sum_over(x: torch.Tensor, groups) -> torch.Tensor:
+    import torch.distributed as dist
+
+    for g in groups:
+        dist.all_reduce(x, group=g)
+    return x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,9 +201,18 @@ class Optimizer:
         # updates go into, and the clip's (divisor, multiplier)
         self._sink = None
         self._clip = None
+        # on a mesh: a LeafLayout per leaf, in the gradients' leaf order
+        self.layout: Optional[list] = None
 
     def init(self, params: Tree) -> Dict[str, Any]:
         raise NotImplementedError
+
+    def state_dim(self, key: str, shape: Tuple[int, ...],
+                  dim: int) -> Optional[int]:
+        """The dim of state tree `key`'s leaf that parameter dim `dim` of a
+        leaf of whole `shape` becomes, or None where the state leaf has no
+        such dim.  Here every moment is parameter-shaped."""
+        return dim
 
     def _apply(self, grads: Tree, state: Dict[str, Any], params: Tree,
                lr: float) -> Tuple[Tree, Dict[str, Any]]:
@@ -337,28 +377,56 @@ class Adafactor(Optimizer):
         v_row, v_col, v = _leafwise(leaf, params)
         return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
 
+    def state_dim(self, key, shape, dim):
+        dims = factored_dims(shape, self.MIN_DIM_SIZE_TO_FACTOR)
+        if key == "v":
+            return dim if dims is None else None
+        if dims is None:
+            return None         # a (1,) placeholder
+        gone = dims[1] if key == "v_row" else dims[0]
+        return None if dim == gone else dim - (dim > gone)
+
     def _apply(self, grads, state, params, lr):
         count = state["count"]
+        layouts = iter(self.layout) if self.layout is not None else None
         # decay_rate_t = 1 - (count + 1)^-0.8, in f32 as optax computes it
         decay = 1.0 - torch.tensor(count + 1, dtype=torch.float32) \
             ** -self.DECAY_RATE
         keep = 1.0 - decay
 
         def leaf(g, v_row, v_col, v, p):
+            lay = next(layouts) if layouts is not None else None
+            split = lay is not None and bool(lay.all_groups())
+            shape = lay.shape if lay is not None else tuple(p.shape)
+
+            def mean(x, x_dim, p_dim, keepdim=False):
+                # over a dimension that may be split: the local sum, summed
+                # over its groups, over the whole extent
+                groups = lay.groups.get(p_dim, ()) if split else ()
+                if not groups:
+                    return x.mean(dim=x_dim, keepdim=keepdim)
+                return _sum_over(x.sum(dim=x_dim, keepdim=keepdim),
+                                 groups) / shape[p_dim]
+
+            def whole_mean(x):
+                if not split:
+                    return torch.mean(x)
+                return _sum_over(x.sum(), lay.all_groups()) / math.prod(shape)
+
             dt = p.dtype
             decay_t = decay.to(g.device)
             keep_t = keep.to(g.device)
             g_sqr = g * g + _c(self.EPS, g)
-            dims = factored_dims(tuple(p.shape), self.MIN_DIM_SIZE_TO_FACTOR)
+            dims = factored_dims(shape, self.MIN_DIM_SIZE_TO_FACTOR)
             if dims is not None:
                 d1, d0 = dims
                 # optax's f32 decay promotes a bf16 mean; stored in dt
                 v_row = (decay_t * v_row.float() + keep_t
-                         * g_sqr.mean(dim=d0).float()).to(dt)
+                         * mean(g_sqr, d0, d0).float()).to(dt)
                 v_col = (decay_t * v_col.float() + keep_t
-                         * g_sqr.mean(dim=d1).float()).to(dt)
+                         * mean(g_sqr, d1, d1).float()).to(dt)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+                row_mean = mean(v_row, reduced_d1, d1, keepdim=True)
                 row_factor = (v_row / row_mean) ** -0.5
                 col_factor = v_col ** -0.5
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
@@ -366,11 +434,11 @@ class Adafactor(Optimizer):
                 v = (decay_t * v.float() + keep_t * g_sqr.float()).to(dt)
                 u = g * v ** -0.5
             # clip_by_block_rms
-            rms = torch.sqrt(torch.mean(u * u))
+            rms = torch.sqrt(whole_mean(u * u))
             u = u / torch.clamp(rms / _c(self.CLIP_THRESHOLD, rms), min=1.0)
             u = _c(lr, u) * u
             # scale_by_param_block_rms: max(rms(p), 1e-3)
-            p_rms = torch.sqrt(torch.mean(p * p))
+            p_rms = torch.sqrt(whole_mean(p * p))
             scale = torch.where(p_rms <= _c(self.MIN_SCALE, p_rms),
                                 _c(self.MIN_SCALE, p_rms), p_rms)
             u = u * scale

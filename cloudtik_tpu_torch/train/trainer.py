@@ -62,19 +62,36 @@ A step issues what GSPMD derives there:
   `train.grad_sync` seam; the sync tail books to the goodput ledger's
   `grad_sync` bucket.
 
+* a dimension split over two mesh axes (a rule such as
+  `embed=("fsdp", "tensor")`) is cut into their product, row-major over
+  the axes in spec order; the model reads as this rank's slice only the
+  dimensions its Megatron code is written for (`MODEL_READS`), and the
+  trainer gathers every other split before the loss (a gather over a
+  token axis comes back summed in the backward, over another axis as
+  this rank's slice).
+* Adafactor factors from each leaf's whole shape and sums its moments
+  and its clip over the shards (train/optim.py `LeafLayout`).
+
 `fit` takes global batches (every rank the same stream) and hands each
-rank its shard.  A checkpoint gathers each leaf and rank 0 writes the
-port's format; a restore reads it on every rank and re-shards.  MFU
-divides by the world size.  Only specs with logical axes (the
-transformer, LoRA) train on a mesh; the other families' axes, Adafactor
-on split leaves, elastic re-meshing and per-rank checkpoint shards wait
-for slice 13 of the port.
+rank its shard.  On a mesh every rank writes its own checkpoint shard
+(the pieces no other rank holds before it) and a restore, on any mesh or
+one card, reads the pieces that overlap each rank's shard
+(train/checkpoint.py).  MFU divides by the world size.  Only specs with
+logical axes (the transformer, LoRA) train on a mesh; the other
+families' axes wait for slice 14 of the port.
+
+`fit_elastic` trains across slices that come and go
+(train/elastic.py): at a step boundary where the coordinators agree on a
+change, `_apply_remesh` re-forms the group and the mesh (`remesh`), and
+either restores the last commit into the new placements and rewinds (a
+lost slice) or hands the live state to the returning ranks (an expand).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import uuid
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -91,16 +108,20 @@ from cloudtik_tpu_torch.parallel.distributed import (process_count,
                                                      rank_device)
 from cloudtik_tpu_torch.parallel.mesh import (NEXT_SLICE, TOKEN_AXES,
                                               MeshConfig, axis_sizes_of,
-                                              build_mesh, local_batch_slice)
+                                              build_mesh,
+                                              elastic_mesh_config,
+                                              local_batch_slice)
 from cloudtik_tpu_torch.parallel.sharding import (AxisRules, DEFAULT_RULES,
                                                   spec_axes,
                                                   tree_to_shardings_safe)
 from cloudtik_tpu_torch.telemetry import events, goodput, stepprof
 from cloudtik_tpu_torch.telemetry import instruments as ti
+from cloudtik_tpu_torch.train import checkpoint as ckpt_lib
 from cloudtik_tpu_torch.train.checkpoint import (CheckpointConfig,
                                                  Checkpointer)
+from cloudtik_tpu_torch.train import optim as optim_lib
 from cloudtik_tpu_torch.train.data import local_batch
-from cloudtik_tpu_torch.train.optim import (Adafactor, OptimizerConfig,
+from cloudtik_tpu_torch.train.optim import (OptimizerConfig,
                                             _norm_accumulator,
                                             make_optimizer)
 from cloudtik_tpu_torch.train.prefetch import Prefetcher, put_device_batch
@@ -275,16 +296,23 @@ class TrainerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """Where one parameter's shards lie: (dim, mesh axis) pairs."""
+    """Where one parameter's shards lie: (dim, mesh axes) pairs.  A
+    dimension split over several axes is cut into the product of their
+    sizes, and a rank's piece is row-major over the axes in spec order, as
+    a PartitionSpec entry ("fsdp", "tensor") lays it out.  `read_split`
+    names the dims the model reads as this rank's slice
+    (`sharding.MODEL_READS`); the trainer gathers the others before the
+    loss."""
 
-    dims: Tuple[Tuple[int, str], ...] = ()
+    dims: Tuple[Tuple[int, Tuple[str, ...]], ...] = ()
+    read_split: Tuple[int, ...] = ()
 
     @property
     def axes(self) -> Tuple[str, ...]:
-        return tuple(a for _, a in self.dims)
+        return tuple(a for _, axes in self.dims for a in axes)
 
     def dim_of(self, axis: str) -> Optional[int]:
-        return next((d for d, a in self.dims if a == axis), None)
+        return next((d for d, axes in self.dims if axis in axes), None)
 
 
 def _mesh_for(config: MeshConfig):
@@ -317,6 +345,8 @@ class Trainer:
         self.opt_state = None
         self.step = 0
         self._plan = None
+        # this mesh's save token (`_save_token`)
+        self._token = None
         # seconds of the last accumulated step's sync tail (the seam and
         # the closing gather), booked to the grad_sync bucket
         self._last_sync_s = 0.0
@@ -344,52 +374,120 @@ class Trainer:
         specs = tree_to_shardings_safe(self.mesh, self.spec.logical_axes,
                                        shapes, self.config.rules)
 
-        def one(params, spec):
+        # the tensor splits are Megatron's (read split) only when every
+        # one of them is (`sharding.megatron_split`)
+        megatron = sharding.megatron_split(specs, self.spec.logical_axes)
+
+        def one(params, spec, logical):
             if isinstance(params, dict):
-                return {k: one(v, spec[k]) for k, v in params.items()}
+                return {k: one(v, spec[k], logical[k])
+                        for k, v in params.items()}
             if isinstance(params, (list, tuple)):
-                return type(params)(one(v, spec[i])
+                return type(params)(one(v, spec[i], logical[i])
                                     for i, v in enumerate(params))
-            dims = []
+            dims, read = [], []
             for dim, entry in enumerate(spec):
                 axes = spec_axes(entry)
-                if len(axes) > 1:
-                    raise NotImplementedError(
-                        f"a parameter dimension split over {axes}: one mesh "
-                        f"axis a dimension is ported ({NEXT_SLICE})")
-                if axes:
-                    dims.append((dim, axes[0]))
-            return Placement(tuple(dims))
+                if not axes:
+                    continue
+                dims.append((dim, axes))
+                if sharding.reads_split(entry, logical[dim]) and (
+                        megatron or axes != ("tensor",)):
+                    read.append(dim)
+            return Placement(tuple(dims), tuple(read))
 
-        placements = one(shapes, specs)
-        if isinstance(self.optimizer, Adafactor) and any(
-                p.dims for p in tree_leaves(placements)):
-            raise NotImplementedError(
-                "Adafactor factors whole leaves; on sharded parameters it "
-                f"comes with {NEXT_SLICE}")
-        return placements
+        self._shapes = shapes
+        return one(shapes, specs, self.spec.logical_axes)
+
+    def _piece(self, axes: Tuple[str, ...]) -> Tuple[int, int]:
+        """(pieces, this rank's index) of a dimension split over `axes`:
+        row-major over the axes in order."""
+        n, index = 1, 0
+        for axis in axes:
+            size = self._axis(axis)
+            index = index * size + (self.mesh.get_local_rank(axis)
+                                    if size > 1 else 0)
+            n *= size
+        return n, index
 
     def _shard(self, full: torch.Tensor, pl: Placement) -> torch.Tensor:
-        for dim, axis in pl.dims:
-            full = full.chunk(self._axis(axis), dim)[
-                self.mesh.get_local_rank(axis)]
+        for dim, axes in pl.dims:
+            n, index = self._piece(axes)
+            full = full.chunk(n, dim)[index]
         return full.contiguous()
 
+    def _region(self, shape, pl: Placement) -> Tuple[Tuple[int, int], ...]:
+        """This rank's [start, stop) of each dimension of a leaf of global
+        `shape` placed by `pl`."""
+        region = [(0, int(n)) for n in shape]
+        for dim, axes in pl.dims:
+            n, index = self._piece(axes)
+            per = int(shape[dim]) // n
+            region[dim] = (index * per, (index + 1) * per)
+        return tuple(region)
+
     def _gather(self, local, pl: Placement):
-        """The whole leaf from this rank's shard (every rank calls it)."""
-        for dim, axis in reversed(pl.dims):
-            local = collectives.gather_full(local, dim,
-                                            self.mesh.get_group(axis))
+        """The whole leaf from this rank's shard (every rank calls it): the
+        inner axis of a dimension first."""
+        for dim, axes in reversed(pl.dims):
+            for axis in reversed(axes):
+                local = collectives.gather_full(local, dim,
+                                                self.mesh.get_group(axis))
         return local
+
+    def _opt_placements(self) -> Dict[str, Any]:
+        """Per optimizer-state tree, each leaf's Placement: its parameter's
+        where the optimizer keeps a parameter-shaped moment; Adafactor's
+        factored rows and columns drop the averaged dimension and its
+        split, and its (1,)-shaped placeholders are whole
+        (`Optimizer.state_dim`)."""
+        def derive(key):
+            def one(shape, pl):
+                dims = []
+                for dim, axes in pl.dims:
+                    d = self.optimizer.state_dim(key, tuple(shape.shape),
+                                                 dim)
+                    if d is not None:
+                        dims.append((d, axes))
+                return Placement(tuple(dims))
+            return tree_map(one, self._shapes, self._placements)
+
+        abstract = self.optimizer.init(self._shapes)
+        return {k: derive(k) for k, v in abstract.items()
+                if isinstance(v, (dict, list))}
 
     def _map_state(self, fn, state: Dict[str, Any]) -> Dict[str, Any]:
         """fn(leaf, placement) over params and the optimizer state's
-        param-shaped trees (every entry but the step count)."""
-        opt = {k: (tree_map(fn, v, self._placements)
-                   if isinstance(v, (dict, list)) else v)
+        parameter-shaped trees (every entry but the step count)."""
+        placed = self._opt_placements()
+        opt = {k: (tree_map(fn, v, placed[k]) if k in placed else v)
                for k, v in state["opt_state"].items()}
         return {"params": tree_map(fn, state["params"], self._placements),
                 "opt_state": opt}
+
+    def _local_opt_state(self) -> Dict[str, Any]:
+        """A fresh optimizer state of this rank's shards: the state of the
+        whole ("meta") parameters, each leaf as zeros of its shard's shape
+        (every optimizer starts at zeros)."""
+        def zeros(x, pl):
+            shape = [e - s for s, e in self._region(x.shape, pl)]
+            return torch.zeros(shape, dtype=x.dtype, device=self.device)
+        return self._map_state(zeros, {
+            "params": self._shapes,
+            "opt_state": self.optimizer.init(self._shapes)})["opt_state"]
+
+    def _bind_optimizer(self) -> None:
+        """Tell the optimizer each leaf's whole shape and the groups each
+        dimension is split over (Adafactor factors and clips whole
+        leaves)."""
+        def one(_, shape, pl):
+            return optim_lib.LeafLayout(tuple(shape.shape), {
+                dim: tuple(self.mesh.get_group(a) for a in axes
+                           if self._axis(a) > 1)
+                for dim, axes in pl.dims})
+        # in the order the optimizer walks the gradients: the params'
+        self.optimizer.layout = tree_leaves(
+            tree_map(one, self.params, self._shapes, self._placements))
 
     # -- state -------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None,
@@ -409,7 +507,8 @@ class Trainer:
         self.params = tree_map(
             lambda p: p.detach().to(self.device).requires_grad_(True), params)
         self._follow_params()
-        self.opt_state = self.optimizer.init(self.params)
+        self.opt_state = self.optimizer.init(self.params) \
+            if self.mesh is None else self._local_opt_state()
         self.step = 0
 
     @property
@@ -418,10 +517,7 @@ class Trainer:
         return {"params": self.params, "opt_state": self.opt_state}
 
     def _set_state(self, state: Dict[str, Any]) -> None:
-        """Take a whole restored state (this rank's shard of it on a
-        mesh)."""
-        if self.mesh is not None:
-            state = self._map_state(lambda x, pl: self._shard(x, pl), state)
+        """Take a restored state (this rank's shards of it on a mesh)."""
         self.params = tree_map(lambda p: p.detach().requires_grad_(True),
                                state["params"])
         self.opt_state = state["opt_state"]
@@ -429,10 +525,12 @@ class Trainer:
 
     def _follow_params(self) -> None:
         """Re-key the placements in the params' own order (a tree from
-        JAX comes with sorted keys), so their leaves pair up in order."""
+        JAX comes with sorted keys), so their leaves pair up in order, and
+        hand the optimizer its layout."""
         if self._placements is not None:
             self._placements = tree_map(lambda _, pl: pl, self.params,
                                         self._placements)
+            self._bind_optimizer()
 
     def full_state(self) -> Dict[str, Any]:
         """{params, opt_state} whole: on a mesh every leaf gathered (every
@@ -442,12 +540,57 @@ class Trainer:
         return self._map_state(self._gather, self.state)
 
     def _save(self, step: int, force: bool = False) -> bool:
-        """Save the whole state: on a mesh each leaf is gathered and rank
-        0 writes it."""
-        state = self.full_state()
-        if self.mesh is not None and dist.get_rank() != 0:
-            return False
-        return self.checkpointer.save(step, state, force=force)
+        """Save the state: on one card whole; on a mesh each rank writes
+        its own shard, the pieces it holds first (`_writes`)."""
+        if self.mesh is None:
+            return self.checkpointer.save(step, self.state, force=force)
+        placed = dict(ckpt_lib._flatten(self._map_state(
+            lambda x, pl: pl, self.state)))
+        whole = dict(ckpt_lib._flatten(self._abstract_state()))
+        rank = dist.get_rank()
+        leaves, pieces = [], {}
+        for path, leaf in ckpt_lib._flatten(self.state):
+            if not isinstance(leaf, torch.Tensor):
+                if rank == 0:
+                    leaves.append((path, leaf))
+                continue
+            if not self._writes(placed[path]):
+                continue
+            shape = tuple(whole[path].shape)
+            pieces[len(leaves)] = (shape, ckpt_lib.Region(
+                self._region(shape, placed[path])))
+            leaves.append((path, leaf))
+        return self.checkpointer.save(step, leaves, force=force,
+                                      shard=ckpt_lib.ShardWrite(
+                                          rank, dist.get_world_size(),
+                                          self._save_token(), pieces))
+
+    def _writes(self, pl: Placement) -> bool:
+        """Whether this rank writes its piece of a leaf placed by `pl`:
+        the one at index 0 of every mesh axis the leaf is replicated
+        over."""
+        return all(self.mesh.get_local_rank(a) == 0
+                   for a, n in axis_sizes_of(self.mesh).items()
+                   if n > 1 and a not in pl.axes)
+
+    def _save_token(self) -> str:
+        """This mesh's save token (rank 0's, broadcast at the first save on
+        the mesh): a save's shard folder, so shards of two attempts at one
+        step never mix."""
+        if self._token is None:
+            box = [uuid.uuid4().hex[:12]]
+            dist.broadcast_object_list(box, src=0)
+            self._token = box[0]
+        return self._token
+
+    def _regions(self, abstract: Dict[str, Any]) -> Any:
+        """This rank's Region of each tensor leaf of `abstract` (None off a
+        mesh: whole leaves)."""
+        if self.mesh is None:
+            return None
+        return self._map_state(
+            lambda x, pl: ckpt_lib.Region(self._region(x.shape, pl)),
+            abstract)
 
     # -- checkpoint --------------------------------------------------------
     def save_checkpoint(self, force: bool = False) -> bool:
@@ -458,27 +601,33 @@ class Trainer:
         return self._save(self.step, force=force)
 
     def restore_checkpoint(self, step: Optional[int] = None) -> int:
-        """Restore the state onto the trainer's device; returns the step.
-        The template is on the "meta" device: no init runs and no second
-        copy of the state is ever resident."""
+        """Restore the state onto the trainer's device (this rank's shards
+        on a mesh: the pieces that overlap them, of a whole-leaf or a
+        sharded step); returns the step.  The template is on the "meta"
+        device: no init runs and no second copy of the state is ever
+        resident."""
         if self.checkpointer is None:
             raise RuntimeError("checkpointing not configured")
         step = (step if step is not None
                 else self.checkpointer.latest_step())
+        abstract = self._abstract_state()
         self._set_state(self.checkpointer.restore(
-            self._abstract_state(), step=step, device=self.device))
+            abstract, step=step, device=self.device,
+            regions=self._regions(abstract)))
         self.step = int(step)
         self._note_resume()
         return self.step
 
-    def _note_resume(self) -> None:
+    def _note_resume(self, horizon: int = 0) -> None:
         """Reconstruct the restart-replay horizon from the flight
         recorder: steps the previous incarnation already ran (the newest
-        checkpoint_commit of THIS checkpoint directory) that this one
-        re-runs count as restart_replay, not progress."""
+        checkpoint_commit of THIS checkpoint directory, or `horizon` when
+        it is later) that this one re-runs count as restart_replay, not
+        progress."""
         directory = self.checkpointer.config.directory \
             if self.checkpointer is not None else None
-        horizon = goodput.replay_horizon(self.step, directory=directory)
+        horizon = max(horizon, goodput.replay_horizon(self.step,
+                                                      directory=directory))
         self._replay_until = horizon if horizon > self.step else 0
         events.emit("tik_train_resume", step=self.step,
                     replay_until=self._replay_until)
@@ -489,19 +638,54 @@ class Trainer:
         params = self.spec.init(torch.Generator(), torch.device("meta"))
         return {"params": params, "opt_state": self.optimizer.init(params)}
 
+    def _restore_latest_good(self, remove_unreadable: bool = False
+                             ) -> Optional[int]:
+        """Restore the newest readable step (None when there is none);
+        returns it.  On a mesh every rank restores the same step: the
+        oldest of the ranks' newest readable ones (a step whose shards are
+        still landing may be listed on one rank and not on another)."""
+        abstract = self._abstract_state()
+        if self.mesh is None:
+            restored = self.checkpointer.restore_latest_good(
+                abstract, device=self.device,
+                remove_unreadable=remove_unreadable)
+            if restored is None:
+                return None
+            state, step = restored
+            self._set_state(state)
+            return int(step)
+        good = self.checkpointer.readable_steps()
+        newest = torch.tensor([good[-1] if good else -1],
+                              device=self._collective_device())
+        dist.all_reduce(newest, op=dist.ReduceOp.MIN)
+        step = int(newest.item())
+        if step < 0:
+            return None
+        self.checkpointer.rewind(step, remove=remove_unreadable
+                                 and dist.get_rank() == 0)
+        # no rank lists a removed step after this point
+        dist.barrier()
+        self._set_state(self.checkpointer.restore(
+            abstract, step=step, device=self.device,
+            regions=self._regions(abstract)))
+        return step
+
+    def _collective_device(self) -> torch.device:
+        """Where a small tensor for a collective of the default group
+        lives: the card under NCCL, the host under gloo."""
+        return self.device if dist.get_backend() == "nccl" \
+            else torch.device("cpu")
+
     def maybe_resume(self) -> Optional[int]:
         """Resume from the newest *readable* checkpoint, if any: a step
         whose data does not read back (torn write) is skipped and the
         previous committed step is used instead."""
         if self.checkpointer is None or not self.checkpointer.all_steps():
             return None
-        restored = self.checkpointer.restore_latest_good(
-            self._abstract_state(), device=self.device)
-        if restored is None:
+        step = self._restore_latest_good()
+        if step is None:
             return None
-        state, step = restored
-        self._set_state(state)
-        self.step = int(step)
+        self.step = step
         self._note_resume()
         return self.step
 
@@ -518,19 +702,23 @@ class Trainer:
         return tree_unflatten(self.params, list(grads)), metrics
 
     def _use_tree(self):
-        """The tree the loss reads: fsdp-split layer-stack leaves as
-        `LayerShards` (gathered per layer), other fsdp-split leaves
-        gathered now; expert-split leaves stay this rank's."""
-        group = self.mesh.get_group("fsdp") if self._axis("fsdp") > 1 \
-            else None
-
+        """The tree the loss reads: every split dimension the model does not
+        read as this rank's slice (Placement.read_split) gathered, the
+        layer stack's leaves as `LayerShards` (gathered layer by layer)
+        and the others now; the gradient of a gather over a token axis
+        comes back summed, over another axis as this rank's slice."""
         def use(in_layers, p, pl):
-            d = pl.dim_of("fsdp")
-            if d is None or group is None:
+            gathers = [(d, self.mesh.get_group(a), a in TOKEN_AXES)
+                       for d, axes in reversed(pl.dims)
+                       if d not in pl.read_split
+                       for a in reversed(axes) if self._axis(a) > 1]
+            if not gathers:
                 return p
-            if in_layers:
-                return fsdp.LayerShards(p, d, group)
-            return collectives.gather_dim(p, d, group)
+            if in_layers and all(d != 0 for d, _, _ in gathers):
+                return fsdp.LayerShards(p, gathers)
+            for d, group, summed in gathers:
+                p = collectives.gather_dim(p, d, group, summed)
+            return p
 
         params, placements = self.params, self._placements
         if isinstance(params, dict):
@@ -682,26 +870,9 @@ class Trainer:
                 "start (the log has the reason)")
         try:
             if not isinstance(data_iter, Prefetcher):
-                if self.mesh is not None:
-                    # global batches in, this rank's shard on (of each
-                    # microbatch, when the step accumulates)
-                    local_batch_slice(self.mesh,
-                                      self.config.global_batch_size)
-                    accum = max(int(self.config.grad_accum_steps), 1)
-                    data_iter = map(
-                        lambda b: local_batch(b, self.mesh, accum),
-                        data_iter)
-                # integer ids as int64, whatever the source gives; floats
-                # (images, boxes, masks) as they are
-                data_iter = map(_as_long, data_iter)
-                if self.config.prefetch_depth > 0:
-                    # max_items: a fit consumes exactly num_steps batches,
-                    # as the synchronous loop would
-                    prefetcher = data_iter = Prefetcher(
-                        data_iter, device=self.device,
-                        depth=self.config.prefetch_depth,
-                        threads=self.config.prefetch_threads,
-                        max_items=num_steps)
+                # max_items: a fit consumes exactly num_steps batches, as
+                # the synchronous loop would
+                data_iter, prefetcher = self._input(data_iter, num_steps)
             return self._fit_loop(data_iter, num_steps, callbacks or [],
                                   capture)
         finally:
@@ -712,6 +883,233 @@ class Trainer:
             capture.stop(tree_leaves(self.params)[0])
             goodput.LEDGER.tick()
             goodput.maybe_write_snapshot()
+
+    def _input(self, data_iter, max_items: int):
+        """(batches, prefetcher or None): on a mesh each global batch cut
+        to this rank's shard (of each microbatch, when the step
+        accumulates), integer ids as int64, and the async pipeline when
+        `prefetch_depth` > 0."""
+        if self.mesh is not None:
+            mesh = self.mesh
+            local_batch_slice(mesh, self.config.global_batch_size)
+            accum = max(int(self.config.grad_accum_steps), 1)
+            data_iter = map(lambda b: local_batch(b, mesh, accum), data_iter)
+        # integer ids as int64, whatever the source gives; floats (images,
+        # boxes, masks) as they are
+        data_iter = map(_as_long, data_iter)
+        if self.config.prefetch_depth <= 0:
+            return data_iter, None
+        prefetcher = Prefetcher(
+            data_iter, device=self.device, depth=self.config.prefetch_depth,
+            threads=self.config.prefetch_threads, max_items=max_items)
+        return prefetcher, prefetcher
+
+    # -- elastic -----------------------------------------------------------
+    def remesh(self, mesh) -> None:
+        """Rebind to a new mesh: the placements are rebuilt, the spec is
+        bound to it again, the cached overlap plan and the save token are
+        dropped.  The state is NOT moved (`_apply_remesh` restores or
+        hands it over)."""
+        self.mesh = mesh
+        self._placements = self._place()
+        if self.spec.bind_mesh is not None:
+            self.spec.bind_mesh(mesh, self.config.rules)
+        self._plan = None
+        self._token = None
+        if self.params is not None:
+            self._follow_params()
+
+    def fit_elastic(self, data_factory: Callable[[int], Iterator[Dict]],
+                    num_steps: int, coordinator,
+                    callbacks: Optional[list] = None,
+                    join: bool = False) -> Dict[str, Any]:
+        """Elastic multislice fit: train to ``self.step + num_steps``,
+        re-meshing across slices at step boundaries as the coordinator
+        (train/elastic.py `ElasticCoordinator`) decides.
+
+        ``data_factory(step)`` returns an iterator of the global batches
+        for steps ``step+1, step+2, ...``: a re-mesh that resumes from an
+        older committed step rewinds the stream with it, which makes the
+        trajectory after a shrink the one of a fresh K-1 run from the same
+        committed step.  Each history entry carries ``slices``.  With
+        ``join`` this process returns to a running job (a recycled
+        slice's fresh process): it is admitted at the boundary that takes
+        its slice back and receives the live state there.  A process
+        whose slice a decision drops leaves at that boundary: the result
+        then carries ``left``."""
+        if self.checkpointer is None:
+            raise RuntimeError(
+                "elastic training requires checkpointing (set "
+                "checkpoint_dir + checkpoint_every): a lost slice resumes "
+                "from the last committed step")
+        goodput.LEDGER.start_job()
+        stepprof.install_compile_tracking()
+        pending = None
+        if join:
+            pending, _ = coordinator.admit()
+        elif self.params is None:
+            self.init_state()
+        ti.ELASTIC_SLICES.set(len(coordinator.current))
+        end_step = self.step + num_steps
+        history: list = []
+        data_iter = prefetcher = None
+        capture = stepprof.ProfileCapture()
+
+        def rebind_input():
+            # the input binds to a mesh era: built once, kept across
+            # boundary polls, rebuilt only after a re-mesh (the stream
+            # rewinds with the step and the shard follows the new mesh)
+            nonlocal data_iter, prefetcher
+            if prefetcher is not None:
+                prefetcher.close()
+            data_iter, prefetcher = self._input(data_factory(self.step),
+                                                end_step - self.step)
+
+        try:
+            if pending is None:
+                rebind_input()
+            while self.step < end_step:
+                decision = pending if pending is not None \
+                    else coordinator.poll(self.step)
+                pending = None
+                if decision is not None:
+                    # drain the old era's prefetcher before pausing: its
+                    # producers cut batches for the old mesh
+                    if prefetcher is not None:
+                        prefetcher.close()
+                        prefetcher = None
+                    if coordinator.leaves(decision):
+                        coordinator.leave()
+                        return {"history": history, "final_step": self.step,
+                                "left": True}
+                    self._apply_remesh(decision, coordinator)
+                    rebind_input()
+                segment = min(coordinator.check_every, end_step - self.step)
+                out = self._fit_loop(data_iter, segment, callbacks or [],
+                                     capture)
+                for entry in out["history"]:
+                    entry["slices"] = len(coordinator.current)
+                history.extend(out["history"])
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+            goodput.LEDGER.tick()
+            goodput.maybe_write_snapshot()
+        return {"history": history, "final_step": self.step}
+
+    def _apply_remesh(self, decision, coordinator) -> None:
+        """Apply one re-mesh decision at a step boundary.
+
+        Shrink (slice lost): the lost slice's shards are gone, so the last
+        committed checkpoint is restored into the new placements and the
+        step rewinds (the re-run books as restart_replay).  Expand
+        (capacity returned): nothing was lost, so the live state moves to
+        the returning ranks and nothing rewinds.  The pause books to the
+        ``elastic_remesh`` goodput bucket net of the wait, restore and
+        compile seconds booked to their own buckets."""
+        from cloudtik_tpu_torch.train.elastic import (REASON_SLICE_LOST,
+                                                      _note_remesh,
+                                                      fire_remesh_seam)
+
+        t0 = time.perf_counter()
+        compile_mark = goodput.LEDGER.total(goodput.BUCKET_COMPILE)
+        restore_mark = goodput.LEDGER.total(
+            goodput.BUCKET_CHECKPOINT_RESTORE)
+        pre_step = self.step
+        with telemetry.span("train.remesh", reason=decision.reason,
+                            from_slices=len(decision.from_slices),
+                            to_slices=len(decision.to_slices)):
+            fire_remesh_seam(decision.from_slices, decision.to_slices,
+                             decision.reason)
+            # the global batch is kept, so it must split over the new
+            # data-parallel size: refused before any mutation
+            ranks = coordinator.ranks(decision.to_slices)
+            local_batch_slice(elastic_mesh_config(
+                coordinator.mesh_config, len(decision.to_slices)
+            ).axis_sizes(len(ranks)), self.config.global_batch_size)
+            # a wedged async save must not hang the re-mesh; the drain is
+            # checkpoint work, booked to checkpoint_save
+            t_wait = time.perf_counter()
+            self.checkpointer.wait(
+                deadline_s=coordinator.checkpoint_wait_s)
+            wait_s = time.perf_counter() - t_wait
+            goodput.attribute(goodput.BUCKET_CHECKPOINT_SAVE, wait_s)
+            if self.mesh is None and self.params is not None:
+                raise RuntimeError("an elastic re-mesh needs a trainer on "
+                                   "a mesh (coordinator.build_mesh())")
+            self.remesh(coordinator.build_mesh(decision.to_slices))
+            if decision.reason == REASON_SLICE_LOST:
+                step = self._restore_latest_good(remove_unreadable=True)
+                if step is None:
+                    raise RuntimeError(
+                        "elastic shrink needs a committed checkpoint under "
+                        f"{self.checkpointer.config.directory}; none found")
+                self.step = step
+                # steps up to where the wider mesh had reached are
+                # re-runs: the journal sees committed steps only, the
+                # coordinator saw the boundary
+                self._note_resume(horizon=pre_step)
+            else:
+                self._hand_over(decision, coordinator)
+            dt = time.perf_counter() - t0
+            booked = wait_s + \
+                (goodput.LEDGER.total(goodput.BUCKET_COMPILE)
+                 - compile_mark) + \
+                (goodput.LEDGER.total(goodput.BUCKET_CHECKPOINT_RESTORE)
+                 - restore_mark)
+            goodput.attribute(goodput.BUCKET_ELASTIC_REMESH,
+                              max(dt - booked, 0.0))
+            _note_remesh(decision.direction, dt, len(decision.to_slices))
+            # inside the span, so the journal record carries its
+            # traceparent
+            events.emit("tik_elastic_remesh", reason=decision.reason,
+                        from_slices=list(decision.from_slices),
+                        to_slices=list(decision.to_slices),
+                        step=self.step, replayed_to=pre_step,
+                        duration_s=round(dt, 4))
+        coordinator.commit(decision)
+
+    def _hand_over(self, decision, coordinator) -> None:
+        """The expand's live reshard: every state leaf is replicated over
+        `data` (the axis that spans slices), so over each `data` group the
+        rank in the first surviving slice broadcasts its shard, and the
+        returning ranks (no state yet) take it; the step and the number
+        leaves come from that slice's first rank."""
+        if any("data" in pl.axes for pl in tree_leaves(self._placements)):
+            raise NotImplementedError(
+                "an elastic expand hands over state replicated over "
+                "`data`; these rules split a parameter over it")
+        survivors = [s for s in sorted(decision.to_slices)
+                     if s in decision.from_slices]
+        order = coordinator.ranks(decision.to_slices)
+        source = order.index(coordinator.slice_devices[survivors[0]][0])
+        per = coordinator.mesh_config.data
+        block = sorted(decision.to_slices).index(survivors[0]) * per
+        coord = list(self.mesh.get_coordinate())
+        coord[0] = block + coord[0] % per
+        src = int(self.mesh.mesh[tuple(coord)])
+        if self.params is None:
+            abstract = self._abstract_state()
+            state = self._map_state(
+                lambda x, pl: torch.zeros(
+                    [e - s for s, e in self._region(x.shape, pl)],
+                    dtype=x.dtype, device=self.device), abstract)
+        else:
+            state = self.state
+        box = [self.step, [(p, v) for p, v in ckpt_lib._flatten(state)
+                           if not isinstance(v, torch.Tensor)]]
+        dist.broadcast_object_list(box, src=source)
+        group = self.mesh.get_group("data")
+        tensors = sorted(((p, v) for p, v in ckpt_lib._flatten(state)
+                          if isinstance(v, torch.Tensor)), key=lambda x:
+                         repr(x[0]))
+        with torch.no_grad():
+            for _, t in tensors:
+                dist.broadcast(t, src=src, group=group)
+        numbers = dict(box[1])
+        values = [numbers.get(p, v) for p, v in ckpt_lib._flatten(state)]
+        self._set_state(tree_unflatten(state, values))
+        self.step = int(box[0])
 
     def _fit_loop(self, data_iter, num_steps: int, callbacks: list,
                   capture: stepprof.ProfileCapture) -> Dict[str, Any]:

@@ -1445,3 +1445,26 @@ def test_parallel_load_is_tpu_1b_at_full_width():
             load.pipe_micro_peak) == (4, 8, 4, 8)
     assert load.device == "cuda:0"
 
+
+
+def test_elastic_2rank_phase_rehearsal():
+    """The phase's processes over gloo on the CPU at tiny size: the lost
+    process leaves, a fresh one returns and is handed the state, and every
+    check the phase makes on the card but the launch counts and the peaks
+    (no kernel runs here)."""
+    out = chip_smoke.phase_elastic_2rank(chip_smoke.ELASTIC_REHEARSAL)
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    assert out["k1_losses"] == out["fresh_losses"]
+    assert [s for s, k in out["steps"] if k == 1] == [3, 4, 5, 6]
+    assert [r["direction"] for r in out["remeshes"]["survivor"]] == [
+        "shrink", "expand"]
+    assert out["shards_gb"]["written"] > out["shards_gb"]["read"] > 0
+
+
+def test_elastic_load_is_tpu_1b_at_full_width_and_depth():
+    load = chip_smoke.ELASTIC_LOAD
+    assert (load.model, load.seq, load.batch) == ("tpu_1b", 2048, 8)
+    assert load.device == "cuda:0"
+    assert (load.every, load.torn_at, load.lost_at, load.return_at,
+            load.steps) == (2, 4, 4, 6, 8)

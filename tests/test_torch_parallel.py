@@ -241,27 +241,55 @@ def test_slice_groups_and_elastic_config_match_jax():
         TM._per_slice_shape((3, 1, 1, 1, 1, 1), 2)
 
 
-def test_tensor_and_pipe_are_refused_naming_the_next_slice():
-    """Both axes are admitted now (the mesh check that refused them is
-    gone); what the next slice (13) ports still raises, naming it: MoE on
-    a seq mesh here, Adafactor on split leaves and the other families in
-    tests/test_torch_sharded_trainer.py."""
+def test_tensor_and_pipe_are_refused_naming_the_next_slice(spawned):
+    """Both axes are admitted (the mesh check that refused them is gone),
+    and so is MoE on a seq mesh: at seq=2 `moe_ffn` gives one process's
+    outputs, router metrics and gradients.  What is still refused names
+    the next slice (14): the other families on a mesh
+    (tests/test_torch_sharded_trainer.py)."""
     assert not hasattr(TM, "check_ported")
     for axis in ("tensor", "pipe"):
         sizes = TM.MeshConfig(fsdp=1, **{axis: 2}).axis_sizes(2)
         assert TM.mesh_summary(sizes) == {axis: 2}
         with TS.use_mesh(sizes):
             assert TS.mesh_axis_size(axis) == 2
-    assert "slice 13" in TM.NEXT_SLICE
+    assert "slice 14" in TM.NEXT_SLICE
     from cloudtik_tpu_torch.ops.moe import MoEConfig, moe_ffn
 
-    x = torch.zeros(1, 4, 8)
-    w = torch.zeros(8, 2)
-    with TS.use_mesh({"seq": 2}):
-        with pytest.raises(NotImplementedError, match="slice 13"):
-            moe_ffn(x, w, torch.zeros(2, 8, 4), torch.zeros(2, 8, 4),
-                    torch.zeros(2, 4, 8), MoEConfig(num_experts=2,
-                                                    top_k=1))
+    case = _moe_case()
+    x = torch.as_tensor(case["x"]).requires_grad_(True)
+    ws = [torch.as_tensor(case[k]).clone().requires_grad_(True)
+          for k in ("w_router", "w_gate", "w_up", "w_down")]
+    y, metrics = moe_ffn(x, *ws, MoEConfig(**case["moe"]))
+    ((y * torch.as_tensor(case["w"])).sum() + metrics["moe_aux_loss"]
+     + metrics["moe_z_loss"]).backward()
+    for res in spawned["moe_seq2"][:2]:
+        assert torch.allclose(res["y"], y.detach(), rtol=1e-5, atol=1e-6)
+        assert torch.allclose(res["dx"], x.grad, rtol=1e-5, atol=1e-6)
+        for k, v in metrics.items():
+            assert res["metrics"][k] == pytest.approx(
+                float(v.detach()), rel=1e-5, abs=1e-7), k
+        for got, w in zip(res["dw"], ws):
+            assert torch.allclose(got, w.grad, rtol=1e-5, atol=1e-6)
+    # the capacity is the whole row's: some tokens are dropped, and the
+    # slots the second shard takes follow the first shard's
+    assert 0 < metrics["moe_drop_fraction"] < 1
+
+
+def _moe_case():
+    """moe_ffn's inputs: 2 rows of 16 tokens, 4 experts, top 2, capacity
+    factor 1.0 (so rows overflow)."""
+    rng = np.random.default_rng(5)
+    d, f, E = 8, 12, 4
+
+    def arr(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return dict(kind="moe_seq", name="moe_seq2", world=2, what="ffn",
+                x=arr(2, 16, d), w=arr(2, 16, d), w_router=arr(d, E),
+                w_gate=arr(E, d, f, scale=0.3), w_up=arr(E, d, f, scale=0.3),
+                w_down=arr(E, f, d, scale=0.3),
+                moe=dict(num_experts=E, top_k=2, capacity_factor=1.0))
 
 
 def test_ambient_mesh_probes():
@@ -371,12 +399,14 @@ def spawned(tmp_path_factory):
              tokens=tokens),
         dict(kind="collectives", name="expert2_seq2", world=4,
              mesh=dict(fsdp=1, expert=2, seq=2), axis="seq", tokens=tokens),
+        _moe_case(),
     ]
     torch.save({"cases": cases}, out / "cases.pt")
     run_ranks(["tools/torch_parallel_cases.py", str(out / "cases.pt"),
                str(out)], 4, 120, cwd=str(ROOT))
     return {c["name"]: [torch.load(out / f"{c['name']}.rank{r}.pt",
-                                   weights_only=False) for r in range(4)]
+                                   weights_only=False)
+                        for r in range(c["world"])]
             for c in cases}
 
 

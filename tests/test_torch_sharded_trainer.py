@@ -17,6 +17,7 @@ pre-clip global norm within 1e-4, every parameter after the steps within
 the reference).  The planted faults must miss those ceilings.
 """
 
+import shutil
 import threading
 from pathlib import Path
 
@@ -36,7 +37,7 @@ from cloudtik_tpu_torch import convert
 from cloudtik_tpu_torch.models import lora as TL
 from cloudtik_tpu_torch.models import transformer as TT
 from cloudtik_tpu_torch.parallel.launch import run_ranks
-from cloudtik_tpu_torch.parallel.mesh import MeshConfig
+from cloudtik_tpu_torch.parallel.mesh import NEXT_SLICE, MeshConfig
 from cloudtik_tpu_torch.train import data as TD
 from cloudtik_tpu_torch.train import optim as TO
 from cloudtik_tpu_torch.train import trainer as TTR
@@ -80,6 +81,14 @@ CASES = {
     "moe_data2_tensor2": ("tiny_moe", {}, dict(data=2, tensor=2, fsdp=1),
                           4, {}, None),
     "data2_pipe2": ("tiny", {}, dict(data=2, pipe=2, fsdp=1), 4, {}, None),
+    # the refusals slice 13 lifted: MoE routing whole rows over seq, a
+    # dimension split over two mesh axes, Adafactor on split leaves (at
+    # d_model 128 optax factors embed and the MLP; at 64 nothing does)
+    "moe_seq2": ("tiny_moe", {}, dict(seq=2, fsdp=1), 2, {}, None),
+    "embed_fsdp_tensor": ("tiny", {}, dict(fsdp=2, tensor=2), 4,
+                          {"embed": ("fsdp", "tensor")}, None),
+    "adafactor_fsdp2": ("tiny", {"d_model": 128, "d_ff": 256}, dict(fsdp=2),
+                        2, {}, None),
     # accumulated steps, sequential and overlapped (ACCUM)
     "data2_accum2": ("tiny", {}, dict(data=2, fsdp=1), 2, {}, None),
     "data2_accum2_overlap": ("tiny", {}, dict(data=2, fsdp=1), 2, {}, None),
@@ -105,6 +114,8 @@ BATCH = {"pipe4_1f1b": 8, "data2_fsdp2_accum2": 8,
 ACCUM = {"data2_accum2": (2, False), "data2_accum2_overlap": (2, True),
          "data2_fsdp2_accum2": (2, False),
          "data2_fsdp2_accum2_overlap": (2, True)}
+# a case's optimizer where it is not AdamW
+OPTIMIZER = {"adafactor_fsdp2": "adafactor"}
 # LoRA adapters on a mesh: name -> (mesh, world, rules); heads left whole
 # over tensor by the rule table keeps the attention block, base and
 # adapters alike, whole on each tensor rank while the vocab splits
@@ -148,7 +159,7 @@ def spawned(tmp_path_factory):
             params=convert.params_from_jax(jax.tree.map(np.asarray, jp),
                                            "cpu"),
             batches=_batches(b), steps=STEPS, batch=b, seq=S,
-            optimizer=OPT, accum=accum, overlap=overlap))
+            optimizer=_opt(name), accum=accum, overlap=overlap))
     # LoRA adapters trained under fsdp, tensor and pipe, and a checkpoint
     # written by rank 0 from gathered leaves, restored and re-sharded
     jcfg, jp = _jax_params("tiny", {})
@@ -170,6 +181,22 @@ def spawned(tmp_path_factory):
             "cpu"),
         batches=batches, steps=STEPS, batch=B, seq=S, optimizer=OPT,
         checkpoint_dir=str(out / "ckpt"), checkpoint_every=STEPS))
+    # per-rank shards at fsdp=2 x tensor=2, saved every step, beside a
+    # whole-leaf copy of the final state; restored at data=2 and fsdp=4
+    # here, on one rank by the tests
+    cases.append(dict(
+        kind="train", name="shards_fsdp2_tensor2", world=4, model="tiny",
+        mesh=dict(fsdp=2, tensor=2), params=convert.params_from_jax(
+            jax.tree.map(np.asarray, _jax_params("tiny", {})[1]), "cpu"),
+        batches=batches, steps=STEPS, batch=B, seq=S, optimizer=OPT,
+        checkpoint_dir=str(out / "shards"), checkpoint_every=1,
+        whole_dir=str(out / "whole")))
+    for name, mesh, world in (("restore_data2", dict(data=2, fsdp=1), 2),
+                              ("restore_fsdp4", dict(fsdp=4), 4)):
+        cases.append(dict(kind="restore", name=name, world=world,
+                          model="tiny", mesh=mesh, batch=B, seq=S,
+                          optimizer=OPT, sharded=str(out / "shards"),
+                          whole=str(out / "whole")))
     # a tensor x pipe checkpoint, restored on the same mesh here and on
     # one rank by the test
     cases.append(dict(
@@ -196,7 +223,8 @@ def spawned(tmp_path_factory):
     try:
         for name, (model, over, mesh, world, rules, _) in CASES.items():
             _jax_run(model, over, mesh, world, rules,
-                     b=BATCH.get(name, B), accum=ACCUM.get(name))
+                     b=BATCH.get(name, B), accum=ACCUM.get(name),
+                     opt=OPTIMIZER.get(name, "adamw"))
         for mesh, world, rules in LORA.values():
             _jax_run("tiny", {}, mesh, world, rules, lora=_lora(jcfg))
     finally:
@@ -206,7 +234,18 @@ def spawned(tmp_path_factory):
     got = {c["name"]: torch.load(out / f"{c['name']}.rank0.pt",
                                  weights_only=False) for c in cases}
     got["checkpoint_tensor2_pipe2"]["dir"] = str(out / "ckpt_tp")
+    got["shards_fsdp2_tensor2"].update(dir=str(out / "shards"),
+                                       whole=str(out / "whole"))
+    for name in ("restore_data2", "restore_fsdp4"):
+        got[name] = [torch.load(out / f"{name}.rank{r}.pt",
+                                weights_only=False)
+                     for r in range(dict(restore_data2=2,
+                                         restore_fsdp4=4)[name])]
     return got
+
+
+def _opt(name):
+    return dict(OPT, name=OPTIMIZER.get(name, "adamw"))
 
 
 def _lora(jcfg):
@@ -217,19 +256,20 @@ def _lora(jcfg):
 _JAX_RUNS = {}
 
 
-def _jax_run(model, over, mesh, world, rules, lora=None, b=B, accum=None):
+def _jax_run(model, over, mesh, world, rules, lora=None, b=B, accum=None,
+             opt="adamw"):
     """The JAX Trainer's history and final params (one run per
     configuration: a planted fault reuses its clean case's).  `accum` is
     (grad_accum_steps, overlap_grad_sync) or None for one step a batch."""
     key = repr((model, over, mesh, world, rules, lora is not None, b,
-                accum))
+                accum, opt))
     if key not in _JAX_RUNS:
         _JAX_RUNS[key] = _jax_fit(model, over, mesh, world, rules, lora, b,
-                                  accum or (1, None))
+                                  accum or (1, None), opt)
     return _JAX_RUNS[key]
 
 
-def _jax_fit(model, over, mesh, world, rules, lora, b, accum):
+def _jax_fit(model, over, mesh, world, rules, lora, b, accum, opt):
     jcfg, jp = _jax_params(model, over)
     spec = JTR.transformer_spec(jcfg)
     if lora is not None:
@@ -237,8 +277,9 @@ def _jax_fit(model, over, mesh, world, rules, lora, b, accum):
     mesh_cfg = JMeshConfig(**{"fsdp": 1, **mesh})
     jtc = JTR.TrainerConfig(
         global_batch_size=b, seq_len=S, mesh=mesh_cfg,
-        optimizer=JO.OptimizerConfig(**OPT), log_every=1, prefetch_depth=0,
-        rules=jmake_rules(**rules), grad_accum_steps=accum[0],
+        optimizer=JO.OptimizerConfig(**OPT, name=opt), log_every=1,
+        prefetch_depth=0, rules=jmake_rules(**rules),
+        grad_accum_steps=accum[0],
         overlap_grad_sync=accum[1])
     trainer = JTR.Trainer(spec, jtc, mesh=jbuild_mesh(
         mesh_cfg, devices=jax.devices()[:world]))
@@ -251,7 +292,7 @@ def _jax_fit(model, over, mesh, world, rules, lora, b, accum):
                                         trainer.state["params"])
 
 
-def _one_rank(model, over, lora=None, b=B, accum=1):
+def _one_rank(model, over, lora=None, b=B, accum=1, opt="adamw"):
     cfg = TT.config(model, dtype=torch.float32, **over)
     _, jp = _jax_params(model, over)
     tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
@@ -260,8 +301,9 @@ def _one_rank(model, over, lora=None, b=B, accum=1):
         spec = TL.lora_spec(tp, cfg, TL.LoRAConfig(rank=4))
         tp = convert.params_from_jax(jax.tree.map(np.asarray, lora), "cpu")
     trainer = TTR.Trainer(spec, TTR.TrainerConfig(
-        global_batch_size=b, seq_len=S, optimizer=TO.OptimizerConfig(**OPT),
-        log_every=1, prefetch_depth=0, grad_accum_steps=accum),
+        global_batch_size=b, seq_len=S,
+        optimizer=TO.OptimizerConfig(**OPT, name=opt), log_every=1,
+        prefetch_depth=0, grad_accum_steps=accum),
         device="cpu")
     trainer.init_state(params=tp)
     out = trainer.fit(iter(_batches(b)), STEPS)
@@ -307,8 +349,9 @@ def test_sharded_steps_match_jax_and_one_rank(spawned, name):
     got = spawned[name]
     b = BATCH.get(name, B)
     accum = ACCUM.get(name)
+    opt = OPTIMIZER.get(name, "adamw")
     jhist, jparams = _jax_run(model, over, mesh, world, rules, b=b,
-                              accum=accum)
+                              accum=accum, opt=opt)
     gaps = _gaps(got, jhist, jparams)
     assert _within(gaps), gaps
     if accum is not None:
@@ -322,7 +365,7 @@ def test_sharded_steps_match_jax_and_one_rank(spawned, name):
         return
     # the port on one rank: everything within 1e-5
     hist, params = _one_rank(model, over, b=b,
-                             accum=accum[0] if accum else 1)
+                             accum=accum[0] if accum else 1, opt=opt)
     for h, o in zip(got["history"], hist):
         for k in ("loss", "grad_norm", "accuracy"):
             assert _rel(h[k], o[k]) <= REL, k
@@ -442,9 +485,11 @@ def test_mesh_wider_than_the_group_is_refused():
 @pytest.mark.parametrize("axis", ["tensor", "pipe"])
 def test_tensor_and_pipe_name_the_next_slice(axis):
     """Both axes are admitted (one process is refused only for want of
-    ranks); what slice 13 still ports raises, naming it, on a mesh with
-    the axis: Adafactor on split leaves and a family without logical
-    axes."""
+    ranks), and so is Adafactor on their split leaves: its state is
+    placed from the whole leaves (at tiny's width nothing factors, so its
+    v follows the parameters and the row and column slots are whole).
+    What slice 14 ports still raises, naming it, on a mesh with the axis:
+    a family without logical axes."""
     cfg = TT.config("tiny", dtype=torch.float32)
     with pytest.raises(ValueError, match="devices"):
         TTR.Trainer(TTR.transformer_spec(cfg), TTR.TrainerConfig(
@@ -455,11 +500,90 @@ def test_tensor_and_pipe_name_the_next_slice(axis):
     assert any(pl.dims for pl in jax.tree.leaves(
         trainer._placements, is_leaf=lambda x: isinstance(
             x, TTR.Placement)))
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        TTR.Trainer(TTR.transformer_spec(cfg), TTR.TrainerConfig(
-            optimizer=TO.OptimizerConfig(name="adafactor")),
-            device="cpu", mesh=mesh)
+    ada = TTR.Trainer(TTR.transformer_spec(cfg), TTR.TrainerConfig(
+        optimizer=TO.OptimizerConfig(name="adafactor")),
+        device="cpu", mesh=mesh)
+    placed = ada._opt_placements()
+
+    def dims(tree):
+        return jax.tree.map(lambda pl: pl.dims, tree, is_leaf=lambda x:
+                            isinstance(x, TTR.Placement))
+
+    assert dims(placed["v"]) == dims(ada._placements)
+    assert not any(pl.dims for key in ("v_row", "v_col") for pl in
+                   jax.tree.leaves(placed[key], is_leaf=lambda x: isinstance(
+                       x, TTR.Placement)))
+    assert "slice 14" in NEXT_SLICE
     spec = TTR.ModelSpec(init=TTR.transformer_spec(cfg).init,
                          loss_fn=TTR.transformer_spec(cfg).loss_fn)
-    with pytest.raises(NotImplementedError, match="slice 13"):
+    with pytest.raises(NotImplementedError, match="slice 14"):
         TTR.Trainer(spec, TTR.TrainerConfig(), device="cpu", mesh=mesh)
+
+
+def test_two_axis_dimension_and_factored_adafactor_are_placed(spawned):
+    """embed over ("fsdp", "tensor") cuts that dimension four ways, and
+    the heads (whose `tensor` the embed took) stay whole; Adafactor's
+    factored slots drop the averaged dimension and its split."""
+    local = spawned["embed_fsdp_tensor"]["local"]
+    assert local["layers"]["wq"] == (2, 16, 4, 16)
+    assert local["layers"]["w_down"] == (2, 64, 32)
+    assert local["embed"] == (128, 32)
+    cfg = TT.config("tiny", dtype=torch.float32, d_model=128, d_ff=256)
+    trainer = TTR.Trainer(TTR.transformer_spec(cfg), TTR.TrainerConfig(
+        optimizer=TO.OptimizerConfig(name="adafactor")), device="cpu",
+        mesh=MeshConfig(fsdp=2).axis_sizes(2))
+    placed = trainer._opt_placements()
+    # w_gate [L, 128, 256]: rows are dim 1 (split over fsdp), columns 2
+    assert trainer._placements["layers"]["w_gate"].dims == ((1, ("fsdp",)),)
+    assert placed["v_row"]["layers"]["w_gate"].dims == ((1, ("fsdp",)),)
+    assert placed["v_col"]["layers"]["w_gate"].dims == ()
+
+
+def test_checkpoint_is_written_as_per_rank_shards(spawned):
+    """Every rank writes a manifest of its own; only the ranks at index 0
+    of the axes a leaf is replicated over hold its pieces."""
+    root = Path(spawned["shards_fsdp2_tensor2"]["dir"])
+    assert sorted(p.name for p in root.iterdir()) == ["1", "2"]
+    (folder,) = [p for p in (root / "2").iterdir()]
+    assert folder.name.startswith("shards-")
+    names = sorted(p.name for p in folder.iterdir() if p.suffix == ".json")
+    assert names == [f"{r}.json" for r in range(4)]
+
+
+@pytest.mark.parametrize("name", ["restore_data2", "restore_fsdp4"])
+def test_shards_restore_on_another_mesh_bit_for_bit(spawned, name):
+    for res in spawned[name]:
+        assert res["steps"] == (STEPS, STEPS) and res["leaves"] > 0
+        assert res["equal"]
+
+
+def _restore_one_rank(directory):
+    cfg = TT.config("tiny", dtype=torch.float32)
+    trainer = TTR.Trainer(TTR.transformer_spec(cfg), TTR.TrainerConfig(
+        global_batch_size=B, seq_len=S, optimizer=TO.OptimizerConfig(**OPT),
+        checkpoint_dir=str(directory), checkpoint_every=1000),
+        device="cpu")
+    return trainer
+
+
+def test_shards_restore_on_one_rank_and_a_cut_shard_is_skipped(spawned,
+                                                               tmp_path):
+    got = spawned["shards_fsdp2_tensor2"]
+    a, b = _restore_one_rank(got["dir"]), _restore_one_rank(got["whole"])
+    assert a.restore_checkpoint() == b.restore_checkpoint() == STEPS
+    for x, y in zip(jax.tree.leaves(a.state), jax.tree.leaves(b.state)):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x.detach(), y.detach())
+        else:
+            assert x == y
+    # one rank's shard of the newest step cut short: the step is skipped
+    cut = tmp_path / "cut"
+    shutil.copytree(got["dir"], cut)
+    (folder,) = [p for p in (cut / str(STEPS)).iterdir()]
+    piece = max(folder.glob("1-*.bin"), key=lambda p: p.stat().st_size)
+    with open(piece, "r+b") as f:
+        f.truncate(piece.stat().st_size // 2)
+    trainer = _restore_one_rank(cut)
+    assert trainer.checkpointer.all_steps() == [1, STEPS]
+    assert trainer.checkpointer.readable_steps() == [1]
+    assert trainer.maybe_resume() == 1

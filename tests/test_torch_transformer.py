@@ -8,6 +8,7 @@ in f32 between the einsums).
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,8 @@ from cloudtik_tpu_torch.models import transformer as TT
 # one intra-op thread: a first multi-threaded CPU f32 exp can be off by
 # ~1e-4 in one thread's chunk (tools/repro_torch_cpu_exp.py)
 torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
 
 _DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
@@ -150,19 +153,29 @@ def test_tied_embeddings_match_jax():
                                rtol=1e-4)
 
 
-def test_moe_is_not_ported_yet():
-    """MoE is ported (tests/test_torch_moe.py) but for a seq-sharded mesh,
-    where a routing group would span the sequence shards."""
-    from cloudtik_tpu_torch.parallel.sharding import use_mesh
+def test_moe_is_not_ported_yet(tmp_path):
+    """MoE is ported (tests/test_torch_moe.py), a seq-sharded mesh
+    included: two gloo ranks holding half the sequence each give the
+    logits of one process, each row one routing group with the whole
+    row's capacity."""
+    from cloudtik_tpu_torch.parallel.launch import run_ranks
 
-    cfg = TT.config("tiny_moe", dtype=torch.float32,
-                    attention_impl="reference")
-    params = TT.init_params(torch.Generator(), cfg, "cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    positions = torch.arange(8)[None]
-    with use_mesh({"seq": 2}), pytest.raises(NotImplementedError,
-                                             match="MoE"):
-        TT.forward(params, tokens, cfg, positions=positions)
+    cfg = TT.config("tiny_moe", dtype=torch.float32)
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = torch.as_tensor(_tokens(2, 16, cfg.vocab_size))
+    with torch.no_grad():
+        want = TT.forward(params, tokens, cfg)
+    want = want[0] if isinstance(want, tuple) else want
+    torch.save({"cases": [dict(kind="moe_seq", name="forward", world=2,
+                                what="forward", model="tiny_moe",
+                                params=params, tokens=tokens.numpy())]},
+               tmp_path / "cases.pt")
+    run_ranks(["tools/torch_parallel_cases.py", str(tmp_path / "cases.pt"),
+               str(tmp_path)], 2, 120, cwd=str(ROOT))
+    for r in range(2):
+        got = torch.load(tmp_path / f"forward.rank{r}.pt",
+                         weights_only=False)["logits"]
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_params_round_trip_through_numpy():

@@ -5,8 +5,13 @@
 
 Run by `cloudtik_tpu_torch.parallel.launch.run_ranks` with as many ranks
 as the widest case.  `cases.pt` holds {"cases": [...]}; each case names
-its `kind` ("train", "ring", "collectives", "pipeline" or "vocab"), its
-`world` (ranks above it sit the case out) and its inputs.  Each case gets
+its `kind` ("train", "ring", "collectives", "pipeline", "vocab",
+"elastic" or "restore"), its `world` (ranks above it sit the case out)
+and its inputs.  An "elastic" case forms its own groups through its
+store: the ranks of the lost slice leave (their result goes to
+`<name>.rank<r>.left.pt` and the process exits `launch.LEFT`), and come
+back as fresh processes (`launch.request_return`) that join the
+running case and then go on with the cases after it.  Each case gets
 its own process group (gloo on the CPU unless the case says "device":
 "cuda", a FileStore in `out_dir`, a 60 s timeout), and each rank writes
 its result to `<out_dir>/<name>.rank<r>.pt`.  A case may force the route
@@ -28,8 +33,10 @@ package in their own process.
 
 from __future__ import annotations
 
+import json
 import os
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -183,6 +190,17 @@ def case_train(case, device):
         result["buckets"] = len(trainer.overlap_plan().buckets)
     if ledger is not None:
         result["ledger"] = ledger(case, trainer)
+    if case.get("whole_dir"):
+        # the same state as one whole-leaf checkpoint, for the restores
+        # that hold the shards to it
+        from cloudtik_tpu_torch.train.checkpoint import (CheckpointConfig,
+                                                         Checkpointer)
+
+        if dist.get_rank() == 0:
+            whole = Checkpointer(CheckpointConfig(
+                directory=case["whole_dir"], async_save=False))
+            whole.save(trainer.step, full, force=True)
+            whole.close()
     if case.get("checkpoint_dir"):
         trainer.checkpointer.wait()
         dist.barrier()
@@ -363,6 +381,51 @@ def case_ring(case, device):
             "dv": whole(vl.grad)}
 
 
+def case_moe_seq(case, device):
+    """MoE on a seq mesh of the whole world, each rank holding its slice
+    of the sequence: `moe_ffn` ("what": "ffn", the loss sum(y * w) plus
+    both router losses, with the gradients of x and the four weights) or
+    tiny_moe's forward ("forward").  Outputs gathered along the sequence;
+    the weights' gradients summed over `seq` (each rank's is its tokens'
+    share)."""
+    from cloudtik_tpu_torch.ops.moe import MoEConfig, moe_ffn
+
+    n = dist.get_world_size()
+    mesh = PM.build_mesh(PM.MeshConfig(seq=n, fsdp=1))
+    i = mesh.get_local_rank("seq")
+    group = mesh.get_group("seq")
+
+    def mine(t):
+        S = t.shape[1] // n
+        return t[:, i * S:(i + 1) * S]
+
+    def whole(t):
+        return collectives.gather_full(t.detach().contiguous(), 1,
+                                       group).cpu()
+
+    if case["what"] == "forward":
+        from cloudtik_tpu_torch.models import transformer as T
+
+        cfg = T.config(case["model"], dtype=torch.float32)
+        tokens = torch.as_tensor(case["tokens"]).to(device)
+        with sharding.use_mesh(mesh), torch.no_grad():
+            logits = T.forward(case["params"], mine(tokens), cfg)
+        logits = logits[0] if isinstance(logits, tuple) else logits
+        return {"logits": whole(logits)}
+    x = mine(torch.as_tensor(case["x"])).clone().requires_grad_(True)
+    ws = [torch.as_tensor(case[k]).clone().requires_grad_(True)
+          for k in ("w_router", "w_gate", "w_up", "w_down")]
+    with sharding.use_mesh(mesh):
+        y, metrics = moe_ffn(x, *ws, MoEConfig(**case["moe"]))
+        loss = (y * mine(torch.as_tensor(case["w"]))).sum() \
+            + metrics["moe_aux_loss"] + metrics["moe_z_loss"]
+        loss.backward()
+        dw = [collectives.all_reduce(w.grad, ("seq",)).cpu() for w in ws]
+    return {"y": whole(y), "dx": whole(x.grad),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "dw": dw}
+
+
 def case_collectives(case, device):
     """The mesh layout, local_batch's rows, and the collectives' gradients,
     on the mesh the case names."""
@@ -407,9 +470,178 @@ def case_collectives(case, device):
     return result
 
 
+def case_elastic(case, device, out_dir, join=False):
+    """The elastic drill: `world` ranks in `num_slices` slices of
+    `per_slice` train `steps` global batches with `fit_elastic`, saving
+    every `checkpoint_every` steps; the save of `torn_at` tears, slice
+    `lost` is dropped at boundary `lost_at` (its ranks leave), and when the
+    survivors reach `return_at` they ask for its ranks back, which return
+    as fresh processes and are handed the live state.  The survivors then
+    run a fresh K-1 trainer restored from `fresh_from` over the steps the
+    K-1 era ran, in their own group."""
+    from cloudtik_tpu_torch.faults import seams
+    from cloudtik_tpu_torch.faults.plan import FaultPlan, FaultPoint
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.parallel import launch
+    from cloudtik_tpu_torch import telemetry
+    from cloudtik_tpu_torch.telemetry import events, goodput
+    from cloudtik_tpu_torch.telemetry import instruments as ti
+    from cloudtik_tpu_torch.train.elastic import (ElasticCoordinator,
+                                                  StoreMembership)
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.train.trainer import (Trainer, TrainerConfig,
+                                                  transformer_spec)
+    from cloudtik_tpu_torch.tree import tree_map
+
+    rank = int(os.environ["RANK"])
+    name = case["name"]
+    out = Path(out_dir)
+    events.install(str(out / f"{name}.events.rank{rank}.inc"
+                       f"{launch.incarnation()}.jsonl"))
+    telemetry.reset()
+    cfg = T.config(case["model"], dtype=torch.float32,
+                   **case.get("overrides", {}))
+    spec = transformer_spec(cfg)
+    batches = case["batches"]
+
+    def data_factory(step):
+        return iter(batches[step:])
+
+    def tcfg(every):
+        return TrainerConfig(
+            global_batch_size=case["batch"], seq_len=case["seq"],
+            optimizer=OptimizerConfig(**case.get("optimizer", {})),
+            log_every=1, prefetch_depth=0, checkpoint_every=every,
+            checkpoint_dir=str(out / f"{name}.ckpt"))
+
+    store = distributed.elastic_store(str(out / f"{name}.store"), 60.0)
+    groups = PM.slice_device_groups(range(case["world"]),
+                                    case["num_slices"])
+    membership = StoreMembership(store, groups)
+    coord = ElasticCoordinator(
+        membership, mesh_config=PM.MeshConfig(**case["per_slice"]),
+        slice_devices=groups, store=store, rank=rank, backend="gloo",
+        remesh_dwell_s=0.0, checkpoint_wait_s=60.0, timeout_s=60.0)
+    lost = groups[case["lost"]]
+    fired = {"back": False}
+
+    def chaos(trainer, entry):
+        # the survivors bring the lost slice back: its ranks are started
+        # again, and every survivor waits until they have registered, so
+        # the boundary's decision is the same whichever rank writes it
+        if (entry["step"] != case["return_at"] or fired["back"]
+                or len(coord.current) != case["num_slices"] - 1):
+            return
+        fired["back"] = True
+        if rank == min(coord.ranks()):
+            for r in lost:
+                (out / f"return.rank{r}.json").write_text(
+                    json.dumps({"case": name}))
+                launch.request_return(r)
+        deadline = time.monotonic() + 60.0
+        while case["lost"] not in membership.alive_slices():
+            if time.monotonic() > deadline:
+                raise TimeoutError("the lost slice did not come back")
+            time.sleep(0.05)
+
+    plan = FaultPlan([
+        FaultPoint("checkpoint.save", "torn_write", times=1,
+                   match={"step": case["torn_at"]}),
+        FaultPoint("elastic.slice_lost", "drop", times=1,
+                   match={"slice": case["lost"], "step": case["lost_at"]}),
+    ], seed=42)
+    if join:
+        trainer = Trainer(spec, tcfg(case["checkpoint_every"]),
+                          device=device)
+        with seams.armed(plan):
+            res = trainer.fit_elastic(data_factory, case["steps"], coord,
+                                      join=True)
+    else:
+        trainer = Trainer(spec, tcfg(case["checkpoint_every"]),
+                          device=device, mesh=coord.build_mesh())
+        trainer.init_state(params=tree_map(lambda t: t.to(device),
+                                           case["params"]))
+        with seams.armed(plan):
+            res = trainer.fit_elastic(data_factory, case["steps"], coord,
+                                      callbacks=[chaos])
+    if res.get("left"):
+        return {"history": res["history"], "left": True,
+                "step": res["final_step"]}
+    trainer.checkpointer.wait()
+    dist.barrier()      # every rank's last shard is in
+    full = trainer.full_state()
+    result = {
+        "history": res["history"], "final_step": res["final_step"],
+        "params": tree_map(lambda t: t.detach().cpu(), full["params"]),
+        "slices": list(coord.current), "world": dist.get_world_size(),
+        "joined": join, "rank_now": dist.get_rank(),
+        "buckets": dict(goodput.LEDGER.snapshot()["buckets"]),
+        "remeshes": {d: ti.ELASTIC_REMESHES.value(direction=d)
+                     for d in ("shrink", "expand")},
+        "elastic_slices": ti.ELASTIC_SLICES.value(),
+        "torn": [e for e in plan.trace if e["kind"] == "torn_write"],
+        "events": [e for e in events.read_events()
+                   if e["name"] in ("tik_elastic_remesh",
+                                    "tik_train_resume")],
+        "committed": trainer.checkpointer.all_steps()}
+    trainer.checkpointer.close()
+    dist.destroy_process_group()
+    events.uninstall()
+    survivors = [r for s in sorted(groups) if s != case["lost"]
+                 for r in groups[s]]
+    if rank in survivors and not join:
+        # a fresh K-1 run from the committed step, in a group of its own
+        distributed.reform_group(
+            distributed.elastic_store(str(out / f"{name}.fresh.store"),
+                                      60.0),
+            0, survivors.index(rank), len(survivors), backend="gloo",
+            timeout_s=60.0)
+        fresh = Trainer(spec, tcfg(1000), device=device, mesh=PM.build_mesh(
+            PM.elastic_mesh_config(PM.MeshConfig(**case["per_slice"]), 1)))
+        fresh.restore_checkpoint(step=case["fresh_from"])
+        era = [e for e in res["history"]
+               if e["slices"] == case["num_slices"] - 1]
+        result["fresh"] = fresh.fit(data_factory(case["fresh_from"]),
+                                    len(era))["history"]
+        fresh.checkpointer.close()
+        dist.destroy_process_group()
+    return result
+
+
+def case_restore(case, device):
+    """A checkpoint restored into this mesh's placements (the case's
+    `mesh`) from its per-rank shards and from a whole-leaf copy of the
+    same state: this rank's shards of both, which must be equal."""
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.train.trainer import (Trainer, TrainerConfig,
+                                                  transformer_spec)
+    from cloudtik_tpu_torch.tree import tree_leaves
+
+    cfg = T.config(case["model"], dtype=torch.float32)
+    got = {}
+    for which in ("sharded", "whole"):
+        trainer = Trainer(transformer_spec(cfg), TrainerConfig(
+            global_batch_size=case["batch"], seq_len=case["seq"],
+            mesh=PM.MeshConfig(**case["mesh"]),
+            optimizer=OptimizerConfig(**case.get("optimizer", {})),
+            checkpoint_dir=case[which], checkpoint_every=1000),
+            device=device)
+        step = trainer.restore_checkpoint()
+        got[which] = (step, [t.detach().clone() for t in
+                             tree_leaves(trainer.state)
+                             if isinstance(t, torch.Tensor)])
+    (s1, a), (s2, b) = got["sharded"], got["whole"]
+    return {"steps": (s1, s2), "leaves": len(a),
+            "equal": s1 == s2 and len(a) == len(b) and all(
+                x.shape == y.shape and torch.equal(x, y)
+                for x, y in zip(a, b))}
+
+
 CASES = {"train": case_train, "ring": case_ring,
          "collectives": case_collectives, "pipeline": case_pipeline,
-         "vocab": case_vocab}
+         "vocab": case_vocab, "restore": case_restore,
+         "moe_seq": case_moe_seq}
 
 
 def _route(case):
@@ -422,13 +654,32 @@ def _route(case):
 
 
 def main(cases_path: str, out_dir: str) -> int:
+    from cloudtik_tpu_torch.parallel import launch
+
     torch.set_num_threads(1)
     rank = int(os.environ["RANK"])
     cases = torch.load(cases_path, weights_only=False)["cases"]
-    for n, case in enumerate(cases):
+    first, joining = 0, launch.incarnation() > 0
+    if joining:
+        # a returning process: on with the elastic case it was asked back
+        # to, then the cases after it
+        name = json.loads((Path(out_dir) / f"return.rank{rank}.json")
+                          .read_text())["case"]
+        first = next(i for i, c in enumerate(cases) if c["name"] == name)
+    for n, case in enumerate(cases[first:], start=first):
         if rank >= case["world"]:
             continue
         device = case.get("device", "cpu")
+        if case["kind"] == "elastic":
+            result = case_elastic(case, device, out_dir,
+                                  join=joining and n == first)
+            if result.get("left"):
+                torch.save(result, Path(out_dir)
+                           / f"{case['name']}.rank{rank}.left.pt")
+                return launch.LEFT
+            torch.save(result, Path(out_dir)
+                       / f"{case['name']}.rank{rank}.pt")
+            continue
         distributed.auto_initialize(
             num_processes=case["world"], process_id=rank,
             backend="gloo", timeout_s=60.0,
