@@ -275,6 +275,21 @@ run with a non-zero exit:
            shards.  ms/step at K=2 and K=1, the shrink's and the expand's
            seconds (wait, restore, the rest), the GB the shards write and
            read, the peak GB a rank
+  zoo_2rank  the other model families on a mesh: two ranks share card
+           0 over gloo.  Mask R-CNN (maskrcnn_resnet50 at 512, the
+           maskrcnn_coco recipe's configuration) at data=2, global batch
+           8: one f32 step with TF32 off within 1e-3 of one process on the
+           same batch (the loss and every leaf; BN's statistics over both
+           ranks' images), the same step with BN on each rank's own
+           statistics flagged; then 2 + 3 steps in bf16, exactly 2
+           ROIAlign launches a rank and step and no other B1-B5, ms/step,
+           peak GB a rank and one more step with the collectives timed.
+           DLRM criteo_terabyte at fsdp=2, global batch 8,192 (the table
+           stack's columns split, gathered for the lookup): one f32 step
+           within 1e-3 of one process, then 1 + 2 bf16 steps, no B1-B5
+           launch.  GraphSAGE at data=2 on 4,096-node blocks (neighbours
+           read across the ranks): supervised and link prediction within
+           1e-3 of one process, a rank reading only its own rows flagged
 
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
@@ -284,7 +299,8 @@ vision and model-zoo phase and its cross-device check; the loaders' fit;
 the GBDT fit, serve and check; moe_serve's forward, server and engine;
 moe_train's measured steps; in each rank of parallel_2rank, the
 measured steps of the tensor and pipe paths; in each process of
-elastic_2rank, its `fit_elastic`) and read just after it.
+elastic_2rank, its `fit_elastic`; in each rank of zoo_2rank, the
+measured Mask R-CNN and DLRM steps) and read just after it.
 The `total` line gives the script's seconds; the last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
@@ -292,6 +308,7 @@ The `total` line gives the script's seconds; the last lines are the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -6874,6 +6891,507 @@ def phase_elastic_2rank(load: ElasticLoad = ELASTIC_LOAD,
     return out
 
 
+# ------------------------------------------------------------ zoo_2rank --
+@dataclasses.dataclass(frozen=True)
+class ZooMeshLoad:
+    """The zoo_2rank phase: two ranks on card 0 over gloo.  Mask R-CNN
+    (`maskrcnn` at `image_size`, the maskrcnn_coco recipe's configuration)
+    at data=2 on a global batch of `maskrcnn_batch` (4 a rank: the JAX
+    launch line's per-card batch): one f32 step with TF32 off against one
+    process on the same global batch, the same step with BN on local
+    statistics (planted), then `warmup` + `steps` steps in the recipe's
+    bf16 configuration and one more step with every collective timed.
+    DLRM (`dlrm`) at fsdp=2 on `dlrm_batch`: one f32 step against one
+    process, then `dlrm_warmup` + `dlrm_steps` steps in bf16.  GraphSAGE
+    (`graphsage`) at data=2 on blocks of `graphsage_nodes` nodes: one f32
+    step of each objective against one process, and the supervised one
+    reading only its own rows (planted)."""
+    device: str = "cuda:0"
+    maskrcnn: str = "maskrcnn_resnet50"
+    image_size: int = 512
+    maskrcnn_batch: int = 8
+    warmup: int = 2
+    steps: int = 3
+    dlrm: str = "criteo_terabyte"
+    dlrm_batch: int = 8192
+    dlrm_warmup: int = 1
+    dlrm_steps: int = 2
+    graphsage: str = "graphsage"
+    graphsage_nodes: int = 4096
+    deadline_s: float = 600.0
+
+
+ZOO_MESH_LOAD = ZooMeshLoad()
+ZOO_MESH_REHEARSAL = ZooMeshLoad(
+    device="cpu", maskrcnn="tiny", image_size=64, maskrcnn_batch=4,
+    warmup=1, steps=1, dlrm="tiny", dlrm_batch=64, dlrm_steps=1,
+    graphsage="tiny", graphsage_nodes=64, deadline_s=300.0)
+# a mesh step against one process in f32 with TF32 off, the loss and each
+# leaf in relative L2: only the order of the sums differs (the zoo's
+# card-against-CPU limit)
+ZOO_MESH_REL_L2 = ZOO_GRAD_REL_L2
+# Mask R-CNN's backbone at random weights is ill-conditioned in f32: BN
+# normalises channels whose mean dwarfs their spread, so a change in the
+# order of its sums alone moves every leaf's gradient by ~1% (maskrcnn at
+# 128 px on the CPU: f32 against f64 0.78% largest leaf, the two-pass
+# statistics against `var`'s 0.98%, tools/probe_torch_maskrcnn_mesh.py;
+# the card's mesh step 3.2%).
+# Its leaves are held to this many times the gaps of that witness, on one
+# process and measured in the same run; BN on local statistics moves them
+# by ~100%.
+ZOO_MESH_WITNESS_FACTOR = 3.0
+ZOO_MESH_LABEL = PARALLEL_LABEL
+
+
+class _CollectivesWith:
+    """parallel/collectives.py with the given functions replaced (a
+    planted fault in one model module)."""
+
+    def __init__(self, **replaced):
+        self._replaced = replaced
+
+    def __getattr__(self, name):
+        from cloudtik_tpu_torch.parallel import collectives
+
+        return self._replaced.get(name, getattr(collectives, name))
+
+
+def _own_rows_only(x, axes=("data", "fsdp")):
+    """`gather_rows`'s shape holding only this rank's rows of x, the
+    other ranks' zero."""
+    import torch
+
+    from cloudtik_tpu_torch.parallel import sharding
+
+    n, index = 1, 0
+    for a in axes:
+        size = sharding.mesh_axis_size(a)
+        index = index * size + sharding.axis_rank(a)
+        n *= size
+    zeros = x.new_zeros(x.shape)
+    return torch.cat([x if i == index else zeros for i in range(n)])
+
+
+class _PinnedProposals:
+    """`maskrcnn.propose` pinned to one process's choice: each image's
+    top-K proposals are a discrete pick from objectness scores that a
+    batch split moves by rounding, and at random weights near ties are
+    many, so a flipped pick would move every ROI loss.  `recording()`
+    keeps the proposals of the one-process call (rank 0's), `share()`
+    broadcasts them, and under `pinning()` each call gets this rank's
+    rows of them; `differ` counts the proposals this rank's own pick
+    would have replaced (a box more than 1e-4 away)."""
+
+    def __init__(self, module, k: int):
+        self.module, self.real, self.k = module, module.propose, k
+        self.boxes = self.scores = None
+        self.differ = 0
+
+    @contextlib.contextmanager
+    def recording(self):
+        def record(*args, **kwargs):
+            self.boxes, self.scores = self.real(*args, **kwargs)
+            return self.boxes, self.scores
+        self.module.propose = record
+        try:
+            yield
+        finally:
+            self.module.propose = self.real
+
+    def share(self, batch: int, device) -> None:
+        import torch
+        import torch.distributed as dist
+
+        if self.boxes is None:
+            self.boxes = torch.zeros((batch, self.k, 4), device=device)
+            self.scores = torch.zeros((batch, self.k), device=device)
+        for t in (self.boxes, self.scores):
+            dist.broadcast(t.contiguous(), src=0)
+
+    @contextlib.contextmanager
+    def pinning(self):
+        from cloudtik_tpu_torch.parallel import sharding
+
+        def pinned(obj, *args, **kwargs):
+            own, _ = self.real(obj, *args, **kwargs)
+            per = obj.shape[0]
+            index = (sharding.axis_rank("data")
+                     * sharding.mesh_axis_size("fsdp")
+                     + sharding.axis_rank("fsdp"))
+            rows = slice(index * per, (index + 1) * per)
+            boxes = self.boxes[rows]
+            # another box, not the same box rounded otherwise
+            self.differ += int(((own - boxes).abs().amax(-1) > 1e-4).sum())
+            return boxes, self.scores[rows]
+        self.differ = 0
+        self.module.propose = pinned
+        try:
+            yield
+        finally:
+            self.module.propose = self.real
+
+
+def _two_pass_batch_norm(x, scale, bias, eps: float):
+    """`resnet._batch_norm` with its statistics taken as a mesh takes them
+    (a sum over the rows, then the sum of squared deviations) on one
+    process: the same function, its sums in another order."""
+    import torch
+
+    x32 = x.float()
+    n = x32.numel() // x32.shape[-1]
+    mean = x32.sum(dim=(0, 1, 2), keepdim=True) / n
+    var = (x32 - mean).square().sum(dim=(0, 1, 2), keepdim=True) / n
+    normed = (x32 - mean) * torch.rsqrt(var + eps)
+    return (normed * scale.float() + bias.float()).to(x.dtype)
+
+
+def _leaf_gaps(got, want) -> dict:
+    """The largest and the median relative L2 of `got`'s leaves to
+    `want`'s (whole trees on this rank)."""
+    from cloudtik_tpu_torch.tree import tree_leaves
+
+    rel = {n: ((a.double() - w.double()).norm()
+               / max(w.double().norm().item(), 1e-300)).item()
+           for (n, w), a in zip(_named_leaves(want), tree_leaves(got))}
+    worst = max(rel, key=rel.get)
+    return {"max_leaf_rel_l2": rel[worst], "worst_leaf": worst,
+            "median_leaf_rel_l2": sorted(rel.values())[len(rel) // 2]}
+
+
+def _on_device(batch: dict, device) -> dict:
+    import numpy as np
+    import torch
+
+    from cloudtik_tpu_torch.train.trainer import _as_long
+
+    return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device)
+            for k, v in _as_long(batch).items()}
+
+
+def _family_trainer(spec, mesh: dict, B: int, device, optimizer=None):
+    from cloudtik_tpu_torch.parallel.mesh import MeshConfig
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    return Trainer(spec, TrainerConfig(
+        global_batch_size=B, seq_len=1,
+        mesh=MeshConfig(**{"fsdp": 1, **mesh}),
+        optimizer=optimizer or OptimizerConfig(), log_every=1,
+        prefetch_depth=0), device=device)
+
+
+def _one_process_grads(spec, params, batch: dict, device):
+    """Rank 0's loss and gradients of `spec` on the whole global batch
+    (one process), broadcast to every rank: (loss, gradient tree)."""
+    import torch
+    import torch.distributed as dist
+
+    from cloudtik_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    leaves = tree_leaves(p)
+    box = [None]
+    if dist.get_rank() == 0:
+        loss, _ = spec.loss_fn(p, _on_device(batch, device))
+        # contiguous: a conv kernel's gradient comes back in the layout
+        # cuDNN or the CPU computed it in, and a broadcast moves storage
+        grads = [g.contiguous() for g in torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True)]
+        box = [loss.item()]
+        del loss
+    else:
+        grads = [torch.zeros_like(t) for t in leaves]
+    dist.broadcast_object_list(box, src=0)
+    for g in grads:
+        dist.broadcast(g, src=0)
+    return box[0], tree_unflatten(params, [g.detach() for g in grads])
+
+
+def _mesh_step(spec, params, batch: dict, mesh: dict, device, ref_loss,
+               ref, fault=None) -> dict:
+    """One step's loss and gradients of `spec` on `mesh` (this rank's
+    rows of `batch`, the trainer's gathers and sums) against one
+    process's: the loss and each whole leaf's relative L2; `fault` is
+    (module, its planted `collectives`)."""
+    from cloudtik_tpu_torch.train.data import local_batch
+
+    B = len(next(iter(batch.values())))
+    trainer = _family_trainer(spec, mesh, B, device)
+    trainer.init_state(params=params)
+    mine = _on_device(local_batch(batch, trainer.mesh,
+                                  seq_split=spec.seq_split), device)
+    if fault is not None:
+        module, planted = fault
+        real, module.collectives = module.collectives, planted
+    try:
+        grads, metrics = trainer._grads(mine)
+    finally:
+        if fault is not None:
+            module.collectives = real
+    gaps = _sharded_gaps(trainer, grads, ref)
+    worst = max(gaps, key=gaps.get)
+    loss = float(metrics["loss"])
+    out = {"mesh": mesh, "batch": B, "loss": loss, "reference_loss": ref_loss,
+           "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+           "max_leaf_rel_l2": gaps[worst], "worst_leaf": worst,
+           "median_leaf_rel_l2": sorted(gaps.values())[len(gaps) // 2],
+           "leaves": len(gaps)}
+    del trainer, grads
+    return out
+
+
+def _collective_ms(trainer, batch: dict, on_card: bool) -> dict:
+    """One more step of `trainer` on the global `batch` with every
+    torch.distributed collective timed, the card synchronised around each
+    (so the step is slower than a measured one): their ms and count."""
+    import torch
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "broadcast")
+    real = {n: getattr(dist, n) for n in names}
+    spent = {n: [0.0, 0] for n in names}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = real[name](*args, **kwargs)
+            if on_card:
+                torch.cuda.synchronize()
+            spent[name][0] += time.perf_counter() - t0
+            spent[name][1] += 1
+            return result
+        return call
+
+    for n in names:
+        setattr(dist, n, timed(n))
+    try:
+        t0 = time.perf_counter()
+        trainer.fit(iter([batch]), 1)
+        if on_card:
+            torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+    return {"collective_ms": sum(v[0] for v in spent.values()) * 1e3,
+            "by_kind": {n: {"ms": v[0] * 1e3, "calls": v[1]}
+                        for n, v in spent.items() if v[1]},
+            "instrumented_step_ms": step_ms}
+
+
+def _timed_steps(trainer, batch: dict, warmup: int, steps: int,
+                 on_card: bool) -> dict:
+    """`_train_measured` on a repeated global batch, then one step with the
+    collectives timed; the losses finite."""
+    train = _train_measured(trainer, itertools.repeat(batch), warmup, steps,
+                            on_card, detection=True)
+    train.pop("history")
+    entry = train.pop("last")
+    train["grad_norm"] = entry["grad_norm"]
+    train["collectives"] = _collective_ms(trainer, batch, on_card)
+    return train
+
+
+def zoo_rank(load: ZooMeshLoad, out_dir: str) -> int:
+    """One rank of the zoo_2rank phase (run by `phase_zoo_2rank` through
+    `parallel.launch.run_ranks`); writes rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from cloudtik_tpu_torch.models import dlrm as DL
+    from cloudtik_tpu_torch.models import graphsage as G
+    from cloudtik_tpu_torch.models import maskrcnn as MR
+    from cloudtik_tpu_torch.models import resnet as R
+    from cloudtik_tpu_torch.parallel import distributed
+    from cloudtik_tpu_torch.recipes.graphsage_nodes import with_edges
+    from cloudtik_tpu_torch.train import data as TD
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.train.trainer import (dlrm_spec, graphsage_spec,
+                                                  maskrcnn_spec)
+
+    distributed.auto_initialize(backend="gloo")
+    device = torch.device(load.device)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    rank = dist.get_rank()
+    res = {"rank": rank, "label": ZOO_MESH_LABEL}
+
+    def init(M, cfg):
+        return M.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device)
+
+    def checks(spec, params, batch, mesh, faults=(), pin=None):
+        with pin.recording() if pin else contextlib.nullcontext():
+            ref_loss, ref = _one_process_grads(spec, params, batch, device)
+        out = {}
+        if pin:
+            pin.share(len(batch["images"]), device)
+            # what a change of BN's summation order alone moves, on one
+            # process: the backbone at random weights normalises channels
+            # whose mean dwarfs their spread, where f32 cancels
+            real_bn, R._batch_norm = R._batch_norm, _two_pass_batch_norm
+            try:
+                with pin.pinning():
+                    w_loss, witness = _one_process_grads(spec, params, batch,
+                                                         device)
+            finally:
+                R._batch_norm = real_bn
+            out["witness"] = {"loss_rel": abs(w_loss - ref_loss)
+                              / abs(ref_loss), **_leaf_gaps(witness, ref)}
+            del witness
+        for name, fault in (("clean", None), *faults):
+            with pin.pinning() if pin else contextlib.nullcontext():
+                out[name] = _mesh_step(spec, params, batch, mesh, device,
+                                       ref_loss, ref, fault)
+            if pin:
+                out[name]["proposals_repicked"] = pin.differ
+        del ref
+        _collect(on_card)
+        return out
+
+    # ---- Mask R-CNN at data=2: f32 against one process, then bf16 ----
+    t0 = time.perf_counter()
+    cfg = MR.config(load.maskrcnn, image_size=load.image_size)
+    batch = next(TD.synthetic_detection_batches(
+        load.maskrcnn_batch, cfg.image_size, cfg.num_classes, cfg.max_boxes,
+        mask_size=2 * cfg.mask_pool, seed=1))
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    res["maskrcnn_f32"] = checks(
+        maskrcnn_spec(cfg32), init(MR, cfg32), batch, {"data": 2},
+        [("bn_local", (R, _CollectivesWith(groups_for=lambda axes: ())))],
+        pin=_PinnedProposals(MR, cfg32.num_proposals))
+    trainer = _family_trainer(maskrcnn_spec(cfg), {"data": 2},
+                              load.maskrcnn_batch, device)
+    trainer.init_state(torch.Generator(device=device).manual_seed(0))
+    res["maskrcnn_train"] = _timed_steps(trainer, batch, load.warmup,
+                                         load.steps, on_card)
+    del trainer
+    _collect(on_card)
+    res["maskrcnn_s"] = time.perf_counter() - t0
+
+    # ---- DLRM at fsdp=2: f32 against one process, then bf16 ----
+    t0 = time.perf_counter()
+    cfg = DL.config(load.dlrm)
+    batch = next(TD.synthetic_dlrm_batches(
+        load.dlrm_batch, cfg.num_dense, cfg.num_tables, cfg.rows_per_table,
+        seed=1))
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    res["dlrm_f32"] = checks(dlrm_spec(cfg32), init(DL, cfg32), batch,
+                             {"fsdp": 2})
+    trainer = _family_trainer(dlrm_spec(cfg), {"fsdp": 2}, load.dlrm_batch,
+                              device, OptimizerConfig(warmup_steps=0))
+    trainer.init_state(torch.Generator(device=device).manual_seed(0))
+    res["dlrm_train"] = _timed_steps(trainer, batch, load.dlrm_warmup,
+                                     load.dlrm_steps, on_card)
+    res["dlrm_local_table"] = list(trainer.params["embeddings"].shape)
+    del trainer
+    _collect(on_card)
+    res["dlrm_s"] = time.perf_counter() - t0
+
+    # ---- GraphSAGE at data=2, both objectives in f32 ----
+    t0 = time.perf_counter()
+    cfg32 = G.config(load.graphsage, dtype=torch.float32)
+    params = init(G, cfg32)
+    block = next(with_edges(TD.synthetic_graph_batches(
+        load.graphsage_nodes, cfg32.in_dim, cfg32.num_classes,
+        cfg32.max_degree, seed=1), load.graphsage_nodes))
+    nodes = {k: v for k, v in block.items()
+             if k not in ("src", "dst", "neg_dst")}
+    res["graphsage_f32"] = checks(
+        graphsage_spec(cfg32), params, nodes, {"data": 2},
+        [("own_rows", (G, _CollectivesWith(gather_rows=_own_rows_only)))])
+    res["graphsage_link_f32"] = checks(
+        graphsage_spec(cfg32, "link_pred"), params, block, {"data": 2})
+    res["graphsage_s"] = time.perf_counter() - t0
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _zoo_mesh_limits(check: dict) -> dict:
+    """A mesh step's limits against one process, per leaf in relative L2:
+    ZOO_MESH_REL_L2, or where a sum-order witness was measured (Mask
+    R-CNN's BN) ZOO_MESH_WITNESS_FACTOR times its largest and its median
+    leaf when that is more."""
+    w = check.get("witness")
+    if w is None:
+        return {"max": ZOO_MESH_REL_L2, "median": ZOO_MESH_REL_L2}
+    return {k: max(ZOO_MESH_REL_L2,
+                   ZOO_MESH_WITNESS_FACTOR * w[f"{k}_leaf_rel_l2"])
+            for k in ("max", "median")}
+
+
+def phase_zoo_2rank(load: ZooMeshLoad = ZOO_MESH_LOAD,
+                    nvidia_smi: str = None) -> dict:
+    """Two ranks on card 0 over gloo (`zoo_rank`), spawned by `run_ranks`
+    with the load's deadline; their results checked here: every f32 step
+    within ZOO_MESH_REL_L2 of one process (loss and each leaf), each
+    planted fault past it, on the card 2 ROIAlign launches a rank and
+    Mask R-CNN step and no other B1-B5 launch, finite losses."""
+    import tempfile
+
+    from cloudtik_tpu_torch.parallel.launch import run_ranks
+
+    on_card = load.device.startswith("cuda")
+    _collect(on_card)
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = Path(tmp) / "load.json"
+        spec.write_text(json.dumps(dataclasses.asdict(load)))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(root)] + [p for p in env.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
+        run_ranks([str(root / "chip_smoke.py"), "--zoo-rank", str(spec),
+                   tmp], 2, load.deadline_s, env=env, cwd=str(root))
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    out = {"label": ZOO_MESH_LABEL, "nvidia_smi": nvidia_smi,
+           "wall_s": time.perf_counter() - t0,
+           "load": dataclasses.asdict(load),
+           "tolerance_rel_l2": ZOO_MESH_REL_L2, "ranks": ranks}
+    emit("zoo_2rank", **out)
+    launches = {"nms": 0, "roi_align": 0}
+    for r in ranks:
+        for name in ("maskrcnn_f32", "dlrm_f32", "graphsage_f32",
+                     "graphsage_link_f32"):
+            c, limits = r[name]["clean"], _zoo_mesh_limits(r[name])
+            require(c["max_leaf_rel_l2"] <= limits["max"]
+                    and c["median_leaf_rel_l2"] <= limits["median"]
+                    and c["loss_rel"] <= ZOO_MESH_REL_L2,
+                    f"zoo_2rank {name} against one process: {c} "
+                    f"(limits {limits})")
+        for name, fault in (("maskrcnn_f32", "bn_local"),
+                            ("graphsage_f32", "own_rows")):
+            c, limits = r[name][fault], _zoo_mesh_limits(r[name])
+            require(c["max_leaf_rel_l2"] > limits["max"],
+                    f"zoo_2rank: the planted fault {fault} was not flagged: "
+                    f"{c} (limits {limits})")
+        for name, per_step in (("maskrcnn_train", MASKRCNN_STEP_LAUNCHES),
+                               ("dlrm_train", {})):
+            t = r[name]
+            require(all(math.isfinite(x) for x in t["losses"]),
+                    f"zoo_2rank {name}: losses {t['losses']}")
+            if on_card:
+                _require_no_launches(f"zoo_2rank {name}", t, per_step)
+            for k in launches:
+                launches[k] += t["launches"][k]
+    out["launches"] = launches
+    emit("zoo_2rank_launches", launches=launches)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6884,6 +7402,9 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--elastic-rank":
         load = ElasticLoad(**json.loads(Path(sys.argv[2]).read_text()))
         return elastic_rank(load, sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] == "--zoo-rank":
+        load = ZooMeshLoad(**json.loads(Path(sys.argv[2]).read_text()))
+        return zoo_rank(load, sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke runs on the "
               "card", file=sys.stderr)
@@ -7064,6 +7585,14 @@ def main() -> int:
     elastic = phase_elastic_2rank(nvidia_smi=smi,
                                   determinism=checkpoint.get("determinism"))
     emit("elastic", seconds=time.perf_counter() - t_el)
+
+    # ---- the vision and zoo families on a mesh: two ranks sharing the
+    # card over gloo (counts zeroed and read inside each rank, around the
+    # measured Mask R-CNN and DLRM steps) ----
+    t_zoo2 = time.perf_counter()
+    zoo_mesh = phase_zoo_2rank(nvidia_smi=smi)
+    det_launches["roi_align"] += zoo_mesh["launches"]["roi_align"]
+    emit("zoo_mesh", seconds=time.perf_counter() - t_zoo2)
 
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]

@@ -24,7 +24,15 @@ around an attention call outside any checkpoint, as the transformer's
 `save_attn` does: attention keeps q, k, v, o and lse and never re-runs its
 forward kernel, and the projections are recomputed in the backward pass.
 
-Not here yet: `param_logical_axes` (ROADMAP A7, the parallel layer).
+On a mesh (`param_logical_axes`, the reference's tree) a rank holds its
+rows of the batch and reads every parameter whole: the stack's fsdp
+shards are gathered one layer at a time where the layer reads them
+(`layer_params` gives a `fsdp.LazyLayer`, as the transformer's does), and
+the trainer gathers every other split before the loss.  A `seq` rank reads
+whole sequences (the reference's activation constraints on `seq` are the
+port's checked no-ops).  The MLM loss is the global sum of the nll over
+the global count of valid labels, never a mean of per-rank means; the
+classifier's is a mean over the global batch.
 """
 
 from __future__ import annotations
@@ -37,8 +45,11 @@ import torch
 import torch.nn.functional as F
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
-from cloudtik_tpu_torch.models.transformer import _checkpoint
+from cloudtik_tpu_torch.models.transformer import _checkpoint, _stack_layer
 from cloudtik_tpu_torch.ops.attention import attention
+from cloudtik_tpu_torch.parallel import collectives
+from cloudtik_tpu_torch.parallel.mesh import DATA_AXES
+from cloudtik_tpu_torch.parallel.sharding import with_sharding_constraint
 
 Params = Dict[str, Any]
 
@@ -93,6 +104,48 @@ def config(name: str, **overrides) -> BertConfig:
 # --------------------------------------------------------------------------
 # Parameters
 # --------------------------------------------------------------------------
+
+def param_logical_axes(cfg: BertConfig) -> Params:
+    """The reference's logical axes, leaf for leaf (the stack on
+    `layers`)."""
+    layers = {
+        "wq": ("layers", "embed", "heads", "kv"),
+        "wk": ("layers", "embed", "heads", "kv"),
+        "wv": ("layers", "embed", "heads", "kv"),
+        "wo": ("layers", "heads", "kv", "embed"),
+        "bq": ("layers", "heads", "kv"),
+        "bk": ("layers", "heads", "kv"),
+        "bv": ("layers", "heads", "kv"),
+        "bo": ("layers", "norm"),
+        "ln1_scale": ("layers", "norm"),
+        "ln1_bias": ("layers", "norm"),
+        "w_ff1": ("layers", "embed", "mlp"),
+        "b_ff1": ("layers", "mlp"),
+        "w_ff2": ("layers", "mlp", "embed"),
+        "b_ff2": ("layers", "norm"),
+        "ln2_scale": ("layers", "norm"),
+        "ln2_bias": ("layers", "norm"),
+    }
+    axes: Params = {
+        "embed": ("vocab", "embed"),
+        "pos_embed": (None, "embed"),
+        "type_embed": (None, "embed"),
+        "embed_ln_scale": ("norm",),
+        "embed_ln_bias": ("norm",),
+        "layers": layers,
+        "mlm_dense": ("embed", "embed"),
+        "mlm_bias": ("norm",),
+        "mlm_ln_scale": ("norm",),
+        "mlm_ln_bias": ("norm",),
+        "mlm_out_bias": ("vocab",),
+    }
+    if cfg.num_labels:
+        axes["pooler"] = ("embed", "embed")
+        axes["pooler_bias"] = ("norm",)
+        axes["cls"] = ("embed", None)
+        axes["cls_bias"] = (None,)
+    return axes
+
 
 def init_params(generator: torch.Generator, cfg: BertConfig,
                 device: DeviceLike = None) -> Params:
@@ -157,8 +210,10 @@ def init_params(generator: torch.Generator, cfg: BertConfig,
 
 
 def layer_params(params: Params, i: int) -> Params:
-    """Layer i's slice of the stacked layer parameters (views, no copy)."""
-    return {k: w[i] for k, w in params["layers"].items()}
+    """Layer i's slice of the stacked layer parameters (views, no copy);
+    a stack with leaves split over `fsdp` gives a `LazyLayer`, which
+    gathers each leaf's slice where the layer reads it."""
+    return _stack_layer(params["layers"], i)
 
 
 # --------------------------------------------------------------------------
@@ -185,8 +240,9 @@ def _dense(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _attn_inputs(cfg: BertConfig, x: torch.Tensor, layer: Params
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q, k, v [B, S, H, Dh] with their biases."""
-    return (_dense(x, layer["wq"], layer["bq"], cfg),
-            _dense(x, layer["wk"], layer["bk"], cfg),
+    q = with_sharding_constraint(_dense(x, layer["wq"], layer["bq"], cfg),
+                                 "batch", "seq", "heads", None)
+    return (q, _dense(x, layer["wk"], layer["bk"], cfg),
             _dense(x, layer["wv"], layer["bv"], cfg))
 
 
@@ -209,9 +265,11 @@ def _layer_out(cfg: BertConfig, x: torch.Tensor, o: torch.Tensor,
                     cfg.norm_eps)
     h = _dense(x, layer["w_ff1"], layer["b_ff1"], cfg)
     h = F.gelu(h, approximate="tanh")
+    h = with_sharding_constraint(h, "batch", "seq", "mlp")
     h = _dense(h, layer["w_ff2"], layer["b_ff2"], cfg)
-    return _layer_norm(x + h, layer["ln2_scale"], layer["ln2_bias"],
-                       cfg.norm_eps)
+    x = _layer_norm(x + h, layer["ln2_scale"], layer["ln2_bias"],
+                    cfg.norm_eps)
+    return with_sharding_constraint(x, "batch", "seq", None)
 
 
 def _layer(cfg: BertConfig, x: torch.Tensor, layer: Params) -> torch.Tensor:
@@ -241,6 +299,7 @@ def encode(params: Params, tokens: torch.Tensor, cfg: BertConfig,
         x = x + params["type_embed"][0][None, None]
     x = _layer_norm(x.to(cfg.dtype), params["embed_ln_scale"],
                     params["embed_ln_bias"], cfg.norm_eps)
+    x = with_sharding_constraint(x, "batch", "seq", None)
     layer_fn = _remat_layer if cfg.remat and torch.is_grad_enabled() \
         else _layer
     for i in range(cfg.n_layers):
@@ -265,7 +324,8 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     mlm_positions [B, P] + mlm_labels [B, P] (the vocab projection runs on
     the P positions only) or labels [B, S]; -100 labels are ignored;
     optional type_ids [B, S].  Returns (loss, {"loss", "mlm_accuracy"}),
-    the metrics detached."""
+    the metrics detached.  On a mesh the batch is this rank's rows and
+    the loss the global sum over the global count."""
     hidden = encode(params, batch["tokens"], cfg, batch.get("type_ids"))
     if "mlm_positions" in batch:
         positions = batch["mlm_positions"]                 # [B, P]
@@ -279,11 +339,14 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits, dim=-1)
     token_logp = logp.gather(-1, safe[..., None])[..., 0]
-    n_valid = torch.clamp(valid.sum(), min=1)
-    loss = -(token_logp * valid).sum() / n_valid
+    n_valid = torch.clamp(collectives.all_reduce(valid.sum(), DATA_AXES),
+                          min=1)
+    loss = collectives.reduce_sum(-(token_logp * valid).sum(),
+                                  DATA_AXES) / n_valid
     correct = (logits.argmax(dim=-1) == labels) & valid
     return loss, {"loss": loss.detach(),
-                  "mlm_accuracy": correct.sum() / n_valid}
+                  "mlm_accuracy": collectives.all_reduce(
+                      correct.sum(), DATA_AXES) / n_valid}
 
 
 def classify_loss_fn(params: Params, batch: Dict[str, torch.Tensor],
@@ -297,7 +360,7 @@ def classify_loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     logits = pooled @ params["cls"].float() + params["cls_bias"].float()
     labels = batch["labels"]
     logp = torch.log_softmax(logits, dim=-1)
-    loss = -logp.gather(-1, labels[:, None]).mean()
+    loss = collectives.batch_mean(-logp.gather(-1, labels[:, None]))
     return loss, {"loss": loss.detach(),
-                  "accuracy": (logits.argmax(dim=-1) == labels).float()
-                  .mean()}
+                  "accuracy": collectives.batch_mean(
+                      (logits.argmax(dim=-1) == labels).float())}

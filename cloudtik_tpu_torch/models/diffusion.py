@@ -21,8 +21,10 @@ What the JAX code does, the port does:
   takes 64 and 128, as the reference's Pallas kernel takes multiples of
   128): every attention block runs the plain path, as on the reference.
 
-Not here yet: `param_logical_axes` and the FSDP sharding constraint
-(ROADMAP A7, the parallel layer); on one card the constraint is nothing.
+On a mesh (`param_logical_axes`, the reference's tree) a rank holds its
+rows of the batch; GroupNorm works per sample, so only the loss is a mean
+over the global batch (`collectives.batch_mean`).  The reference's batch
+constraint on the stem's output is the port's checked no-op.
 """
 
 from __future__ import annotations
@@ -36,7 +38,10 @@ import torch.nn.functional as F
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.ops.attention import attention
-from cloudtik_tpu_torch.ops.conv import conv_kernel_init, conv_nhwc
+from cloudtik_tpu_torch.ops.conv import (conv_kernel_axes,
+                                         conv_kernel_init, conv_nhwc)
+from cloudtik_tpu_torch.parallel import collectives
+from cloudtik_tpu_torch.parallel.sharding import with_sharding_constraint
 
 Params = Dict[str, Any]
 
@@ -95,6 +100,59 @@ def config(name: str, **overrides) -> UNetConfig:
 # --------------------------------------------------------------------------
 # Parameters
 # --------------------------------------------------------------------------
+
+def _resblock_axes(has_skip: bool = False) -> Dict[str, Any]:
+    axes = {
+        "conv0": conv_kernel_axes(), "conv1": conv_kernel_axes(),
+        "norm0": ("norm",), "norm1": ("norm",),
+        "time_proj": ("embed", "norm"), "time_bias": ("norm",),
+    }
+    if has_skip:
+        axes["skip"] = conv_kernel_axes()
+    return axes
+
+
+def _attn_axes() -> Dict[str, Any]:
+    return {"wqkv": ("embed", None), "wo": (None, "embed"),
+            "norm": ("norm",)}
+
+
+def param_logical_axes(cfg: UNetConfig) -> Params:
+    """The reference's logical axes, leaf for leaf."""
+    n_stages = len(cfg.width_mults)
+    widths = [cfg.stage_width(s) for s in range(n_stages)]
+
+    def stage_axes(s, c_in):
+        blocks = []
+        for b_i in range(cfg.blocks_per_stage):
+            ci = c_in if b_i == 0 else widths[s]
+            b = {"res": _resblock_axes(has_skip=ci != widths[s])}
+            if s in cfg.attn_stages:
+                b["attn"] = _attn_axes()
+            blocks.append(b)
+        return blocks
+
+    down, c = [], widths[0]
+    for s in range(n_stages):
+        down.append(stage_axes(s, c))
+        c = widths[s]
+    up = []
+    for s in reversed(range(n_stages)):
+        up.append(stage_axes(s, c + widths[s]))
+        c = widths[s]
+    return {
+        "time_mlp0": ("embed", "mlp"), "time_mlp1": ("mlp", "embed"),
+        "stem": conv_kernel_axes(),
+        "down": down,
+        "downsample": [conv_kernel_axes() for _ in range(n_stages - 1)],
+        "mid": {"res": _resblock_axes(has_skip=False),
+                "attn": _attn_axes()},
+        "up": up,
+        "upsample": [conv_kernel_axes() for _ in range(n_stages - 1)],
+        "out_norm": ("norm",),
+        "out_conv": conv_kernel_axes(),
+    }
+
 
 def init_params(generator: torch.Generator, cfg: UNetConfig,
                 device: DeviceLike = None) -> Params:
@@ -244,6 +302,7 @@ def forward(params: Params, latents: torch.Tensor, timesteps: torch.Tensor,
     temb = temb @ params["time_mlp1"].to(cfg.dtype)
 
     x = conv_nhwc(latents, params["stem"], dtype=cfg.dtype)
+    x = with_sharding_constraint(x, "batch", None, None, None)
     skips: List[torch.Tensor] = []
     n_stages = len(cfg.width_mults)
     for s in range(n_stages):
@@ -275,10 +334,10 @@ def cosine_alpha_bar(t: torch.Tensor, s: float = 0.008) -> torch.Tensor:
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: UNetConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Epsilon-prediction MSE.  batch: latents [B,H,W,C] f32, noise
-    [B,H,W,C] f32, t [B] f32 in [0,1)."""
+    [B,H,W,C] f32, t [B] f32 in [0,1) (this rank's rows on a mesh)."""
     latents, noise, t = batch["latents"], batch["noise"], batch["t"]
     ab = cosine_alpha_bar(t)[:, None, None, None]
     noisy = torch.sqrt(ab) * latents + torch.sqrt(1 - ab) * noise
     pred = forward(params, noisy, t * 1000.0, cfg)
-    loss = torch.mean(torch.square(pred - noise))
+    loss = collectives.batch_mean(torch.square(pred - noise))
     return loss, {"loss": loss.detach()}

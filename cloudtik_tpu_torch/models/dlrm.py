@@ -16,8 +16,15 @@ Kept from the reference on purpose:
   into a full-size tensor): AdamW on a sparse row gradient would leave
   the moments of untouched rows undecayed, a different optimizer.
 
-Not ported: `embedding_backend()`, which probes a TPU embedding library,
-and `param_logical_axes` (ROADMAP A7, the parallel layer).
+On a mesh (`param_logical_axes`, the reference's tree) a rank holds its
+rows of the batch.  The stacked tables, split over (expert, vocab, embed),
+are gathered whole before the lookup (the trainer's gather; ranks along
+`expert` read the same rows), where GSPMD shards the lookup itself; the
+loss and accuracy are means over the global batch
+(`collectives.batch_mean`), and the reference's batch constraints are the
+port's checked no-ops.
+
+Not ported: `embedding_backend()`, which probes a TPU embedding library.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from typing import Any, Dict, Tuple
 import torch
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
+from cloudtik_tpu_torch.parallel import collectives
+from cloudtik_tpu_torch.parallel.sharding import with_sharding_constraint
 
 Params = Dict[str, Any]
 
@@ -88,6 +97,20 @@ def config(name: str, **overrides) -> DLRMConfig:
     return dataclasses.replace(PRESETS[name], **overrides)
 
 
+def param_logical_axes(cfg: DLRMConfig) -> Params:
+    """The reference's logical axes: the table stack on (expert, vocab,
+    embed), the MLPs on (embed, mlp)."""
+    def mlp_axes(n):
+        return [{"kernel": ("embed", "mlp"), "bias": ("mlp",)}
+                for _ in range(n)]
+
+    return {
+        "embeddings": ("expert", "vocab", "embed"),
+        "bottom": mlp_axes(len(cfg.bottom_mlp)),
+        "top": mlp_axes(len(cfg.top_mlp)),
+    }
+
+
 def init_params(generator: torch.Generator, cfg: DLRMConfig,
                 device: DeviceLike = None) -> Params:
     """Same tree, shapes and dtypes as the JAX `init_params`; draws come
@@ -142,9 +165,11 @@ def forward(params: Params, dense: torch.Tensor, sparse_ids: torch.Tensor,
     """dense [B, num_dense] f32; sparse_ids [B, T] int -> logits [B] f32."""
     dt = cfg.dtype
     d = _mlp(dense.to(dt), params["bottom"], dt, final_linear=False)
+    d = with_sharding_constraint(d, "batch", None)
 
     # one gather over the stacked tables, cast first as the reference does
     e = gather_embed(params["embeddings"].to(dt), sparse_ids)   # [B,T,D]
+    e = with_sharding_constraint(e, "batch", None, None)
 
     # pairwise dot interaction over [dense + T] feature vectors
     feats = torch.cat([d[:, None, :], e], dim=1)                # [B,F,D]
@@ -161,12 +186,14 @@ def forward(params: Params, dense: torch.Tensor, sparse_ids: torch.Tensor,
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: DLRMConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Click prediction.  batch: dense [B,num_dense], sparse_ids [B,T],
-    labels [B] in {0,1}; the metrics detached."""
+    labels [B] in {0,1} (this rank's rows on a mesh); the metrics
+    detached."""
     logits = forward(params, batch["dense"], batch["sparse_ids"], cfg)
     labels = batch["labels"].float()
-    loss = torch.mean(
+    loss = collectives.batch_mean(
         torch.clamp(logits, min=0) - logits * labels
         + torch.log1p(torch.exp(-torch.abs(logits))))
     preds = (logits > 0).float()
     return loss, {"loss": loss.detach(),
-                  "accuracy": (preds == labels).float().mean()}
+                  "accuracy": collectives.batch_mean(
+                      (preds == labels).float())}

@@ -13,7 +13,15 @@ back to the model dtype; the normalisation is `rsqrt(sum + 1e-12)` in f32.
 Supervised node classification (`loss_fn`, over `train_mask`) and
 unsupervised link prediction (`link_pred_loss`, sampled negatives).
 
-Not here yet: `param_logical_axes` (ROADMAP A7, the parallel layer).
+On a mesh (`param_logical_axes`, the reference's tree) a rank holds its
+rows of the block (features, neighbours, labels, masks; link prediction's
+edges), while `neighbors` index rows of the whole block.  Each layer
+gathers `h` over the batch axes in the order `data.local_batch` cuts rows
+(`collectives.gather_rows`, whose backward sums every rank's use of a row
+back to the rank that holds it), reads the neighbour rows from the whole
+`h` and computes its own rows; link prediction reads its edges' ends from
+the gathered embeddings.  The train-mask denominator, the link loss's mean
+and `auc_proxy` over all pairs are global.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
+from cloudtik_tpu_torch.parallel import collectives
+from cloudtik_tpu_torch.parallel.mesh import DATA_AXES
 
 Params = Dict[str, Any]
 
@@ -56,6 +66,16 @@ PRESETS = {
 
 def config(name: str, **overrides) -> GraphSAGEConfig:
     return dataclasses.replace(PRESETS[name], **overrides)
+
+
+def param_logical_axes(cfg: GraphSAGEConfig) -> Params:
+    """The reference's logical axes: (embed, mlp) layers, an (embed,
+    vocab) classifier."""
+    return {
+        "layers": [{"w": ("embed", "mlp"), "b": ("mlp",)}
+                   for _ in range(cfg.num_layers)],
+        "out": {"w": ("embed", "vocab"), "b": ("vocab",)},
+    }
 
 
 def init_params(generator: torch.Generator, cfg: GraphSAGEConfig,
@@ -93,10 +113,11 @@ def _aggregate(h: torch.Tensor, neighbors: torch.Tensor,
 
 def embed(params: Params, features: torch.Tensor, neighbors: torch.Tensor,
           mask: torch.Tensor, cfg: GraphSAGEConfig) -> torch.Tensor:
-    """-> node embeddings [N, hidden] (model dtype)."""
+    """-> node embeddings [N, hidden] (model dtype): this rank's rows on a
+    mesh, each layer's neighbours read from every rank's."""
     h = features.to(cfg.dtype)
     for layer in params["layers"]:
-        agg = _aggregate(h, neighbors, mask)
+        agg = _aggregate(collectives.gather_rows(h), neighbors, mask)
         z = torch.cat([h, agg], dim=-1)
         h = z @ layer["w"].to(cfg.dtype) + layer["b"].to(cfg.dtype)
         h = torch.relu(h)
@@ -127,9 +148,12 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     tmask = batch["train_mask"].float()
     logp = torch.log_softmax(logits, dim=-1)
     ce = -logp.gather(-1, labels[:, None])[:, 0]
-    denom = torch.clamp(tmask.sum(), min=1.0)
-    loss = (ce * tmask).sum() / denom
-    acc = ((logits.argmax(-1) == labels).float() * tmask).sum() / denom
+    denom = torch.clamp(collectives.all_reduce(tmask.sum(), DATA_AXES),
+                        min=1.0)
+    loss = collectives.reduce_sum((ce * tmask).sum(), DATA_AXES) / denom
+    acc = collectives.all_reduce(
+        ((logits.argmax(-1) == labels).float() * tmask).sum(),
+        DATA_AXES) / denom
     return loss, {"loss": loss.detach(), "accuracy": acc.detach()}
 
 
@@ -138,14 +162,19 @@ def link_pred_loss(params: Params, batch: Dict[str, torch.Tensor],
     """Unsupervised link prediction: positive pairs score high, sampled
     negatives low.  batch adds src [E], dst [E], neg_dst [E] node
     indices."""
-    h = embed(params, batch["features"], batch["neighbors"],
-              batch["neighbor_mask"], cfg).float()
+    h = collectives.gather_rows(embed(
+        params, batch["features"], batch["neighbors"],
+        batch["neighbor_mask"], cfg)).float()
     src = h[batch["src"].long()]
     pos = (src * h[batch["dst"].long()]).sum(-1)
     neg = (src * h[batch["neg_dst"].long()]).sum(-1)
     logits = torch.cat([pos, neg])
     targets = torch.cat([torch.ones_like(pos), torch.zeros_like(neg)])
-    loss = (torch.clamp(logits, min=0) - logits * targets
-            + torch.log1p(torch.exp(-torch.abs(logits)))).mean()
-    auc_proxy = (pos[:, None] > neg[None, :]).float().mean()
-    return loss, {"loss": loss.detach(), "auc_proxy": auc_proxy.detach()}
+    loss = collectives.batch_mean(
+        torch.clamp(logits, min=0) - logits * targets
+        + torch.log1p(torch.exp(-torch.abs(logits))))
+    # over every pair of the global batch's edges
+    pos_all = collectives.gather_rows(pos.detach())
+    neg_all = collectives.gather_rows(neg.detach())
+    auc_proxy = (pos_all[:, None] > neg_all[None, :]).float().mean()
+    return loss, {"loss": loss.detach(), "auc_proxy": auc_proxy}

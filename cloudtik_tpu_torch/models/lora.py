@@ -289,12 +289,13 @@ def _local_base(base: Params, cfg: TransformerConfig, mesh,
         return dict(base)
     logical = param_logical_axes(cfg)
     specs = sharding.tree_to_shardings_safe(mesh, logical, base, rules)
-    if not sharding.megatron_split(specs, logical):
+    reads = sharding.MEGATRON_READS
+    if not sharding.megatron_split(specs, logical, reads):
         axes = [a for a in axes if a != "tensor"]
 
     def one(w, spec, names):
         for dim, entry in enumerate(spec):
-            if sharding.reads_split(entry, names[dim]):
+            if sharding.reads_split(entry, names[dim], reads):
                 (a,) = sharding.spec_axes(entry)
                 if a in axes:
                     w = w.chunk(sizes[a], dim)[mesh.get_local_rank(a)]
@@ -323,6 +324,8 @@ def lora_spec(base_params: Params, cfg: TransformerConfig,
                                               lora),
         bind_mesh=bind_mesh,
         logical_axes=lora_logical_axes(cfg, lora),
+        reads_split=sharding.MEGATRON_READS,
+        seq_split=True,
         # frozen base: the backward computes activation grads only (~2N),
         # not weight grads, 4N in all against full training's 6N
         flops_per_token=cfg.flops_per_token() * 4.0 / 6.0,

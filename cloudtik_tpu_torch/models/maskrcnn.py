@@ -23,6 +23,12 @@ proposal (`_crop_gt_masks`).  The targets are computed for the whole batch
 at once, the written-out `vmap` of the JAX per-image functions.  Both
 ROIAlign launches of `roi_heads` carry a gradient to the backbone
 (`ops/detection.py` `_RoIAlignFn`).
+
+On a mesh (`param_logical_axes`, the reference's tree) a rank holds its
+rows of the batch and pools its own proposals (both launches run on every
+rank): the backbone's BN takes global statistics (ResNet's), and each of
+the reference's per-image ratios is averaged over the global batch
+(`collectives.batch_mean`).
 """
 
 from __future__ import annotations
@@ -37,9 +43,11 @@ import torch
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.models import resnet as R
 from cloudtik_tpu_torch.models import ssd as S
-from cloudtik_tpu_torch.ops.conv import conv_kernel_init, conv_nhwc
+from cloudtik_tpu_torch.ops.conv import (conv_kernel_axes,
+                                         conv_kernel_init, conv_nhwc)
 from cloudtik_tpu_torch.ops.detection import (box_iou, optax_sigmoid_ce,
                                               roi_align_batched)
+from cloudtik_tpu_torch.parallel.collectives import batch_mean
 
 Params = Dict[str, Any]
 
@@ -135,6 +143,25 @@ anchors_on = functools.partial(S.anchors_on, anchors_fn=anchors)
 # --------------------------------------------------------------------------
 # Parameters
 # --------------------------------------------------------------------------
+
+def param_logical_axes(cfg: MaskRCNNConfig) -> Params:
+    """The reference's logical axes: the backbone's without its
+    classifier, conv kernels for the RPN and the mask head, (embed, mlp)
+    and (mlp, vocab) for the box head."""
+    axes: Params = {"backbone": R.param_logical_axes(cfg.backbone_config())}
+    axes["backbone"].pop("fc", None)
+    axes["rpn"] = {"conv": conv_kernel_axes(), "conv_bias": ("norm",),
+                   "obj": conv_kernel_axes(), "obj_bias": ("norm",),
+                   "box": conv_kernel_axes(), "box_bias": ("norm",)}
+    axes["head"] = {"fc1": ("embed", "mlp"), "fc1_bias": ("mlp",),
+                    "fc2": ("mlp", "mlp"), "fc2_bias": ("mlp",),
+                    "cls": ("mlp", "vocab"), "cls_bias": ("vocab",),
+                    "box": ("mlp", "vocab"), "box_bias": ("vocab",)}
+    axes["mask"] = {"conv1": conv_kernel_axes(), "conv1_bias": ("norm",),
+                    "conv2": conv_kernel_axes(), "conv2_bias": ("norm",),
+                    "out": conv_kernel_axes(), "out_bias": ("norm",)}
+    return axes
+
 
 def init_params(generator: torch.Generator, cfg: MaskRCNNConfig,
                 device: DeviceLike = None) -> Params:
@@ -342,11 +369,11 @@ def rpn_losses(obj: torch.Tensor, deltas: torch.Tensor,
     n_pos = pos.sum(dim=1).clamp(min=1)
     obj_ce = optax_sigmoid_ce(obj, pos)
     zero = torch.zeros_like(obj)
-    rpn_cls_loss = (torch.where(pos | neg, obj_ce, zero).sum(dim=1)
-                    / (pos | neg).sum(dim=1).clamp(min=1)).mean()
+    rpn_cls_loss = batch_mean(torch.where(pos | neg, obj_ce, zero).sum(dim=1)
+                              / (pos | neg).sum(dim=1).clamp(min=1))
     rpn_box = S._smooth_l1(deltas - rpn_tgts).sum(-1)
-    rpn_box_loss = (torch.where(pos, rpn_box, zero).sum(dim=1)
-                    / n_pos).mean()
+    rpn_box_loss = batch_mean(torch.where(pos, rpn_box, zero).sum(dim=1)
+                              / n_pos)
     return rpn_cls_loss, rpn_box_loss
 
 
@@ -374,19 +401,20 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     n_roi_pos = roi_pos.sum(dim=1).clamp(min=1)
     logp = torch.log_softmax(cls_logits, dim=-1)
     roi_ce = -logp.gather(-1, roi_labels[..., None])[..., 0]
-    roi_cls_loss = roi_ce.mean()
+    roi_cls_loss = batch_mean(roi_ce)
     cls_idx = roi_labels.clamp(min=0)
     picked = box_deltas.gather(
         2, cls_idx[..., None, None].expand(-1, -1, 1, 4))[:, :, 0, :]
     roi_box = S._smooth_l1(picked - roi_tgts).sum(-1)
-    roi_box_loss = (torch.where(roi_pos, roi_box, torch.zeros_like(roi_box))
-                    .sum(dim=1) / n_roi_pos).mean()
+    roi_box_loss = batch_mean(
+        torch.where(roi_pos, roi_box, torch.zeros_like(roi_box)).sum(dim=1)
+        / n_roi_pos)
 
     loss = rpn_cls_loss + rpn_box_loss + roi_cls_loss + roi_box_loss
     metrics = {
         "rpn_cls_loss": rpn_cls_loss, "rpn_box_loss": rpn_box_loss,
         "roi_cls_loss": roi_cls_loss, "roi_box_loss": roi_box_loss,
-        "num_pos": roi_pos.sum(dim=1).float().mean(),
+        "num_pos": batch_mean(roi_pos.sum(dim=1).float()),
     }
     if "gt_masks" in batch:
         mp = cfg.mask_pool
@@ -396,9 +424,10 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             -1, cls_idx[..., None, None, None].expand(-1, -1, mp, mp, 1)
         )[..., 0]
         m_ce = optax_sigmoid_ce(picked_masks, crops)
-        mask_loss = (torch.where(roi_pos[..., None, None], m_ce,
-                                 torch.zeros_like(m_ce)).sum(dim=(1, 2, 3))
-                     / (n_roi_pos * mp ** 2)).mean()
+        mask_loss = batch_mean(
+            torch.where(roi_pos[..., None, None], m_ce,
+                        torch.zeros_like(m_ce)).sum(dim=(1, 2, 3))
+            / (n_roi_pos * mp ** 2))
         loss = loss + mask_loss
         metrics["mask_loss"] = mask_loss
     metrics["loss"] = loss

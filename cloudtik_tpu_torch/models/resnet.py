@@ -16,11 +16,18 @@ port does:
 
 `loss_fn` is the classifier's training loss: the mean NLL of the f32
 logits, with `accuracy` beside it.
+
+On a mesh (`param_logical_axes`, the reference's tree) a rank holds its
+rows of the batch.  BN takes its statistics over the global batch, as
+GSPMD computes JAX's: two passes, each a sum over the batch axes in the
+forward and in the backward (`torch.nn.SyncBatchNorm`'s gradient), and
+the loss and accuracy are global means (`collectives.batch_mean`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -28,7 +35,9 @@ import torch.nn.functional as F
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.ops.conv import (
-    conv_kernel_init, conv_nhwc, pad_same_nchw)
+    conv_kernel_axes, conv_kernel_init, conv_nhwc, pad_same_nchw)
+from cloudtik_tpu_torch.parallel import collectives, sharding
+from cloudtik_tpu_torch.parallel.mesh import DATA_AXES
 
 Params = Dict[str, Any]
 
@@ -113,6 +122,37 @@ def _forward_flops(cfg: ResNetConfig) -> float:
 # Parameters
 # --------------------------------------------------------------------------
 
+def _block_axes(bottleneck: bool) -> Dict[str, Any]:
+    n_convs = 3 if bottleneck else 2
+    axes: Dict[str, Any] = {}
+    for i in range(n_convs):
+        axes[f"conv{i}"] = conv_kernel_axes()
+        axes[f"scale{i}"] = ("norm",)
+        axes[f"bias{i}"] = ("norm",)
+    return axes
+
+
+def param_logical_axes(cfg: ResNetConfig) -> Params:
+    """The reference's logical axes, leaf for leaf: conv kernels' rows on
+    `conv_in`, columns on `conv_out`, the classifier on (embed, vocab)."""
+    axes: Dict[str, Any] = {
+        "stem": {"conv": conv_kernel_axes(), "scale": ("norm",),
+                 "bias": ("norm",)},
+        "fc": {"kernel": ("embed", "vocab"), "bias": ("vocab",)},
+    }
+    for stage, n_blocks in enumerate(cfg.stage_blocks):
+        blocks = []
+        for block in range(n_blocks):
+            b = _block_axes(cfg.bottleneck)
+            if block == 0:
+                b["proj"] = conv_kernel_axes()
+                b["proj_scale"] = ("norm",)
+                b["proj_bias"] = ("norm",)
+            blocks.append(b)
+        axes[f"stage{stage}"] = blocks
+    return axes
+
+
 def init_params(generator: torch.Generator, cfg: ResNetConfig,
                 device: DeviceLike = None) -> Params:
     """Same tree, shapes and dtypes as the JAX `init_params`; draws come
@@ -167,13 +207,30 @@ def init_params(generator: torch.Generator, cfg: ResNetConfig,
 # Forward
 # --------------------------------------------------------------------------
 
+def _global_sum(x: torch.Tensor) -> torch.Tensor:
+    """x summed over the batch axes, forward and backward: every rank's
+    loss reads the sum, so each rank's share of its gradient is summed
+    back to every rank's rows (`reduce_sum` alone would leave each its
+    own share)."""
+    return collectives.copy_to(collectives.reduce_sum(x, DATA_AXES),
+                               DATA_AXES)
+
+
 def _batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 eps: float) -> torch.Tensor:
     """Per-batch statistics over (N, H, W) in f32 (train-mode BN), as the
-    JAX code computes them at inference too."""
+    JAX code computes them at inference too; on a mesh over the global
+    batch, in two passes as `jnp.var` takes them."""
     x32 = x.float()
-    mean = x32.mean(dim=(0, 1, 2), keepdim=True)
-    var = x32.var(dim=(0, 1, 2), unbiased=False, keepdim=True)
+    if collectives.groups_for(DATA_AXES):
+        n = x32.numel() // x32.shape[-1] * math.prod(
+            sharding.mesh_axis_size(a) for a in DATA_AXES)
+        mean = _global_sum(x32.sum(dim=(0, 1, 2), keepdim=True)) / n
+        var = _global_sum((x32 - mean).square().sum(
+            dim=(0, 1, 2), keepdim=True)) / n
+    else:
+        mean = x32.mean(dim=(0, 1, 2), keepdim=True)
+        var = x32.var(dim=(0, 1, 2), unbiased=False, keepdim=True)
     normed = (x32 - mean) * torch.rsqrt(var + eps)
     out = normed * scale.float() + bias.float()
     return out.to(x.dtype)
@@ -239,13 +296,14 @@ def forward(params: Params, images: torch.Tensor,
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ResNetConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: images [B, H, W, 3] f32, labels [B] int; the metrics
-    detached."""
+    """batch: images [B, H, W, 3] f32, labels [B] int (this rank's rows
+    on a mesh); the metrics detached."""
     logits = forward(params, batch["images"], cfg)
     labels = batch["labels"].long()
     logp = torch.log_softmax(logits, dim=-1)
-    loss = -logp.gather(-1, labels[:, None]).mean()
+    loss = collectives.batch_mean(-logp.gather(-1, labels[:, None]))
     return loss, {
         "loss": loss.detach(),
-        "accuracy": (logits.argmax(-1) == labels).float().mean(),
+        "accuracy": collectives.batch_mean(
+            (logits.argmax(-1) == labels).float()),
     }

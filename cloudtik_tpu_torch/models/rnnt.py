@@ -17,7 +17,9 @@ else, so the port loops over time in Python as `lax.scan` does.
 through the predictor stack, emits at most one symbol a frame, and pads
 its output with 0 past `max_symbols`, as the reference does.
 
-Not here yet: `param_logical_axes` (ROADMAP A7, the parallel layer).
+On a mesh (`param_logical_axes`, the reference's tree) a rank holds its
+rows of the batch and the loss is the mean over the global batch
+(`collectives.batch_mean`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.ops.transducer import transducer_loss
+from cloudtik_tpu_torch.parallel import collectives
 
 Params = Dict[str, Any]
 
@@ -100,11 +103,33 @@ def num_params(cfg: RNNTConfig) -> int:
 # Parameters
 # --------------------------------------------------------------------------
 
+def _lstm_axes() -> Params:
+    return {"w": ("embed", "mlp"), "b": ("mlp",)}
+
+
+def param_logical_axes(cfg: RNNTConfig) -> Params:
+    """The reference's logical axes, leaf for leaf."""
+    return {
+        "encoder": [_lstm_axes() for _ in range(
+            cfg.enc_layers_pre + cfg.enc_layers_post)],
+        "predictor": {
+            "embed": ("vocab", "embed"),
+            "layers": [_lstm_axes() for _ in range(cfg.pred_layers)],
+        },
+        "joint": {
+            "enc_proj": ("embed", "mlp"),
+            "pred_proj": ("embed", "mlp"),
+            "out": ("mlp", "vocab"),
+            "out_bias": ("vocab",),
+        },
+    }
+
+
 def init_params(generator: torch.Generator, cfg: RNNTConfig,
                 device: DeviceLike = None) -> Params:
     """Same tree, shapes and dtypes as the JAX `init_params` (forget-gate
-    bias 1.0); draws come from `generator` (on `device`), so they differ
-    from jax.random's."""
+    bias 1.0); draws come from `generator` (on `device`), so they are
+    not jax.random's."""
     dev = resolve_device(device)
     pdt = cfg.param_dtype
 
@@ -235,7 +260,8 @@ def joint(params: Params, enc: torch.Tensor, pred: torch.Tensor,
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: RNNTConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: features [B,T,F] f32, feature_lengths [B], labels [B,U]
-    int (blank=0 padding), label_lengths [B]; the metrics detached."""
+    int (blank=0 padding), label_lengths [B] (this rank's rows on a
+    mesh); the metrics detached."""
     enc = encode(params, batch["features"], cfg)
     pred = predict(params, batch["labels"], cfg)
     log_probs = joint(params, enc, pred, cfg)
@@ -244,7 +270,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     enc_lengths = torch.clamp(enc_lengths, 1, enc.shape[1])
     losses = transducer_loss(log_probs, batch["labels"], enc_lengths,
                              batch["label_lengths"])
-    loss = losses.mean()
+    loss = collectives.batch_mean(losses)
     return loss, {"loss": loss.detach()}
 
 

@@ -25,6 +25,11 @@ deterministic.  Padding rows claim a slot past the anchors that is sliced
 off.  Hard-negative mining ranks by `argsort(argsort(-neg_ce))` with
 `stable=True`, as `jnp.argsort` is stable, and every argmax takes the first
 index on a tie, as in JAX.
+
+On a mesh (`param_logical_axes`, the reference's tree) a rank holds its
+rows of the batch: the backbone's BN takes global statistics (ResNet's),
+and the loss and its metrics are means over the global batch of the
+per-image ratios (`collectives.batch_mean`).
 """
 
 from __future__ import annotations
@@ -39,8 +44,10 @@ import torch
 
 from cloudtik_tpu_torch.device import DeviceLike, resolve_device
 from cloudtik_tpu_torch.models import resnet as R
-from cloudtik_tpu_torch.ops.conv import conv_kernel_init, conv_nhwc
+from cloudtik_tpu_torch.ops.conv import (conv_kernel_axes,
+                                         conv_kernel_init, conv_nhwc)
 from cloudtik_tpu_torch.ops.detection import box_iou, nms_batched
+from cloudtik_tpu_torch.parallel import collectives
 
 Params = Dict[str, Any]
 
@@ -213,6 +220,20 @@ def _smooth_l1(x: torch.Tensor) -> torch.Tensor:
 # Parameters
 # --------------------------------------------------------------------------
 
+def param_logical_axes(cfg: SSDConfig) -> Params:
+    """The reference's logical axes: the backbone's without its
+    classifier, conv kernels for the extras and heads."""
+    axes: Params = {"backbone": R.param_logical_axes(cfg.backbone_config())}
+    axes["backbone"].pop("fc", None)
+    axes["extras"] = [{"reduce": conv_kernel_axes(),
+                       "conv": conv_kernel_axes()}
+                      for _ in cfg.extra_widths]
+    axes["heads"] = [{"cls": conv_kernel_axes(), "cls_bias": ("norm",),
+                      "box": conv_kernel_axes(), "box_bias": ("norm",)}
+                     for _ in cfg.feature_widths()]
+    return axes
+
+
 def init_params(generator: torch.Generator, cfg: SSDConfig,
                 device: DeviceLike = None) -> Params:
     """Same tree, shapes and dtypes as the JAX `init_params`; draws come
@@ -343,12 +364,12 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
         / num_pos
     loc = _smooth_l1(box_deltas - targets).sum(-1)
     loc_loss = torch.where(positive, loc, zero).sum(dim=1) / num_pos
-    loss = (conf_loss + loc_loss).mean()
+    loss = collectives.batch_mean(conf_loss + loc_loss)
     return loss, {
         "loss": loss.detach(),
-        "conf_loss": conf_loss.detach().mean(),
-        "loc_loss": loc_loss.detach().mean(),
-        "num_pos": num_pos.float().mean(),
+        "conf_loss": collectives.batch_mean(conf_loss.detach()),
+        "loc_loss": collectives.batch_mean(loc_loss.detach()),
+        "num_pos": collectives.batch_mean(num_pos.float()),
     }
 
 

@@ -22,6 +22,12 @@ so its backward never reads the ambient mesh.
                    each of them, which a sum would multiply.
 * `all_reduce`     a plain sum (or max, min), no gradient (counts,
                    gradient sync, the split vocab's max and argmax).
+* `batch_mean`     the mean over the global batch of a tensor of this
+                   rank's rows: its sum through `reduce_sum` over the
+                   global count (every family's loss and metrics).
+* `gather_rows`    dimension 0 gathered over the batch axes in the order
+                   `data.local_batch` cuts rows, the backward summed
+                   (GraphSAGE's neighbours on other ranks).
 * `shift_many`     each rank takes the tensors of the rank `offset`
                    places before it along a group, cyclically
                    (`lax.ppermute` with a cyclic perm), no gradient.  The
@@ -40,12 +46,14 @@ Reductions run in the tensor's own dtype on every backend.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from cloudtik_tpu_torch.parallel import sharding
+from cloudtik_tpu_torch.parallel.mesh import DATA_AXES
 
 
 def groups_for(axes: Sequence[str]) -> Tuple:
@@ -156,6 +164,32 @@ def gather_dim(x: torch.Tensor, dim: int, group,
     back reduce-scattered (summed) to the shard, or with `summed=False`
     as this rank's slice of it."""
     return _GatherDim.apply(x, dim, group, summed)
+
+
+def gather_rows(x: torch.Tensor, axes: Sequence[str] = DATA_AXES
+                ) -> torch.Tensor:
+    """Every rank's rows of x (dimension 0) over the ambient mesh's `axes`,
+    row-major over them as `data.local_batch` cuts a batch (the inner axis
+    gathered first).  The backward sums each row's cotangent over the
+    ranks and hands each rank its own rows."""
+    for axis in reversed(tuple(axes)):
+        group = sharding.axis_group(axis)
+        if group is not None:
+            x = gather_dim(x, 0, group, summed=True)
+    return x
+
+
+def batch_mean(x: torch.Tensor, axes: Sequence[str] = DATA_AXES
+               ) -> torch.Tensor:
+    """The mean of x's elements over the global batch, x holding this
+    rank's rows (every rank as many): this rank's sum summed over `axes`
+    (`reduce_sum`: the backward is this rank's share) over the global
+    count; `x.mean()` off a mesh."""
+    groups = groups_for(axes)
+    if not groups:
+        return x.mean()
+    n = x.numel() * math.prod(dist.get_world_size(g) for g in groups)
+    return _ReduceSum.apply(x.sum(), groups) / n
 
 
 def gather_full(x: torch.Tensor, dim: int, group: Optional[object]

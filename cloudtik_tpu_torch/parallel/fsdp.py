@@ -4,9 +4,10 @@ The trainer keeps each parameter as this rank's shard.  A leaf of the
 `[L, ...]` layer stack with a dimension the model does not read split
 (over `fsdp`, or over `tensor` where that is not a Megatron dimension)
 becomes a `LayerShards`;
-the model's layer loop reads it through `LazyLayer` (what
-`models/transformer.layer_params` returns for such a stack), which gathers
-one layer's slice where the layer reads it.  Inside a checkpointed layer
+the model's layer loop reads it through `LazyLayer` (what the
+transformer's and BERT's `layer_params` return for such a stack; a spec
+names its stacks in `ModelSpec.layer_stacks`), which gathers one layer's
+slice where the layer reads it.  Inside a checkpointed layer
 the gather runs again in the backward pass, so no gathered layer outlives
 its use; the gradient comes back reduce-scattered to the shard
 (`collectives.gather_dim`).

@@ -38,9 +38,6 @@ DATA_AXES: Tuple[str, ...] = ("data", "fsdp")
 # gradients over them.
 TOKEN_AXES: Tuple[str, ...] = DATA_AXES + ("seq",)
 
-# What the port still refuses on a mesh names this slice.
-NEXT_SLICE = "slice 14 of the port (ROADMAP A7)"
-
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:

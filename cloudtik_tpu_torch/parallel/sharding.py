@@ -48,34 +48,36 @@ DEFAULT_RULES: AxisRules = (
 )
 
 
-# The logical axes whose split the port's model code reads as this rank's
-# slice, by mesh axis: Megatron's heads, d_ff columns and vocab rows over
-# `tensor`, the experts over `expert`, the layer stack over `pipe`.  A
-# parameter dimension split any other way (over fsdp, or `tensor` on
-# `embed`) is whole where the model reads it.
-MODEL_READS = {"tensor": ("heads", "mlp", "vocab"), "expert": ("expert",),
-               "pipe": ("layers",)}
+# What the transformer's (and LoRA's) code reads as this rank's slice, by
+# mesh axis: Megatron's heads, d_ff columns and vocab rows over `tensor`,
+# the experts over `expert`, the layer stack over `pipe`.  A spec names
+# the table its model reads (`ModelSpec.reads_split`); a parameter
+# dimension split any other way (over fsdp, `tensor` on `embed`, or any
+# split of a model that reads none) is whole where the model reads it.
+MEGATRON_READS = {"tensor": ("heads", "mlp", "vocab"),
+                  "expert": ("expert",), "pipe": ("layers",)}
 
 
-def reads_split(entry, logical: Optional[str]) -> bool:
-    """Whether the model reads a dimension placed by spec `entry` with
-    logical name `logical` as this rank's slice."""
+def reads_split(entry, logical: Optional[str], reads) -> bool:
+    """Whether a model that reads the splits in `reads` ({mesh axis:
+    logical names}) reads a dimension placed by spec `entry` with logical
+    name `logical` as this rank's slice."""
     axes = spec_axes(entry)
-    return len(axes) == 1 and logical in MODEL_READS.get(axes[0], ())
+    return len(axes) == 1 and logical in reads.get(axes[0], ())
 
 
-def megatron_split(specs: Any, logical_tree: Any) -> bool:
-    """Whether every `tensor` split in a tree of specs is one the model
-    reads as this rank's slice.  Rules that give `tensor` to another
-    dimension (embed=("fsdp", "tensor")) leave heads, d_ff and vocab
-    whole in some leaves and split in others (no mesh axis is used twice
-    in one leaf), so then no tensor split is read split: each is gathered
-    before use, as GSPMD gathers it."""
+def megatron_split(specs: Any, logical_tree: Any, reads) -> bool:
+    """Whether every `tensor` split in a tree of specs is one a model that
+    reads `reads` takes as this rank's slice.  Rules that give `tensor` to
+    another dimension (embed=("fsdp", "tensor")) leave heads, d_ff and
+    vocab whole in some leaves and split in others (no mesh axis is used
+    twice in one leaf), so then no tensor split is read split: each is
+    gathered before use, as GSPMD gathers it."""
     entries: list = []
     _map_axes(lambda names, spec: entries.extend(
         (e, names[d]) for d, e in enumerate(spec)
         if "tensor" in spec_axes(e)), logical_tree, specs)
-    return all(reads_split(e, name) for e, name in entries)
+    return all(reads_split(e, name, reads) for e, name in entries)
 
 
 def make_rules(**overrides) -> AxisRules:

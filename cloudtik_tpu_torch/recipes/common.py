@@ -3,13 +3,14 @@
 Counterpart of `examples/recipes/common.py`: the same flags and defaults
 and the same one JSON result line.  With every mesh flag at 1 a recipe
 trains on one card.  With `--data --fsdp --tensor --seq --expert` above 1
-it is one rank of a mesh: run it under `torchrun --nproc-per-node N` (or
-tik-run, one process per card: parallel/distributed.py maps the env), and
-the flags' product must be the world size.  As in the reference there is
-no `--pipe` flag (the pipe axis is `MeshConfig(pipe=...)`), and a family
-without logical axes trains on one card only (slice 14).  `--device`
-picks the card (the default; on a mesh cuda:LOCAL_RANK) or the CPU
-(gloo).
+it is one rank of a mesh, whatever the model family: run it under
+`torchrun --nproc-per-node N` (or tik-run, one process per card:
+parallel/distributed.py maps the env), and the flags' product must be the
+world size; `--batch` is the global batch, which must split over
+data x fsdp.  Every rank prints the result line.  As in the reference
+there is no `--pipe` flag (the pipe axis is `MeshConfig(pipe=...)`).
+`--device` picks the card (the default; on a mesh cuda:LOCAL_RANK) or the
+CPU (gloo).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from cloudtik_tpu_torch.device import resolve_device
 from cloudtik_tpu_torch.parallel import distributed
-from cloudtik_tpu_torch.parallel.mesh import NEXT_SLICE, MeshConfig
+from cloudtik_tpu_torch.parallel.mesh import MeshConfig
 from cloudtik_tpu_torch.train.optim import OptimizerConfig
 from cloudtik_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -79,10 +80,6 @@ def build_recipe_trainer(spec, args, seq_len: int = 1,
     `OptimizerConfig` unless given): one card, or this rank of the mesh
     the flags ask for."""
     mesh = mesh_config(args)
-    if mesh is not None and spec.logical_axes is None:
-        raise ValueError(
-            f"mesh axes {_wide(args)}: this model family trains on "
-            f"one card until {NEXT_SLICE}")
     return Trainer(spec, TrainerConfig(
         global_batch_size=args.batch, seq_len=seq_len,
         mesh=mesh or MeshConfig(),

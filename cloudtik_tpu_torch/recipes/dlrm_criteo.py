@@ -7,9 +7,10 @@
 Counterpart of `examples/recipes/dlrm_criteo.py`: `dlrm_spec` on
 `synthetic_dlrm_batches` through the Trainer, one example a "token".  The
 JAX recipe shards the stacked tables' rows over the mesh; on one card the
-mesh flags take only 1 until the parallel layer is ported (ROADMAP A7) and
-the whole `criteo_terabyte` table stack (333M f32 parameters) lives on the
-card.  The JAX recipe gives no launch line; the default batch is 8.
+whole `criteo_terabyte` table stack (333M f32 parameters) lives on the
+card, and with the mesh flags each rank holds its shard of it and gathers
+the stack whole for the lookup (models/dlrm.py).  The JAX recipe gives no
+launch line; the default batch is 8.
 """
 
 from __future__ import annotations

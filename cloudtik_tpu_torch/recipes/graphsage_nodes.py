@@ -9,8 +9,9 @@ Counterpart of `examples/recipes/graphsage_nodes.py`: `graphsage_spec` on
 fixed-fanout padded blocks of `--nodes` nodes (`--batch` is set to it).
 With `--objective link_pred` each block carries `src`, `dst` and
 `neg_dst` edges (half as many as nodes) drawn from a seed-0 numpy
-generator, as the JAX recipe's.  The mesh flags take only 1 until the
-parallel layer is ported (ROADMAP A7).
+generator, as the JAX recipe's.  With the mesh flags each rank holds its
+rows of the block and reads its neighbours' rows from every rank
+(models/graphsage.py).
 """
 
 from __future__ import annotations

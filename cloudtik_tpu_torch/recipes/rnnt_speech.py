@@ -8,8 +8,7 @@ cpu`).
 Counterpart of `examples/recipes/rnnt_speech.py`: `rnnt_spec` on
 `synthetic_speech_batches` through the Trainer, one frame a "token".  The
 JAX recipe's launch line, `--batch 64 --data 8`, is 8 utterances a card;
-the mesh flags take only 1 until the parallel layer is ported (ROADMAP
-A7).
+the mesh flags run it as one rank of a mesh (recipes/common.py).
 """
 
 from __future__ import annotations

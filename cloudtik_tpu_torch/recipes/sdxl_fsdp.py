@@ -7,8 +7,8 @@
 Counterpart of `examples/recipes/sdxl_fsdp.py`: `diffusion_spec` on
 `synthetic_diffusion_batches` through the Trainer, one image a "token",
 which reports MFU on a card it knows.  The JAX recipe shards every weight
-over `--fsdp N`; on one card the flag takes only 1 until the parallel
-layer is ported (ROADMAP A7).  The JAX recipe's docstring has attention
+over `--fsdp N`, and so does this one on a mesh of N ranks (each weight
+gathered where the step reads it).  The JAX recipe's docstring has attention
 "at low resolutions" run through the flash kernel, but `sdxl_mini`'s head
 dims are 80 and 160, which neither the Pallas kernel (multiples of 128)
 nor the Hopper one (64 and 128) takes: every attention block here, as on

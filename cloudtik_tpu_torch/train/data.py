@@ -254,14 +254,16 @@ def _shard(shard_index: Optional[int],
             world if shard_count is None else shard_count)
 
 
-def local_batch(batch: Dict[str, Any], mesh,
-                microbatches: int = 1) -> Dict[str, Any]:
+def local_batch(batch: Dict[str, Any], mesh, microbatches: int = 1,
+                seq_split: bool = True) -> Dict[str, Any]:
     """This rank's shard of a global batch on `mesh` (a DeviceMesh):
     the rows of batch shard `data_index * fsdp + fsdp_index` (row-major
     over the batch axes, as a PartitionSpec tuple lays them out) and, with
-    `seq` > 1, the seq_index-th slice of dimension 1 of each [B, S, ...]
-    array.  Ranks along `expert` take the same rows.  numpy arrays or
-    tensors, sliced without a copy.
+    `seq` > 1 and `seq_split`, the seq_index-th slice of dimension 1 of
+    each [B, S, ...] array (without `seq_split`, for a loss that reads
+    whole rows, as the image and zoo families' do, the seq ranks take the
+    same rows whole).  Ranks along `expert` take the same rows.  numpy
+    arrays or tensors, sliced without a copy.
 
     With `microbatches` > 1 the global batch is that many blocks of
     consecutive rows (the reference's accumulated step reshapes the global
@@ -276,7 +278,7 @@ def local_batch(batch: Dict[str, Any], mesh,
         n = sizes.get(a, 1)
         index = index * n + (mesh.get_local_rank(a) if n > 1 else 0)
         shards *= n
-    n_seq = sizes.get("seq", 1)
+    n_seq = sizes.get("seq", 1) if seq_split else 1
     seq_index = mesh.get_local_rank("seq") if n_seq > 1 else 0
     out = {}
     for k, v in batch.items():

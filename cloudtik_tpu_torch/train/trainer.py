@@ -38,13 +38,18 @@ A step issues what GSPMD derives there:
 * fsdp: a stacked layer leaf is gathered layer by layer where the layer
   reads it (parallel/fsdp.py), every other sharded leaf at the step's
   start; its gradient comes back reduce-scattered.
-* every gradient is summed over the token axes (data, fsdp, seq) it is
-  not split on: each rank's loss is its share of the global loss
-  (models/transformer.py `loss_fn`), so the sum is the global gradient.
+* every gradient is summed over the spec's token axes it is not split
+  on: (data, fsdp, seq) for a spec whose loss reads its batch split over
+  `seq` (`ModelSpec.seq_split`: the transformer, LoRA), (data, fsdp) for
+  the other families, whose `seq` ranks take whole rows.  Each rank's loss
+  is its share of the global loss (a global sum over a global count, as
+  models/transformer.py `loss_fn` and every family's loss take it), so
+  the sum is the global gradient.
 * expert: each rank holds E/n experts and keeps their gradients; leaves
   replicated over `expert` get identical gradients there, not summed.
-* seq: each rank takes its slice of the sequence (`data.local_batch`);
-  attention runs the ring.
+* seq: with `seq_split` each rank takes its slice of the sequence
+  (`data.local_batch`) and attention runs the ring; without it the seq
+  ranks read the same whole rows.
 * tensor: each rank holds its heads, d_ff columns and vocab rows, and the
   model issues Megatron's collectives (models/transformer.py); leaves
   replicated over `tensor` get equal gradients there, not summed.
@@ -65,10 +70,11 @@ A step issues what GSPMD derives there:
 * a dimension split over two mesh axes (a rule such as
   `embed=("fsdp", "tensor")`) is cut into their product, row-major over
   the axes in spec order; the model reads as this rank's slice only the
-  dimensions its Megatron code is written for (`MODEL_READS`), and the
-  trainer gathers every other split before the loss (a gather over a
-  token axis comes back summed in the backward, over another axis as
-  this rank's slice).
+  dimensions its spec names (`ModelSpec.reads_split`: the transformer's
+  Megatron split, its experts and stages; nothing for the other
+  families), and the trainer gathers every other split before the loss,
+  which is GSPMD's gather made explicit (a gather over a token axis comes
+  back summed in the backward, over another axis as this rank's slice).
 * Adafactor factors from each leaf's whole shape and sums its moments
   and its clip over the shards (train/optim.py `LeafLayout`).
 
@@ -76,9 +82,9 @@ A step issues what GSPMD derives there:
 rank its shard.  On a mesh every rank writes its own checkpoint shard
 (the pieces no other rank holds before it) and a restore, on any mesh or
 one card, reads the pieces that overlap each rank's shard
-(train/checkpoint.py).  MFU divides by the world size.  Only specs with
-logical axes (the transformer, LoRA) train on a mesh; the other
-families' axes wait for slice 14 of the port.
+(train/checkpoint.py).  MFU divides by the world size.  Every family's
+spec has its logical axes and trains on a mesh; a spec without them is
+refused there.
 
 `fit_elastic` trains across slices that come and go
 (train/elastic.py): at a step boundary where the coordinators agree on a
@@ -106,7 +112,7 @@ from cloudtik_tpu_torch.parallel import overlap as overlap_lib
 from cloudtik_tpu_torch.parallel import sharding
 from cloudtik_tpu_torch.parallel.distributed import (process_count,
                                                      rank_device)
-from cloudtik_tpu_torch.parallel.mesh import (NEXT_SLICE, TOKEN_AXES,
+from cloudtik_tpu_torch.parallel.mesh import (DATA_AXES, TOKEN_AXES,
                                               MeshConfig, axis_sizes_of,
                                               build_mesh,
                                               elastic_mesh_config,
@@ -157,6 +163,24 @@ class ModelSpec:
     # holds tensors outside the params (LoRA's frozen base) takes this
     # rank's slices of them there
     bind_mesh: Optional[Callable[[Any, AxisRules], None]] = None
+    # {mesh axis: logical names} the model reads as this rank's slice
+    # (sharding.MEGATRON_READS for the transformer); every other split is
+    # gathered before the loss
+    reads_split: Dict[str, Tuple[str, ...]] = dataclasses.field(
+        default_factory=dict)
+    # top-level keys of stacked [L, ...] layer dicts the model reads layer
+    # by layer (through fsdp.LazyLayer): their fsdp splits are gathered
+    # one layer at a time
+    layer_stacks: Tuple[str, ...] = ()
+    # whether the loss reads its batch split over `seq` (dimension 1 of
+    # each array); the other families' seq ranks take whole rows
+    seq_split: bool = False
+
+    @property
+    def token_axes(self) -> Tuple[str, ...]:
+        """The mesh axes that split the batch the loss reads: its global
+        sums and the gradient sync run over them."""
+        return TOKEN_AXES if self.seq_split else DATA_AXES
 
 
 def transformer_spec(cfg) -> ModelSpec:
@@ -167,6 +191,9 @@ def transformer_spec(cfg) -> ModelSpec:
         loss_fn=lambda params, batch: T.loss_fn(params, batch, cfg),
         flops_per_token=cfg.flops_per_token(),
         logical_axes=T.param_logical_axes(cfg),
+        reads_split=sharding.MEGATRON_READS,
+        layer_stacks=("layers",),
+        seq_split=True,
     )
 
 
@@ -180,6 +207,8 @@ def bert_spec(cfg, objective: str = "mlm") -> ModelSpec:
         init=lambda gen, device: B.init_params(gen, cfg, device),
         loss_fn=lambda params, batch: loss(params, batch, cfg),
         flops_per_token=cfg.flops_per_token(),
+        logical_axes=B.param_logical_axes(cfg),
+        layer_stacks=("layers",),
     )
 
 
@@ -192,6 +221,7 @@ def resnet_spec(cfg) -> ModelSpec:
         init=lambda gen, device: R.init_params(gen, cfg, device),
         loss_fn=lambda params, batch: R.loss_fn(params, batch, cfg),
         flops_per_token=cfg.flops_per_image(),
+        logical_axes=R.param_logical_axes(cfg),
     )
 
 
@@ -203,6 +233,7 @@ def ssd_spec(cfg) -> ModelSpec:
         init=lambda gen, device: S.init_params(gen, cfg, device),
         loss_fn=lambda params, batch: S.loss_fn(params, batch, cfg),
         flops_per_token=cfg.flops_per_image(),
+        logical_axes=S.param_logical_axes(cfg),
     )
 
 
@@ -214,6 +245,7 @@ def maskrcnn_spec(cfg) -> ModelSpec:
         init=lambda gen, device: M.init_params(gen, cfg, device),
         loss_fn=lambda params, batch: M.loss_fn(params, batch, cfg),
         flops_per_token=cfg.flops_per_image(),
+        logical_axes=M.param_logical_axes(cfg),
     )
 
 
@@ -225,6 +257,7 @@ def dlrm_spec(cfg) -> ModelSpec:
         init=lambda gen, device: D.init_params(gen, cfg, device),
         loss_fn=lambda params, batch: D.loss_fn(params, batch, cfg),
         flops_per_token=cfg.flops_per_example(),
+        logical_axes=D.param_logical_axes(cfg),
     )
 
 
@@ -236,6 +269,7 @@ def diffusion_spec(cfg) -> ModelSpec:
         init=lambda gen, device: U.init_params(gen, cfg, device),
         loss_fn=lambda params, batch: U.loss_fn(params, batch, cfg),
         flops_per_token=cfg.flops_per_image(),
+        logical_axes=U.param_logical_axes(cfg),
     )
 
 
@@ -247,6 +281,7 @@ def rnnt_spec(cfg) -> ModelSpec:
         init=lambda gen, device: N.init_params(gen, cfg, device),
         loss_fn=lambda params, batch: N.loss_fn(params, batch, cfg),
         flops_per_token=cfg.flops_per_frame(),
+        logical_axes=N.param_logical_axes(cfg),
     )
 
 
@@ -261,6 +296,7 @@ def graphsage_spec(cfg, objective: str = "supervised") -> ModelSpec:
         init=lambda gen, device: G.init_params(gen, cfg, device),
         loss_fn=lambda params, batch: loss(params, batch, cfg),
         flops_per_token=cfg.flops_per_node(),
+        logical_axes=G.param_logical_axes(cfg),
     )
 
 
@@ -301,7 +337,7 @@ class Placement:
     sizes, and a rank's piece is row-major over the axes in spec order, as
     a PartitionSpec entry ("fsdp", "tensor") lays it out.  `read_split`
     names the dims the model reads as this rank's slice
-    (`sharding.MODEL_READS`); the trainer gathers the others before the
+    (`ModelSpec.reads_split`); the trainer gathers the others before the
     loss."""
 
     dims: Tuple[Tuple[int, Tuple[str, ...]], ...] = ()
@@ -367,16 +403,18 @@ class Trainer:
     def _place(self):
         """A Placement per parameter from the spec's logical axes."""
         if self.spec.logical_axes is None:
-            raise NotImplementedError(
-                "this model family has no logical axes yet: training it on "
-                f"a mesh comes with {NEXT_SLICE}")
+            raise ValueError(
+                "this ModelSpec has no logical_axes: a spec trains on a "
+                "mesh only with the logical axes of its parameters")
         shapes = self.spec.init(torch.Generator(), torch.device("meta"))
         specs = tree_to_shardings_safe(self.mesh, self.spec.logical_axes,
                                        shapes, self.config.rules)
 
         # the tensor splits are Megatron's (read split) only when every
         # one of them is (`sharding.megatron_split`)
-        megatron = sharding.megatron_split(specs, self.spec.logical_axes)
+        reads = self.spec.reads_split
+        megatron = sharding.megatron_split(specs, self.spec.logical_axes,
+                                           reads)
 
         def one(params, spec, logical):
             if isinstance(params, dict):
@@ -391,7 +429,7 @@ class Trainer:
                 if not axes:
                     continue
                 dims.append((dim, axes))
-                if sharding.reads_split(entry, logical[dim]) and (
+                if sharding.reads_split(entry, logical[dim], reads) and (
                         megatron or axes != ("tensor",)):
                     read.append(dim)
             return Placement(tuple(dims), tuple(read))
@@ -704,11 +742,14 @@ class Trainer:
     def _use_tree(self):
         """The tree the loss reads: every split dimension the model does not
         read as this rank's slice (Placement.read_split) gathered, the
-        layer stack's leaves as `LayerShards` (gathered layer by layer)
-        and the others now; the gradient of a gather over a token axis
-        comes back summed, over another axis as this rank's slice."""
+        leaves of the spec's layer stacks as `LayerShards` (gathered layer
+        by layer) and the others now; the gradient of a gather over a
+        token axis comes back summed, over another axis (whose ranks read
+        the same rows) as this rank's slice."""
+        token_axes = self.spec.token_axes
+
         def use(in_layers, p, pl):
-            gathers = [(d, self.mesh.get_group(a), a in TOKEN_AXES)
+            gathers = [(d, self.mesh.get_group(a), a in token_axes)
                        for d, axes in reversed(pl.dims)
                        if d not in pl.read_split
                        for a in reversed(axes) if self._axis(a) > 1]
@@ -722,17 +763,21 @@ class Trainer:
 
         params, placements = self.params, self._placements
         if isinstance(params, dict):
-            return {k: tree_map(lambda p, pl, lay=(k == "layers"):
+            return {k: tree_map(lambda p, pl,
+                                lay=(k in self.spec.layer_stacks):
                                 use(lay, p, pl), v, placements[k])
                     for k, v in params.items()}
         return tree_map(lambda p, pl: use(False, p, pl), params, placements)
 
     def _sharded_grads(self, batch: Dict[str, torch.Tensor],
-                       sum_axes=TOKEN_AXES):
-        """This rank's gradients, summed over the token axes in `sum_axes`
-        that each leaf is not split on (never over tensor or pipe: the
-        model's collectives already leave every rank its leaves' whole
-        gradients there)."""
+                       sum_axes: Optional[Tuple[str, ...]] = None):
+        """This rank's gradients, summed over the axes in `sum_axes` (the
+        spec's token axes unless given) that each leaf is not split on
+        (never over tensor or pipe: the model's collectives, or the
+        gathers, already leave every rank its leaves' whole gradients
+        there)."""
+        if sum_axes is None:
+            sum_axes = self.spec.token_axes
         leaves = tree_leaves(self.params)
         with sharding.use_mesh(self.mesh):
             loss, metrics = self.spec.loss_fn(self._use_tree(), batch)
@@ -820,7 +865,8 @@ class Trainer:
             one = {k: v[i] for k, v in micro.items()}
             if sync is not None:
                 g, m = self._sharded_grads(
-                    one, tuple(a for a in TOKEN_AXES if a != "data"))
+                    one, tuple(a for a in self.spec.token_axes
+                               if a != "data"))
                 sync.add(g)
             else:
                 g, m = self._grads(one)
@@ -893,7 +939,9 @@ class Trainer:
             mesh = self.mesh
             local_batch_slice(mesh, self.config.global_batch_size)
             accum = max(int(self.config.grad_accum_steps), 1)
-            data_iter = map(lambda b: local_batch(b, mesh, accum), data_iter)
+            seq_split = self.spec.seq_split
+            data_iter = map(lambda b: local_batch(
+                b, mesh, accum, seq_split=seq_split), data_iter)
         # integer ids as int64, whatever the source gives; floats (images,
         # boxes, masks) as they are
         data_iter = map(_as_long, data_iter)

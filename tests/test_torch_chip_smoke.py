@@ -1468,3 +1468,34 @@ def test_elastic_load_is_tpu_1b_at_full_width_and_depth():
     assert load.device == "cuda:0"
     assert (load.every, load.torn_at, load.lost_at, load.return_at,
             load.steps) == (2, 4, 4, 6, 8)
+
+
+def test_zoo_2rank_phase_rehearsal():
+    """The phase's two ranks over gloo on the CPU at tiny size: every
+    check it makes on the card but the launch counts (no kernel runs
+    here): each f32 mesh step within 1e-5 of one process, each planted
+    fault far past the phase's limit."""
+    out = chip_smoke.phase_zoo_2rank(chip_smoke.ZOO_MESH_REHEARSAL)
+    assert out["launches"] == {"nms": 0, "roi_align": 0}
+    for r in out["ranks"]:
+        for name in ("maskrcnn_f32", "dlrm_f32", "graphsage_f32",
+                     "graphsage_link_f32"):
+            assert r[name]["clean"]["max_leaf_rel_l2"] <= 1e-4, name
+            assert r[name]["clean"]["loss_rel"] <= 1e-5, name
+        assert r["maskrcnn_f32"]["bn_local"]["max_leaf_rel_l2"] > 0.1
+        # the sum-order witness: one process, BN's sums in the mesh's order
+        assert r["maskrcnn_f32"]["witness"]["max_leaf_rel_l2"] <= 1e-4
+        assert r["maskrcnn_f32"]["clean"]["proposals_repicked"] == 0
+        assert r["graphsage_f32"]["own_rows"]["max_leaf_rel_l2"] > 0.1
+        # the tables' embedding columns split over fsdp
+        assert r["dlrm_local_table"] == [4, 100, 8]
+        assert r["maskrcnn_train"]["collectives"]["collective_ms"] > 0
+
+
+def test_zoo_mesh_load_is_the_recipes_at_full_width():
+    load = chip_smoke.ZOO_MESH_LOAD
+    assert (load.maskrcnn, load.image_size, load.maskrcnn_batch) == (
+        "maskrcnn_resnet50", 512, 8)
+    assert (load.dlrm, load.dlrm_batch) == ("criteo_terabyte", 8192)
+    assert (load.graphsage, load.graphsage_nodes) == ("graphsage", 4096)
+    assert load.device == "cuda:0"

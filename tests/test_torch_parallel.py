@@ -244,16 +244,16 @@ def test_slice_groups_and_elastic_config_match_jax():
 def test_tensor_and_pipe_are_refused_naming_the_next_slice(spawned):
     """Both axes are admitted (the mesh check that refused them is gone),
     and so is MoE on a seq mesh: at seq=2 `moe_ffn` gives one process's
-    outputs, router metrics and gradients.  What is still refused names
-    the next slice (14): the other families on a mesh
-    (tests/test_torch_sharded_trainer.py)."""
+    outputs, router metrics and gradients.  No slice is waited for any
+    more: `NEXT_SLICE` is gone, and the other families train on a mesh
+    (tests/test_torch_vision_mesh.py, tests/test_torch_zoo_mesh.py)."""
     assert not hasattr(TM, "check_ported")
     for axis in ("tensor", "pipe"):
         sizes = TM.MeshConfig(fsdp=1, **{axis: 2}).axis_sizes(2)
         assert TM.mesh_summary(sizes) == {axis: 2}
         with TS.use_mesh(sizes):
             assert TS.mesh_axis_size(axis) == 2
-    assert "slice 14" in TM.NEXT_SLICE
+    assert not hasattr(TM, "NEXT_SLICE")
     from cloudtik_tpu_torch.ops.moe import MoEConfig, moe_ffn
 
     case = _moe_case()

@@ -17,6 +17,7 @@ pre-clip global norm within 1e-4, every parameter after the steps within
 the reference).  The planted faults must miss those ceilings.
 """
 
+import importlib
 import shutil
 import threading
 from pathlib import Path
@@ -37,7 +38,7 @@ from cloudtik_tpu_torch import convert
 from cloudtik_tpu_torch.models import lora as TL
 from cloudtik_tpu_torch.models import transformer as TT
 from cloudtik_tpu_torch.parallel.launch import run_ranks
-from cloudtik_tpu_torch.parallel.mesh import NEXT_SLICE, MeshConfig
+from cloudtik_tpu_torch.parallel.mesh import MeshConfig
 from cloudtik_tpu_torch.train import data as TD
 from cloudtik_tpu_torch.train import optim as TO
 from cloudtik_tpu_torch.train import trainer as TTR
@@ -488,8 +489,9 @@ def test_tensor_and_pipe_name_the_next_slice(axis):
     ranks), and so is Adafactor on their split leaves: its state is
     placed from the whole leaves (at tiny's width nothing factors, so its
     v follows the parameters and the row and column slots are whole).
-    What slice 14 ports still raises, naming it, on a mesh with the axis:
-    a family without logical axes."""
+    Every model family's spec places on a mesh with the axis, reading
+    none of its splits as a slice; a spec without logical axes is still
+    refused there, with a message that names no slice of the port."""
     cfg = TT.config("tiny", dtype=torch.float32)
     with pytest.raises(ValueError, match="devices"):
         TTR.Trainer(TTR.transformer_spec(cfg), TTR.TrainerConfig(
@@ -513,11 +515,20 @@ def test_tensor_and_pipe_name_the_next_slice(axis):
     assert not any(pl.dims for key in ("v_row", "v_col") for pl in
                    jax.tree.leaves(placed[key], is_leaf=lambda x: isinstance(
                        x, TTR.Placement)))
-    assert "slice 14" in NEXT_SLICE
+    for family in ("bert", "resnet", "ssd", "maskrcnn", "diffusion",
+                   "dlrm", "rnnt", "graphsage"):
+        fam = importlib.import_module(f"cloudtik_tpu_torch.models.{family}")
+        spec = getattr(TTR, f"{family}_spec")(fam.config("tiny"))
+        placed = jax.tree.leaves(TTR.Trainer(
+            spec, TTR.TrainerConfig(), device="cpu", mesh=mesh)._placements,
+            is_leaf=lambda x: isinstance(x, TTR.Placement))
+        assert not any(pl.read_split for pl in placed), family
+        assert spec.reads_split == {} and not spec.seq_split
     spec = TTR.ModelSpec(init=TTR.transformer_spec(cfg).init,
                          loss_fn=TTR.transformer_spec(cfg).loss_fn)
-    with pytest.raises(NotImplementedError, match="slice 14"):
+    with pytest.raises(ValueError, match="no logical_axes") as refused:
         TTR.Trainer(spec, TTR.TrainerConfig(), device="cpu", mesh=mesh)
+    assert "slice" not in str(refused.value)
 
 
 def test_two_axis_dimension_and_factored_adafactor_are_placed(spawned):

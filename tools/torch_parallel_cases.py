@@ -7,7 +7,9 @@ Run by `cloudtik_tpu_torch.parallel.launch.run_ranks` with as many ranks
 as the widest case.  `cases.pt` holds {"cases": [...]}; each case names
 its `kind` ("train", "ring", "collectives", "pipeline", "vocab",
 "elastic" or "restore"), its `world` (ranks above it sit the case out)
-and its inputs.  An "elastic" case forms its own groups through its
+and its inputs.  A "train" case trains the transformer (or LoRA on it),
+or with "family" one of the other model families (`family_spec`) at its
+`tiny` preset in f32.  An "elastic" case forms its own groups through its
 store: the ranks of the lost slice leave (their result goes to
 `<name>.rank<r>.left.pt` and the process exits `launch.LEFT`), and come
 back as fresh processes (`launch.request_return`) that join the
@@ -26,6 +28,13 @@ of every shift ("shift_route": "p2p" or "all_gather"), and plant a fault
   wo_unreduced      tensor rank 1 keeps its partial attention output (the
                     all-reduce still runs, so the ranks stay in step)
   head_pipe_summed  the lm head's gradient summed over `pipe`
+  bn_reduce_only    ResNet's BN statistics summed over the batch axes in
+                    the forward only (no `copy_to`): each rank's backward
+                    keeps its own share of their gradient
+  per_rank_mean     BERT's MLM loss over this rank's count of valid labels
+                    times the ranks: a mean of per-rank means
+  sage_no_gather    GraphSAGE reads only its own rows of `h` (the other
+                    ranks' rows zero)
 
 This module imports no JAX: the tests compare its results with the JAX
 package in their own process.
@@ -54,17 +63,22 @@ from cloudtik_tpu_torch.parallel import sharding  # noqa: E402
 def plant(fault):
     """Install one planted fault (see the module docstring); returns the
     function that takes it out again."""
+    from cloudtik_tpu_torch.models import bert as BE
+    from cloudtik_tpu_torch.models import graphsage as GS
+    from cloudtik_tpu_torch.models import resnet as RN
     from cloudtik_tpu_torch.models import transformer as T
     from cloudtik_tpu_torch.ops import moe, ring_attention as R
     from cloudtik_tpu_torch.train import trainer as TR
 
     saved = (moe.DATA_AXES, moe.collectives, R._mask, R._Ring.backward,
-             T.collectives, TR.Trainer._sharded_grads)
+             T.collectives, TR.Trainer._sharded_grads, RN.collectives,
+             BE.collectives, GS.collectives)
 
     def undo():
         moe.DATA_AXES, moe.collectives, R._mask = saved[:3]
         R._Ring.backward = staticmethod(saved[3])
-        T.collectives, TR.Trainer._sharded_grads = saved[4:]
+        T.collectives, TR.Trainer._sharded_grads = saved[4:6]
+        RN.collectives, BE.collectives, GS.collectives = saved[6:]
 
     if fault is None:
         return undo
@@ -116,9 +130,41 @@ def plant(fault):
             return grads, metrics
 
         TR.Trainer._sharded_grads = summed
+    elif fault == "bn_reduce_only":
+        RN.collectives = _FamilyShim(copy_to=lambda x, axes: x)
+    elif fault == "per_rank_mean":
+        def local_count(x, axes, op="sum"):
+            groups = collectives.groups_for(axes)
+            return x * int(np.prod([dist.get_world_size(g)
+                                    for g in groups]))
+        BE.collectives = _FamilyShim(all_reduce=local_count)
+    elif fault == "sage_no_gather":
+        GS.collectives = _FamilyShim(gather_rows=_own_rows_only)
     else:
         raise ValueError(f"unknown fault {fault!r}")
     return undo
+
+
+class _FamilyShim:
+    """parallel/collectives.py with the given functions replaced."""
+
+    def __init__(self, **replaced):
+        self._replaced = replaced
+
+    def __getattr__(self, name):
+        return self._replaced.get(name, getattr(collectives, name))
+
+
+def _own_rows_only(x, axes=PM.DATA_AXES):
+    """`gather_rows`'s shape with only this rank's rows of x, the other
+    ranks' zero."""
+    n, index = 1, 0
+    for a in axes:
+        size = sharding.mesh_axis_size(a)
+        index = index * size + sharding.axis_rank(a)
+        n *= size
+    zeros = x.new_zeros(x.shape)
+    return torch.cat([x if i == index else zeros for i in range(n)])
 
 
 class _TransformerShim:
@@ -146,6 +192,19 @@ class _TransformerShim:
         return out
 
 
+def family_spec(family: str, objective=None, overrides=None):
+    """`train/trainer.py`'s `<family>_spec` of `models/<family>.py` at its
+    `tiny` preset in f32 (`objective` for BERT and GraphSAGE)."""
+    import importlib
+
+    from cloudtik_tpu_torch.train import trainer as TR
+
+    M = importlib.import_module(f"cloudtik_tpu_torch.models.{family}")
+    cfg = M.config("tiny", dtype=torch.float32, **(overrides or {}))
+    args = (objective,) if objective else ()
+    return getattr(TR, f"{family}_spec")(cfg, *args)
+
+
 def case_train(case, device):
     from cloudtik_tpu_torch.models import transformer as T
     from cloudtik_tpu_torch.models.lora import LoRAConfig, lora_spec
@@ -154,16 +213,20 @@ def case_train(case, device):
                                                   transformer_spec)
     from cloudtik_tpu_torch.tree import tree_map
 
-    cfg = T.config(case["model"], dtype=torch.float32,
-                   **case.get("overrides", {}))
     params = tree_map(lambda t: t.to(device), case["params"])
-    if case.get("lora_rank"):
+    if case.get("family"):
+        spec = family_spec(case["family"], case.get("objective"),
+                           case.get("overrides"))
+    elif case.get("lora_rank"):
+        cfg = T.config(case["model"], dtype=torch.float32,
+                       **case.get("overrides", {}))
         spec = lora_spec(params, cfg, LoRAConfig(rank=case["lora_rank"]))
         params = tree_map(lambda t: t.to(device), case["lora_params"])
     else:
-        spec = transformer_spec(cfg)
+        spec = transformer_spec(T.config(case["model"], dtype=torch.float32,
+                                         **case.get("overrides", {})))
     tcfg = TrainerConfig(
-        global_batch_size=case["batch"], seq_len=case["seq"],
+        global_batch_size=case["batch"], seq_len=case.get("seq", 1),
         mesh=PM.MeshConfig(**case["mesh"]),
         optimizer=OptimizerConfig(**case.get("optimizer", {})),
         rules=sharding.make_rules(**case.get("rules", {})),
