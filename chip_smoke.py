@@ -290,6 +290,21 @@ run with a non-zero exit:
            launch.  GraphSAGE at data=2 on 4,096-node blocks (neighbours
            read across the ranks): supervised and link prediction within
            1e-3 of one process, a rank reading only its own rows flagged
+  runtime  the port as a cluster runtime: `ServingRuntime` (model tpu_1b,
+           port 0) started on the port's in-memory state client answers
+           /healthz, is listed by discovery on its bound port, answers one
+           /v1/generate equal to its backend called in-process (no B1-B5
+           launch: generation's attention is einsums, as in the
+           reference), and deregisters at stop; the libraries
+           `build_all()` made copied into a fresh directory; the command
+           `AIRuntime.get_runnable_command` gives for this script (the port's
+           launcher, `--nproc-per-node 1`) run with `--runtime-rank` and
+           `TIK_COMPILE_CACHE_DIR` on that directory: the LoRA recipe's
+           trainer at its defaults (tpu_1b, S=2048, B=8) for 1 warm-up and
+           2 measured steps, building nothing (the compile bucket at 0),
+           16 launches of each of B1-B3 a step; the same command on an
+           empty directory without nvcc must fail with KernelBuildError;
+           `AIRuntime.node_install` with torch present installs nothing
 
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
@@ -300,7 +315,9 @@ the GBDT fit, serve and check; moe_serve's forward, server and engine;
 moe_train's measured steps; in each rank of parallel_2rank, the
 measured steps of the tensor and pipe paths; in each process of
 elastic_2rank, its `fit_elastic`; in each rank of zoo_2rank, the
-measured Mask R-CNN and DLRM steps) and read just after it.
+measured Mask R-CNN and DLRM steps; the serving runtime's start, request
+and stop; in the runtime's rank, its measured steps) and read just after
+it.
 The `total` line gives the script's seconds; the last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
@@ -7392,6 +7409,279 @@ def phase_zoo_2rank(load: ZooMeshLoad = ZOO_MESH_LOAD,
     return out
 
 
+# ---------------------------------------------------------------- runtime --
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeLoad:
+    """The runtime phase.  `ServingRuntime` at `serve_model` answering one
+    /v1/generate of `new_tokens` over a `prompt`-token prompt; then the
+    command `AIRuntime.get_runnable_command` gives for this script, with
+    `--nproc-per-node 1` and the load's deadline: one rank of
+    `recipes.llama_lora_finetune.build` at its defaults (tpu_1b, rank 16,
+    B=8, S=2048, f32 base) plus `argv`, AdamW at `lr` with no warmup,
+    `warmup` steps then `steps` measured ones on one repeated batch."""
+    device: str = "cuda"
+    serve_model: str = "tpu_1b"
+    prompt: int = 64
+    new_tokens: int = 8
+    argv: tuple = ()
+    lr: float = 3e-3
+    warmup: int = 1
+    steps: int = 2
+    deadline_s: float = 300.0
+
+
+RUNTIME_LOAD = RuntimeLoad()
+# the CPU rehearsal at `tiny`
+RUNTIME_REHEARSAL = RuntimeLoad(
+    device="cpu", serve_model="tiny", prompt=8, new_tokens=4,
+    argv=("--model", "tiny", "--seq-len", "64", "--batch", "4"), lr=1e-2,
+    deadline_s=240.0)
+
+
+def runtime_rank(load: RuntimeLoad, out_path: str) -> int:
+    """The rank the runtime phase starts through the port's launcher: the
+    LoRA recipe's trainer, built where `TIK_COMPILE_CACHE_DIR` points the
+    kernel build (`Trainer.__init__` applies it), a warm-up step (whose
+    first flash launch loads, or builds, the libraries), then
+    `build_all()` (which must find every library) and the measured steps,
+    the launch counts zeroed just before them and read just after; writes
+    `out_path`.  `fit` books every build to the goodput ledger's compile
+    bucket from its first step on."""
+    import torch
+
+    from cloudtik_tpu_torch.ops import _kernels
+    from cloudtik_tpu_torch.recipes import llama_lora_finetune as R
+    from cloudtik_tpu_torch.telemetry import goodput
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+
+    started = time.time()
+    on_card = load.device == "cuda"
+    if not on_card:
+        torch.set_num_threads(1)
+    args = R.parser().parse_args(
+        ["--device", load.device, "--log-every", "1", *load.argv])
+    trainer, data, cfg, _, _ = R.build(args, OptimizerConfig(
+        learning_rate=load.lr, warmup_steps=0, total_steps=1000))
+    res = {"started_unix": started, "build_dir": str(_kernels.BUILD_DIR),
+           "n_layers": cfg.n_layers, "model": args.model,
+           "batch": args.batch, "seq": args.seq_len,
+           "launch_env": {k: os.environ.get(k) for k in (
+               "LOCAL_RANK", "LOCAL_WORLD_SIZE", "TIK_PROCESS_ID",
+               "TIK_NUM_PROCESSES")}}
+    trainer.init_state(torch.Generator(device=load.device).manual_seed(1))
+    batch = itertools.repeat(next(data))
+    warm = trainer.fit(batch, load.warmup)["history"]
+    res["first_step_unix"] = time.time()
+    res["built"] = sorted(_kernels.build_all())
+    train = _train_measured(trainer, batch, 0, load.steps, on_card)
+    train.pop("last")
+    train.pop("history")
+    train["losses"] = [h["loss"] for h in warm] + train["losses"]
+    res.update(train)
+    res["compile_s"] = goodput.LEDGER.total(goodput.BUCKET_COMPILE)
+    Path(out_path).write_text(json.dumps(res))
+    return 0
+
+
+def _without_nvcc(env: dict) -> dict:
+    """`env` with no `nvcc` to be found: every PATH entry that holds one
+    dropped and CUDA_HOME pointed at a directory that does not exist."""
+    import shutil
+
+    path = [d for d in env.get("PATH", "").split(os.pathsep)
+            if d and shutil.which("nvcc", path=d) is None]
+    return dict(env, PATH=os.pathsep.join(path),
+                CUDA_HOME=os.path.join(env.get("TMPDIR", "/tmp"),
+                                       "tik-no-cuda-home"))
+
+
+def _runtime_serve(load: RuntimeLoad) -> dict:
+    """`ServingRuntime` started and stopped as the delivery layer does,
+    with the port's in-memory state client in its node context."""
+    import numpy as np
+
+    from cloudtik_tpu_torch.control.state import (InMemoryStateBackend,
+                                                  StateClient)
+    from cloudtik_tpu_torch.runtimes.discovery.runtime import ServiceRegistry
+    from cloudtik_tpu_torch.runtimes.serving import runtime as SR
+
+    state = StateClient(InMemoryStateBackend())
+    context = {"is_head": True, "node_id": "head", "node_ip": "127.0.0.1",
+               "state_client": state,
+               "config": {"cluster_name": "smoke", "workspace_name": "card"}}
+    registry = ServiceRegistry(state, "smoke", "card")
+    runtime = SR.ServingRuntime({"model": load.serve_model, "port": 0,
+                                 "device": load.device})
+    t0 = time.perf_counter()
+    runtime.node_services(context, "start")
+    out = {"start_s": time.perf_counter() - t0}
+    try:
+        server = SR._servers[runtime.instance_key(context)]
+        base = f"http://127.0.0.1:{server.port}"
+        status, health = _http(f"{base}/healthz")
+        require(status == 200 and health == {"status": "ok"},
+                f"runtime: /healthz answered {status} {health}")
+        listed = registry.query("serving")
+        require([(s["port"], s["node_id"]) for s in listed]
+                == [(server.port, "head")],
+                f"runtime: discovery lists {listed}, expected the service "
+                f"on its bound port {server.port}")
+        backend = server.backends[0]
+        prompt = np.random.default_rng(5).integers(
+            0, backend.cfg.vocab_size, load.prompt).tolist()
+        payload = {"tokens": [prompt], "max_new_tokens": load.new_tokens}
+        t0 = time.perf_counter()
+        status, got = _http(f"{base}/v1/generate", payload)
+        out["request_ms"] = (time.perf_counter() - t0) * 1e3
+        want = backend.endpoints["generate"](payload)
+        require(status == 200 and got["tokens"] == want["tokens"],
+                f"runtime: /v1/generate gave {status} {got}, the backend "
+                f"in-process {want}")
+        out.update(port=server.port, tokens=got["tokens"][0])
+    finally:
+        runtime.node_services(context, "stop")
+    require(registry.query("serving") == [],
+            "runtime: the service is still listed after stop")
+    out["backend"] = backend.name
+    return out
+
+
+def phase_runtime(load: RuntimeLoad = RUNTIME_LOAD,
+                  nvidia_smi: str = None) -> dict:
+    """The port through its cluster runtimes (module docstring).  On the
+    CPU no library is built: the copied cache holds an empty file under
+    each library's name, which is all `build_all()` looks for."""
+    import shutil
+    import tempfile
+
+    from cloudtik_tpu_torch.ops import _kernels
+    from cloudtik_tpu_torch.runtimes import installer
+    from cloudtik_tpu_torch.runtimes.ai.runtime import AIRuntime
+
+    on_card = load.device == "cuda"
+    _collect(on_card)
+    root = Path(__file__).resolve().parent
+    out = {"nvidia_smi": nvidia_smi, "load": dataclasses.asdict(load)}
+
+    # ---- node_install with torch present: no installer call ----
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"node_install called the installer: {args}")
+
+    real_install, installer.install = installer.install, refuse
+    try:
+        AIRuntime({}).node_install({"is_head": True})
+    finally:
+        installer.install = real_install
+
+    # ---- the serving runtime: counts zeroed just before, read just after;
+    # generation's attention is the reference's einsums (prefill too), so
+    # this path launches none of B1-B5 ----
+    _zero_launch_counts()
+    _zero_det_launch_counts()
+    out["serve"] = _runtime_serve(load)
+    serve_launches = {**_launch_counts(), **_det_launch_counts()}
+    _collect(on_card)
+    require(not any(serve_launches.values()),
+            f"runtime: the serving path launched {serve_launches}, expected "
+            "none")
+
+    runtime = AIRuntime({"python": sys.executable})
+    with tempfile.TemporaryDirectory(prefix="tik-runtime-") as tmp:
+        tmp = Path(tmp)
+        spec = tmp / "load.json"
+        spec.write_text(json.dumps(dataclasses.asdict(load)))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(root)] + [p for p in env.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
+
+        def run(name: str, cache: Path, env: dict) -> dict:
+            cmd = runtime.get_runnable_command(
+                str(root / "chip_smoke.py"),
+                ["--nproc-per-node", "1", "--deadline-s",
+                 str(load.deadline_s)])
+            cmd += ["--runtime-rank", str(spec), str(tmp / f"{name}.json")]
+            log = tmp / f"{name}.log"
+            t0 = time.time()
+            with open(log, "w") as f:
+                proc = subprocess.run(
+                    cmd, cwd=str(root), stdout=f, stderr=subprocess.STDOUT,
+                    env=dict(env, TIK_COMPILE_CACHE_DIR=str(cache)),
+                    timeout=load.deadline_s + 60)
+            result = tmp / f"{name}.json"
+            return {"cmd": cmd, "rc": proc.returncode, "spawned_unix": t0,
+                    "wall_s": time.time() - t0, "log": log.read_text(),
+                    "rank": (json.loads(result.read_text())
+                             if result.exists() else None)}
+
+        # ---- the libraries this script built, copied to a fresh cache ----
+        cache = tmp / "cache"
+        cache.mkdir()
+        for name in _kernels._SIGNATURES:
+            lib = _kernels._target(name)
+            if on_card:
+                require(lib.exists(), f"runtime: {lib} was not built")
+                shutil.copy2(lib, cache / lib.name)
+            else:
+                (cache / lib.name).touch()
+        copied = sorted(p.name for p in cache.iterdir())
+        warm = run("warm", cache, env)
+        r = warm["rank"]
+        require(warm["rc"] == 0 and r is not None,
+                f"runtime: the launched rank failed (rc {warm['rc']}):\n"
+                f"{warm['log'][-4000:]}")
+        require(r["launch_env"] == {
+            "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1", "TIK_PROCESS_ID": "0",
+            "TIK_NUM_PROCESSES": "1"},
+            f"runtime: the launcher gave the rank {r['launch_env']}")
+        require(Path(r["build_dir"]).resolve() == cache.resolve(),
+                f"runtime: the rank built into {r['build_dir']}, not the "
+                f"cache {cache}")
+        require(r["built"] == [] and r["compile_s"] == 0
+                and sorted(p.name for p in cache.iterdir()) == copied,
+                f"runtime: the rank built {r['built']} (compile bucket "
+                f"{r['compile_s']} s; the cache now holds "
+                f"{sorted(p.name for p in cache.iterdir())}) from a warm "
+                "cache")
+        require(all(math.isfinite(x) for x in r["losses"]),
+                f"runtime: losses {r['losses']}")
+        n = r["n_layers"]
+        if on_card:
+            require(r["launches_per_step"] == {
+                "flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n},
+                f"runtime: the rank's step launches "
+                f"{r['launches_per_step']}, expected {n} of each kernel")
+
+        # ---- a planted miss: a cold cache and no nvcc ----
+        cold = tmp / "cold"
+        cold.mkdir()
+        miss = run("miss", cold, _without_nvcc(env))
+        require(miss["rc"] != 0 and "KernelBuildError:" in miss["log"],
+                f"runtime: a cold cache without nvcc did not fail with "
+                f"KernelBuildError (rc {miss['rc']}):\n"
+                f"{miss['log'][-4000:]}")
+        require(not any(cold.glob("*.so")),
+                f"runtime: the cold cache holds {list(cold.iterdir())}")
+    launches = {k: serve_launches[k] + n for k, n in r["launches"].items()}
+    out.update({
+        "runnable_command": warm["cmd"],
+        "rank": {k: r[k] for k in (
+            "model", "batch", "seq", "n_layers", "launch_env", "build_dir",
+            "built",
+            "compile_s", "losses", "ms_per_step", "tokens_per_s", "mfu",
+            "launches", "launches_per_step", "peak_mem_gb", "warmup_s")},
+        "spawn_to_rank_start_s": r["started_unix"] - warm["spawned_unix"],
+        "spawn_to_first_step_s": r["first_step_unix"] - warm["spawned_unix"],
+        "rank_wall_s": warm["wall_s"],
+        "miss": {"rc": miss["rc"], "wall_s": miss["wall_s"],
+                 "error": [ln for ln in miss["log"].splitlines()
+                           if "KernelBuildError:" in ln][-1]},
+        "serve_launches": serve_launches, "launches": launches})
+    emit("runtime", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7405,6 +7695,9 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--zoo-rank":
         load = ZooMeshLoad(**json.loads(Path(sys.argv[2]).read_text()))
         return zoo_rank(load, sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] == "--runtime-rank":
+        load = RuntimeLoad(**json.loads(Path(sys.argv[2]).read_text()))
+        return runtime_rank(load, sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke runs on the "
               "card", file=sys.stderr)
@@ -7594,6 +7887,14 @@ def main() -> int:
     det_launches["roi_align"] += zoo_mesh["launches"]["roi_align"]
     emit("zoo_mesh", seconds=time.perf_counter() - t_zoo2)
 
+    # ---- the cluster runtimes: the serving runtime (counts zeroed and read
+    # around its start, request and stop), then the AI runtime's launcher
+    # starting one rank on a warm kernel cache (counts zeroed and read
+    # inside the rank, around its measured steps) ----
+    t_rt = time.perf_counter()
+    runtime = phase_runtime(nvidia_smi=smi)
+    emit("runtime_phase", seconds=time.perf_counter() - t_rt)
+
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]
     launches = {k: inference[k] + train["launches"][k]
@@ -7601,6 +7902,7 @@ def main() -> int:
                 + bert["launches"][k] + loaders["launches"][k]
                 + moe_serve["launches"][k] + moe_train["launches"][k]
                 + parallel["launches"][k] + elastic["launches"][k]
+                + runtime["launches"][k]
                 for k in inference}
 
     def bwd_err(grads):

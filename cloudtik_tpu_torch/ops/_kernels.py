@@ -2,13 +2,18 @@
 
 Each source under `cloudtik_tpu_torch/csrc/` is compiled by `nvcc` for
 `sm_90a` into a shared library with a plain C interface, loaded with
-`ctypes`.  Libraries live in `build/torch_kernels/` at the root of the
-checkout, keyed by a hash of the source and the flags, and are built at the
-first launch on a CUDA tensor (or by `build_all()`, which starts one `nvcc`
-per source at once).  Nothing happens at import: the CPU tests import every
-module on a machine with no `nvcc`.  Each build that compiled something
-calls the functions in `BUILD_LISTENERS` with its wall seconds and the
-sources it built (the step profiler books them to the `compile` bucket).
+`ctypes`.  Libraries live in `BUILD_DIR`, keyed by a hash of the source
+and the flags: `build/torch_kernels/` at the root of the checkout, or the
+directory `TIK_COMPILE_CACHE_DIR` names (`utils/compile_cache.py`, applied
+at the boot of a trainer or a server).  They are built at the first launch
+on a CUDA tensor (or by `build_all()`, which starts one `nvcc` per source
+at once).  Each builder writes its own temporary file and renames it into
+place, so processes that build into one directory at once leave one whole
+library for each source.  Nothing happens at import: the CPU tests import
+every module on a machine with no `nvcc`.  Each build that compiled
+something calls the functions in `BUILD_LISTENERS` with its wall seconds
+and the sources it built (the step profiler books them to the `compile`
+bucket).
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+DEFAULT_BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -103,7 +109,9 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path,
     if proc.returncode != 0:
         raise KernelBuildError(f"nvcc failed on {name}.cu "
                                f"(exit {proc.returncode}):\n{log}")
-    target.with_suffix(".log").write_text(log)
+    log_tmp = tmp.with_suffix(".logtmp")
+    log_tmp.write_text(log)
+    os.replace(log_tmp, target.with_suffix(".log"))
     os.replace(tmp, target)   # atomic: a reader never sees half a library
     return log
 

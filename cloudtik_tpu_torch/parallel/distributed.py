@@ -7,13 +7,14 @@ process per card.  The mapping:
 
 * torchrun (or any launcher that exports them): `RANK`, `WORLD_SIZE`,
   `LOCAL_RANK` and `MASTER_ADDR`/`MASTER_PORT` are taken as they are.
-* tik-run: `TIK_COORDINATOR_ADDRESS` (host:port of host 0),
-  `TIK_NUM_PROCESSES` (hosts) and `TIK_PROCESS_ID` (this host) describe
-  hosts; each host runs one process per card, told apart by `LOCAL_RANK`,
-  with `LOCAL_WORLD_SIZE` cards a host (default: the host's CUDA device
-  count, 1 without CUDA).  Then world = hosts x local cards and rank =
-  host * local cards + LOCAL_RANK: host-major, so a slice (a contiguous
-  run of hosts) is a contiguous run of ranks.
+* tik-run (the port's, `python -m cloudtik_tpu_torch.launch.run`):
+  `TIK_COORDINATOR_ADDRESS` (host:port of host 0), `TIK_NUM_PROCESSES`
+  (hosts) and `TIK_PROCESS_ID` (this host) describe hosts; the launcher
+  starts one process per card on each host, told apart by `LOCAL_RANK`,
+  with `LOCAL_WORLD_SIZE` cards a host (default, where no launcher says:
+  the host's CUDA device count, 1 without CUDA).  Then world = hosts x
+  local cards and rank = host * local cards + LOCAL_RANK: host-major, so
+  a slice (a contiguous run of hosts) is a contiguous run of ranks.
 
 The backend is NCCL when CUDA is up and gloo otherwise (or as asked), and
 every group gets an explicit `timeout`.  `slice_index` / `slice_count`
@@ -58,11 +59,10 @@ def local_rank() -> int:
 
 
 def _local_world_size() -> int:
+    from cloudtik_tpu_torch.launch.distributor import default_nproc_per_node
+
     n = _env_int("LOCAL_WORLD_SIZE")
-    if n is not None:
-        return n
-    return max(torch.cuda.device_count(), 1) if torch.cuda.is_available() \
-        else 1
+    return n if n is not None else default_nproc_per_node()
 
 
 def auto_initialize(coordinator_address: Optional[str] = None,

@@ -4,10 +4,11 @@ Counterpart of `examples/recipes/common.py`: the same flags and defaults
 and the same one JSON result line.  With every mesh flag at 1 a recipe
 trains on one card.  With `--data --fsdp --tensor --seq --expert` above 1
 it is one rank of a mesh, whatever the model family: run it under
-`torchrun --nproc-per-node N` (or tik-run, one process per card:
-parallel/distributed.py maps the env), and the flags' product must be the
-world size; `--batch` is the global batch, which must split over
-data x fsdp.  Every rank prints the result line.  As in the reference
+`torchrun --nproc-per-node N` or the port's tik-run (`python -m
+cloudtik_tpu_torch.launch.run --nproc-per-node N -m <recipe>`, one process
+per card on every host: parallel/distributed.py maps its env), and the
+flags' product must be the world size; `--batch` is the global batch,
+which must split over data x fsdp.  Every rank prints the result line.  As in the reference
 there is no `--pipe` flag (the pipe axis is `MeshConfig(pipe=...)`).
 `--device` picks the card (the default; on a mesh cuda:LOCAL_RANK) or the
 CPU (gloo).

@@ -572,6 +572,10 @@ def main(argv=None) -> int:
                         "requests finish before exiting")
     args = p.parse_args(argv)
 
+    # warm restarts load the kernels already built (TIK_COMPILE_CACHE_DIR)
+    from cloudtik_tpu_torch.utils.compile_cache import ensure_compile_cache
+    ensure_compile_cache()
+
     if args.gbdt:
         backends = [gbdt_backend(args.gbdt, device=args.device)]
     elif args.engine:

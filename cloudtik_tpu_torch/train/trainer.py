@@ -132,6 +132,7 @@ from cloudtik_tpu_torch.train.optim import (OptimizerConfig,
                                             make_optimizer)
 from cloudtik_tpu_torch.train.prefetch import Prefetcher, put_device_batch
 from cloudtik_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
+from cloudtik_tpu_torch.utils.compile_cache import ensure_compile_cache
 
 # Dense bf16 tensor-core peaks by `torch.cuda.get_device_name` (NVIDIA's
 # data sheets), for MFU.  An unknown card or the CPU gives no MFU.
@@ -365,6 +366,9 @@ class Trainer:
 
     def __init__(self, spec: ModelSpec, config: TrainerConfig,
                  device: DeviceLike = None, mesh=None):
+        # a restarted job loads the kernels its last incarnation built
+        # (TIK_COMPILE_CACHE_DIR; fail-soft)
+        ensure_compile_cache()
         self.spec = spec
         self.config = config
         self.mesh = mesh if mesh is not None else _mesh_for(config.mesh)

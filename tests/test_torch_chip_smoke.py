@@ -6,6 +6,7 @@ it fails and prints no result."""
 
 import dataclasses
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -18,6 +19,7 @@ import torch
 import chip_smoke
 from cloudtik_tpu_torch.ops import detection as D
 from cloudtik_tpu_torch.ops import flash_attention as FA
+from cloudtik_tpu_torch.runtimes.ai.runtime import AIRuntime
 
 # one intra-op thread: a first multi-threaded CPU f32 exp can be off by
 # ~1e-4 in one thread's chunk (tools/repro_torch_cpu_exp.py)
@@ -1499,3 +1501,55 @@ def test_zoo_mesh_load_is_the_recipes_at_full_width():
     assert (load.dlrm, load.dlrm_batch) == ("criteo_terabyte", 8192)
     assert (load.graphsage, load.graphsage_nodes) == ("graphsage", 4096)
     assert load.device == "cuda:0"
+
+
+def test_runtime_phase_rehearsal():
+    """The runtime phase on the CPU at tiny size: the serving runtime
+    answers, registers and deregisters; the AI runtime's command starts
+    the rank through the port's launcher on a warm cache (the library
+    names planted: no nvcc here), which builds nothing and writes every
+    field the phase reads; the cold cache without nvcc fails with
+    KernelBuildError."""
+    load = chip_smoke.RUNTIME_REHEARSAL
+    out = chip_smoke.phase_runtime(load)
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    assert not any(out["serve_launches"].values())
+    assert len(out["serve"]["tokens"]) == load.new_tokens
+    rank = out["rank"]
+    assert Path(rank["build_dir"]).name == "cache"
+    assert rank["built"] == [] and rank["compile_s"] == 0
+    assert len(rank["losses"]) == 2 and rank["ms_per_step"] > 0
+    assert (rank["model"], rank["seq"], rank["batch"]) == ("tiny", 64, 4)
+    assert 0 < out["spawn_to_rank_start_s"] < out["spawn_to_first_step_s"]
+    assert out["miss"]["rc"] != 0
+    assert "KernelBuildError: nvcc not found" in out["miss"]["error"]
+    cmd = out["runnable_command"]
+    assert cmd[:-3] == AIRuntime({"python": sys.executable}).\
+        get_runnable_command(str(ROOT / "chip_smoke.py"), [
+            "--nproc-per-node", "1", "--deadline-s", str(load.deadline_s)])
+    assert cmd[-3] == "--runtime-rank"
+    assert cmd[1:3] == ["-m", "cloudtik_tpu_torch.launch.run"]
+
+
+def test_runtime_load_is_the_lora_recipe_at_tpu_1b():
+    from cloudtik_tpu_torch.recipes import llama_lora_finetune as R
+
+    load = chip_smoke.RUNTIME_LOAD
+    assert (load.device, load.serve_model, load.warmup, load.steps) == (
+        "cuda", "tpu_1b", 1, 2)
+    args = R.parser().parse_args(["--device", load.device, *load.argv])
+    assert (args.model, args.seq_len, args.batch, args.rank) == (
+        "tpu_1b", 2048, 8, 16)
+    assert chip_smoke.RUNTIME_REHEARSAL.argv[:2] == ("--model", "tiny")
+
+
+def test_without_nvcc_no_path_entry_holds_nvcc(tmp_path):
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    (bin_dir / "nvcc").write_text("#!/bin/sh\n")
+    (bin_dir / "nvcc").chmod(0o755)
+    env = chip_smoke._without_nvcc(
+        {"PATH": f"{bin_dir}{os.pathsep}/usr/bin", "TMPDIR": str(tmp_path)})
+    assert env["PATH"] == "/usr/bin"
+    assert not Path(env["CUDA_HOME"]).exists()

@@ -1,7 +1,9 @@
 """The port's copies of the JAX package's jax-free host modules.
 
-The serving engine reaches these modules at run time, and the port keeps
-its own copies of them (it imports nothing of the JAX package): each is the
+The serving engine and the cluster runtimes (the AI and serving
+runtimes' base classes, discovery, the installer) reach these modules at
+run time, and the port keeps its own copies of them (it imports nothing of
+the JAX package): each is the
 reference's source with `cloudtik_tpu` imports renamed to
 `cloudtik_tpu_torch`, and nothing else changed.  Through them the port
 engine emits the reference's `tik_serve_*` metrics and writes request
@@ -40,7 +42,11 @@ COPIES = (
     "telemetry/goodput.py", "serve/kvcache.py", "serve/reqlog.py",
     "utils/retry.py", "control/state.py", "serve/replicas.py",
     "serve/routerlog.py", "serve/router.py", "serve/fabric.py",
-    "serve/explain.py",
+    "serve/explain.py", "core/runtime.py", "core/job_waiter.py",
+    "core/scaling_policy.py", "core/tags.py", "runtimes/installer.py",
+    "runtimes/common/runtime_base.py", "runtimes/common/process_runner.py",
+    "runtimes/discovery/runtime.py", "runtimes/discovery/sync.py",
+    "runtimes/ai/data.py",
 )
 # (copy, line in the port) -> why it differs from the reference; empty
 ALLOWED_DIFFERENCES = {}
