@@ -305,6 +305,16 @@ run with a non-zero exit:
            16 launches of each of B1-B3 a step; the same command on an
            empty directory without nvcc must fail with KernelBuildError;
            `AIRuntime.node_install` with torch present installs nothing
+  hosts    the host as a cluster worker: `utils.resource_spec` run in fresh
+           python3 processes that import nothing else of the port (no torch
+           in `sys.modules`, and the card's free memory unchanged while the
+           process lives: no CUDA context): its `GPU` against
+           `torch.cuda.device_count()` here and its `accelerator_type`
+           against `torch.cuda.get_device_name(0)`; its command-line form
+           printing the same JSON; `CUDA_VISIBLE_DEVICES=""` giving no card
+           and a planted `TIK_NODE_RESOURCES` given back exactly; the
+           launcher's default `--nproc-per-node` equal to the count; the
+           detection's milliseconds beside the `nvidia-smi` line
 
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
@@ -316,8 +326,8 @@ moe_train's measured steps; in each rank of parallel_2rank, the
 measured steps of the tensor and pipe paths; in each process of
 elastic_2rank, its `fit_elastic`; in each rank of zoo_2rank, the
 measured Mask R-CNN and DLRM steps; the serving runtime's start, request
-and stop; in the runtime's rank, its measured steps) and read just after
-it.
+and stop; in the runtime's rank, its measured steps; the hosts phase) and
+read just after it.
 The `total` line gives the script's seconds; the last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
@@ -7682,6 +7692,123 @@ def phase_runtime(load: RuntimeLoad = RUNTIME_LOAD,
     return out
 
 
+# ------------------------------------------------------------------ hosts --
+
+_DETECT = """
+import json, sys, time
+t0 = time.perf_counter()
+from cloudtik_tpu_torch.utils import resource_spec as R
+resources = R.detect_node_resources(sys.argv[1], None, sys.argv[2])
+ms = (time.perf_counter() - t0) * 1e3
+with open("/proc/self/maps") as f:
+    libcuda = "libcuda.so" in f.read()
+print(json.dumps({"resources": resources, "ms": ms, "libcuda": libcuda,
+                  "torch": "torch" in sys.modules,
+                  "model_source": "proc" if R.driver_cards(sys.argv[2])
+                  else "nvml"}), flush=True)
+sys.stdin.read()
+"""
+# A bare CUDA context in a second process holds 523.5625 MiB of the card
+# (tools/probe_torch_cuda_context.py on an NVIDIA H100 80GB HBM3, 700.00 W);
+# the detection must hold none of it
+CONTEXT_MIB = 64.0
+
+
+def _detect(root: Path, env: dict, dev_root: str, proc_root: str,
+            free_bytes=None) -> dict:
+    """`_DETECT` in a fresh python3 with `env`: its JSON, its wall ms to
+    the answer, and (where `free_bytes` reads the card's free memory) the
+    MiB of device memory the process holds while it is still alive."""
+    before = free_bytes() if free_bytes else None
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _DETECT, dev_root, proc_root], cwd=str(root),
+        env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        held = (before - free_bytes()) / 2**20 if free_bytes else None
+        proc.stdin.close()
+        err = proc.stderr.read()
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(rc == 0 and line, f"hosts: the detection failed: {err[-2000:]}")
+    return dict(json.loads(line), wall_ms=wall_ms, device_mib=held)
+
+
+def phase_hosts(expect_count: int, expect_name: str, dev_root: str = "/dev",
+                proc_root: str = "/proc", free_bytes=None,
+                nvidia_smi: str = None) -> dict:
+    """This host as a cluster worker (module docstring): what the node
+    agent would advertise, detected without the CUDA runtime, held to what
+    torch sees in this process (`expect_count` cards of `expect_name`).
+    `free_bytes` reads the card's free memory (None on the CPU)."""
+    from cloudtik_tpu_torch.launch.distributor import default_nproc_per_node
+    from cloudtik_tpu_torch.utils.resource_spec import accelerator_key
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if k != "TIK_NODE_RESOURCES"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    out = {"nvidia_smi": nvidia_smi, "expect": {
+        "GPU": expect_count, "name": expect_name}}
+
+    got = _detect(root, env, dev_root, proc_root, free_bytes)
+    res = got["resources"]
+    require(not got["torch"], "hosts: the detecting process loaded torch")
+    require(got["device_mib"] is None or got["device_mib"] < CONTEXT_MIB,
+            f"hosts: the card lost {got['device_mib']} MiB while the "
+            f"detecting process lived: a CUDA context ({CONTEXT_MIB} MiB "
+            "allowed)")
+    require(res.get("GPU") == expect_count,
+            f"hosts: detected {res.get('GPU')} cards, torch sees "
+            f"{expect_count}")
+    key = accelerator_key(expect_name)
+    require(res.get(key) == 1.0 and sorted(res) == sorted(
+        ["CPU", "memory", "GPU", key]),
+            f"hosts: detected {res}, expected {key} beside CPU, memory and "
+            "GPU")
+    require(res["CPU"] >= 1 and res["memory"] > 0,
+            f"hosts: CPU {res['CPU']}, memory {res['memory']}")
+
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "cloudtik_tpu_torch.utils.resource_spec",
+         "--dev-root", dev_root, "--proc-root", proc_root], cwd=str(root),
+        env=env, capture_output=True, text=True, timeout=60)
+    cli_ms = (time.perf_counter() - t0) * 1e3
+    require(cli.returncode == 0 and json.loads(cli.stdout) == res,
+            f"hosts: the command printed {cli.stdout!r} (rc "
+            f"{cli.returncode}), the detection gave {res}")
+
+    hidden = _detect(root, dict(env, CUDA_VISIBLE_DEVICES=""), dev_root,
+                     proc_root)["resources"]
+    require(sorted(hidden) == ["CPU", "memory"],
+            f"hosts: CUDA_VISIBLE_DEVICES=\"\" still gave {hidden}")
+    planted = {"CPU": 3.0, "GPU": 5.0, "custom": 1.0}
+    override = _detect(root, dict(env, TIK_NODE_RESOURCES=json.dumps(
+        planted)), dev_root, proc_root)["resources"]
+    require(override == planted,
+            f"hosts: TIK_NODE_RESOURCES={planted} came back as {override}")
+    nproc = default_nproc_per_node()
+    require(nproc == res["GPU"],
+            f"hosts: the launcher's default --nproc-per-node is {nproc}, "
+            f"the detection {res['GPU']}")
+    out.update(resources=res, detect_ms=got["ms"],
+               process_ms=got["wall_ms"], cli_ms=cli_ms,
+               device_mib=got["device_mib"], libcuda_mapped=got["libcuda"],
+               model_source=got["model_source"], nproc_per_node=nproc,
+               seconds=time.perf_counter() - t_phase)
+    emit("hosts", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7715,6 +7842,17 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     emit("device", name=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+
+    # ---- the host as a cluster worker (no kernel: counts zeroed just
+    # before, read just after) ----
+    _zero_launch_counts()
+    _zero_det_launch_counts()
+    phase_hosts(torch.cuda.device_count(), kind,
+                free_bytes=lambda: torch.cuda.mem_get_info(0)[0],
+                nvidia_smi=smi)
+    hosts_launches = {**_launch_counts(), **_det_launch_counts()}
+    require(not any(hosts_launches.values()),
+            f"the hosts phase launched {hosts_launches}, expected none")
 
     t0 = time.perf_counter()
     built = _kernels.build_all()

@@ -387,6 +387,12 @@ class ServeServer:
                     self._send(404, {"error": "not found"})
 
             def do_POST(self):
+                # read the whole body before any answer: a connection
+                # closed over unread bytes is reset, and the reset can
+                # reach the client before the answer does
+                length = self.headers.get("Content-Length", "0").strip()
+                raw = self.rfile.read(int(length)) if length.isdigit() \
+                    else None
                 fn = routes.get(self.path)
                 if fn is None:
                     self._send(404, {"error": "not found"})
@@ -398,9 +404,9 @@ class ServeServer:
                                {"Retry-After": "1"})
                     return
                 try:
-                    length = int(self.headers.get("Content-Length", 0))
-                    payload = json.loads(
-                        self.rfile.read(length) or b"{}")
+                    if raw is None:
+                        raise ValueError(f"bad Content-Length {length!r}")
+                    payload = json.loads(raw or b"{}")
                     # adopt the caller's W3C traceparent header, so the
                     # served request (engine spans included) is one trace
                     with telemetry.trace_context(

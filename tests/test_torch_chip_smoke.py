@@ -1553,3 +1553,69 @@ def test_without_nvcc_no_path_entry_holds_nvcc(tmp_path):
         {"PATH": f"{bin_dir}{os.pathsep}/usr/bin", "TMPDIR": str(tmp_path)})
     assert env["PATH"] == "/usr/bin"
     assert not Path(env["CUDA_HOME"]).exists()
+
+
+def _fake_host(tmp_path, cards, model="NVIDIA H100 80GB HBM3"):
+    """A device root with `cards` card nodes beside the driver's other
+    nodes, and a /proc whose driver describes each card."""
+    dev, proc = tmp_path / "dev", tmp_path / "proc"
+    (dev / "nvidia-caps").mkdir(parents=True)
+    for name in ("nvidiactl", "nvidia-uvm", "nvidia-uvm-tools",
+                 "nvidia-modeset", "nvidia-caps/nvidia-cap1"):
+        (dev / name).touch()
+    for i in range(cards):
+        (dev / f"nvidia{i}").touch()
+        info = proc / "driver" / "nvidia" / "gpus" / f"0000:{i:02x}:00.0"
+        info.mkdir(parents=True)
+        (info / "information").write_text(
+            f"Model: \t\t {model}\nGPU UUID: \t GPU-{i:08x}\n"
+            f"Device Minor: \t {i}\n")
+    return str(dev), str(proc)
+
+
+def test_hosts_phase_rehearsal(tmp_path, monkeypatch):
+    """The hosts phase on the CPU against a fake one-card host: the
+    detection in fresh processes without torch, its command-line form,
+    the hidden and planted cases, and the launcher's default (1 without
+    CUDA) equal to the count."""
+    for name in ("CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES",
+                 "TIK_NODE_RESOURCES"):
+        monkeypatch.delenv(name, raising=False)
+    dev, proc = _fake_host(tmp_path, 1)
+    out = chip_smoke.phase_hosts(1, "NVIDIA H100 80GB HBM3", dev, proc,
+                                 nvidia_smi="fake, 0 W")
+    res = out["resources"]
+    assert res["GPU"] == 1.0
+    assert res["accelerator_type:NVIDIA-H100-80GB-HBM3"] == 1.0
+    assert out["model_source"] == "proc" and out["nproc_per_node"] == 1
+    assert 0 < out["detect_ms"] < out["process_ms"]
+    assert out["cli_ms"] > 0 and out["nvidia_smi"] == "fake, 0 W"
+    assert out["device_mib"] is None and out["libcuda_mapped"] is False
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("count", "detected 2.0 cards, torch sees 1"),
+    ("name", "expected accelerator_type:NVIDIA-A100"),
+    ("hidden", "CUDA_VISIBLE_DEVICES"),
+    ("context", "the card lost 523.5625 MiB while the detecting process"),
+])
+def test_hosts_phase_catches_a_wrong_host(tmp_path, monkeypatch, fault,
+                                          match):
+    for name in ("NVIDIA_VISIBLE_DEVICES", "TIK_NODE_RESOURCES"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    dev, proc = _fake_host(tmp_path, 2 if fault == "count" else 1)
+    name = "NVIDIA A100" if fault == "name" else "NVIDIA H100 80GB HBM3"
+    if fault == "hidden":
+        # a detection that ignored CUDA_VISIBLE_DEVICES would still count
+        # the card: plant one that does
+        monkeypatch.setattr(chip_smoke, "_DETECT", chip_smoke._DETECT.replace(
+            "None, sys.argv[2]", "{}, sys.argv[2]"))
+    free = None
+    if fault == "context":
+        # a detection that opened a CUDA context: the card's free memory
+        # falls by what one took on the H100
+        reads = iter([80 * 2**30, 80 * 2**30 - int(523.5625 * 2**20)])
+        free = lambda: next(reads)   # noqa: E731
+    with pytest.raises(SystemExit, match=match):
+        chip_smoke.phase_hosts(1, name, dev, proc, free_bytes=free)

@@ -1,9 +1,10 @@
 """The port's copies of the JAX package's jax-free host modules.
 
-The serving engine and the cluster runtimes (the AI and serving
-runtimes' base classes, discovery, the installer) reach these modules at
-run time, and the port keeps its own copies of them (it imports nothing of
-the JAX package): each is the
+The serving engine, the cluster runtimes (the AI and serving runtimes'
+base classes, discovery, the installer) and the GCP provider (the provider
+base class, the REST and Compute clients, the command executors the base
+class builds) reach these modules at run time, and the port keeps its own
+copies of them (it imports nothing of the JAX package): each is the
 reference's source with `cloudtik_tpu` imports renamed to
 `cloudtik_tpu_torch`, and nothing else changed.  Through them the port
 engine emits the reference's `tik_serve_*` metrics and writes request
@@ -46,7 +47,13 @@ COPIES = (
     "core/scaling_policy.py", "core/tags.py", "runtimes/installer.py",
     "runtimes/common/runtime_base.py", "runtimes/common/process_runner.py",
     "runtimes/discovery/runtime.py", "runtimes/discovery/sync.py",
-    "runtimes/ai/data.py",
+    "runtimes/ai/data.py", "core/node_provider.py",
+    "providers/__init__.py", "providers/gcp/__init__.py",
+    "providers/gcp/rest.py", "providers/gcp/compute.py",
+    "control/executor/__init__.py", "control/executor/base.py",
+    "control/executor/factory.py", "control/executor/ssh.py",
+    "control/executor/docker.py", "control/executor/local.py",
+    "control/executor/kubernetes.py", "utils/subprocess_output.py",
 )
 # (copy, line in the port) -> why it differs from the reference; empty
 ALLOWED_DIFFERENCES = {}
@@ -64,6 +71,19 @@ def test_copy_is_the_reference_with_its_imports_renamed(path):
     differing = {(path, i + 1): line for i, (line, ref)
                  in enumerate(zip(got, want)) if line != ref}
     assert set(differing) <= set(ALLOWED_DIFFERENCES), differing
+
+
+def test_executors_propagate_the_references_cache_variable():
+    """The copied executor base exports `compile_cache.CACHE_DIR_ENV` into
+    every remote command; the port's compile_cache is its own module (it
+    points the kernel build, not XLA's cache) but names the same
+    variable, so the copy needs no difference."""
+    from cloudtik_tpu.utils import compile_cache as JCC
+    from cloudtik_tpu_torch.control.executor import base
+    from cloudtik_tpu_torch.utils import compile_cache as TCC
+
+    assert base.compile_cache is TCC
+    assert TCC.CACHE_DIR_ENV == JCC.CACHE_DIR_ENV == "TIK_COMPILE_CACHE_DIR"
 
 
 JCFG = JT.config("tiny", dtype=jnp.float32, attention_impl="reference",

@@ -40,7 +40,8 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "profile_torch_train.py",
     ROOT / "tools" / "profile_torch_detect.py",
     ROOT / "tools" / "torch_parallel_cases.py",
-    ROOT / "tools" / "probe_torch_gloo_cuda.py"]
+    ROOT / "tools" / "probe_torch_gloo_cuda.py",
+    ROOT / "tools" / "probe_torch_cuda_context.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
     .replace(".__init__", "") for p in PORT.rglob("*.py"))

@@ -7,7 +7,8 @@ JAX server's health, model list, error and drain behaviour.  Its
 `engine_backend` (`--engine`) answers concurrent posts with the same
 tokens, maps the engine's refusals to 413, 429 + Retry-After and 400 with
 the reason in the body, returns the request-id headers, and a drain lets
-in-flight requests finish before it stops the engine.
+in-flight requests finish before it stops the engine.  A refusal reaches
+the client whole, however large the request it refuses.
 """
 
 import json
@@ -149,6 +150,51 @@ def test_drain_refuses_new_and_lets_inflight_finish():
         assert results[0][0] == 200 and drained == [True]
     finally:
         release.set()
+        server.stop()
+
+
+@pytest.mark.parametrize("path,status", [("/v1/generate", 503),
+                                         ("/nope", 404)])
+def test_refusal_over_a_large_body_reaches_the_client(path, status):
+    """A refusal sent over an unread request body used to be followed by
+    a reset that could reach the client first (a 4 MiB body makes it
+    certain): the server reads the body before it answers."""
+    import http.client
+
+    server = ServeServer([ModelBackend("m", {"generate": lambda p: {}})],
+                         host="127.0.0.1", port=0)
+    server.start()
+    try:
+        assert server.drain(grace_s=1)
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=30)
+        conn.request("POST", path, body=json.dumps(
+            {"tokens": [[1]], "pad": "x" * (4 << 20)}).encode())
+        resp = conn.getresponse()
+        assert resp.status == status and "error" in json.loads(resp.read())
+        conn.close()
+    finally:
+        server.stop()
+
+
+def test_bad_content_length_is_400():
+    import socket
+
+    server = ServeServer([ModelBackend("m", {"generate": lambda p: {}})],
+                         host="127.0.0.1", port=0)
+    server.start()
+    try:
+        with socket.create_connection(("127.0.0.1", server.port),
+                                      timeout=30) as sock:
+            sock.sendall(b"POST /v1/generate HTTP/1.0\r\n"
+                         b"Content-Length: abc\r\n\r\n")
+            reply = b""
+            while chunk := sock.recv(65536):
+                reply += chunk
+        head, _, body = reply.partition(b"\r\n\r\n")
+        assert head.split()[1] == b"400"
+        assert "bad Content-Length" in json.loads(body)["error"]
+    finally:
         server.stop()
 
 
