@@ -315,6 +315,26 @@ run with a non-zero exit:
            and a planted `TIK_NODE_RESOURCES` given back exactly; the
            launcher's default `--nproc-per-node` equal to the count; the
            detection's milliseconds beside the `nvidia-smi` line
+  observe  the port's serving metrics on the cluster's scrape path:
+           `ServingRuntime` (the engine at tpu_1b, 8 slots) serving the
+           port's registry on its telemetry port, the targets written by
+           the port's `PrometheusRuntime.node_configure` and discovery
+           `render_once`, the port's collector a subprocess scraping
+           every 0.25 s; 16 requests of 32-700 tokens: the collector's
+           summed TTFT count and ok-request count equal the answered
+           requests, and `serve-ttft` has finite burns after >= 31 scrape
+           cycles; the port's `serve-demand` policy over the live engine's
+           heartbeat adds no `{"GPU": 1}` demand under 16 closed-loop
+           clients, then, with a latency planted at `serve.decode_step`,
+           `serve-ttft` turns firing and the policy adds one within its
+           sustain cycles; the port's node exporter serving the node
+           gauges under the port's catalog names; a corpus of >= 4 MB
+           encoded by the port's tokenizer, a 3-step capture requested and
+           a tpu_1b fit (B=8, S=2048, bf16, 1 + 3 steps) on that file
+           whose trace holds 16 events of each of B1-B3 a captured step,
+           served byte for byte by the port's profiler runtime's command;
+           a scrape's ms, the SLO evaluation's ms, the capture's stop and
+           export seconds, the trace's MB, the tokenizer's MB/s
 
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
@@ -326,8 +346,8 @@ moe_train's measured steps; in each rank of parallel_2rank, the
 measured steps of the tensor and pipe paths; in each process of
 elastic_2rank, its `fit_elastic`; in each rank of zoo_2rank, the
 measured Mask R-CNN and DLRM steps; the serving runtime's start, request
-and stop; in the runtime's rank, its measured steps; the hosts phase) and
-read just after it.
+and stop; in the runtime's rank, its measured steps; the hosts phase; the
+observe phase's serving and its fit) and read just after it.
 The `total` line gives the script's seconds; the last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
@@ -7809,6 +7829,754 @@ def phase_hosts(expect_count: int, expect_name: str, dev_root: str = "/dev",
     return out
 
 
+# ---------------------------------------------------------------- observe --
+
+@dataclasses.dataclass(frozen=True)
+class ObserveLoad:
+    """The observe phase (module docstring).  (a) `ServingRuntime` with the
+    engine at `model` (`slots` x `max_len`, the runtime's blocks of 16),
+    the port's collector scraping every `scrape_s`; `requests` requests at
+    once, request i a prompt of prompt_lens[i % 4] tokens asking for
+    `new_tokens`; the burns read after `min_cycles` scrape cycles.  (b) The
+    `serve-demand` policy (`sustain_cycles`) evaluated every `scrape_s`
+    while `loop_clients` clients send the same prompts in a closed loop:
+    `control_s` seconds without a fault, then with a `fault_s` latency at
+    `serve.decode_step` until the demand rises (at most `fault_limit_s`).
+    (c) The node exporter.  (d) `corpus_mb` MB of seeded text through the
+    port's tokenizer; a `capture_steps`-step capture, then `train_model` at
+    full width, B x S, bf16, for 1 + `capture_steps` steps on that file.
+    `parts` picks the parts: "serve" is (a) and (b)."""
+    device: str = "cuda"
+    model: str = "tpu_1b"
+    slots: int = 8
+    max_len: int = 1024
+    prompt_lens: tuple = (32, 128, 384, 700)
+    requests: int = 16
+    new_tokens: int = 16
+    scrape_s: float = 0.25
+    min_cycles: int = 31
+    loop_clients: int = 16
+    control_s: float = 5.0
+    fault_s: float = 0.25
+    fault_limit_s: float = 40.0
+    sustain_cycles: int = 3
+    corpus_mb: float = 4.0
+    train_model: str = "tpu_1b"
+    batch: int = 8
+    seq: int = 2048
+    capture_steps: int = 3
+    parts: tuple = ("serve", "nodex", "capture")
+
+
+OBSERVE_LOAD = ObserveLoad()
+# the CPU rehearsal at `tiny`: a quarter of the lengths, a faster scrape
+# (the SLO windows count cycles), a latency that still takes a queued
+# request past the 2.5 s threshold with 8 new tokens
+OBSERVE_REHEARSAL = ObserveLoad(
+    device="cpu", model="tiny", max_len=256,
+    prompt_lens=(8, 32, 96, 175), new_tokens=8, scrape_s=0.1,
+    control_s=1.5, fault_s=0.5, fault_limit_s=30.0, parts=("serve", "nodex"))
+# serve-ttft's objective (telemetry/slo.py default_slos)
+TTFT_THRESHOLD_S = 2.5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get_text(url: str, timeout: float = 30.0) -> str:
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def _wait_http(url: str, proc, timeout_s: float = 60.0) -> None:
+    """Wait until `url` answers 200; fail if `proc` exits first."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        require(proc.poll() is None,
+                f"observe: the process behind {url} exited {proc.returncode}")
+        try:
+            _get_text(url, timeout=2.0)
+            return
+        except (OSError, urllib.error.URLError):
+            require(time.monotonic() < deadline,
+                    f"observe: {url} did not answer in {timeout_s} s")
+            time.sleep(0.05)
+
+
+def _query(base: str, query: str) -> list:
+    from urllib.parse import quote
+
+    status, got = _http(f"{base}/api/v1/query?query={quote(query)}")
+    require(status == 200 and got["status"] == "success",
+            f"observe: /api/v1/query {query} gave {status} {got}")
+    return got["data"]["result"]
+
+
+def _query_sum(base: str, query: str) -> float:
+    return sum(float(r["value"][1]) for r in _query(base, query))
+
+
+def _slo_row(base: str, name: str = "serve-ttft") -> dict:
+    status, got = _http(f"{base}/api/v1/slos")
+    require(status == 200, f"observe: /api/v1/slos gave {status}")
+    return next(r for r in got["data"]["slos"] if r["name"] == name)
+
+
+class _ClosedLoop:
+    """`n` clients, each posting its prompts to /v1/generate one after the
+    other until stopped; every answer is counted, every failure kept."""
+
+    def __init__(self, url: str, prompts: list, new_tokens: int, n: int):
+        import threading
+
+        self.url, self.prompts, self.new_tokens = url, prompts, new_tokens
+        self.answered = 0
+        self.failures = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(i,),
+                                          daemon=True) for i in range(n)]
+
+    def _run(self, i: int) -> None:
+        k = i
+        while not self._stop.is_set():
+            prompt = self.prompts[k % len(self.prompts)]
+            k += len(self._threads)
+            status, got = _http(self.url, {"tokens": [prompt],
+                                           "max_new_tokens": self.new_tokens})
+            with self._lock:
+                if status == 200 and len(got["tokens"][0]) == self.new_tokens:
+                    self.answered += 1
+                else:
+                    self.failures.append((status, got))
+
+    def start(self) -> "_ClosedLoop":
+        for t in self._threads:
+            t.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=600)
+        require(not any(t.is_alive() for t in self._threads),
+                "observe: a closed-loop client never returned")
+
+
+def _observe_serve(load: ObserveLoad, root: Path, tmp: Path,
+                   nodex_port: int) -> dict:
+    """Parts (a) and (b): the serving runtime, the targets, the collector
+    subprocess, the counts and burns, then the serve-demand policy without
+    and with the planted fault."""
+    import threading
+
+    import numpy as np
+
+    from cloudtik_tpu_torch.control.scaling_policies import (
+        create_scaling_policy)
+    from cloudtik_tpu_torch.control.state import (InMemoryStateBackend,
+                                                  StateClient)
+    from cloudtik_tpu_torch.faults import seams
+    from cloudtik_tpu_torch.faults.plan import FaultPlan, FaultPoint
+    from cloudtik_tpu_torch.runtimes.discovery.runtime import ServiceRegistry
+    from cloudtik_tpu_torch.runtimes.discovery.sync import render_once
+    from cloudtik_tpu_torch.runtimes.prometheus.collector import Collector
+    from cloudtik_tpu_torch.runtimes.prometheus.runtime import (
+        PrometheusRuntime)
+    from cloudtik_tpu_torch.runtimes.serving import runtime as SR
+    from cloudtik_tpu_torch.serve.replicas import (ReplicaHeartbeat,
+                                                   ReplicaRegistry)
+    from cloudtik_tpu_torch.telemetry import events
+    from cloudtik_tpu_torch.telemetry import instruments as ti
+
+    serve_port, telemetry_port, collector_port = (
+        _free_port(), _free_port(), _free_port())
+    journal = tmp / "logs" / "events-torch.jsonl"
+    serving = {"model": load.model, "engine": True, "slots": load.slots,
+               "max_len": load.max_len, "device": load.device,
+               "port": serve_port, "telemetry_port": telemetry_port,
+               "events_path": str(journal)}
+    config = {"cluster_name": "smoke", "workspace_name": "card",
+              "telemetry_port": 0,
+              "runtime": {"types": ["nodex", "serving"],
+                          "nodex": {"port": nodex_port}, "serving": serving}}
+    state = StateClient(InMemoryStateBackend())
+    context = {"is_head": True, "node_id": "head", "node_ip": "127.0.0.1",
+               "head_ip": "127.0.0.1", "state_client": state,
+               "config": config, "conf_dir": str(tmp / "prometheus")}
+    runtime = SR.ServingRuntime(serving)
+    out = {"ports": {"serving": serve_port, "telemetry": telemetry_port,
+                     "collector": collector_port, "nodex": nodex_port}}
+    rng = np.random.default_rng(11)
+    collector = None
+    seams.disarm()
+    # what this process recorded before (earlier phases' engines record in
+    # the same registry): the collector must read that plus every answer
+    held = {"ttft_count": sum(snap["count"]
+                              for _, snap in ti.SERVE_TTFT.samples()),
+            "ok": ti.SERVE_REQUESTS.value(result="ok")}
+    out["held_before"] = held
+    t0 = time.perf_counter()
+    runtime.node_services(context, "start")
+    out["start_s"] = time.perf_counter() - t0
+    try:
+        server = SR._servers[runtime.instance_key(context)]
+        base = f"http://127.0.0.1:{server.port}"
+        tbase = f"http://127.0.0.1:{telemetry_port}"
+        engine = server.backends[0].engine
+        vocab = server.backends[0].cfg.vocab_size
+        prompts = [rng.integers(0, vocab, load.prompt_lens[i % 4]).tolist()
+                   for i in range(load.requests)]
+        require(events.installed() is not None
+                and Path(events.installed().path) == journal,
+                f"observe: the serving runtime's journal is "
+                f"{events.installed()}, expected one at {journal}")
+        # one answered request before the first scrape: the collector's
+        # windows baseline every series at its first point (windows.py),
+        # so the measured requests all count as new
+        status, got = _http(f"{base}/v1/generate", {
+            "tokens": [prompts[0]], "max_new_tokens": load.new_tokens})
+        require(status == 200, f"observe: the warm-up request gave {status}")
+        answered = 1
+        text = _get_text(f"{tbase}/metrics")
+        require("tik_serve_ttft_seconds_count" in text,
+                "observe: the serving process's /metrics holds no "
+                "tik_serve_ttft_seconds")
+
+        # ---- the targets: the port's prometheus runtime and discovery ----
+        PrometheusRuntime({"port": collector_port}).node_configure(context)
+        conf_dir = Path(context["conf_dir"])
+        targets = json.loads((conf_dir / "targets.json").read_text())
+        jobs = {g["labels"]["job"]: g["targets"] for g in targets}
+        home = tmp / "discovery"
+        render_once(ServiceRegistry(state, "smoke", "card"), str(home))
+        synced = json.loads((home / "prometheus" / "targets.json").read_text())
+        synced_jobs = {g["labels"]["job"]: g["targets"] for g in synced}
+        want = [f"127.0.0.1:{telemetry_port}"]
+        require(jobs.get("serving-telemetry") == want
+                and synced_jobs.get("serving-telemetry") == want
+                and jobs.get("nodex") == [f"127.0.0.1:{nodex_port}"],
+                f"observe: targets {jobs}, discovery's {synced_jobs}; "
+                f"expected serving-telemetry at {want}")
+        out["targets"] = {"runtime": jobs, "discovery": synced_jobs}
+
+        # ---- the port's collector as its own process ----
+        cmd = [sys.executable, "-m",
+               "cloudtik_tpu_torch.runtimes.prometheus.collector",
+               "--port", str(collector_port), "--conf-dir", str(conf_dir),
+               "--scrape-interval", str(load.scrape_s)]
+        env = dict(os.environ, TIK_HOME=str(tmp / "collector-home"),
+                   PYTHONPATH=os.pathsep.join(
+                       [str(root)] + [p for p in os.environ.get(
+                           "PYTHONPATH", "").split(os.pathsep) if p]))
+        log = open(tmp / "collector.log", "w")
+        collector = subprocess.Popen(cmd, cwd=str(root), env=env, stdout=log,
+                                     stderr=subprocess.STDOUT)
+        log.close()
+        cbase = f"http://127.0.0.1:{collector_port}"
+        t_collector = time.monotonic()
+        _wait_http(f"{cbase}/-/ready", collector)
+        deadline = time.monotonic() + 30
+        while True:
+            status, got = _http(f"{cbase}/api/v1/targets")
+            health = {t["labels"]["job"]: t["health"]
+                      for t in got["data"]["activeTargets"]}
+            if health.get("serving-telemetry") == "up" \
+                    and health.get("nodex") == "up":
+                break
+            require(time.monotonic() < deadline,
+                    f"observe: the collector's targets {health}")
+            time.sleep(load.scrape_s)
+        out["target_health"] = health
+
+        def counts() -> dict:
+            """The collector's sums, less what the process held before."""
+            sel = '{job="serving-telemetry"}'
+            return {"ttft_count": _query_sum(
+                        cbase, f"tik_serve_ttft_seconds_count{sel}")
+                    - held["ttft_count"],
+                    "ok": _query_sum(
+                        cbase, 'tik_serve_requests_total{job="serving-'
+                        'telemetry",result="ok"}') - held["ok"]}
+
+        def settled(n: int) -> dict:
+            """The counts once a scrape after the last answer has reached
+            them (at most 10 s)."""
+            deadline = time.monotonic() + 10
+            while True:
+                got = counts()
+                if got == {"ttft_count": n, "ok": n} \
+                        or time.monotonic() > deadline:
+                    break
+                time.sleep(load.scrape_s)
+            require(got == {"ttft_count": n, "ok": n},
+                    f"observe: the collector counts {got} more than the "
+                    f"process held before ({held}); it answered {n}")
+            return got
+
+        # ---- (a) 16 requests at once ----
+        results = [None] * load.requests
+
+        def ask(i):
+            results[i] = _http(f"{base}/v1/generate", {
+                "tokens": [prompts[i]], "max_new_tokens": load.new_tokens})
+
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(load.requests)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out["requests_s"] = time.perf_counter() - t0
+        bad = [r for r in results if r[0] != 200
+               or len(r[1]["tokens"][0]) != load.new_tokens]
+        require(not bad, f"observe: failed requests {bad[:2]}")
+        answered += load.requests
+        out["after_requests"] = settled(answered)
+        # >= min_cycles scrape cycles in the store: the TTFT count's
+        # retained points, one a cycle since the first scrape
+        while True:
+            from urllib.parse import quote
+
+            status, got = _http(
+                f"{cbase}/api/v1/query_range?query=" + quote(
+                    'tik_serve_ttft_seconds_count{job="serving-telemetry"}'))
+            cycles = max([len(r["values"]) for r in got["data"]["result"]]
+                         or [0])
+            if cycles >= load.min_cycles:
+                break
+            require(time.monotonic() - t_collector < 120,
+                    f"observe: {cycles} scrape cycles after 120 s")
+            time.sleep(load.scrape_s)
+        row = _slo_row(cbase)
+        out["slo_after_requests"] = {k: row[k] for k in (
+            "state", "burn_fast", "burn_slow", "budget_remaining")}
+        out["cycles"] = cycles
+        require(row["burn_fast"] is not None and row["burn_slow"] is not None
+                and math.isfinite(row["burn_fast"])
+                and math.isfinite(row["burn_slow"]),
+                f"observe: serve-ttft burns {row} after {cycles} cycles")
+        scrape = [ln for ln in _get_text(f"{cbase}/metrics").splitlines()
+                  if ln.startswith("scrape_duration_seconds{")
+                  and f'instance="127.0.0.1:{telemetry_port}"' in ln]
+        require(len(scrape) == 1, f"observe: scrape durations {scrape}")
+        out["scrape_ms"] = float(scrape[0].rsplit(" ", 1)[1]) * 1e3
+        out["exposition_bytes"] = len(_get_text(f"{tbase}/metrics"))
+
+        # ---- (b) the serve-demand policy over the live engine ----
+        replicas = ReplicaRegistry(state)
+        beat = ReplicaHeartbeat(
+            replicas, "serving-0", base, slots=load.slots,
+            stats_fn=engine.stats, period_s=load.scrape_s / 2)
+        beat.start()
+        policy = create_scaling_policy(
+            "serve-demand", config, "127.0.0.1", state_client=state,
+            scaling_config={"slo_url": cbase,
+                            "sustain_cycles": load.sustain_cycles})
+        seen = []
+        fetch = policy.autoscaler.burn_source
+
+        def recorded_burn():
+            burn = fetch()
+            seen.append(burn)
+            return burn
+
+        policy.autoscaler.burn_source = recorded_burn
+        threshold = policy.autoscaler.config.burn_threshold
+
+        def evaluate(until, stop_on_rise: bool) -> list:
+            rows = []
+            while time.monotonic() < until:
+                t_eval = time.monotonic()
+                n_seen = len(seen)
+                demands = policy.get_scaling_state() \
+                    .autoscaling_instructions["resource_demands"]
+                burn = seen[-1] if len(seen) > n_seen else None
+                slo = _slo_row(cbase)
+                rows.append({
+                    "t": t_eval, "demands": demands, "burn": burn,
+                    "burning": burn is not None
+                    and burn["fast"] > threshold
+                    and burn["slow"] > threshold,
+                    "queue": replicas.list_replicas()[0].queue_depth,
+                    "slo": slo["state"]})
+                if stop_on_rise and len(demands) > len(rows[0]["demands"]):
+                    break
+                time.sleep(max(load.scrape_s
+                               - (time.monotonic() - t_eval), 0.0))
+            return rows
+
+        gen_url = f"{base}/v1/generate"
+        try:
+            baseline = policy.get_scaling_state() \
+                .autoscaling_instructions["resource_demands"]
+            require(baseline == [{"GPU": 1}],
+                    f"observe: the policy's demands before any load "
+                    f"{baseline}, expected one {{'GPU': 1}}")
+            # the negative control: the same closed loop, no fault
+            loop = _ClosedLoop(gen_url, prompts, load.new_tokens,
+                               load.loop_clients).start()
+            control = evaluate(time.monotonic() + load.control_s, False)
+            loop.stop()
+            answered += loop.answered
+            require(not loop.failures,
+                    f"observe: control failures {loop.failures[:2]}")
+            require(all(r["demands"] == baseline for r in control),
+                    f"observe: the policy raised its demand without a "
+                    f"fault: {[r['demands'] for r in control]}")
+            require(any(r["queue"] > 0 for r in control),
+                    "observe: the control never held a backlog, so it "
+                    "could not have scaled")
+            out["control"] = {
+                "evaluations": len(control), "answered": loop.answered,
+                "max_queue": max(r["queue"] for r in control),
+                "max_burn": max([max(r["burn"]["fast"], r["burn"]["slow"])
+                                 for r in control if r["burn"]] or [None]),
+                "slo_states": sorted({r["slo"] for r in control})}
+            out["after_control"] = settled(answered)
+            before = _get_text(f"{tbase}/metrics")
+
+            # the planted fault: every decode step waits fault_s
+            plan = FaultPlan([FaultPoint(
+                "serve.decode_step", "latency", times=0,
+                args={"seconds": load.fault_s})], seed=0, name="observe")
+            seams.arm(plan)
+            t_fault = time.monotonic()
+            loop = _ClosedLoop(gen_url, prompts, load.new_tokens,
+                               load.loop_clients).start()
+            try:
+                fault = evaluate(t_fault + load.fault_limit_s, True)
+            finally:
+                seams.disarm()
+                loop.stop()
+            answered += loop.answered
+            require(not loop.failures,
+                    f"observe: fault-run failures {loop.failures[:2]}")
+        finally:
+            beat.stop(deregister=True)
+        rise = next((i for i, r in enumerate(fault)
+                     if len(r["demands"]) > len(baseline)), None)
+        first_burn = next((i for i, r in enumerate(fault) if r["burning"]),
+                          None)
+        firing = next((i for i, r in enumerate(fault)
+                       if r["slo"] == "firing"), None)
+        out["fault"] = {
+            "seconds": load.fault_s, "decode_steps_delayed": len(plan.trace),
+            "evaluations": len(fault), "answered": loop.answered,
+            "first_firing_eval": firing, "first_burning_eval": first_burn,
+            "rise_eval": rise,
+            "firing_after_s": None if firing is None
+            else fault[firing]["t"] - t_fault,
+            "rise_after_s": None if rise is None
+            else fault[rise]["t"] - t_fault,
+            "demands": fault[-1]["demands"],
+            "burn_at_rise": None if rise is None else fault[rise]["burn"]}
+        require(firing is not None,
+                f"observe: serve-ttft never turned firing under the fault "
+                f"({len(fault)} evaluations, last burn {fault[-1]['burn']})")
+        require(rise is not None and fault[rise]["demands"]
+                == [{"GPU": 1}] * (len(baseline) + 1),
+                f"observe: the policy's demands under the fault "
+                f"{fault[-1]['demands']}")
+        require(first_burn is not None
+                and rise - first_burn <= load.sustain_cycles,
+                f"observe: the demand rose at evaluation {rise}, the burn "
+                f"first crossed at {first_burn} (sustain cycles "
+                f"{load.sustain_cycles})")
+        out["after_fault"] = settled(answered)
+        after = _get_text(f"{tbase}/metrics")
+
+        def ttft_buckets(text):
+            got = {}
+            for ln in text.splitlines():
+                if ln.startswith("tik_serve_ttft_seconds_bucket{"):
+                    le = ln.split('le="', 1)[1].split('"', 1)[0]
+                    got[le] = float(ln.rsplit(" ", 1)[1])
+            return got
+
+        b0, b1 = ttft_buckets(before), ttft_buckets(after)
+        le = next(k for k in b1 if k != "+Inf"
+                  and float(k) == TTFT_THRESHOLD_S)
+        total = b1["+Inf"] - b0["+Inf"]
+        out["fault"]["ttft_past_threshold"] = [
+            total - (b1[le] - b0[le]), total]
+
+        # ---- the SLO evaluation's cost: the port's Collector in this
+        # process over the same targets, the engine idle ----
+        probe = Collector(str(conf_dir))
+        eval_ms = []
+        for _ in range(load.min_cycles):
+            probe.scrape_once()
+            samples = probe.alert_samples()
+            now = time.time()
+            probe.windows.ingest(samples, now)
+            t0 = time.perf_counter()
+            probe.slos.evaluate(probe.windows, now)
+            eval_ms.append((time.perf_counter() - t0) * 1e3)
+        out["slo_eval_ms"] = sorted(eval_ms)[len(eval_ms) // 2]
+        out["slo_eval_samples"] = len(samples)
+    finally:
+        seams.disarm()
+        if collector is not None:
+            collector.terminate()
+            collector.wait(timeout=30)
+        runtime.node_services(context, "stop")
+    left = [s["name"] for s in ServiceRegistry(state, "smoke", "card").query()]
+    require(not left, f"observe: {left} still listed after stop")
+    require(events.installed() is None,
+            "observe: the port's journal is still installed after stop")
+    records, torn = events.read_file(str(journal))
+    names = [r["name"] for r in records]
+    out["journal"] = {"path": str(journal), "records": len(records),
+                      "torn": torn,
+                      "admissions": names.count("tik_serve_admission"),
+                      "faults": names.count("tik_fault_fired")}
+    require(names.count("tik_serve_admission") >= answered
+            and names.count("tik_fault_fired") == len(plan.trace),
+            f"observe: the port's journal holds {out['journal']}, "
+            f"{answered} requests answered and {len(plan.trace)} faults fired")
+    fired, _ = events.read_file(str(tmp / "collector-home" / "logs"
+                                    / "events.jsonl"))
+    out["collector_alerts"] = [r.get("rule") for r in fired
+                               if r["name"] == "tik_alert_fired"]
+    require("slo:serve-ttft" in out["collector_alerts"],
+            f"observe: the collector journaled {out['collector_alerts']}")
+    out["answered"] = answered
+    return out
+
+
+def _observe_nodex(port: int, proc) -> dict:
+    """Part (c): the exporter the nodex runtime's command started."""
+    from cloudtik_tpu_torch.telemetry import names
+
+    _wait_http(f"http://127.0.0.1:{port}/metrics", proc)
+    want = ("tik_node_cpu_percent", "tik_node_memory_percent",
+            "tik_node_disk_percent", "tik_node_net_sent_bytes",
+            "tik_node_net_recv_bytes")
+    deadline = time.monotonic() + 30
+    while True:
+        t0 = time.perf_counter()
+        text = _get_text(f"http://127.0.0.1:{port}/metrics")
+        ms = (time.perf_counter() - t0) * 1e3
+        values = {}
+        for ln in text.splitlines():
+            if ln and not ln.startswith("#"):
+                name = ln.split("{", 1)[0].split(" ", 1)[0]
+                values.setdefault(name, float(ln.rsplit(" ", 1)[1]))
+        if all(n in values for n in want):
+            break
+        require(time.monotonic() < deadline,
+                f"observe: the exporter serves {sorted(values)}")
+        time.sleep(0.2)
+    base = {re.sub(r"_(bucket|sum|count)$", "", n) for n in values}
+    unknown = sorted(n for n in base if n not in names.METRICS)
+    require(not unknown, f"observe: the exporter serves names outside the "
+                         f"port's catalog: {unknown}")
+    require(0.0 <= values["tik_node_memory_percent"] <= 100.0
+            and 0.0 <= values["tik_node_disk_percent"] <= 100.0,
+            f"observe: node gauges {values}")
+    return {"gauges": {n: values[n] for n in want}, "names": len(base),
+            "metrics_ms": ms}
+
+
+def _observe_capture(load: ObserveLoad, tmp: Path) -> dict:
+    """Part (d): the corpus through the port's tokenizer, a requested
+    capture of a fit on that file, the profiler runtime serving it."""
+    import numpy as np
+    import torch
+
+    from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.runtimes.profiler.runtime import ProfilerRuntime
+    from cloudtik_tpu_torch.telemetry import stepprof
+    from cloudtik_tpu_torch.train import data as TD
+    from cloudtik_tpu_torch.train import tokenizer as TK
+    from cloudtik_tpu_torch.train.optim import OptimizerConfig
+    from cloudtik_tpu_torch.train.trainer import (
+        Trainer, TrainerConfig, transformer_spec)
+
+    on_card = load.device == "cuda"
+    rng = np.random.default_rng(17)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, n)) for n in
+             rng.integers(2, 10, 4096)]
+    paragraphs, size = [], 0
+    while size < load.corpus_mb * 1e6:
+        para = " ".join(words[i] for i in rng.integers(0, len(words), 200))
+        paragraphs.append(para)
+        size += len(para) + 2
+    text_path = tmp / "corpus.txt"
+    text_path.write_text("\n\n".join(paragraphs))
+    corpus = tmp / "corpus.npy"
+    t0 = time.perf_counter()
+    n_tokens = TK.encode_corpus(str(text_path), str(corpus))
+    encode_s = time.perf_counter() - t0
+    text_mb = text_path.stat().st_size / 1e6
+    require(n_tokens == len(np.load(corpus, mmap_mode="r"))
+            and n_tokens >= (1 + load.capture_steps) * load.batch
+            * (load.seq + 1),
+            f"observe: the corpus holds {n_tokens} tokens")
+
+    cfg = T.config(load.train_model, max_seq_len=load.seq,
+                   param_dtype=torch.bfloat16)
+    trainer = Trainer(transformer_spec(cfg), TrainerConfig(
+        global_batch_size=load.batch, seq_len=load.seq,
+        optimizer=OptimizerConfig(moment_dtype="bfloat16"), log_every=1),
+        device=load.device)
+    trainer.init_state(torch.Generator(device=load.device).manual_seed(0))
+    profiles = tmp / "profiles"
+    run = profiles / "observe-run"
+    request = tmp / "profile-request.json"
+    stepprof.request_capture(load.capture_steps, str(run), path=str(request))
+    stops = []
+    real_stop = stepprof.ProfileCapture.stop
+
+    def timed_stop(self, sync_leaf=None):
+        t0 = time.perf_counter()
+        was = self.active
+        real_stop(self, sync_leaf)
+        if was:
+            stops.append(time.perf_counter() - t0)
+
+    was_env = os.environ.get(stepprof.REQUEST_ENV)
+    os.environ[stepprof.REQUEST_ENV] = str(request)
+    stepprof.ProfileCapture.stop = timed_stop
+    # ---- the fit: counts zeroed just before, read just after ----
+    _zero_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        history = trainer.fit(TD.tokenized_file_batches(
+            str(corpus), load.batch, load.seq, seed=0),
+            1 + load.capture_steps)["history"]
+        fit_s = time.perf_counter() - t0
+    finally:
+        launches = _launch_counts()
+        stepprof.ProfileCapture.stop = real_stop
+        if was_env is None:
+            os.environ.pop(stepprof.REQUEST_ENV, None)
+        else:
+            os.environ[stepprof.REQUEST_ENV] = was_env
+    del trainer
+    _collect(on_card)
+    trace = run / "trace.json"
+    require(trace.exists() and len(stops) == 1 and not request.exists(),
+            f"observe: capture stops {stops}, trace {trace.exists()}, "
+            f"request left {request.exists()}")
+    raw = trace.read_bytes()
+    kernels = {k: 0 for k in FLASH_KERNELS}
+    for e in json.loads(raw)["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            for k in kernels:
+                if k in e.get("name", ""):
+                    kernels[k] += 1
+    n = cfg.n_layers if on_card else 0
+    require(kernels == {k: n * load.capture_steps for k in kernels},
+            f"observe: the trace holds {kernels}, expected "
+            f"{n * load.capture_steps} of each ({n} a captured step)")
+    require(launches == {k: n * (1 + load.capture_steps) for k in launches},
+            f"observe: the fit launched {launches}")
+    require(all(math.isfinite(e["loss"]) for e in history),
+            f"observe: losses {[e['loss'] for e in history]}")
+
+    # ---- the profiler runtime's command serves the trace ----
+    port = _free_port()
+    rt = ProfilerRuntime({"profile_dir": str(profiles), "port": port})
+    cmd = rt.service_command({"is_head": True})
+    log = open(tmp / "profiler.log", "w")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    try:
+        url = f"http://127.0.0.1:{port}/observe-run/trace.json"
+        _wait_http(f"http://127.0.0.1:{port}/", proc)
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            served = resp.read()
+        serve_s = time.perf_counter() - t0
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    require(served == raw, f"observe: the profiler served {len(served)} "
+                           f"bytes, the trace holds {len(raw)}")
+    require(rt.get_processes()[0][0] in cmd,
+            f"observe: get_processes {rt.get_processes()} names none of "
+            f"{cmd}")
+    return {"corpus_mb": text_mb, "tokens": n_tokens, "encode_s": encode_s,
+            "tokenizer_mb_s": text_mb / encode_s,
+            "fit_s": fit_s, "losses": [e["loss"] for e in history],
+            "launches": launches, "trace_kernels": kernels,
+            "trace_mb": len(raw) / 1e6, "capture_stop_s": stops[0],
+            "profiler_cmd": cmd, "profiler_serve_s": serve_s}
+
+
+def phase_observe(load: ObserveLoad = OBSERVE_LOAD,
+                  nvidia_smi: str = None) -> dict:
+    """The port's serving metrics on the cluster's scrape path (module
+    docstring).  The flash launch counts are zeroed just before the serving
+    parts and read just after (generation's attention is einsums: none),
+    and zeroed and read around the capture's fit."""
+    import shutil
+    import tempfile
+
+    from cloudtik_tpu_torch.runtimes.nodex.runtime import NodexRuntime
+
+    on_card = load.device == "cuda"
+    root = Path(__file__).resolve().parent
+    out = {"nvidia_smi": nvidia_smi, "load": dataclasses.asdict(load)}
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="tik-observe-"))
+    nodex = None
+    try:
+        # ---- (c) first, so the collector scrapes the exporter too ----
+        nodex_port = _free_port()
+        nodex_cmd = NodexRuntime({"port": nodex_port, "interval_s": 1.0}) \
+            .service_command({"is_head": True})
+        if "nodex" in load.parts:
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [str(root)] + [p for p in os.environ.get(
+                    "PYTHONPATH", "").split(os.pathsep) if p]))
+            log = open(tmp / "nodex.log", "w")
+            nodex = subprocess.Popen(nodex_cmd, cwd=str(root), env=env,
+                                     stdout=log, stderr=subprocess.STDOUT)
+            log.close()
+            out["nodex"] = _observe_nodex(nodex_port, nodex)
+        if "serve" in load.parts:
+            _collect(on_card)
+            _zero_launch_counts()
+            _zero_det_launch_counts()
+            out["serve"] = _observe_serve(load, root, tmp, nodex_port)
+            serve_launches = {**_launch_counts(), **_det_launch_counts()}
+            _collect(on_card)
+            require(not any(serve_launches.values()),
+                    f"observe: the serving path launched {serve_launches}, "
+                    "expected none")
+            out["serve_launches"] = serve_launches
+        if "capture" in load.parts:
+            out["capture"] = _observe_capture(load, tmp)
+    finally:
+        if nodex is not None:
+            nodex.terminate()
+            nodex.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = out.get("capture", {}).get(
+        "launches", {k: 0 for k in _launch_counts()})
+    out["seconds"] = time.perf_counter() - t_phase
+    # the numbers a reader of the line wants first, beside the card's name
+    # and power limit
+    serve, cap = out.get("serve", {}), out.get("capture", {})
+    out["timing"] = {"scrape_ms": serve.get("scrape_ms"),
+                     "slo_eval_ms": serve.get("slo_eval_ms"),
+                     "capture_stop_s": cap.get("capture_stop_s"),
+                     "trace_mb": cap.get("trace_mb"),
+                     "tokenizer_mb_s": cap.get("tokenizer_mb_s")}
+    emit("observe", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -8033,6 +8801,13 @@ def main() -> int:
     runtime = phase_runtime(nvidia_smi=smi)
     emit("runtime_phase", seconds=time.perf_counter() - t_rt)
 
+    # ---- the port's serving metrics on the cluster's scrape path (counts
+    # zeroed and read around the serving parts, and around the captured
+    # fit) ----
+    t_obs = time.perf_counter()
+    observe = phase_observe(nvidia_smi=smi)
+    emit("observe_phase", seconds=time.perf_counter() - t_obs)
+
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]
     launches = {k: inference[k] + train["launches"][k]
@@ -8040,7 +8815,7 @@ def main() -> int:
                 + bert["launches"][k] + loaders["launches"][k]
                 + moe_serve["launches"][k] + moe_train["launches"][k]
                 + parallel["launches"][k] + elastic["launches"][k]
-                + runtime["launches"][k]
+                + runtime["launches"][k] + observe["launches"][k]
                 for k in inference}
 
     def bwd_err(grads):

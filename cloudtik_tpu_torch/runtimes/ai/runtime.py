@@ -32,10 +32,12 @@ RUNNABLE_SUFFIXES = (".py",)
 class AIRuntime(Runtime):
     # The third-party packages the port imports at run time (its own
     # imports: torch and numpy everywhere, msgpack in the state client,
-    # pyyaml for fault plans written in YAML).  The kernels are built by
-    # the CUDA toolkit's nvcc, which no pip package provides.  Overridable
-    # per cluster via `install`; skipped when torch is already importable.
-    DEFAULT_PACKAGES = ["torch", "numpy", "msgpack", "pyyaml"]
+    # pyyaml for fault plans written in YAML and the prometheus runtime's
+    # config and rules, psutil in the node exporter of the default nodex
+    # runtime).  The kernels are built by the CUDA toolkit's nvcc, which
+    # no pip package provides.  Overridable per cluster via `install`;
+    # skipped when torch is already importable.
+    DEFAULT_PACKAGES = ["torch", "numpy", "msgpack", "pyyaml", "psutil"]
 
     def prepare_config(self, cluster_config: Dict[str, Any]) -> Dict[str, Any]:
         return cluster_config

@@ -1503,13 +1503,15 @@ def test_zoo_mesh_load_is_the_recipes_at_full_width():
     assert load.device == "cuda:0"
 
 
-def test_runtime_phase_rehearsal():
+def test_runtime_phase_rehearsal(tmp_path, monkeypatch):
     """The runtime phase on the CPU at tiny size: the serving runtime
     answers, registers and deregisters; the AI runtime's command starts
     the rank through the port's launcher on a warm cache (the library
     names planted: no nvcc here), which builds nothing and writes every
     field the phase reads; the cold cache without nvcc fails with
     KernelBuildError."""
+    # the serving runtime journals the port's events under TIK_HOME
+    monkeypatch.setenv("TIK_HOME", str(tmp_path))
     load = chip_smoke.RUNTIME_REHEARSAL
     out = chip_smoke.phase_runtime(load)
     assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
@@ -1619,3 +1621,66 @@ def test_hosts_phase_catches_a_wrong_host(tmp_path, monkeypatch, fault,
         free = lambda: next(reads)   # noqa: E731
     with pytest.raises(SystemExit, match=match):
         chip_smoke.phase_hosts(1, name, dev, proc, free_bytes=free)
+
+
+def test_observe_phase_rehearsal(tmp_path, monkeypatch):
+    """The observe phase's serving parts and node exporter on the CPU at
+    tiny size, with the planted decode latency: the port's collector counts
+    every answered request, `serve-ttft` has finite burns after 31 scrape
+    cycles, the serve-demand policy adds no demand without the fault and
+    one `{"GPU": 1}` with it, and the port's journal and the collector's
+    hold what happened."""
+    monkeypatch.setenv("TIK_HOME", str(tmp_path))
+    out = chip_smoke.phase_observe(chip_smoke.OBSERVE_REHEARSAL)
+    serve = out["serve"]
+    n = serve["answered"]
+    assert serve["after_requests"] == {"ttft_count": 17, "ok": 17}
+    assert serve["after_fault"] == {"ttft_count": n, "ok": n}
+    assert serve["cycles"] >= 31
+    assert serve["targets"]["runtime"]["serving-telemetry"] == \
+        serve["targets"]["discovery"]["serving-telemetry"]
+    assert serve["control"]["max_queue"] > 0
+    fault = serve["fault"]
+    assert fault["demands"] == [{"GPU": 1}, {"GPU": 1}]
+    assert fault["rise_eval"] - fault["first_burning_eval"] <= 3
+    assert fault["ttft_past_threshold"][0] > 0
+    assert "slo:serve-ttft" in serve["collector_alerts"]
+    assert serve["journal"]["faults"] == fault["decode_steps_delayed"] > 0
+    assert set(out["nodex"]["gauges"]) >= {"tik_node_cpu_percent",
+                                           "tik_node_memory_percent"}
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    assert not any(out["serve_launches"].values())
+
+
+def test_observe_capture_rehearsal(tmp_path, monkeypatch):
+    """Part (d) on the CPU at tiny size: the corpus through the port's
+    tokenizer, the requested capture of exactly the steps after the first
+    (no kernel on the CPU), the profiler runtime's command serving the
+    trace byte for byte."""
+    monkeypatch.setenv("TIK_HOME", str(tmp_path))
+    load = dataclasses.replace(
+        chip_smoke.OBSERVE_REHEARSAL, train_model="tiny", batch=2, seq=32,
+        corpus_mb=0.05, parts=("capture",))
+    out = chip_smoke.phase_observe(load)
+    cap = out["capture"]
+    assert cap["tokens"] >= 4 * 2 * 33 and cap["corpus_mb"] >= 0.05
+    assert len(cap["losses"]) == 4
+    assert cap["trace_kernels"] == {k: 0 for k in chip_smoke.FLASH_KERNELS}
+    assert cap["trace_mb"] > 0 and cap["capture_stop_s"] > 0
+    assert cap["profiler_cmd"][1:3] == ["-m", "http.server"]
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+
+
+def test_observe_load_is_tpu_1b_at_full_width():
+    load, engine = chip_smoke.OBSERVE_LOAD, chip_smoke.ENGINE_LOAD
+    assert (load.device, load.model, load.train_model) == (
+        "cuda", "tpu_1b", "tpu_1b")
+    assert (load.batch, load.seq, load.capture_steps) == (8, 2048, 3)
+    assert (load.requests, load.prompt_lens, load.slots, load.max_len) == (
+        16, engine.prompt_lens, engine.slots, engine.max_len)
+    assert (load.scrape_s, load.min_cycles, load.corpus_mb) == (
+        0.25, 31, 4.0)
+    assert set(load.parts) == {"serve", "nodex", "capture"}
+    assert chip_smoke.OBSERVE_REHEARSAL.device == "cpu"

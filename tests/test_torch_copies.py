@@ -1,12 +1,15 @@
 """The port's copies of the JAX package's jax-free host modules.
 
 The serving engine, the cluster runtimes (the AI and serving runtimes'
-base classes, discovery, the installer) and the GCP provider (the provider
+base classes, discovery, the installer), the GCP provider (the provider
 base class, the REST and Compute clients, the command executors the base
-class builds) reach these modules at run time, and the port keeps its own
-copies of them (it imports nothing of the JAX package): each is the
-reference's source with `cloudtik_tpu` imports renamed to
-`cloudtik_tpu_torch`, and nothing else changed.  Through them the port
+class builds) and the scrape path (the telemetry HTTP server, the
+prometheus runtime with its collector, windows, alerts and SLO engine, the
+node exporter, the scaling policies) reach these modules at run time, and
+the port keeps its own copies of them (it imports nothing of the JAX
+package): each is the reference's source with `cloudtik_tpu` imports
+renamed to `cloudtik_tpu_torch`, and nothing else changed but the lines
+`ALLOWED_DIFFERENCES` names.  Through them the port
 engine emits the reference's `tik_serve_*` metrics and writes request
 records that the JAX package's ledger reader takes as its own.
 """
@@ -54,9 +57,22 @@ COPIES = (
     "control/executor/factory.py", "control/executor/ssh.py",
     "control/executor/docker.py", "control/executor/local.py",
     "control/executor/kubernetes.py", "utils/subprocess_output.py",
+    "telemetry/http.py", "runtimes/prometheus/__init__.py",
+    "runtimes/prometheus/runtime.py", "runtimes/prometheus/windows.py",
+    "runtimes/prometheus/alerts.py", "telemetry/slo.py",
+    "runtimes/prometheus/collector.py",
+    "runtimes/prometheus/trace_collector.py", "runtimes/nodex/__init__.py",
+    "runtimes/nodex/runtime.py", "runtimes/nodex/exporter.py",
+    "control/scaling_policies.py", "train/tokenizer.py",
 )
-# (copy, line in the port) -> why it differs from the reference; empty
-ALLOWED_DIFFERENCES = {}
+# (copy, line in the port) -> why it differs from the reference
+_ONE_GPU = ("the serve-demand policy asks one GPU a replica by default: the "
+            "port's serving runtime starts one tik-serve per card, and no "
+            "H100 host advertises TPU")
+ALLOWED_DIFFERENCES = {
+    ("control/scaling_policies.py", 140): _ONE_GPU,
+    ("control/scaling_policies.py", 161): _ONE_GPU,
+}
 
 
 def _renamed(text):

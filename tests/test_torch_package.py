@@ -3,6 +3,7 @@ package, imports cleanly without CUDA, nvcc or triton, and its entry points
 refuse to run off the card unless the caller asks for the CPU."""
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -76,6 +77,83 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+# The scrape path's modules (the serving runtime's telemetry, the
+# prometheus runtime and collector, the SLO engine, the node exporter, the
+# profiler runtime, the scaling policies, the tokenizer), imported and
+# driven with `jax` and `cloudtik_tpu` blocked: a card host has no JAX
+SCRAPE_PATH = (
+    "cloudtik_tpu_torch.telemetry.http", "cloudtik_tpu_torch.telemetry.slo",
+    "cloudtik_tpu_torch.runtimes.registry",
+    "cloudtik_tpu_torch.runtimes.prometheus.runtime",
+    "cloudtik_tpu_torch.runtimes.prometheus.windows",
+    "cloudtik_tpu_torch.runtimes.prometheus.alerts",
+    "cloudtik_tpu_torch.runtimes.prometheus.collector",
+    "cloudtik_tpu_torch.runtimes.prometheus.trace_collector",
+    "cloudtik_tpu_torch.runtimes.nodex.runtime",
+    "cloudtik_tpu_torch.runtimes.nodex.exporter",
+    "cloudtik_tpu_torch.runtimes.profiler.runtime",
+    "cloudtik_tpu_torch.runtimes.serving.runtime",
+    "cloudtik_tpu_torch.runtimes.discovery.sync",
+    "cloudtik_tpu_torch.control.scaling_policies",
+    "cloudtik_tpu_torch.train.tokenizer",
+)
+_BLOCKED = """
+import importlib, importlib.abc, json, sys, tempfile
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'cloudtik_tpu'):
+            raise ImportError('blocked: ' + name)
+        return None
+sys.meta_path.insert(0, Block())
+out = {}
+for m in MODULES:
+    try:
+        importlib.import_module(m)
+        out[m] = 'ok'
+    except Exception as e:
+        out[m] = repr(e)
+# drive them: the rendered files, a collector cycle, the policies
+from cloudtik_tpu_torch.control.scaling_policies import create_scaling_policy
+from cloudtik_tpu_torch.control.state import InMemoryStateBackend, StateClient
+from cloudtik_tpu_torch.runtimes.prometheus.collector import Collector
+from cloudtik_tpu_torch.runtimes.prometheus.runtime import PrometheusRuntime
+conf = tempfile.mkdtemp()
+PrometheusRuntime({}).node_configure({'is_head': True, 'conf_dir': conf,
+    'config': {'runtime': {'types': ['nodex', 'serving', 'profiler']}}})
+c = Collector(conf)
+c.scrape_once()
+c.evaluate_alerts()
+policy = create_scaling_policy('serve-demand', {}, 'head',
+    state_client=StateClient(InMemoryStateBackend()))
+out['driven'] = [policy.get_scaling_state().autoscaling_instructions[
+    'resource_demands'], sorted(s['name'] for s in c.slo_state())]
+out['loaded'] = sorted({m.split('.')[0] for m in sys.modules} & {
+    'jax', 'jaxlib', 'cloudtik_tpu'})
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def scrape_path_imports():
+    code = f"MODULES = {SCRAPE_PATH!r}\n" + _BLOCKED
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", SCRAPE_PATH)
+def test_scrape_path_imports_with_jax_blocked(module, scrape_path_imports):
+    assert scrape_path_imports[module] == "ok"
+    assert scrape_path_imports["loaded"] == []
+
+
+def test_scrape_path_runs_with_jax_blocked(scrape_path_imports):
+    demands, slos = scrape_path_imports["driven"]
+    assert demands == [{"GPU": 1}]
+    assert slos == ["serve-availability", "serve-tpot", "serve-ttft"]
 
 
 @pytest.fixture

@@ -46,7 +46,10 @@ def _post(port, path, payload):
 
 
 @pytest.fixture
-def node_context(tmp_path):
+def node_context(tmp_path, monkeypatch):
+    # the runtime journals the port's events under TIK_HOME
+    monkeypatch.setenv("TIK_HOME", str(tmp_path / "home"))
+    monkeypatch.delenv("TIK_EVENTS_PATH", raising=False)
     return {"is_head": True, "node_id": "head", "node_ip": "127.0.0.1",
             "state_client": StateClient(InMemoryStateBackend()),
             "config": {"cluster_name": "gpu1", "workspace_name": "w1"},
@@ -95,11 +98,16 @@ def test_serving_runtime_answers_and_registers_for_the_cluster(
 
 
 def test_hooks_are_the_references():
+    """The reference's hooks, plus the `serving-telemetry` service the
+    port's runtime declares (the port's registry on its own port)."""
     got = TR.ServingRuntime({"port": 8300, "tags": {"a": "b"}})
     want = JR.ServingRuntime({"port": 8300, "tags": {"a": "b"}})
-    for hook in ("get_runtime_services", "get_runtime_endpoints"):
-        assert getattr(got, hook)({}, "10.0.0.2") == \
-            getattr(want, hook)({}, "10.0.0.2")
+    assert got.get_runtime_endpoints({}, "10.0.0.2") == \
+        want.get_runtime_endpoints({}, "10.0.0.2")
+    assert got.get_runtime_services({}, "10.0.0.2") == {
+        **want.get_runtime_services({}, "10.0.0.2"),
+        "serving-telemetry": {"protocol": "http", "port": 9104,
+                              "node_kind": "head"}}
     assert got.get_head_service_ports() == want.get_head_service_ports()
     assert got.get_processes() == want.get_processes()
     assert got.get_logs() == want.get_logs()
