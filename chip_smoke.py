@@ -274,7 +274,14 @@ run with a non-zero exit:
            elastic_remesh and restart_replay > 0; room on disk for the
            shards.  ms/step at K=2 and K=1, the shrink's and the expand's
            seconds (wait, restore, the rest), the GB the shards write and
-           read, the peak GB a rank
+           read, the peak GB a rank.  Then the same story, shorter (lost
+           at 2, back at 3, to step 4), at 2 layers of tpu_1b in f32, run
+           twice at once: under the default rules and under rules that
+           split the embedding over `data` (embed=("data", None)), whose
+           expand hands the split leaves over block by block; every f32
+           loss after the expand within 1e-5 relative of the default
+           run's, both replicas' whole state equal, 2 launches of each of
+           B1-B3 a step and process
   zoo_2rank  the other model families on a mesh: two ranks share card
            0 over gloo.  Mask R-CNN (maskrcnn_resnet50 at 512, the
            maskrcnn_coco recipe's configuration) at data=2, global batch
@@ -334,7 +341,18 @@ run with a non-zero exit:
            whose trace holds 16 events of each of B1-B3 a captured step,
            served byte for byte by the port's profiler runtime's command;
            a scrape's ms, the SLO evaluation's ms, the capture's stop and
-           export seconds, the trace's MB, the tokenizer's MB/s
+           export seconds, the trace's MB, the tokenizer's MB/s.  The
+           port's CLI (`python -m cloudtik_tpu_torch.scripts.cli`, each a
+           process where `import jax` raises): `cluster trace export`
+           over the phase's targets holds one traced request's serve.*
+           spans (enqueue, prefill, decode) under its trace id in the
+           serving process's lane, `cluster trace summary` lists it;
+           `serve requests --stats` counts every answered request in the
+           phase's request ledger, `serve explain` finds the traced one,
+           `events dump --trace-id` its one admission in the port's
+           journal; and the port's `PrometheusRuntime` renders every http
+           service of a cluster declaring `serving`, `consul`, `spark`
+           and `grafana`
 
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
@@ -6562,7 +6580,9 @@ class ElasticLoad:
     `every` steps.  The save of `torn_at` tears, slice 1 is lost at
     boundary `lost_at`, the survivor re-meshes to K=1 and trains to
     `return_at`, slice 1 returns as a fresh process and the job expands to
-    K=2 and trains to `steps`."""
+    K=2 and trains to `steps`.  `n_layers` (0: the preset's) cuts the
+    depth, `param_dtype` sets the params' and moments' dtype, and `rules`
+    overrides the sharding rules ({logical axis: mesh axes})."""
     model: str = "tpu_1b"
     device: str = "cuda:0"
     seq: int = 2048
@@ -6573,11 +6593,27 @@ class ElasticLoad:
     lost_at: int = 4
     return_at: int = 6
     deadline_s: float = 900.0
+    n_layers: int = 0
+    param_dtype: str = "bfloat16"
+    rules: dict = dataclasses.field(default_factory=dict)
 
 
 ELASTIC_LOAD = ElasticLoad()
 ELASTIC_REHEARSAL = ElasticLoad(model="tiny", device="cpu", seq=64,
                                 deadline_s=300.0)
+# F5: an expand under rules that split the embedding over `data` (rows
+# over the slices at K=2, whole at K=1), held to the default rules' run of
+# the same story: 2 layers at full width, f32, a shorter story (lost at 2,
+# back at 3, one K=2 step after the expand); both run at once
+ELASTIC_SPLIT_RULES = {"embed": ["data", None]}
+ELASTIC_SPLIT_LOAD = ElasticLoad(n_layers=2, param_dtype="float32",
+                                 steps=4, every=1, torn_at=2, lost_at=2,
+                                 return_at=3, deadline_s=600.0)
+ELASTIC_SPLIT_REHEARSAL = dataclasses.replace(
+    ELASTIC_SPLIT_LOAD, model="tiny", device="cpu", seq=64,
+    deadline_s=300.0)
+# f32 losses of the two layouts, step by step after the expand
+ELASTIC_SPLIT_REL = 1e-5
 ELASTIC_LABEL = ("two processes sharing one H100 over gloo (host-staged), "
                  "not NCCL")
 
@@ -6587,16 +6623,20 @@ def _elastic_trainer(load: ElasticLoad, device, checkpoint_dir: str,
     import torch
 
     from cloudtik_tpu_torch.models import transformer as T
+    from cloudtik_tpu_torch.parallel.sharding import make_rules
     from cloudtik_tpu_torch.train.optim import OptimizerConfig
     from cloudtik_tpu_torch.train.trainer import (
         Trainer, TrainerConfig, transformer_spec)
 
+    depth = {"n_layers": load.n_layers} if load.n_layers else {}
     cfg = T.config(load.model, max_seq_len=load.seq,
-                   param_dtype=torch.bfloat16)
+                   param_dtype=getattr(torch, load.param_dtype), **depth)
+    rules = make_rules(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in load.rules.items()})
     return Trainer(transformer_spec(cfg), TrainerConfig(
         global_batch_size=load.batch, seq_len=load.seq, log_every=1,
-        optimizer=OptimizerConfig(moment_dtype="bfloat16"),
-        checkpoint_every=every, checkpoint_dir=checkpoint_dir,
+        optimizer=OptimizerConfig(moment_dtype=load.param_dtype),
+        rules=rules, checkpoint_every=every, checkpoint_dir=checkpoint_dir,
         prefetch_depth=0), device=device, mesh=mesh), cfg
 
 
@@ -6784,7 +6824,11 @@ def elastic_rank(load: ElasticLoad, out_dir: str) -> int:
         committed=trainer.checkpointer.all_steps(),
         events=[e for e in events.read_events()
                 if e["name"] in ("tik_elastic_remesh", "tik_train_resume")],
-        digest=_state_digest(trainer.state))
+        split_over_data=sorted(
+            ".".join(map(str, path)) for path, pl in ckpt_lib._flatten(
+                trainer._placements) if "data" in pl.axes),
+        # the whole state: a leaf split over `data` is gathered
+        digest=_state_digest(trainer.full_state()))
     trainer.checkpointer.close()
     (out / f"rank{rank}.json").write_text(json.dumps(result))
     dist.barrier()
@@ -6794,19 +6838,21 @@ def elastic_rank(load: ElasticLoad, out_dir: str) -> int:
 
 def phase_elastic_2rank(load: ElasticLoad = ELASTIC_LOAD,
                         nvidia_smi: str = None,
-                        determinism: dict = None) -> dict:
+                        determinism: dict = None,
+                        split_load: ElasticLoad = ELASTIC_SPLIT_LOAD) -> dict:
     """The elastic story over two processes on one card (`elastic_rank`,
     spawned by `run_ranks` with the load's deadline),
     checked here; then a fresh one-card trainer restored from the commit
     the shrink resumed from runs the K=1 era's steps, whose losses the
     survivor's must equal (within twice the checkpoint phase's probe gap
-    when `determinism` says that probe was not bitwise)."""
+    when `determinism` says that probe was not bitwise); then the story
+    at `split_load` under rules that split over `data` against the
+    default rules (`_elastic_split`)."""
     import shutil
     import tempfile
 
     import torch
 
-    from cloudtik_tpu_torch.parallel.launch import run_ranks
     from cloudtik_tpu_torch.tree import tree_leaves
 
     on_card = load.device.startswith("cuda")
@@ -6828,17 +6874,9 @@ def phase_elastic_2rank(load: ElasticLoad = ELASTIC_LOAD,
                 "needed_bytes": need}
         require(free >= need, f"elastic_2rank: {free} bytes free under "
                 f"{tmp}, {need} needed for {keep + 1} steps")
-        spec = Path(tmp) / "load.json"
-        spec.write_text(json.dumps(dataclasses.asdict(load)))
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            [str(root)] + [p for p in env.get("PYTHONPATH", "").split(
-                os.pathsep) if p])
-        run_ranks([str(root / "chip_smoke.py"), "--elastic-rank", str(spec),
-                   tmp], 2, load.deadline_s, env=env, cwd=str(root))
-        survivor = json.loads((Path(tmp) / "rank0.json").read_text())
-        joiner = json.loads((Path(tmp) / "rank1.json").read_text())
-        left = json.loads((Path(tmp) / "rank1.left.json").read_text())
+        ranks = _elastic_drill(load, root, tmp)
+        survivor, joiner, left = (ranks[who] for who in (
+            "survivor", "joiner", "left"))
         spawn_s = time.perf_counter() - t0
         # ---- the fresh one-card run from the commit the shrink resumed
         # from, over the K=1 era's steps ----
@@ -6933,8 +6971,129 @@ def phase_elastic_2rank(load: ElasticLoad = ELASTIC_LOAD,
                 require(got == each, f"elastic_2rank {who} step "
                         f"{m['step']} (K={m['slices']}) launched {got}, "
                         f"expected {each}")
+    # ---- F5: the expand under rules that split over `data` ----
+    split = _elastic_split(split_load, root, nvidia_smi)
+    out["split"] = split
+    for k in launches:
+        launches[k] += split["launches"][k]
     out["launches"] = launches
     emit("elastic_2rank_launches", launches=launches)
+    return out
+
+
+def _elastic_drill(load: ElasticLoad, root: Path, tmp: str) -> dict:
+    """One run of the elastic story (`elastic_rank` in two processes, over
+    the directory `tmp`): {"survivor", "joiner", "left"} as the ranks
+    wrote them."""
+    from cloudtik_tpu_torch.parallel.launch import run_ranks
+
+    spec = Path(tmp) / "load.json"
+    spec.write_text(json.dumps(dataclasses.asdict(load)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    run_ranks([str(root / "chip_smoke.py"), "--elastic-rank", str(spec),
+               tmp], 2, load.deadline_s, env=env, cwd=str(root))
+    return {who: json.loads((Path(tmp) / name).read_text())
+            for who, name in (("survivor", "rank0.json"),
+                              ("joiner", "rank1.json"),
+                              ("left", "rank1.left.json"))}
+
+
+def _elastic_split(load: ElasticLoad, root: Path,
+                   nvidia_smi: str = None) -> dict:
+    """F5 (Trainer._hand_over): the story at `load` twice at once, under
+    the default rules and under `ELASTIC_SPLIT_RULES`; the split run's
+    K=2 layout splits the embedding over `data`, its expand hands the
+    split leaves over block by block, and every f32 loss after the expand
+    is the default run's within `ELASTIC_SPLIT_REL` relative.  Both
+    replicas hold the same whole state after each run."""
+    import shutil
+    import tempfile
+    import threading
+
+    runs, failures = {}, []
+
+    def run(name, drill_load):
+        tmp = tempfile.mkdtemp(prefix="tik-elastic-")
+        try:
+            runs[name] = _elastic_drill(drill_load, root, tmp)
+        except BaseException as e:      # re-raised below
+            failures.append(e)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(name, drill_load))
+               for name, drill_load in (
+                   ("default", load),
+                   ("split", dataclasses.replace(
+                       load, rules=ELASTIC_SPLIT_RULES)))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if failures:
+        raise failures[0]
+    wall_s = time.perf_counter() - t0
+    on_card = load.device.startswith("cuda")
+    restored = load.lost_at - load.every
+    want = ([(s, 2) for s in range(1, load.lost_at + 1)]
+            + [(s, 1) for s in range(restored + 1, load.return_at + 1)]
+            + [(s, 2) for s in range(load.return_at + 1, load.steps + 1)])
+    losses = {name: [h["loss"] for h in r["survivor"]["history"]]
+              for name, r in runs.items()}
+    rel = [abs(a - b) / max(abs(b), 1e-30)
+           for a, b in zip(losses["split"], losses["default"])]
+    after = [r for (step, k), r in zip(want, rel) if step > load.return_at]
+    launches = {k: sum(r[who]["launches"][k] for r in runs.values()
+                       for who in ("survivor", "joiner", "left"))
+                for k in runs["split"]["survivor"]["launches"]}
+    out = {"label": ELASTIC_LABEL, "nvidia_smi": nvidia_smi,
+           "load": dataclasses.asdict(load), "rules": ELASTIC_SPLIT_RULES,
+           "wall_s": wall_s, "losses": losses, "rel": rel,
+           "max_rel_after_expand": max(after) if after else None,
+           "split_over_data": runs["split"]["survivor"]["split_over_data"],
+           "expand_s": {name: [m["wall_s"] for m in r["survivor"]["remeshes"]
+                               if m["direction"] == "expand"]
+                        for name, r in runs.items()},
+           "launches": launches}
+    emit("elastic_split", **out)
+    for name, r in runs.items():
+        got = [(h["step"], h["slices"]) for h in r["survivor"]["history"]]
+        require(got == want, f"elastic_split {name}: steps and slices "
+                f"{got}, expected {want}")
+        require([(h["step"], h["slices"]) for h in r["joiner"]["history"]]
+                == want[-(load.steps - load.return_at):],
+                f"elastic_split {name}: the returned process ran "
+                f"{r['joiner']['history']}")
+        require(r["survivor"]["digest"] == r["joiner"]["digest"],
+                f"elastic_split {name}: the replicas' whole state differs "
+                "after the expand")
+        require(all(math.isfinite(x) for x in losses[name]),
+                f"elastic_split {name}: losses {losses[name]}")
+    require(runs["default"]["survivor"]["split_over_data"] == []
+            and "embed" in out["split_over_data"],
+            f"elastic_split: leaves split over data "
+            f"{out['split_over_data']} under {ELASTIC_SPLIT_RULES}, "
+            f"{runs['default']['survivor']['split_over_data']} under the "
+            "default rules")
+    require(after and max(after) <= ELASTIC_SPLIT_REL,
+            f"elastic_split: f32 losses after the expand {losses['split']} "
+            f"against the default rules' {losses['default']} (relative "
+            f"{rel}, limit {ELASTIC_SPLIT_REL})")
+    if on_card:
+        from cloudtik_tpu_torch.models import transformer as T
+
+        each = dict.fromkeys(launches, load.n_layers
+                             or T.config(load.model).n_layers)
+        for name, r in runs.items():
+            for who in ("survivor", "joiner", "left"):
+                for m in r[who]["launches_by_step"]:
+                    got = {k: m[k] for k in each}
+                    require(got == each, f"elastic_split {name} {who} step "
+                            f"{m['step']} launched {got}, expected {each}")
     return out
 
 
@@ -7989,6 +8148,7 @@ def _observe_serve(load: ObserveLoad, root: Path, tmp: Path,
     from cloudtik_tpu_torch.runtimes.prometheus.runtime import (
         PrometheusRuntime)
     from cloudtik_tpu_torch.runtimes.serving import runtime as SR
+    from cloudtik_tpu_torch.serve import reqlog
     from cloudtik_tpu_torch.serve.replicas import (ReplicaHeartbeat,
                                                    ReplicaRegistry)
     from cloudtik_tpu_torch.telemetry import events
@@ -8021,6 +8181,13 @@ def _observe_serve(load: ObserveLoad, root: Path, tmp: Path,
                               for _, snap in ti.SERVE_TTFT.samples()),
             "ok": ti.SERVE_REQUESTS.value(result="ok")}
     out["held_before"] = held
+    # the request ledger the port's `serve requests|explain` replay
+    ledger = tmp / "logs" / "serve-requests.jsonl"
+    reqlog.install(str(ledger))
+    cli_env = dict(os.environ, TIK_HOME=str(tmp / "cli-home"),
+                   PYTHONPATH=os.pathsep.join(
+                       [str(root)] + [p for p in os.environ.get(
+                           "PYTHONPATH", "").split(os.pathsep) if p]))
     t0 = time.perf_counter()
     runtime.node_services(context, "start")
     out["start_s"] = time.perf_counter() - t0
@@ -8064,6 +8231,8 @@ def _observe_serve(load: ObserveLoad, root: Path, tmp: Path,
                 f"observe: targets {jobs}, discovery's {synced_jobs}; "
                 f"expected serving-telemetry at {want}")
         out["targets"] = {"runtime": jobs, "discovery": synced_jobs}
+        out["declared_targets"] = _observe_declared(
+            tmp / "prometheus-declared", serving, collector_port)
 
         # ---- the port's collector as its own process ----
         cmd = [sys.executable, "-m",
@@ -8206,7 +8375,11 @@ def _observe_serve(load: ObserveLoad, root: Path, tmp: Path,
                     and burn["slow"] > threshold,
                     "queue": replicas.list_replicas()[0].queue_depth,
                     "slo": slo["state"]})
-                if stop_on_rise and len(demands) > len(rows[0]["demands"]):
+                # the policy (both burns above 1.0) and the SLO row (both
+                # above 2.0) cross apart, in either order: stop once both
+                # have
+                if stop_on_rise and len(demands) > len(rows[0]["demands"]) \
+                        and any(r["slo"] == "firing" for r in rows):
                     break
                 time.sleep(max(load.scrape_s
                                - (time.monotonic() - t_eval), 0.0))
@@ -8307,6 +8480,13 @@ def _observe_serve(load: ObserveLoad, root: Path, tmp: Path,
         out["fault"]["ttft_past_threshold"] = [
             total - (b1[le] - b0[le]), total]
 
+        # ---- F3 through the port's CLI: one traced request's spans in
+        # the stitched cluster trace ----
+        traced = _traced_request(f"{base}/v1/generate", prompts[1],
+                                 load.new_tokens)
+        out["trace"] = _observe_trace(root, cli_env, conf_dir,
+                                      telemetry_port, traced)
+
         # ---- the SLO evaluation's cost: the port's Collector in this
         # process over the same targets, the engine idle ----
         probe = Collector(str(conf_dir))
@@ -8327,6 +8507,7 @@ def _observe_serve(load: ObserveLoad, root: Path, tmp: Path,
             collector.terminate()
             collector.wait(timeout=30)
         runtime.node_services(context, "stop")
+        reqlog.uninstall()
     left = [s["name"] for s in ServiceRegistry(state, "smoke", "card").query()]
     require(not left, f"observe: {left} still listed after stop")
     require(events.installed() is None,
@@ -8348,7 +8529,161 @@ def _observe_serve(load: ObserveLoad, root: Path, tmp: Path,
     require("slo:serve-ttft" in out["collector_alerts"],
             f"observe: the collector journaled {out['collector_alerts']}")
     out["answered"] = answered
+    # every answer, the traced request's too
+    out["records"] = _observe_records(root, cli_env, ledger, journal,
+                                      traced, answered + 1,
+                                      names.count("tik_serve_admission"))
     return out
+
+
+# `import jax` and the JAX package raise in the port CLI's processes: a
+# card host has neither
+_NO_JAX = ("import runpy, sys\n"
+           "sys.modules['jax'] = None\n"
+           "sys.modules['cloudtik_tpu'] = None\n"
+           "sys.argv = ['tik'] + sys.argv[1:]\n"
+           "runpy.run_module('cloudtik_tpu_torch.scripts.cli', "
+           "run_name='__main__')\n")
+
+
+def _port_cli(root: Path, env: dict, *args: str) -> tuple:
+    """(stdout, seconds) of `python -m cloudtik_tpu_torch.scripts.cli
+    *args` in a process where `import jax` raises; fails the phase on an
+    exit other than 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX, *args],
+                          cwd=str(root), env=env, capture_output=True,
+                          text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"observe: `tik {' '.join(args)}` exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    return proc.stdout, seconds
+
+
+def _traced_request(url: str, prompt: list, new_tokens: int) -> dict:
+    """One request whose answer's headers name its ledger record and its
+    trace: {"request_id", "traceparent", "trace_id"}."""
+    req = urllib.request.Request(
+        url, data=json.dumps({"tokens": [prompt],
+                              "max_new_tokens": new_tokens}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        got = json.loads(resp.read())
+        traced = {"request_id": resp.headers.get("x-tik-request-id"),
+                  "traceparent": resp.headers.get("x-tik-traceparent")}
+        require(resp.status == 200
+                and len(got["tokens"][0]) == new_tokens,
+                f"observe: the traced request gave {resp.status}")
+    require(traced["request_id"] and traced["traceparent"],
+            f"observe: the traced request's headers {traced}")
+    traced["trace_id"] = traced["traceparent"].split("-")[1]
+    return traced
+
+
+def _observe_trace(root: Path, env: dict, conf_dir: Path,
+                   telemetry_port: int, traced: dict) -> dict:
+    """`cluster trace export --trace-id` over the phase's targets (into
+    `trace-<id>.json` beside them) holds the traced request's serve.*
+    spans under its one trace id in the serving process's lane, and
+    `cluster trace summary` lists it."""
+    trace_id = traced["trace_id"]
+    path = conf_dir / f"trace-{trace_id}.json"
+    _, export_s = _port_cli(root, env, "cluster", "trace", "export",
+                            "--conf-dir", str(conf_dir),
+                            "--trace-id", trace_id, "-o", str(path))
+    trace = json.loads(path.read_text())
+    lanes = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e.get("ph") == "M"}
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    lane = f"serving-telemetry (127.0.0.1:{telemetry_port})"
+    names = sorted({e["name"] for e in spans if lanes.get(e["pid"]) == lane})
+    want = ("serve.enqueue", "serve.prefill", "serve.decode")
+    require({(e.get("args") or {}).get("trace_id") for e in spans}
+            == {trace_id} and set(want) <= set(names),
+            f"observe: the stitched trace of {trace_id} holds "
+            f"{[(lanes.get(e['pid']), e['name']) for e in spans][:20]}; "
+            f"expected {want} in the lane {lane}")
+    text, summary_s = _port_cli(root, env, "cluster", "trace", "summary",
+                                "--conf-dir", str(conf_dir),
+                                "--trace-id", trace_id)
+    rows = [ln.split() for ln in text.splitlines()
+            if ln.startswith(trace_id)]
+    require(len(rows) == 1 and int(rows[0][1]) == len(spans),
+            f"observe: `cluster trace summary` printed {text!r} for "
+            f"{trace_id} ({len(spans)} spans exported)")
+    return {"trace_id": trace_id, "lanes": sorted(lanes.values()),
+            "spans": len(spans), "names": names, "export_s": export_s,
+            "summary_s": summary_s}
+
+
+def _observe_records(root: Path, env: dict, ledger: Path, journal: Path,
+                     traced: dict, answered: int, admissions: int) -> dict:
+    """The port's `serve requests --stats` counts every answered request
+    in the phase's ledger, `serve explain` finds the traced one, and
+    `events dump` the journal's admissions (the traced request's one
+    under its trace id)."""
+    text, requests_s = _port_cli(root, env, "serve", "requests", "--stats",
+                                 "--json", "--path", str(ledger))
+    stats = json.loads(text)
+    require(stats["count"] == answered
+            and stats["finish"] == {"done": answered},
+            f"observe: `serve requests --stats` counts {stats['count']} "
+            f"({stats['finish']}); the phase answered {answered}")
+    text, _ = _port_cli(root, env, "serve", "explain",
+                        traced["request_id"], "--path",
+                        str(ledger.parent / "no-router.jsonl"),
+                        "--reqlog", str(ledger), "--json")
+    built = json.loads(text)
+    finishing = built.get("finishing") or {}
+    require(str(finishing.get("request_id")) == traced["request_id"]
+            and traced["trace_id"] in str(finishing.get("traceparent")),
+            f"observe: `serve explain {traced['request_id']}` found "
+            f"{finishing}")
+    text, _ = _port_cli(root, env, "events", "dump", "--json", "--path",
+                        str(journal))
+    dumped = [r["name"] for r in json.loads(text)]
+    text, _ = _port_cli(root, env, "events", "dump", "--json", "--path",
+                        str(journal), "--trace-id", traced["trace_id"])
+    in_trace = [r["name"] for r in json.loads(text)]
+    dumped_admissions = dumped.count("tik_serve_admission")
+    require(dumped_admissions == admissions >= answered
+            and in_trace.count("tik_serve_admission") == 1,
+            f"observe: `events dump` gave {dumped_admissions} admissions "
+            f"(the journal holds {admissions}, {answered} answered), "
+            f"{in_trace} under {traced['trace_id']}")
+    return {"ledger_count": stats["count"], "requests_s": requests_s,
+            "explain_phases": {k: v for k, v in built["phases"].items()
+                               if v is not None},
+            "admissions": admissions, "trace_events": in_trace}
+
+
+def _observe_declared(conf: Path, serving: dict, port: int) -> dict:
+    """F4: the port's `PrometheusRuntime.node_configure` for a cluster
+    declaring the port's `serving` beside `consul`, `spark` and `grafana`
+    renders every http service those runtimes declare."""
+    from cloudtik_tpu_torch.runtimes.prometheus.runtime import (
+        PrometheusRuntime)
+    from cloudtik_tpu_torch.runtimes.registry import iter_runtimes
+
+    config = {"cluster_name": "smoke", "telemetry_port": 0, "runtime": {
+        "types": ["serving", "consul", "spark", "grafana"],
+        "serving": serving}}
+    PrometheusRuntime({"port": port}).node_configure({
+        "is_head": True, "config": config, "head_ip": "127.0.0.1",
+        "conf_dir": str(conf)})
+    jobs = sorted(g["labels"]["job"] for g in json.loads(
+        (conf / "targets.json").read_text()))
+    want = sorted(name for rt in iter_runtimes(config)
+                  for name, svc in (rt.get_runtime_services(
+                      config, "127.0.0.1") or {}).items()
+                  if svc.get("protocol") == "http")
+    require(jobs == want and {"serving", "serving-telemetry", "consul",
+                              "spark-ui", "grafana"} <= set(jobs)
+            and (conf / "prometheus.yml").is_file(),
+            f"observe: a cluster declaring serving, consul, spark and "
+            f"grafana renders the jobs {jobs}; expected {want}")
+    return {"jobs": jobs}
 
 
 def _observe_nodex(port: int, proc) -> dict:

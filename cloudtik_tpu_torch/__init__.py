@@ -12,3 +12,6 @@ Hopper (`csrc/`), built with `nvcc` at its first launch on a CUDA tensor
 `triton`: entry points run on the card (`device=None` means "cuda") and run
 on the CPU only when the caller asks for it, as the tests do.
 """
+
+# what `tik --version` reports (the reference's version)
+__version__ = "0.1.0"

@@ -25,7 +25,7 @@ from cloudtik_tpu_torch.runtimes.prometheus.collector import (
 
 # only these file-SD jobs serve the telemetry HTTP surface (/trace);
 # scraping e.g. a haproxy stats port for traces would just error
-TRACE_JOBS = ("telemetry", "nodex")
+TRACE_JOBS = ("telemetry", "nodex", "serving-telemetry")
 
 
 class TraceCollector:

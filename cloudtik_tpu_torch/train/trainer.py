@@ -96,6 +96,7 @@ lost slice) or hands the live state to the returning ranks (an expand).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 import uuid
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
@@ -404,15 +405,17 @@ class Trainer:
     def _axis(self, axis: str) -> int:
         return axis_sizes_of(self.mesh).get(axis, 1)
 
-    def _place(self):
-        """A Placement per parameter from the spec's logical axes."""
+    def _place(self, mesh=None):
+        """A Placement per parameter from the spec's logical axes, on this
+        trainer's mesh or on `mesh` (a DeviceMesh or {axis: size})."""
         if self.spec.logical_axes is None:
             raise ValueError(
                 "this ModelSpec has no logical_axes: a spec trains on a "
                 "mesh only with the logical axes of its parameters")
         shapes = self.spec.init(torch.Generator(), torch.device("meta"))
-        specs = tree_to_shardings_safe(self.mesh, self.spec.logical_axes,
-                                       shapes, self.config.rules)
+        specs = tree_to_shardings_safe(
+            self.mesh if mesh is None else mesh, self.spec.logical_axes,
+            shapes, self.config.rules)
 
         # the tensor splits are Megatron's (read split) only when every
         # one of them is (`sharding.megatron_split`)
@@ -441,14 +444,18 @@ class Trainer:
         self._shapes = shapes
         return one(shapes, specs, self.spec.logical_axes)
 
-    def _piece(self, axes: Tuple[str, ...]) -> Tuple[int, int]:
+    def _piece(self, axes: Tuple[str, ...], at=None) -> Tuple[int, int]:
         """(pieces, this rank's index) of a dimension split over `axes`:
-        row-major over the axes in order."""
+        row-major over the axes in order.  `at` ({axis: (size, index)})
+        places another rank, or this one on another mesh."""
         n, index = 1, 0
         for axis in axes:
-            size = self._axis(axis)
-            index = index * size + (self.mesh.get_local_rank(axis)
-                                    if size > 1 else 0)
+            if at is not None:
+                size, i = at[axis]
+            else:
+                size = self._axis(axis)
+                i = self.mesh.get_local_rank(axis) if size > 1 else 0
+            index = index * size + i
             n *= size
         return n, index
 
@@ -458,12 +465,13 @@ class Trainer:
             full = full.chunk(n, dim)[index]
         return full.contiguous()
 
-    def _region(self, shape, pl: Placement) -> Tuple[Tuple[int, int], ...]:
+    def _region(self, shape, pl: Placement,
+                at=None) -> Tuple[Tuple[int, int], ...]:
         """This rank's [start, stop) of each dimension of a leaf of global
-        `shape` placed by `pl`."""
+        `shape` placed by `pl` (`at` as in `_piece`)."""
         region = [(0, int(n)) for n in shape]
         for dim, axes in pl.dims:
-            n, index = self._piece(axes)
+            n, index = self._piece(axes, at)
             per = int(shape[dim]) // n
             region[dim] = (index * per, (index + 1) * per)
         return tuple(region)
@@ -477,7 +485,7 @@ class Trainer:
                                                 self.mesh.get_group(axis))
         return local
 
-    def _opt_placements(self) -> Dict[str, Any]:
+    def _opt_placements(self, placements=None) -> Dict[str, Any]:
         """Per optimizer-state tree, each leaf's Placement: its parameter's
         where the optimizer keeps a parameter-shaped moment; Adafactor's
         factored rows and columns drop the averaged dimension and its
@@ -492,19 +500,25 @@ class Trainer:
                     if d is not None:
                         dims.append((d, axes))
                 return Placement(tuple(dims))
-            return tree_map(one, self._shapes, self._placements)
+            return tree_map(one, self._shapes, placements)
 
+        if placements is None:
+            placements = self._placements
         abstract = self.optimizer.init(self._shapes)
         return {k: derive(k) for k, v in abstract.items()
                 if isinstance(v, (dict, list))}
 
-    def _map_state(self, fn, state: Dict[str, Any]) -> Dict[str, Any]:
+    def _map_state(self, fn, state: Dict[str, Any],
+                   placements=None) -> Dict[str, Any]:
         """fn(leaf, placement) over params and the optimizer state's
-        parameter-shaped trees (every entry but the step count)."""
-        placed = self._opt_placements()
+        parameter-shaped trees (every entry but the step count), with the
+        params' `placements` (default: this mesh's)."""
+        if placements is None:
+            placements = self._placements
+        placed = self._opt_placements(placements)
         opt = {k: (tree_map(fn, v, placed[k]) if k in placed else v)
                for k, v in state["opt_state"].items()}
-        return {"params": tree_map(fn, state["params"], self._placements),
+        return {"params": tree_map(fn, state["params"], placements),
                 "opt_state": opt}
 
     def _local_opt_state(self) -> Dict[str, Any]:
@@ -1122,15 +1136,15 @@ class Trainer:
         coordinator.commit(decision)
 
     def _hand_over(self, decision, coordinator) -> None:
-        """The expand's live reshard: every state leaf is replicated over
-        `data` (the axis that spans slices), so over each `data` group the
-        rank in the first surviving slice broadcasts its shard, and the
-        returning ranks (no state yet) take it; the step and the number
-        leaves come from that slice's first rank."""
-        if any("data" in pl.axes for pl in tree_leaves(self._placements)):
-            raise NotImplementedError(
-                "an elastic expand hands over state replicated over "
-                "`data`; these rules split a parameter over it")
+        """The expand's live reshard.  A leaf replicated over `data` (the
+        axis that spans slices) is the same on every slice: over each
+        `data` group the rank in the first surviving slice broadcasts its
+        shard, and the returning ranks (no state yet) take it.  A leaf
+        split over `data` (or placed otherwise on the narrower mesh) is
+        gathered whole from the surviving ranks' shards over the axes it
+        lies on, `data` among them, and each rank of the wider mesh keeps
+        its own block (`_regather`).  The step and the number leaves come
+        from the first surviving slice's first rank."""
         survivors = [s for s in sorted(decision.to_slices)
                      if s in decision.from_slices]
         order = coordinator.ranks(decision.to_slices)
@@ -1140,14 +1154,23 @@ class Trainer:
         coord = list(self.mesh.get_coordinate())
         coord[0] = block + coord[0] % per
         src = int(self.mesh.mesh[tuple(coord)])
+        abstract = self._abstract_state()
         if self.params is None:
-            abstract = self._abstract_state()
             state = self._map_state(
                 lambda x, pl: torch.zeros(
                     [e - s for s, e in self._region(x.shape, pl)],
                     dtype=x.dtype, device=self.device), abstract)
         else:
             state = self.state
+        # each leaf's placement on the narrower mesh the state is on
+        sizes = axis_sizes_of(self.mesh)
+        before = self._place(dict(sizes, data=per
+                                  * len(decision.from_slices)))
+        placed = dict(ckpt_lib._flatten(self._map_state(
+            lambda x, pl: pl, abstract)))
+        was = dict(ckpt_lib._flatten(self._map_state(
+            lambda x, pl: pl, abstract, placements=before)))
+        whole = dict(ckpt_lib._flatten(abstract))
         box = [self.step, [(p, v) for p, v in ckpt_lib._flatten(state)
                            if not isinstance(v, torch.Tensor)]]
         dist.broadcast_object_list(box, src=source)
@@ -1155,13 +1178,79 @@ class Trainer:
         tensors = sorted(((p, v) for p, v in ckpt_lib._flatten(state)
                           if isinstance(v, torch.Tensor)), key=lambda x:
                          repr(x[0]))
+        moved = {}
         with torch.no_grad():
-            for _, t in tensors:
-                dist.broadcast(t, src=src, group=group)
+            for path, t in tensors:
+                pl, old = placed[path], was[path]
+                if pl.dims == old.dims and "data" not in pl.axes:
+                    dist.broadcast(t, src=src, group=group)
+                else:
+                    moved[path] = self._regather(
+                        t if self.params is not None else None,
+                        whole[path], pl, old, decision, per)
         numbers = dict(box[1])
-        values = [numbers.get(p, v) for p, v in ckpt_lib._flatten(state)]
+        values = [moved.get(p, numbers.get(p, v))
+                  for p, v in ckpt_lib._flatten(state)]
         self._set_state(tree_unflatten(state, values))
         self.step = int(box[0])
+
+    def _regather(self, local, like, pl: Placement, old: Placement,
+                  decision, per: int) -> torch.Tensor:
+        """This rank's block, under `pl` on this (wider) mesh, of a leaf
+        that lay under `old` on the mesh of `decision.from_slices`:
+        `local` is a surviving rank's shard there (None on a returning
+        rank, which sends zeros no block reads).  Every rank gathers the
+        shards over the axes the leaf lay on and `data` (each group's
+        members differ in that axis only), and places each surviving
+        rank's shard at its region on the narrower mesh, which the data
+        coordinate maps slice by slice; then keeps its own block."""
+        sizes = axis_sizes_of(self.mesh)
+        names = list(sizes)
+        to = sorted(decision.to_slices)
+        was = sorted(decision.from_slices)
+
+        def old_at(coord):
+            """{axis: (size, index)} on the narrower mesh of the rank at
+            `coord` of this one; None for a returning rank."""
+            slice_id = to[coord[0] // per]
+            if slice_id not in decision.from_slices:
+                return None
+            at = {a: (n, c) for a, n, c in zip(names, sizes.values(),
+                                               coord)}
+            at["data"] = (per * len(was),
+                          was.index(slice_id) * per + coord[0] % per)
+            return at
+
+        coord = list(self.mesh.get_coordinate())
+        survivor = list(coord)
+        survivor[0] = to.index(was[0]) * per + coord[0] % per
+        shard = [e - s for s, e in self._region(like.shape, old,
+                                                old_at(survivor))]
+        if local is None:
+            local = torch.zeros(shard, dtype=like.dtype, device=self.device)
+        axes = [a for a in names if a == "data" or a in old.axes]
+        stacked = local.detach()
+        for axis in reversed(axes):
+            group = self.mesh.get_group(axis)
+            n = dist.get_world_size(group)
+            # flat: gloo takes only the concatenated output layout
+            flat = stacked.contiguous().reshape(-1)
+            out = flat.new_empty(n * flat.numel())
+            dist.all_gather_into_tensor(out, flat, group=group)
+            stacked = out.view((n,) + tuple(stacked.shape))
+        full = torch.empty(tuple(like.shape), dtype=like.dtype,
+                           device=self.device)
+        for index in itertools.product(*map(range, stacked.shape[
+                :len(axes)])):
+            at = list(coord)
+            for axis, i in zip(axes, index):
+                at[names.index(axis)] = i
+            at = old_at(at)
+            if at is not None:
+                full[tuple(slice(s, e) for s, e in self._region(
+                    like.shape, old, at))] = stacked[index]
+        return full[tuple(slice(s, e) for s, e in self._region(
+            like.shape, pl))].clone()
 
     def _fit_loop(self, data_iter, num_steps: int, callbacks: list,
                   capture: stepprof.ProfileCapture) -> Dict[str, Any]:

@@ -1454,7 +1454,9 @@ def test_elastic_2rank_phase_rehearsal():
     process leaves, a fresh one returns and is handed the state, and every
     check the phase makes on the card but the launch counts and the peaks
     (no kernel runs here)."""
-    out = chip_smoke.phase_elastic_2rank(chip_smoke.ELASTIC_REHEARSAL)
+    out = chip_smoke.phase_elastic_2rank(
+        chip_smoke.ELASTIC_REHEARSAL,
+        split_load=chip_smoke.ELASTIC_SPLIT_REHEARSAL)
     assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
                                "flash_bwd_dkv": 0}
     assert out["k1_losses"] == out["fresh_losses"]
@@ -1462,6 +1464,50 @@ def test_elastic_2rank_phase_rehearsal():
     assert [r["direction"] for r in out["remeshes"]["survivor"]] == [
         "shrink", "expand"]
     assert out["shards_gb"]["written"] > out["shards_gb"]["read"] > 0
+    # F5: the expand under rules that split the embedding over `data`
+    split = out["split"]
+    assert "embed" in split["split_over_data"]
+    assert split["max_rel_after_expand"] <= chip_smoke.ELASTIC_SPLIT_REL
+    assert len(split["losses"]["split"]) == 5
+
+
+@pytest.mark.parametrize("fault,match", [
+    (None, None), ("drift", "elastic_split: f32 losses"),
+    ("unsplit", "elastic_split: leaves split over data"),
+    ("replicas", "the replicas' whole state differs")])
+def test_elastic_split_check_flags_a_wrong_expand(monkeypatch, fault,
+                                                   match):
+    """The split drill's checks over drills as the ranks report them: the
+    step after the expand off by 1e-4 relative, rules that split nothing
+    over `data`, or replicas that differ after the expand each fail the
+    phase."""
+    load = chip_smoke.ELASTIC_SPLIT_REHEARSAL
+    steps = [(1, 2), (2, 2), (2, 1), (3, 1), (4, 2)]
+
+    def drill(drill_load, root, tmp):
+        split = bool(drill_load.rules)
+        losses = [5.5, 5.4, 5.4, 5.3, 5.2]
+        if split and fault == "drift":
+            losses[-1] *= 1 + 1e-4
+        hist = [{"step": s, "slices": k, "loss": x}
+                for (s, k), x in zip(steps, losses)]
+        zero = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        rank = {"history": hist, "launches": zero, "launches_by_step": [],
+                "remeshes": [{"direction": "expand", "wall_s": 1.0}],
+                "split_over_data": ["embed"] if split
+                and fault != "unsplit" else [], "digest": {"a": "1"}}
+        joiner = dict(rank, history=hist[-1:], digest={
+            "a": "2" if fault == "replicas" else "1"})
+        return {"survivor": rank, "joiner": joiner,
+                "left": dict(rank, history=hist[:2])}
+
+    monkeypatch.setattr(chip_smoke, "_elastic_drill", drill)
+    if fault is None:
+        out = chip_smoke._elastic_split(load, ROOT)
+        assert out["max_rel_after_expand"] == 0.0
+        return
+    with pytest.raises(SystemExit, match=match):
+        chip_smoke._elastic_split(load, ROOT)
 
 
 def test_elastic_load_is_tpu_1b_at_full_width_and_depth():
@@ -1470,6 +1516,11 @@ def test_elastic_load_is_tpu_1b_at_full_width_and_depth():
     assert load.device == "cuda:0"
     assert (load.every, load.torn_at, load.lost_at, load.return_at,
             load.steps) == (2, 4, 4, 6, 8)
+    split = chip_smoke.ELASTIC_SPLIT_LOAD
+    assert (split.model, split.seq, split.batch, split.device) == (
+        "tpu_1b", 2048, 8, "cuda:0")
+    assert (split.n_layers, split.param_dtype) == (2, "float32")
+    assert chip_smoke.ELASTIC_SPLIT_RULES == {"embed": ["data", None]}
 
 
 def test_zoo_2rank_phase_rehearsal():
@@ -1651,6 +1702,62 @@ def test_observe_phase_rehearsal(tmp_path, monkeypatch):
     assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
                                "flash_bwd_dkv": 0}
     assert not any(out["serve_launches"].values())
+    # the port's CLI over the trace, the ledger and the journal (F3); the
+    # declared cluster's targets (F4)
+    trace = serve["trace"]
+    assert {"serve.enqueue", "serve.prefill", "serve.decode"} <= set(
+        trace["names"])
+    assert trace["lanes"] == [
+        f"serving-telemetry (127.0.0.1:{serve['ports']['telemetry']})"]
+    assert serve["records"]["ledger_count"] == n + 1
+    assert serve["records"]["trace_events"] == ["tik_serve_admission"]
+    assert {"serving", "serving-telemetry", "consul", "spark-ui",
+            "grafana"} <= set(serve["declared_targets"]["jobs"])
+
+
+def test_observe_trace_check_fails_without_the_serving_lane(tmp_path):
+    """A stitched trace that holds no serve.* span of the traced request
+    (here: the targets name only a dead `telemetry` job, as a collector
+    that skips `serving-telemetry` would leave it) fails the phase."""
+    (tmp_path / "targets.json").write_text(
+        '[{"targets": ["127.0.0.1:9"], "labels": {"job": "telemetry"}}]')
+    traced = {"trace_id": "a" * 32, "request_id": "1",
+              "traceparent": f"00-{'a' * 32}-{'b' * 16}-01"}
+    env = dict(os.environ, TIK_HOME=str(tmp_path / "home"))
+    with pytest.raises(SystemExit, match="the stitched trace of"):
+        chip_smoke._observe_trace(ROOT, env, tmp_path, 9, traced)
+
+
+def test_observe_records_check_counts_every_answer(tmp_path):
+    """`serve requests --stats` over a ledger one record short of the
+    answers fails the phase, as does a port CLI that cannot start."""
+    from cloudtik_tpu_torch.serve import reqlog
+    from cloudtik_tpu_torch.telemetry import events
+
+    ledger, journal = tmp_path / "rl.jsonl", tmp_path / "ev.jsonl"
+    ledger.write_text("")
+    journal.write_text("")
+    traced = {"trace_id": "a" * 32, "request_id": "1",
+              "traceparent": f"00-{'a' * 32}-{'b' * 16}-01"}
+    env = dict(os.environ, TIK_HOME=str(tmp_path / "home"))
+    assert reqlog.read_requests(str(ledger)) == []
+    assert events.read_events(str(journal)) == []
+    with pytest.raises(SystemExit, match="counts 0"):
+        chip_smoke._observe_records(ROOT, env, ledger, journal, traced, 1,
+                                    0)
+    with pytest.raises(SystemExit, match="exited 2"):
+        chip_smoke._port_cli(ROOT, env, "serve", "requests", "--nope")
+
+
+def test_observe_declared_check_needs_every_http_service(tmp_path):
+    """F4: the declared cluster's targets must hold the serving process's
+    telemetry job; a serving runtime that serves none fails the phase."""
+    out = chip_smoke._observe_declared(tmp_path / "a", {"port": 8300},
+                                       9090)
+    assert "serving-telemetry" in out["jobs"]
+    with pytest.raises(SystemExit, match="renders the jobs"):
+        chip_smoke._observe_declared(tmp_path / "b", {
+            "port": 8300, "telemetry_port": 0}, 9090)
 
 
 def test_observe_capture_rehearsal(tmp_path, monkeypatch):

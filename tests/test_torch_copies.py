@@ -3,15 +3,16 @@
 The serving engine, the cluster runtimes (the AI and serving runtimes'
 base classes, discovery, the installer), the GCP provider (the provider
 base class, the REST and Compute clients, the command executors the base
-class builds) and the scrape path (the telemetry HTTP server, the
-prometheus runtime with its collector, windows, alerts and SLO engine, the
-node exporter, the scaling policies) reach these modules at run time, and
-the port keeps its own copies of them (it imports nothing of the JAX
+class builds), the scrape path (the telemetry HTTP server, the prometheus
+runtime with its collector, windows, alerts and SLO engine, the node
+exporter, the scaling policies), every other built-in runtime with its
+helpers and delivery, and the port's CLI reach these modules at run time,
+and the port keeps its own copies of them (it imports nothing of the JAX
 package): each is the reference's source with `cloudtik_tpu` imports
 renamed to `cloudtik_tpu_torch`, and nothing else changed but the lines
-`ALLOWED_DIFFERENCES` names.  Through them the port
-engine emits the reference's `tik_serve_*` metrics and writes request
-records that the JAX package's ledger reader takes as its own.
+`ALLOWED_DIFFERENCES` names.  Through them the port engine emits the
+reference's `tik_serve_*` metrics and writes request records that the JAX
+package's ledger reader takes as its own.
 """
 
 import re
@@ -64,6 +65,49 @@ COPIES = (
     "runtimes/prometheus/trace_collector.py", "runtimes/nodex/__init__.py",
     "runtimes/nodex/runtime.py", "runtimes/nodex/exporter.py",
     "control/scaling_policies.py", "train/tokenizer.py",
+    # every other built-in runtime, their common helpers, delivery, and
+    # the CLI's package and logger
+    "scripts/__init__.py",
+    "runtimes/apisix/__init__.py", "runtimes/apisix/runtime.py",
+    "runtimes/bind/__init__.py", "runtimes/bind/runtime.py",
+    "runtimes/consul/__init__.py", "runtimes/consul/runtime.py",
+    "runtimes/coredns/__init__.py", "runtimes/coredns/runtime.py",
+    "runtimes/dns/__init__.py", "runtimes/dns/records.py",
+    "runtimes/dnsmasq/__init__.py", "runtimes/dnsmasq/runtime.py",
+    "runtimes/elasticsearch/__init__.py", "runtimes/elasticsearch/runtime.py",
+    "runtimes/etcd/__init__.py", "runtimes/etcd/runtime.py",
+    "runtimes/flink/__init__.py", "runtimes/flink/runtime.py",
+    "runtimes/grafana/__init__.py", "runtimes/grafana/dashboards.py",
+    "runtimes/grafana/runtime.py", "runtimes/haproxy/__init__.py",
+    "runtimes/haproxy/runtime.py", "runtimes/hdfs/__init__.py",
+    "runtimes/hdfs/runtime.py", "runtimes/kafka/__init__.py",
+    "runtimes/kafka/runtime.py", "runtimes/kong/__init__.py",
+    "runtimes/kong/runtime.py", "runtimes/loadbalancer/__init__.py",
+    "runtimes/loadbalancer/runtime.py", "runtimes/loadbalancer/sync.py",
+    "runtimes/metastore/__init__.py", "runtimes/metastore/runtime.py",
+    "runtimes/minio/__init__.py", "runtimes/minio/runtime.py",
+    "runtimes/mlflow/__init__.py", "runtimes/mlflow/runtime.py",
+    "runtimes/mongodb/__init__.py", "runtimes/mongodb/runtime.py",
+    "runtimes/mount/__init__.py", "runtimes/mount/runtime.py",
+    "runtimes/mysql/__init__.py", "runtimes/mysql/runtime.py",
+    "runtimes/nginx/__init__.py", "runtimes/nginx/runtime.py",
+    "runtimes/pgbouncer/__init__.py", "runtimes/pgbouncer/runtime.py",
+    "runtimes/pgpool/__init__.py", "runtimes/pgpool/runtime.py",
+    "runtimes/postgres/__init__.py", "runtimes/postgres/runtime.py",
+    "runtimes/presto/__init__.py", "runtimes/presto/runtime.py",
+    "runtimes/ray/__init__.py", "runtimes/ray/runtime.py",
+    "runtimes/redis/__init__.py", "runtimes/redis/runtime.py",
+    "runtimes/spark/__init__.py", "runtimes/spark/runtime.py",
+    "runtimes/sshserver/__init__.py", "runtimes/sshserver/runtime.py",
+    "runtimes/trino/__init__.py", "runtimes/trino/runtime.py",
+    "runtimes/xinetd/__init__.py", "runtimes/xinetd/runtime.py",
+    "runtimes/yarn/__init__.py", "runtimes/yarn/runtime.py",
+    "runtimes/zookeeper/__init__.py", "runtimes/zookeeper/runtime.py",
+    "runtimes/common/active_standby.py", "runtimes/common/discovery_client.py",
+    "runtimes/common/failover.py", "runtimes/common/health_check.py",
+    "runtimes/common/leader_election.py", "runtimes/common/lock.py",
+    "runtimes/delivery.py", "core/load_balancer_provider.py",
+    "utils/cli_logger.py",
 )
 # (copy, line in the port) -> why it differs from the reference
 _ONE_GPU = ("the serve-demand policy asks one GPU a replica by default: the "
@@ -72,6 +116,10 @@ _ONE_GPU = ("the serve-demand policy asks one GPU a replica by default: the "
 ALLOWED_DIFFERENCES = {
     ("control/scaling_policies.py", 140): _ONE_GPU,
     ("control/scaling_policies.py", 161): _ONE_GPU,
+    ("runtimes/prometheus/trace_collector.py", 28): (
+        "the port's serving process serves its spans at /trace under the "
+        "job serving-telemetry (runtimes/serving/runtime.py), where the "
+        "reference's serve spans come from the head's telemetry job"),
 }
 
 

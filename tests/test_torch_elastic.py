@@ -37,6 +37,7 @@ from cloudtik_tpu.faults.plan import FaultPlan as JFaultPlan
 from cloudtik_tpu.faults.plan import FaultPoint as JFaultPoint
 from cloudtik_tpu.models import transformer as JT
 from cloudtik_tpu.parallel import mesh as JM
+from cloudtik_tpu.parallel.sharding import make_rules as jmake_rules
 from cloudtik_tpu.train import elastic as JE
 from cloudtik_tpu.train import optim as JO
 from cloudtik_tpu.train import trainer as JTR
@@ -357,6 +358,9 @@ def test_store_membership_and_admission(tmp_path):
 B, S, STEPS, EVERY = 8, 32, 12, 4
 OPT = dict(learning_rate=1e-2, warmup_steps=1, schedule="constant")
 DRILLS = {"lose1": 1, "lose0": 0}
+# F5: lose1's story under rules that split the embedding over `data` (and
+# fsdp inside a slice), which the expand hands over block by block
+SPLIT, SPLIT_RULES = "lose1_embed_data", {"embed": ("data", "fsdp")}
 
 
 def _batches():
@@ -369,9 +373,10 @@ def _jax_params():
     return cfg, JT.init_params(jax.random.PRNGKey(0), cfg)
 
 
-def _jax_drill(tmp):
+def _jax_drill(tmp, rules=None):
     """The JAX fit_elastic over two slices of four CPU devices: the torn
-    step-8 save, slice 1 gone from boundary 8, back at 10."""
+    step-8 save, slice 1 gone from boundary 8, back at 10 (under `rules`
+    overrides: the expand's `device_put` reshards the split leaves)."""
     jcfg, _ = _jax_params()
     batches = _batches()
     alive = {"s": {0, 1}}
@@ -383,7 +388,9 @@ def _jax_drill(tmp):
     trainer = JTR.Trainer(JTR.transformer_spec(jcfg), JTR.TrainerConfig(
         global_batch_size=B, seq_len=S, log_every=1, prefetch_depth=0,
         optimizer=JO.OptimizerConfig(**OPT), checkpoint_every=EVERY,
-        checkpoint_dir=str(tmp / "jax-ckpt")), mesh=coord.build_mesh())
+        rules=jmake_rules(**(rules or {})),
+        checkpoint_dir=str(tmp / f"jax-ckpt{'-rules' if rules else ''}")),
+        mesh=coord.build_mesh())
     trainer.init_state(jax.random.PRNGKey(0))
     fired = set()
 
@@ -419,6 +426,7 @@ def drill(tmp_path_factory):
                   checkpoint_every=EVERY, torn_at=8, lost=lost, lost_at=8,
                   return_at=10, fresh_from=4, optimizer=OPT)
              for name, lost in DRILLS.items()]
+    cases.append(dict(cases[0], name=SPLIT, rules=SPLIT_RULES))
     torch.save({"cases": cases}, out / "cases.pt")
     failure = []
 
@@ -434,18 +442,20 @@ def drill(tmp_path_factory):
     ranks.start()
     try:
         jax_run = _jax_drill(out)
+        jax_split = _jax_drill(out, SPLIT_RULES)
     finally:
         ranks.join()
     if failure:
         raise failure[0]
     got = {}
-    for name in DRILLS:
+    for name in list(DRILLS) + [SPLIT]:
         got[name] = {r: torch.load(out / f"{name}.rank{r}.pt",
                                    weights_only=False) for r in range(4)}
         got[name]["left"] = {r: torch.load(out / f"{name}.rank{r}.left.pt",
                                            weights_only=False)
                              for r in range(4)
                              if (out / f"{name}.rank{r}.left.pt").exists()}
+    got[SPLIT]["jax"] = jax_split
     return got, jax_run
 
 
@@ -537,3 +547,42 @@ def test_drill_books_what_the_reference_drill_asserts(drill):
         resumes = [e for e in res["events"]
                    if e["name"] == "tik_train_resume"]
         assert resumes and resumes[-1]["replay_until"] == 8
+
+
+# ------------------------------------------- the expand under data rules --
+
+def test_drill_split_over_data_matches_jax(drill):
+    """F5: the expand hands over leaves split over `data` (embed rows over
+    data x fsdp at K=2, over fsdp at K=1): the story, losses and final
+    parameters are the JAX Trainer's under the same rules, within the
+    first drill's ceilings, and every rank holds the same whole state."""
+    got, _ = drill
+    jhist, jparams = got[SPLIT]["jax"]
+    res = got[SPLIT][0]
+    assert "embed" in res["split_over_data"]
+    assert [(h["step"], h["slices"]) for h in res["history"]] == \
+        [(h["step"], h["slices"]) for h in jhist]
+    assert res["remeshes"] == {"shrink": 1, "expand": 1}
+    hist = res["history"]
+    assert _rel(hist[0]["loss"], jhist[0]["loss"]) <= 1e-5
+    assert max(_rel(h["loss"], j["loss"])
+               for h, j in zip(hist[1:], jhist[1:])) <= 1e-4
+    for a, b in zip(jax.tree.leaves(res["params"]),
+                    jax.tree.leaves(jparams)):
+        assert _rel(a.numpy(), b) <= 1e-4
+    assert [r for r in range(4) if got[SPLIT][r]["joined"]] == [2, 3]
+    for r in range(1, 4):
+        for x, y in zip(jax.tree.leaves(got[SPLIT][r]["params"]),
+                        jax.tree.leaves(res["params"])):
+            assert torch.equal(x, y)
+
+
+def test_drill_split_over_data_walks_the_default_trajectory(drill):
+    """The same story under the default rules: every step's f32 loss
+    within 1e-5 relative (the layouts differ only in reduction order)."""
+    got, _ = drill
+    split = got[SPLIT][0]["history"]
+    default = _survivor(got, "lose1")["history"]
+    assert [h["step"] for h in split] == [h["step"] for h in default]
+    assert max(_rel(a["loss"], b["loss"])
+               for a, b in zip(split, default)) <= 1e-5

@@ -157,6 +157,63 @@ def test_serving_runtime_serves_the_ports_metrics_and_journal(
     assert names.count("tik_serve_admission") == 1
 
 
+def test_stitched_trace_holds_the_ports_serve_spans(node_context,
+                                                    telemetry_on, tik_home):
+    """F3: the port's collector scrapes `serving-telemetry` for traces, so
+    the stitched trace of one answered request holds its serve.* spans
+    under the one trace id of its `x-tik-traceparent`, in the serving
+    process's lane; the head's telemetry job on the same host is a lane of
+    its own."""
+    from cloudtik_tpu_torch.runtimes.prometheus.trace_collector import (
+        TraceCollector)
+    from cloudtik_tpu_torch.telemetry import http as THTTP
+
+    port = _free_port()
+    rt = SR.ServingRuntime({"model": "tiny", "engine": True, "slots": 2,
+                            "max_len": 64, "port": 0, "device": "cpu",
+                            "telemetry_port": port})
+    head = THTTP.start_server(0, host="127.0.0.1")
+    config = {"cluster_name": "gpu1", "telemetry_port": head.port,
+              "runtime": {"types": ["serving"], "serving": {
+                  "telemetry_port": port}}}
+    conf = Path(node_context["conf_dir"]) / "prometheus"
+    TP.PrometheusRuntime({}).node_configure({
+        "is_head": True, "config": config, "head_ip": "127.0.0.1",
+        "conf_dir": str(conf)})
+    try:
+        rt.node_services(node_context, "start")
+        server = SR._servers[("gpu1", "serving")]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/v1/generate",
+            data=json.dumps({"tokens": [PROMPT],
+                             "max_new_tokens": 3}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            trace_id = resp.headers["x-tik-traceparent"].split("-")[1]
+        collector = TraceCollector(str(conf))
+        trace, sources = collector.export(trace_id=trace_id)
+        summary = {r["trace_id"]: r for r in collector.summary()}
+    finally:
+        rt.node_services(node_context, "stop")
+        head.stop()
+    assert {s["labels"]["job"]: s["address"] for s in sources} == {
+        "serving-telemetry": f"127.0.0.1:{port}",
+        "telemetry": f"127.0.0.1:{head.port}"}
+    assert not [s["error"] for s in sources if s["error"]]
+    lanes = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e["ph"] == "M"}
+    assert len(set(lanes.values())) == len(lanes) == 2
+    spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    assert {e["args"]["trace_id"] for e in spans} == {trace_id}
+    serving = [e for e in spans
+               if lanes[e["pid"]].startswith("serving-telemetry ")]
+    assert {"serve.enqueue", "serve.prefill", "serve.decode"} <= {
+        e["name"] for e in serving}
+    assert summary[trace_id]["spans"] >= 3
+    assert any(n.startswith("serving-telemetry ")
+               for n in summary[trace_id]["nodes"])
+
+
 def test_telemetry_port_0_turns_it_off(node_context, telemetry_on,
                                        tik_home):
     rt = SR.ServingRuntime({"model": "tiny", "port": 0, "device": "cpu",
@@ -289,11 +346,16 @@ def test_registry_maps_the_ports_runtimes(name):
 
 @pytest.mark.parametrize("name", ["spark", "etcd", "mount"])
 def test_registry_refuses_what_the_port_lacks(name):
+    """The port has every built-in runtime now (F4); what it lacks is the
+    JAX package's classes, which an external name must not load."""
     from cloudtik_tpu.runtimes import registry as JREG
 
-    assert name in JREG._BUILT_IN
-    with pytest.raises(TREG.UnknownRuntimeError, match=repr(name)):
-        TREG.get_runtime_cls(name)
+    external = JREG._BUILT_IN[name]
+    assert external.startswith("cloudtik_tpu.runtimes.")
+    with pytest.raises(TREG.UnknownRuntimeError, match="JAX package"):
+        TREG.get_runtime_cls(external)
+    assert TREG.get_runtime_cls(name).__module__ == \
+        external.split(":")[0].replace("cloudtik_tpu.", "cloudtik_tpu_torch.")
     with pytest.raises(TREG.UnknownRuntimeError):
         TREG.get_runtime_cls("no-such-runtime")
 

@@ -4,6 +4,7 @@ refuse to run off the card unless the caller asks for the CPU."""
 
 import ast
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -42,7 +43,8 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "profile_torch_detect.py",
     ROOT / "tools" / "torch_parallel_cases.py",
     ROOT / "tools" / "probe_torch_gloo_cuda.py",
-    ROOT / "tools" / "probe_torch_cuda_context.py"]
+    ROOT / "tools" / "probe_torch_cuda_context.py",
+    ROOT / "tools" / "probe_torch_capture.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
     .replace(".__init__", "") for p in PORT.rglob("*.py"))
@@ -67,6 +69,39 @@ def test_no_jax_or_reference_imports(path):
     assert not [n for n in names if _forbidden(n)]
 
 
+# strings that name a JAX-package module on purpose -> why
+NAMES_THE_REFERENCE = {
+    ("cloudtik_tpu_torch/providers/gcp/config.py",
+     "cloudtik_tpu.providers.gcp.node_provider:GCPNodeProvider"):
+        "the refusal of a TPU node type names the provider that runs it",
+}
+
+
+def _docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body \
+                and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant):
+            yield node.body[0].value
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_string_names_a_reference_module(path):
+    """Service commands, `-m` targets, registry entries and process
+    keywords name the port's modules: a copy whose rename missed one would
+    start the JAX package's process on a port cluster."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(n) for n in _docstrings(tree)}
+    where = str(path.relative_to(ROOT))
+    named = [s.value for s in ast.walk(tree)
+             if isinstance(s, ast.Constant) and isinstance(s.value, str)
+             and id(s) not in docs
+             and re.search(r"\bcloudtik_tpu\.", s.value)]
+    assert [s for s in named if (where, s) not in NAMES_THE_REFERENCE] == []
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
@@ -81,8 +116,9 @@ def test_importing_the_port_loads_no_jax():
 
 # The scrape path's modules (the serving runtime's telemetry, the
 # prometheus runtime and collector, the SLO engine, the node exporter, the
-# profiler runtime, the scaling policies, the tokenizer), imported and
-# driven with `jax` and `cloudtik_tpu` blocked: a card host has no JAX
+# profiler runtime, the scaling policies, the tokenizer) and the operator
+# CLI over them, imported and driven with `jax` and `cloudtik_tpu`
+# blocked: a card host has no JAX
 SCRAPE_PATH = (
     "cloudtik_tpu_torch.telemetry.http", "cloudtik_tpu_torch.telemetry.slo",
     "cloudtik_tpu_torch.runtimes.registry",
@@ -98,6 +134,8 @@ SCRAPE_PATH = (
     "cloudtik_tpu_torch.runtimes.discovery.sync",
     "cloudtik_tpu_torch.control.scaling_policies",
     "cloudtik_tpu_torch.train.tokenizer",
+    "cloudtik_tpu_torch.runtimes.delivery",
+    "cloudtik_tpu_torch.scripts.cli",
 )
 _BLOCKED = """
 import importlib, importlib.abc, json, sys, tempfile

@@ -535,13 +535,13 @@ def case_collectives(case, device):
 
 def case_elastic(case, device, out_dir, join=False):
     """The elastic drill: `world` ranks in `num_slices` slices of
-    `per_slice` train `steps` global batches with `fit_elastic`, saving
-    every `checkpoint_every` steps; the save of `torn_at` tears, slice
-    `lost` is dropped at boundary `lost_at` (its ranks leave), and when the
-    survivors reach `return_at` they ask for its ranks back, which return
-    as fresh processes and are handed the live state.  The survivors then
-    run a fresh K-1 trainer restored from `fresh_from` over the steps the
-    K-1 era ran, in their own group."""
+    `per_slice` (under the case's `rules`) train `steps` global batches
+    with `fit_elastic`, saving every `checkpoint_every` steps; the save of
+    `torn_at` tears, slice `lost` is dropped at boundary `lost_at` (its
+    ranks leave), and when the survivors reach `return_at` they ask for
+    its ranks back, which return as fresh processes and are handed the
+    live state.  The survivors then run a fresh K-1 trainer restored from
+    `fresh_from` over the steps the K-1 era ran, in their own group."""
     from cloudtik_tpu_torch.faults import seams
     from cloudtik_tpu_torch.faults.plan import FaultPlan, FaultPoint
     from cloudtik_tpu_torch.models import transformer as T
@@ -549,6 +549,7 @@ def case_elastic(case, device, out_dir, join=False):
     from cloudtik_tpu_torch import telemetry
     from cloudtik_tpu_torch.telemetry import events, goodput
     from cloudtik_tpu_torch.telemetry import instruments as ti
+    from cloudtik_tpu_torch.train import checkpoint as ckpt_lib
     from cloudtik_tpu_torch.train.elastic import (ElasticCoordinator,
                                                   StoreMembership)
     from cloudtik_tpu_torch.train.optim import OptimizerConfig
@@ -574,6 +575,7 @@ def case_elastic(case, device, out_dir, join=False):
         return TrainerConfig(
             global_batch_size=case["batch"], seq_len=case["seq"],
             optimizer=OptimizerConfig(**case.get("optimizer", {})),
+            rules=sharding.make_rules(**case.get("rules", {})),
             log_every=1, prefetch_depth=0, checkpoint_every=every,
             checkpoint_dir=str(out / f"{name}.ckpt"))
 
@@ -646,7 +648,11 @@ def case_elastic(case, device, out_dir, join=False):
         "events": [e for e in events.read_events()
                    if e["name"] in ("tik_elastic_remesh",
                                     "tik_train_resume")],
-        "committed": trainer.checkpointer.all_steps()}
+        "committed": trainer.checkpointer.all_steps(),
+        # the parameters the final (widest) mesh splits over `data`
+        "split_over_data": sorted(
+            "/".join(map(str, path)) for path, pl in ckpt_lib._flatten(
+                trainer._placements) if "data" in pl.axes)}
     trainer.checkpointer.close()
     dist.destroy_process_group()
     events.uninstall()
