@@ -353,6 +353,22 @@ run with a non-zero exit:
            journal; and the port's `PrometheusRuntime` renders every http
            service of a cluster declaring `serving`, `consul`, `spark`
            and `grafana`
+  control  the port's control plane on one machine: the native state
+           server built by g++, the port's `ClusterController` over the
+           virtual provider (nodes are local processes running the port's
+           node agent, with the native host sampler) and the AI runtime's
+           `AISliceScalingPolicy` asking `{"GPU": 1}` a pending job.  No
+           launch in the ticks before the job; one `h100` host (the
+           resources the port's detection reports) launched after it, as
+           the scaler's decision journal says; the agent heartbeats,
+           advertises the detection through the native sampler, holds no
+           CUDA context (the card's free memory and its maps); the
+           updater's start command runs the runtime phase's rank (1
+           warm-up and 1 measured step, 16 launches of each of B1-B3 a
+           step); the job marked done, the scaler terminates the host for
+           `idle_timeout`, after the rank's result, and the agent's
+           process group is gone; every python process of the phase ran
+           with `import jax` and `import cloudtik_tpu` raising
 
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
@@ -365,7 +381,8 @@ measured steps of the tensor and pipe paths; in each process of
 elastic_2rank, its `fit_elastic`; in each rank of zoo_2rank, the
 measured Mask R-CNN and DLRM steps; the serving runtime's start, request
 and stop; in the runtime's rank, its measured steps; the hosts phase; the
-observe phase's serving and its fit) and read just after it.
+observe phase's serving and its fit; in the control phase's rank, its
+warm-up and its measured step) and read just after it.
 The `total` line gives the script's seconds; the last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
@@ -7662,6 +7679,7 @@ def runtime_rank(load: RuntimeLoad, out_path: str) -> int:
     batch = itertools.repeat(next(data))
     warm = trainer.fit(batch, load.warmup)["history"]
     res["first_step_unix"] = time.time()
+    res["warmup_launches"] = _launch_counts()
     res["built"] = sorted(_kernels.build_all())
     train = _train_measured(trainer, batch, 0, load.steps, on_card)
     train.pop("last")
@@ -7669,6 +7687,10 @@ def runtime_rank(load: RuntimeLoad, out_path: str) -> int:
     train["losses"] = [h["loss"] for h in warm] + train["losses"]
     res.update(train)
     res["compile_s"] = goodput.LEDGER.total(goodput.BUCKET_COMPILE)
+    res["pid"] = os.getpid()
+    res["jax_modules"] = sorted(
+        m for m, mod in sys.modules.items() if mod is not None
+        and m.split(".")[0] in ("jax", "jaxlib", "cloudtik_tpu"))
     Path(out_path).write_text(json.dumps(res))
     return 0
 
@@ -8912,6 +8934,442 @@ def phase_observe(load: ObserveLoad = OBSERVE_LOAD,
     return out
 
 
+# ---------------------------------------------------------------- control --
+
+@dataclasses.dataclass(frozen=True)
+class ControlLoad:
+    """The control phase (module docstring).  The port's `ClusterController`
+    ticking every `update_interval_s` over the virtual provider, an idle
+    timeout of `idle_timeout_s`; the worker's start command runs `rank`
+    (the runtime phase's rank) through the AI runtime's command."""
+    rank: RuntimeLoad = RuntimeLoad(steps=1, deadline_s=120.0)
+    update_interval_s: float = 0.5
+    idle_timeout_s: float = 40.0
+
+
+CONTROL_LOAD = ControlLoad()
+# the CPU rehearsal at `tiny`
+CONTROL_REHEARSAL = ControlLoad(
+    rank=dataclasses.replace(RUNTIME_REHEARSAL, steps=1, deadline_s=60.0),
+    update_interval_s=0.25, idle_timeout_s=15.0)
+# controller ticks that must pass without a launch before the job; the
+# longest any other wait of the phase may take
+CONTROL_QUIET_TICKS = 4
+CONTROL_WAIT_S = 120.0
+
+# Every python process the control phase starts runs this first (a
+# directory holding it leads PYTHONPATH): `import jax` and the JAX package
+# raise, as on a card host, and the process leaves its pid in a log
+_SITE_NO_JAX = """import json, os, sys
+sys.modules["jax"] = None
+sys.modules["cloudtik_tpu"] = None
+_log = os.environ.get("TIK_SMOKE_PROCESS_LOG")
+if _log:
+    with open(_log, "a") as _f:
+        _f.write(json.dumps({"pid": os.getpid(),
+                             "argv": sys.orig_argv[:4]}) + "\\n")
+"""
+# The rehearsal's sampler: the native sampler's own samples with the host's
+# cpu_percent read as 0.  On a CPU other tests keep busy, the host never
+# reads idle (the controller counts a host above 15% as active), so the
+# idle timeout could not fire; on the card the real sampler reports.
+_QUIET_SAMPLER = """#!{python}
+import json, os, subprocess, sys
+args = sys.argv[1:]
+if "--fate-parent" in args:
+    args[args.index("--fate-parent") + 1] = str(os.getpid())
+proc = subprocess.Popen([{binary!r}] + args, stdout=subprocess.PIPE,
+                        text=True)
+for line in proc.stdout:
+    sample = json.loads(line)
+    sample["cpu_percent"] = 0.0
+    print(json.dumps(sample), flush=True)
+"""
+_SAMPLER_WARNING = "native host agent unavailable; using psutil"
+
+
+def _wait(what: str, predicate, timeout_s: float, poll_s: float = 0.05):
+    """predicate()'s first truthy value, polled until `timeout_s`."""
+    deadline = time.time() + timeout_s
+    while True:
+        got = predicate()
+        if got:
+            return got
+        require(time.time() < deadline,
+                f"control: no {what} within {timeout_s} s")
+        time.sleep(poll_s)
+
+
+def _maps_hold(pid: int, names: tuple) -> list:
+    """Which of `names` (library names) process `pid` maps."""
+    with open(f"/proc/{pid}/maps") as f:
+        maps = f.read()
+    return [n for n in names if n in maps]
+
+
+def _group_alive(pgid: int) -> list:
+    """Pids of live (not zombie) processes in process group `pgid`."""
+    alive = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if int(fields[2]) == pgid and fields[0] != "Z":
+            alive.append(int(entry))
+    return alive
+
+
+def _reap(pid: int, timeout_s: float) -> None:
+    """Wait for child `pid` (a process this one started) to be gone."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        try:
+            done, _ = os.waitpid(pid, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if done:
+            return
+        time.sleep(0.05)
+
+
+def phase_control(load: ControlLoad = CONTROL_LOAD, expect_gpus: int = None,
+                  dev_root: str = "/dev", proc_root: str = "/proc",
+                  free_bytes=None, nvidia_smi: str = None) -> dict:
+    """The port's control plane launching a card host for a pending
+    training job (module docstring).  The smoke process is the head: the
+    native state server, built by g++, and the port's `ClusterController`
+    over its `VirtualNodeProvider`, whose nodes are local processes running
+    the port's node agent.  `expect_gpus` is torch's card count (None on
+    the CPU), `free_bytes` reads the card's free memory (None on the CPU);
+    a `dev_root` or `proc_root` other than the host's reaches the agent as
+    the bootstrapped start commands carry it, through TIK_NODE_RESOURCES.
+    The flash launch counts are the rank's own, zeroed at its start."""
+    import shlex
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from cloudtik_tpu_torch import native
+    from cloudtik_tpu_torch.control import cluster_operator
+    from cloudtik_tpu_torch.control.controller import ClusterController
+    from cloudtik_tpu_torch.control.state import (
+        StateClient, TABLE_HEARTBEAT, TABLE_METRICS, TcpStateBackend)
+    from cloudtik_tpu_torch.core.tags import (
+        STATUS_UP_TO_DATE, TAG_NODE_STATUS, TAG_USER_NODE_TYPE)
+    from cloudtik_tpu_torch.ops import _kernels
+    from cloudtik_tpu_torch.providers.factory import create_node_provider
+    from cloudtik_tpu_torch.runtimes.ai.runtime import AIRuntime
+    from cloudtik_tpu_torch.runtimes.ai.scaling import AISliceScalingPolicy
+    from cloudtik_tpu_torch.telemetry import core as telemetry_core
+    from cloudtik_tpu_torch.telemetry import events
+    from cloudtik_tpu_torch.utils.resource_spec import detect_node_resources
+
+    on_card = load.rank.device == "cuda"
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out = {"nvidia_smi": nvidia_smi, "load": dataclasses.asdict(load)}
+    tmp = Path(tempfile.mkdtemp(prefix="tik-control-"))
+    site, home = tmp / "site", tmp / "home"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITE_NO_JAX)
+    processes = tmp / "processes.jsonl"
+    gate, pidfile = tmp / "gate", tmp / "rank.pid"
+    rank_out, rank_log = tmp / "rank.json", tmp / "rank.log"
+    spec = tmp / "load.json"
+    spec.write_text(json.dumps(dataclasses.asdict(load.rank)))
+    saved_env = dict(os.environ)
+    was_enabled = telemetry_core.STATE.enabled
+    server = controller = provider = None
+    try:
+        os.environ.pop("TIK_NODE_RESOURCES", None)
+        os.environ.update({
+            "PYTHONPATH": os.pathsep.join(
+                [str(site), str(root)] + [p for p in os.environ.get(
+                    "PYTHONPATH", "").split(os.pathsep) if p]),
+            "TIK_HOME": str(home), "TIK_NATIVE_AGENT": "1",
+            "TIK_SMOKE_PROCESS_LOG": str(processes)})
+        if on_card:
+            os.environ["TIK_COMPILE_CACHE_DIR"] = str(_kernels.BUILD_DIR)
+        else:
+            # no library is built on the CPU: an empty file under each
+            # name is all `build_all()` looks for
+            cache = tmp / "cache"
+            cache.mkdir()
+            for name in _kernels._SIGNATURES:
+                (cache / _kernels._target(name).name).touch()
+            os.environ["TIK_COMPILE_CACHE_DIR"] = str(cache)
+
+        # ---- the native state server and host sampler, built by g++ under
+        # TIK_HOME (the agent finds its sampler there) ----
+        built = {}
+
+        def build(name, fn):
+            t0 = time.perf_counter()
+            built[name] = (fn(), time.perf_counter() - t0)
+
+        threads = [threading.Thread(target=build, args=a) for a in (
+            ("state_server", native.ensure_built),
+            ("host_agent", native.ensure_agent_built))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        require(all(b for b, _ in built.values()),
+                f"control: no C++ compiler built the native parts {built}")
+        out["native_build_s"] = {k: s for k, (_, s) in built.items()}
+        if not on_card:
+            real = home / "native" / "tik-host-agent.real"
+            os.replace(native.agent_binary_path(), real)
+            quiet = Path(native.agent_binary_path())
+            quiet.write_text(_QUIET_SAMPLER.format(
+                python=sys.executable, binary=str(real)))
+            quiet.chmod(0o755)
+        server = native.NativeStateServer(host="127.0.0.1", port=0)
+        server.start()
+        os.environ["TIK_STATE_PORT"] = str(server.port)
+
+        # ---- what the agent will advertise, and the worker type that asks
+        # for just that ----
+        want = detect_node_resources(dev_root, None, proc_root)
+        if (dev_root, proc_root) != ("/dev", "/proc"):
+            os.environ["TIK_NODE_RESOURCES"] = subprocess.run(
+                [sys.executable, "-m", "cloudtik_tpu_torch.utils."
+                 "resource_spec", "--dev-root", dev_root, "--proc-root",
+                 proc_root], cwd=str(root), capture_output=True, text=True,
+                check=True, timeout=60).stdout.strip()
+        require(want.get("GPU", 0) >= 1 and (
+            expect_gpus is None or want["GPU"] == expect_gpus),
+            f"control: the host advertises {want}, torch sees "
+            f"{expect_gpus} cards")
+        cmd = AIRuntime({"python": sys.executable}).get_runnable_command(
+            str(root / "chip_smoke.py"),
+            ["--nproc-per-node", "1", "--deadline-s",
+             str(load.rank.deadline_s)])
+        cmd += ["--runtime-rank", str(spec), str(rank_out)]
+        # the rank starts once the phase has read the card with the agent
+        # alive (the gate), in the background as a service starts, so the
+        # updater marks the node up to date
+        start = (f"until [ -e {shlex.quote(str(gate))} ]; do sleep 0.05; "
+                 f"done; nohup {shlex.join(cmd)} > "
+                 f"{shlex.quote(str(rank_log))} 2>&1 < /dev/null & "
+                 f"echo $! > {shlex.quote(str(pidfile))}")
+        config = cluster_operator.bootstrap_config({
+            "cluster_name": "smoke-control", "workspace_name": "card",
+            "provider": {"type": "virtual", "root_dir": str(tmp / "nodes"),
+                         "spawn_agents": True},
+            "head_node_type": "head", "max_workers": 1,
+            "idle_timeout_minutes": load.idle_timeout_s / 60.0,
+            "available_node_types": {
+                "head": {"node_config": {}, "min_workers": 0,
+                         "max_workers": 0,
+                         "resources": {"CPU": want["CPU"]}},
+                "h100": {"node_config": {}, "min_workers": 0,
+                         "max_workers": 1, "resources": dict(want)}},
+            "runtime": {"types": ["ai"]},
+            "file_mounts": {}, "initialization_commands": [],
+            "setup_commands": [], "worker_setup_commands": [],
+            "worker_start_commands": [start]})
+        provider = create_node_provider(config["provider"],
+                                        config["cluster_name"])
+        head = StateClient(TcpStateBackend("127.0.0.1", server.port))
+        reader = StateClient(TcpStateBackend("127.0.0.1", server.port))
+        policy = AISliceScalingPolicy(
+            config, "127.0.0.1", {"slice_resources": {"GPU": 1}},
+            state_client=head)
+        journal = home / "logs" / "events-control.jsonl"
+        telemetry_core.enable()
+        events.install(str(journal))
+        controller = ClusterController(
+            config, provider, head, scaling_policies=[policy],
+            update_interval_s=load.update_interval_s)
+        free_before = free_bytes() if free_bytes else None
+        t0 = time.time()
+        controller.start()
+
+        # ---- no job, no launch ----
+        _wait(f"{CONTROL_QUIET_TICKS} controller ticks",
+              lambda: controller.ticks >= CONTROL_QUIET_TICKS, CONTROL_WAIT_S)
+        out["quiet"] = {"ticks": controller.ticks,
+                        "seconds": time.time() - t0,
+                        "nodes": provider.non_terminated_nodes({})}
+        require(out["quiet"]["nodes"] == [],
+                f"control: {out['quiet']['nodes']} launched before any job")
+
+        # ---- one pending job: one h100 host ----
+        t_job = time.time()
+        reader.table_put("ai_jobs", "smoke-job", {
+            "status": "pending", "time": t_job,
+            "command": shlex.join(cmd)})
+        node = _wait("launch", lambda: provider.non_terminated_nodes({}),
+                     CONTROL_WAIT_S)[0]
+        record = provider._load(node)
+        t_launch = record["created_at"]
+        agent_pid = record["pid"]
+        require(t_launch > t_job and provider.node_tags(node).get(
+            TAG_USER_NODE_TYPE) == "h100",
+            f"control: launched {node} ({record}) at {t_launch}, the job "
+            f"came at {t_job}")
+        hb = _wait("heartbeat",
+                   lambda: reader.table_get(TABLE_HEARTBEAT, node),
+                   CONTROL_WAIT_S, poll_s=0.02)
+        out["agent_device_mib"] = (
+            (free_before - free_bytes()) / 2**20 if free_bytes else None)
+        # NVML, which names the card where /proc hides it, maps libcuda but
+        # holds no device memory (tools/probe_torch_cuda_context.py); torch
+        # or the CUDA runtime in the agent would be a fault
+        out["agent_maps"] = _maps_hold(agent_pid, (
+            "libtorch", "libc10", "libcudart"))
+        gate.touch()
+        t_gate = time.time()
+        require(out["agent_device_mib"] is None
+                or out["agent_device_mib"] < CONTEXT_MIB,
+                f"control: the card lost {out['agent_device_mib']} MiB "
+                f"with the agent alive: a CUDA context ({CONTEXT_MIB} MiB "
+                "allowed)")
+        require(out["agent_maps"] == [],
+                f"control: the agent maps {out['agent_maps']}")
+        _wait("up-to-date", lambda: provider.node_tags(node).get(
+            TAG_NODE_STATUS) == STATUS_UP_TO_DATE, CONTROL_WAIT_S)
+        t_up = time.time()
+
+        # ---- the rank: the agent's metrics while it runs ----
+        samples = {}
+
+        def rank_done():
+            m = reader.table_get(TABLE_METRICS, node)
+            if m:
+                samples[m["time"]] = m
+            try:
+                return json.loads(rank_out.read_text())
+            except (OSError, ValueError):
+                return None
+
+        r = _wait("rank result", rank_done,
+                  load.rank.deadline_s + CONTROL_WAIT_S, poll_s=0.25)
+        t_result = rank_out.stat().st_mtime
+        reader.table_put("ai_jobs", "smoke-job", {
+            "status": "done", "time": time.time(),
+            "command": shlex.join(cmd)})
+        t_done = time.time()
+        require(r["built"] == [] and r["compile_s"] == 0,
+                f"control: the rank built {r['built']} (compile bucket "
+                f"{r['compile_s']} s) from the warm cache")
+        require(all(math.isfinite(x) for x in r["losses"]),
+                f"control: losses {r['losses']}")
+        require(r["jax_modules"] == [],
+                f"control: the rank loaded {r['jax_modules']}")
+        n = r["n_layers"] if on_card else 0
+        want_launches = {"flash_fwd": n, "flash_bwd_dq": n,
+                         "flash_bwd_dkv": n}
+        require(r["warmup_launches"] == {
+            k: v * load.rank.warmup for k, v in want_launches.items()}
+            and r["launches"] == {
+                k: v * load.rank.steps for k, v in want_launches.items()},
+            f"control: the rank's launches {r['warmup_launches']} in "
+            f"{load.rank.warmup} warm-up and {r['launches']} in "
+            f"{load.rank.steps} measured steps, expected {want_launches} "
+            "a step")
+
+        # ---- idle: terminated, after the rank, for idle_timeout ----
+        def terminated():
+            m = reader.table_get(TABLE_METRICS, node)
+            if m:
+                samples[m["time"]] = m
+            return provider.is_terminated(node)
+
+        _wait("termination", terminated, load.idle_timeout_s + CONTROL_WAIT_S)
+        t_term = time.time()
+
+        # ---- the heartbeat, the resources, the native sampler ----
+        native_rows = [m for m in samples.values() if m.get("native")]
+        require(native_rows, "control: no metrics from the native sampler "
+                f"in {len(samples)} rows")
+        total = native_rows[-1]["total_resources"]
+        require(total == want,
+                f"control: the agent advertises {total}, the host {want}")
+        agent_log = (Path(record["dir"]) / "agent.log").read_text()
+        require(_SAMPLER_WARNING not in agent_log,
+                f"control: the agent fell back to psutil:\n{agent_log}")
+        rank_cpu = [m["cpu_percent"] for t, m in sorted(samples.items())
+                    if r["started_unix"] <= t <= t_result + 1.0]
+        decisions = [e for e in events.read_events(str(journal))
+                     if e.get("name") == "tik_scaler_decision"]
+        launches = [e for e in decisions if e["action"] == "launch"]
+        stops = [e for e in decisions if e["action"] == "terminate"]
+        require([(e["reason"], e["node_type"], e["count"])
+                 for e in launches] == [("demand", "h100", 1)]
+                and launches[0]["ts"] > t_job,
+                f"control: launch decisions {launches}")
+        require([(e["reason"], e["node_id"]) for e in stops]
+                == [("idle_timeout", node)] and stops[0]["ts"] > t_result,
+                f"control: terminate decisions {stops}, the rank's result at "
+                f"{t_result}")
+        _reap(agent_pid, CONTROL_WAIT_S)
+        _wait("the agent's process group gone",
+              lambda: not _group_alive(agent_pid), CONTROL_WAIT_S)
+        require(provider.state.keys("virtual_nodes") == [node],
+                f"control: nodes {provider.state.keys('virtual_nodes')}")
+
+        # ---- no process of the phase loaded jax or cloudtik_tpu ----
+        logged = [json.loads(line) for line in
+                  processes.read_text().splitlines()]
+        launcher_pid = int(pidfile.read_text())
+        pids = {p["pid"] for p in logged}
+        require({agent_pid, launcher_pid, r["pid"]} <= pids,
+                f"control: the agent {agent_pid}, the launcher "
+                f"{launcher_pid} or the rank {r['pid']} ran without the "
+                f"guard (logged: {logged})")
+        out.update({
+            "node": node, "resources": total,
+            "heartbeat": {k: hb[k] for k in ("node_ip", "time")},
+            "native_rows": len(native_rows), "metrics_rows": len(samples),
+            "rank_cpu_percent": rank_cpu, "processes": logged,
+            "rank": {k: r[k] for k in (
+                "model", "batch", "seq", "n_layers", "losses",
+                "ms_per_step", "tokens_per_s", "launches",
+                "warmup_launches", "launch_env", "peak_mem_gb")},
+            "decisions": decisions,
+            "timing": {
+                "job_to_launch_s": t_launch - t_job,
+                "launch_to_heartbeat_s": hb["time"] - t_launch,
+                "heartbeat_to_up_to_date_s": t_up - hb["time"],
+                "spawn_to_first_step_s": r["first_step_unix"] - t_gate,
+                "step_ms": r["ms_per_step"],
+                "heartbeat_to_result_s": t_result - hb["time"],
+                "done_to_termination_s": t_term - t_done,
+                "heartbeat_to_termination_s": t_term - hb["time"]},
+            "launches": {k: r["warmup_launches"][k] + r["launches"][k]
+                         for k in want_launches}})
+    finally:
+        gate.touch()
+        if controller is not None:
+            controller.stop()
+            if controller._thread is not None:
+                controller._thread.join(timeout=10)
+        if provider is not None:
+            for node_id in provider.non_terminated_nodes({}):
+                provider.terminate_node(node_id)
+        if pidfile.exists():
+            with contextlib.suppress(ProcessLookupError, ValueError):
+                os.kill(int(pidfile.read_text()), signal.SIGTERM)
+        if server is not None:
+            server.stop()
+        events.uninstall()
+        telemetry_core.STATE.enabled = was_enabled
+        os.environ.clear()
+        os.environ.update(saved_env)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("control", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -9143,6 +9601,16 @@ def main() -> int:
     observe = phase_observe(nvidia_smi=smi)
     emit("observe_phase", seconds=time.perf_counter() - t_obs)
 
+    # ---- the port's control plane launching a card host for a pending
+    # training job, and scaling it down (counts zeroed and read inside the
+    # launched rank, around its warm-up and its measured step) ----
+    _collect(True)
+    t_ctl = time.perf_counter()
+    control = phase_control(
+        expect_gpus=torch.cuda.device_count(),
+        free_bytes=lambda: torch.cuda.mem_get_info(0)[0], nvidia_smi=smi)
+    emit("control_phase", seconds=time.perf_counter() - t_ctl)
+
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]
     launches = {k: inference[k] + train["launches"][k]
@@ -9151,6 +9619,7 @@ def main() -> int:
                 + moe_serve["launches"][k] + moe_train["launches"][k]
                 + parallel["launches"][k] + elastic["launches"][k]
                 + runtime["launches"][k] + observe["launches"][k]
+                + control["launches"][k]
                 for k in inference}
 
     def bwd_err(grads):

@@ -161,6 +161,10 @@ def _bootstrap_vm_node(node_config: Dict[str, Any], workspace: str,
     }])
 
 
+def _network_name(workspace: str) -> str:
+    return f"tik-{workspace}-vpc"
+
+
 def _subnet_name(workspace: str, private: bool) -> str:
     kind = "private" if private else "public"
     return f"tik-{workspace}-{kind}-subnet"

@@ -1,5 +1,6 @@
 """`chip_smoke.py` rehearsed on the CPU: its serve, engine, spec, lora,
-disagg, fabric, forward, training and detection phases run end to end at `tiny` size on
+disagg, fabric, forward, training, detection and (among the cluster
+phases) control phases run end to end at `tiny` size on
 the plain kernel versions, its kernel_det case list at CPU size, its bound
 arithmetic and its tie-aware greedy check are pinned, and without a card
 it fails and prints no result."""
@@ -10,6 +11,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -1791,3 +1793,70 @@ def test_observe_load_is_tpu_1b_at_full_width():
         0.25, 31, 4.0)
     assert set(load.parts) == {"serve", "nodex", "capture"}
     assert chip_smoke.OBSERVE_REHEARSAL.device == "cpu"
+
+
+def test_control_phase_rehearsal(tmp_path, monkeypatch):
+    """The control phase on the CPU at tiny size against a fake one-card
+    host: the port's controller launches nothing before the job, then one
+    `h100` host whose agent heartbeats into the native state server and
+    advertises the fake card through the native sampler; the updater's
+    start command runs the runtime phase's rank (no kernel on the CPU);
+    the host is terminated for idle after the rank's result, and every
+    python process of the phase ran with `import jax` raising."""
+    for name in ("CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES",
+                 "TIK_NODE_RESOURCES"):
+        monkeypatch.delenv(name, raising=False)
+    dev, proc = _fake_host(tmp_path, 1)
+    env = dict(os.environ)
+    out = chip_smoke.phase_control(chip_smoke.CONTROL_REHEARSAL,
+                                   expect_gpus=1, dev_root=dev,
+                                   proc_root=proc, nvidia_smi="fake, 0 W")
+    assert dict(os.environ) == env
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    res = out["resources"]
+    assert res["GPU"] == 1.0
+    assert res["accelerator_type:NVIDIA-H100-80GB-HBM3"] == 1.0
+    assert out["quiet"]["nodes"] == [] and out["quiet"]["ticks"] >= 4
+    assert [(d["action"], d["reason"]) for d in out["decisions"]] == [
+        ("launch", "demand"), ("terminate", "idle_timeout")]
+    assert out["native_rows"] >= 1
+    assert out["agent_device_mib"] is None and out["agent_maps"] == []
+    rank = out["rank"]
+    assert (rank["model"], rank["seq"], rank["batch"]) == ("tiny", 64, 4)
+    assert len(rank["losses"]) == 2
+    t = out["timing"]
+    assert 0 < t["job_to_launch_s"] and 0 < t["launch_to_heartbeat_s"]
+    assert t["heartbeat_to_result_s"] < t["heartbeat_to_termination_s"]
+    assert t["heartbeat_to_termination_s"] >= \
+        chip_smoke.CONTROL_REHEARSAL.idle_timeout_s
+    assert len(out["processes"]) >= 3
+
+
+def test_control_load_is_the_runtime_rank_at_tpu_1b():
+    load = chip_smoke.CONTROL_LOAD
+    assert load.rank == dataclasses.replace(chip_smoke.RUNTIME_LOAD,
+                                            steps=1, deadline_s=120.0)
+    assert (load.rank.warmup, load.rank.steps) == (1, 1)
+    assert chip_smoke.CONTROL_QUIET_TICKS >= 4
+    assert load.update_interval_s == 0.5
+    rehearsal = chip_smoke.CONTROL_REHEARSAL
+    assert rehearsal.rank.argv == chip_smoke.RUNTIME_REHEARSAL.argv
+
+
+def test_group_alive_sees_a_live_group_and_not_a_dead_one():
+    proc = subprocess.Popen([sys.executable, "-c", "import time; "
+                             "time.sleep(60)"], start_new_session=True)
+    try:
+        assert chip_smoke._group_alive(proc.pid) == [proc.pid]
+        assert chip_smoke._maps_hold(proc.pid, ("libtorch", "libc")) == [
+            "libc"]
+    finally:
+        proc.kill()
+    # a zombie is not alive
+    deadline = time.time() + 10
+    while chip_smoke._group_alive(proc.pid) and time.time() < deadline:
+        time.sleep(0.01)
+    assert chip_smoke._group_alive(proc.pid) == []
+    proc.wait()
+    assert chip_smoke._group_alive(proc.pid) == []

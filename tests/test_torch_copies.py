@@ -6,7 +6,11 @@ base class, the REST and Compute clients, the command executors the base
 class builds), the scrape path (the telemetry HTTP server, the prometheus
 runtime with its collector, windows, alerts and SLO engine, the node
 exporter, the scaling policies), every other built-in runtime with its
-helpers and delivery, and the port's CLI reach these modules at run time,
+helpers and delivery, the port's CLI and the control plane (the node
+agent with its native sampler and state server, the log agent, the
+updater, the launcher, the demand scheduler, quorum and membership, the
+scaler, the controller, the cluster operator, the provider factory, the
+virtual provider and GCP's load balancer) reach these modules at run time,
 and the port keeps its own copies of them (it imports nothing of the JAX
 package): each is the reference's source with `cloudtik_tpu` imports
 renamed to `cloudtik_tpu_torch`, and nothing else changed but the lines
@@ -108,7 +112,23 @@ COPIES = (
     "runtimes/common/leader_election.py", "runtimes/common/lock.py",
     "runtimes/delivery.py", "core/load_balancer_provider.py",
     "utils/cli_logger.py",
+    # the control plane's daemons, bottom-up, and the providers beneath
+    "config/hashing.py", "utils/concurrent_cache.py",
+    "utils/event_summarizer.py", "utils/call_context.py",
+    "native/__init__.py", "control/metrics.py", "control/membership.py",
+    "control/node_availability.py", "control/job_waiters.py",
+    "control/demand.py", "control/quorum.py", "control/node_agent.py",
+    "control/log_agent.py", "control/updater.py", "control/launcher.py",
+    "control/scaler.py", "control/controller.py",
+    "control/cluster_operator.py", "core/workspace_provider.py",
+    "providers/factory.py", "providers/virtual/__init__.py",
+    "providers/virtual/node_provider.py",
+    "providers/virtual/workspace_provider.py",
+    "providers/gcp/load_balancer_provider.py",
 )
+# sources the copies build at run time: the same bytes (they name no
+# package)
+BYTE_COPIES = ("native/host_agent.cpp", "native/state_server.cpp")
 # (copy, line in the port) -> why it differs from the reference
 _ONE_GPU = ("the serve-demand policy asks one GPU a replica by default: the "
             "port's serving runtime starts one tik-serve per card, and no "
@@ -135,6 +155,13 @@ def test_copy_is_the_reference_with_its_imports_renamed(path):
     differing = {(path, i + 1): line for i, (line, ref)
                  in enumerate(zip(got, want)) if line != ref}
     assert set(differing) <= set(ALLOWED_DIFFERENCES), differing
+
+
+@pytest.mark.parametrize("path", BYTE_COPIES)
+def test_native_source_is_the_references_byte_for_byte(path):
+    want = (ROOT / "cloudtik_tpu" / path).read_bytes()
+    assert (ROOT / "cloudtik_tpu_torch" / path).read_bytes() == want
+    assert b"cloudtik_tpu" not in want
 
 
 def test_executors_propagate_the_references_cache_variable():

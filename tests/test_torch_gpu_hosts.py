@@ -1,14 +1,15 @@
-"""H100 hosts as cluster workers, through the reference's control plane.
+"""H100 hosts as cluster workers, through the port's control plane.
 
 `cloudtik_tpu_torch.utils.resource_spec` detects a host's cards without
 the CUDA runtime and is held to the reference's detection where both do
 the same thing (the override, CPU and memory).  Then the reverse of what
 the reference does on GPU hosts: with the port's GCP provider given as
-`provider.module`, the reference's `ResourceDemandScheduler` and launcher
-turn one pending job of the port's `AISliceScalingPolicy` into a GPU host
-(or an atomic group of two), the AI runtime exports each member's slice
-env from the provider's tags, and the reference's `NodeAgent`, started
-through the bootstrapped start command, advertises the host's cards.
+`provider.module`, the port's `ResourceDemandScheduler` and launcher
+(copies of the reference's) turn one pending job of the port's
+`AISliceScalingPolicy` into a GPU host (or an atomic group of two), the AI
+runtime exports each member's slice env from the provider's tags, and the
+port's `NodeAgent`, started through the bootstrapped start command,
+advertises the host's cards.
 Fakes only: a fake device root, a fake /proc and a fake REST cloud.
 """
 
@@ -19,17 +20,17 @@ import sys
 
 import pytest
 
-from cloudtik_tpu.control import cluster_operator
-from cloudtik_tpu.control.demand import ResourceDemandScheduler
-from cloudtik_tpu.control.launcher import NodeLauncher, PendingLaunches
-from cloudtik_tpu.control.node_agent import NodeAgent
-from cloudtik_tpu.providers.factory import create_node_provider
 from cloudtik_tpu.utils import resource_spec as JR
+from cloudtik_tpu_torch.control import cluster_operator
+from cloudtik_tpu_torch.control.demand import ResourceDemandScheduler
+from cloudtik_tpu_torch.control.launcher import NodeLauncher, PendingLaunches
+from cloudtik_tpu_torch.control.node_agent import NodeAgent
 from cloudtik_tpu_torch.core.node_provider import NodeLaunchException
 from cloudtik_tpu_torch.core.tags import TAG_NODE_GROUP_ID
 from cloudtik_tpu_torch.providers.gcp import config as TC
 from cloudtik_tpu_torch.providers.gcp.node_provider import GCPNodeProvider
 from cloudtik_tpu_torch.providers.gcp.rest import RestClient
+from cloudtik_tpu_torch.providers.factory import create_node_provider
 from cloudtik_tpu_torch.runtimes.ai import runtime as TA
 from cloudtik_tpu_torch.runtimes.ai import scaling as TS
 from cloudtik_tpu_torch.utils import resource_spec as R
@@ -188,7 +189,7 @@ def test_detection_imports_neither_torch_nor_the_reference():
     assert set(sys.stdlib_module_names) >= names - {"__future__"}
 
 
-# ------------------------ the reference's control plane on GPU hosts ------
+# --------------------------- the port's control plane on GPU hosts ------
 
 CONFIGS = {
     "single": ({"gpu": {"node_config": {"machineType": "a3-highgpu-8g"},
@@ -246,8 +247,10 @@ def test_a_pending_job_launches_gpu_hosts(name):
     demands = _pending_demands(config)
     assert demands == [{"GPU": 8}]
     assert _to_launch(config, demands) == want
-    # the reference's own provider on the same config launches nothing
-    ref = cluster_operator.bootstrap_config(_cluster(node_types, None))
+    # the reference's own provider, loaded by the port's factory as an
+    # external provider, on the same config launches nothing
+    ref = cluster_operator.bootstrap_config(
+        _cluster(node_types, TC.REFERENCE_PROVIDER))
     assert _to_launch(ref, _pending_demands(ref)) == {}
 
 
@@ -303,7 +306,7 @@ def test_a_failed_group_reaches_the_reference_launcher_whole():
 def test_the_reference_node_agent_advertises_the_cards(host8, capsys,
                                                        monkeypatch):
     """The bootstrapped worker start command sets TIK_NODE_RESOURCES from
-    the detection's output before `tik node start`; the reference's
+    the detection's output before `tik node start`; the port's
     NodeAgent that command starts takes it as its resources."""
     _no_nvml(monkeypatch)
     config = cluster_operator.bootstrap_config(_cluster(CONFIGS["single"][0]))

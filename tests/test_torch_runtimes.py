@@ -40,16 +40,10 @@ def _renamed(text):
     return re.sub(r"\bcloudtik_tpu\b", "cloudtik_tpu_torch", text)
 
 
-# The control plane's controller is not ported yet (a port cluster runs
-# the reference's): the dashboard test reads the metric names it emits
-# from the reference's source
-CONTROLLER = "cloudtik_tpu.control.controller"
-
-
 def _port_source(name):
-    """The reference test module `name`'s source, renamed to the port."""
-    text = (ROOT / "tests" / f"{name}.py").read_text()
-    return _renamed(text).replace(_renamed(CONTROLLER), CONTROLLER)
+    """The reference test module `name`'s source, renamed to the port: the
+    dashboard test reads the metric names the port's controller emits."""
+    return _renamed((ROOT / "tests" / f"{name}.py").read_text())
 
 
 def _on_the_port(name):
@@ -75,7 +69,7 @@ registry = ON_THE_PORT["test_runtimes_lb_dns"].registry
 def test_the_reruns_import_the_ports_runtimes(name):
     source = _port_source(name)
     assert "cloudtik_tpu_torch.runtimes." in source
-    assert set(re.findall(r"\bcloudtik_tpu\.[\w.]+", source)) <= {CONTROLLER}
+    assert not re.findall(r"\bcloudtik_tpu\.[\w.]+", source)
     loaded = {v.__module__ for v in vars(ON_THE_PORT[name]).values()
               if callable(v) and getattr(v, "__module__", "")
               .startswith("cloudtik_tpu")}
@@ -166,9 +160,16 @@ def test_registry_orders_every_runtime_as_the_reference():
 
 # ------------------------------------------------ module targets in strings --
 
+# the provider factory's registries, whose entries name providers still to
+# come as well, are held by tests/test_torch_control.py
+FACTORY = PORT / "providers" / "factory.py"
+
+
 def _module_targets():
     found = set()
     for path in PORT.rglob("*.py"):
+        if path == FACTORY:
+            continue
         for m in re.finditer(r"[\"'](cloudtik_tpu_torch(?:\.\w+)+"
                              r"(?::\w+)?)[\"']", path.read_text()):
             found.add((str(path.relative_to(ROOT)), m.group(1)))
