@@ -369,6 +369,29 @@ run with a non-zero exit:
            `idle_timeout`, after the rank's result, and the agent's
            process group is gone; every python process of the phase ran
            with `import jax` and `import cloudtik_tpu` raising
+  lifecycle  the README's quickstart through the port's CLI (`python -m
+           cloudtik_tpu_torch.scripts.cli`, each call a process where
+           `import jax` raises) on one virtual-provider cluster written
+           from examples/serving-cluster.yaml: `validate`; `start -y`,
+           whose daemonized node services boot the state server, the
+           controller, the agents, nodex, the prometheus collector and the
+           port's `ServingRuntime` (the engine at tpu_1b on the card);
+           `status` (the head up-to-date); greedy requests to the
+           discovered `serving` service (1 x 128 -> 32, then 2 concurrent
+           x 64 -> 16), whose tokens are held to a direct `generate` on
+           the same seed-0 params (equal but at a bf16 near tie) and,
+           each one, by the engine phase's tie-aware check; `submit` of this script's rank (1 warm-up and 1
+           measured step of the LoRA recipe at tpu_1b, 16 launches of
+           each of B1-B3 a step by its own counts); `cluster trace
+           export` (each request's serve spans once, in the head's
+           `telemetry` lane) and the collector's counters (one count a
+           request); `cluster-dump` (the bootstrap config, the
+           node-services log, the journal with the boot and the
+           requests' events); `chaos validate` and two `chaos run`s of
+           one seeded plan (a launch failure, a delayed node listing)
+           with equal traces; `stop` and a hard teardown: no process of
+           the phase alive, the card's free memory back within 1 GiB, no
+           node left
 
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
@@ -382,7 +405,8 @@ elastic_2rank, its `fit_elastic`; in each rank of zoo_2rank, the
 measured Mask R-CNN and DLRM steps; the serving runtime's start, request
 and stop; in the runtime's rank, its measured steps; the hosts phase; the
 observe phase's serving and its fit; in the control phase's rank, its
-warm-up and its measured step) and read just after it.
+warm-up and its measured step; in the lifecycle phase's submitted rank,
+its warm-up and its measured step) and read just after it.
 The `total` line gives the script's seconds; the last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
@@ -9370,6 +9394,491 @@ def phase_control(load: ControlLoad = CONTROL_LOAD, expect_gpus: int = None,
     return out
 
 
+# -------------------------------------------------------------- lifecycle --
+
+@dataclasses.dataclass(frozen=True)
+class LifecycleLoad:
+    """The lifecycle phase (module docstring).  The head's `ServingRuntime`
+    serves `serve_model` through the engine (`slots` lanes of `max_len`
+    tokens) on `device`; each of `requests` is (name, concurrent HTTP
+    requests, prompt tokens, new tokens); the submitted job is `rank`
+    (the control phase's); `chaos passes` scaler passes `chaos_interval_s`
+    apart a drill; `wait_s` bounds every wait of the phase."""
+    device: str = "cuda"
+    serve_model: str = "tpu_1b"
+    slots: int = 2
+    max_len: int = 512
+    requests: tuple = (("greedy_b1", 1, 128, 32), ("greedy_b2", 2, 64, 16))
+    rank: RuntimeLoad = CONTROL_LOAD.rank
+    chaos_passes: int = 3
+    chaos_interval_s: float = 1.0
+    wait_s: float = 300.0
+
+
+LIFECYCLE_LOAD = LifecycleLoad()
+# the CPU rehearsal at `tiny`
+LIFECYCLE_REHEARSAL = LifecycleLoad(
+    device="cpu", serve_model="tiny", max_len=64,
+    requests=(("greedy_b1", 1, 8, 4), ("greedy_b2", 2, 6, 4)),
+    rank=CONTROL_REHEARSAL.rank, wait_s=120.0)
+# the drill's plan: a launch that fails once, and the scaler's second node
+# listing delayed (the drill's process runs no node agent, so a heartbeat
+# seam cannot fire there)
+LIFECYCLE_PLAN = """seed: 23
+name: lifecycle-drill
+faults:
+  - seam: provider.create_node
+    kind: raise
+    times: 1
+  - seam: provider.non_terminated_nodes
+    kind: latency
+    at_call: 2
+    times: 1
+    args: {seconds: 0.2}
+"""
+
+
+def _life_cli(env: dict, *args: str, timeout_s: float = 600.0) -> tuple:
+    """(stdout, seconds) of `python -m cloudtik_tpu_torch.scripts.cli
+    *args` (with `env`'s sitecustomize, `import jax` raises in it); fails
+    the phase on an exit other than 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cloudtik_tpu_torch.scripts.cli", *args],
+        cwd=str(Path(__file__).resolve().parent), env=env,
+        capture_output=True, text=True, timeout=timeout_s)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"lifecycle: `tik {' '.join(args)}` exited {proc.returncode}: "
+            f"{proc.stdout[-1500:]}\n{proc.stderr[-2500:]}")
+    words = itertools.takewhile(lambda a: not a.startswith(("/", "-")),
+                                args)
+    emit("lifecycle_step", step=" ".join(words), seconds=seconds)
+    return proc.stdout, seconds
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _traced_generate(url: str, prompt: list, new_tokens: int,
+                     trace_id: str) -> dict:
+    """One greedy request in trace `trace_id`: its tokens and headers."""
+    req = urllib.request.Request(
+        url, data=json.dumps({"tokens": [prompt],
+                              "max_new_tokens": new_tokens}).encode(),
+        headers={"Content-Type": "application/json",
+                 "traceparent": f"00-{trace_id}-{'1' * 16}-01"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        body = json.loads(resp.read())
+        got = {"status": resp.status, "tokens": body.get("tokens"),
+               "traceparent": resp.headers.get("x-tik-traceparent"),
+               "wall_s": time.perf_counter() - t0, "trace_id": trace_id}
+    require(got["status"] == 200 and trace_id in str(got["traceparent"]),
+            f"lifecycle: the request in {trace_id} gave {got}")
+    return got
+
+
+def _collector_count(port: int) -> float:
+    """tik_serve_requests_total summed over the series the prometheus
+    collector scraped from the cluster's targets (its instant query), its
+    own endpoint left out: the collector re-exports what it scraped, so
+    scraping itself nests every series once more each cycle."""
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/api/v1/query?query="
+                "tik_serve_requests_total", timeout=30) as resp:
+            rows = json.loads(resp.read())["data"]["result"]
+    except OSError:
+        return -1.0
+    return sum(float(r["value"][1]) for r in rows
+               if not r["metric"]["instance"].endswith(f":{port}"))
+
+
+def _life_spans(env: dict, tmp: Path, traced: dict,
+                telemetry_port: int) -> dict:
+    """`cluster trace export --trace-id` of one request: its serve spans
+    once each, in the head's `telemetry` lane."""
+    trace_id = traced["trace_id"]
+    path = tmp / f"trace-{trace_id}.json"
+    _life_cli(env, "cluster", "trace", "export", "--trace-id", trace_id,
+              "-o", str(path))
+    trace = json.loads(path.read_text())
+    lanes = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e.get("ph") == "M"}
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    keys = [(e["name"], e["ts"], e["dur"], json.dumps(e.get("args"),
+                                                      sort_keys=True))
+            for e in spans]
+    names = [e["name"] for e in spans]
+    lane = f"telemetry (127.0.0.1:{telemetry_port})"
+    require(len(keys) == len(set(keys))
+            and {"serve.enqueue", "serve.prefill", "serve.decode"}
+            <= set(names) and names.count("serve.enqueue") == 1
+            and {lanes.get(e["pid"]) for e in spans} == {lane},
+            f"lifecycle: the trace of {trace_id} holds "
+            f"{[(lanes.get(e['pid']), e['name']) for e in spans][:24]}; "
+            f"expected each serve span once, in the lane {lane}")
+    return {"spans": len(spans), "names": sorted(set(names))}
+
+
+def phase_lifecycle(load: LifecycleLoad = LIFECYCLE_LOAD, free_bytes=None,
+                    nvidia_smi: str = None) -> dict:
+    """The README's quickstart through the port's CLI (module docstring).
+    `free_bytes` reads the card's free memory (None on the CPU).  The
+    flash launch counts are the submitted rank's own, zeroed at its
+    start; the smoke process's direct `generate` is the check's and not
+    counted."""
+    import shutil
+    import socket
+    import tarfile
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from cloudtik_tpu_torch.control.state import StateClient, TcpStateBackend
+    from cloudtik_tpu_torch.models import generate as G
+    from cloudtik_tpu_torch.ops import _kernels
+    from cloudtik_tpu_torch.providers.factory import create_node_provider
+    from cloudtik_tpu_torch.runtimes.discovery.runtime import ServiceRegistry
+    from cloudtik_tpu_torch.serve.server import transformer_backend
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    on_card = load.device == "cuda"
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out = {"nvidia_smi": nvidia_smi, "load": dataclasses.asdict(load)}
+    tmp = Path(tempfile.mkdtemp(prefix="tik-lifecycle-"))
+    site, home = tmp / "site", tmp / "home"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITE_NO_JAX)
+    processes = tmp / "processes.jsonl"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("TIK_NODE_RESOURCES", "TIK_EVENTS_PATH",
+                        "TIK_STATE_PORT")}
+    env.update({
+        "PYTHONPATH": os.pathsep.join(
+            [str(site), str(root)] + [p for p in os.environ.get(
+                "PYTHONPATH", "").split(os.pathsep) if p]),
+        "HOME": str(home), "TIK_HOME": str(home / ".tik"),
+        "TMUX_TMPDIR": str(tmp), "TIK_SMOKE_PROCESS_LOG": str(processes)})
+    if on_card:
+        env["TIK_COMPILE_CACHE_DIR"] = str(_kernels.BUILD_DIR)
+    else:
+        cache = tmp / "cache"
+        cache.mkdir()
+        for name in _kernels._SIGNATURES:
+            (cache / _kernels._target(name).name).touch()
+        env["TIK_COMPILE_CACHE_DIR"] = str(cache)
+
+    # ---- the answers: a direct `generate` on the seed-0 params the head's
+    # engine makes, freed before the cluster starts ----
+    rng = np.random.default_rng(0)
+    backend = transformer_backend(load.serve_model, device=load.device)
+    V = backend.cfg.vocab_size
+    asks = []
+    for name, batch, plen, new in load.requests:
+        prompts = rng.integers(0, V, (batch, plen)).tolist()
+        direct = G.generate(backend.params,
+                            torch.tensor(prompts, device=load.device),
+                            backend.cfg, max_new_tokens=new).cpu().tolist()
+        asks.append((name, prompts, new, direct))
+    del backend
+    _collect(on_card)
+
+    # ---- the cluster config: examples/serving-cluster.yaml on this
+    # machine (haproxy needs its binary on the head, which may lack it) ----
+    state_port, telemetry_port, prom_port, nodex_port = (
+        free_port() for _ in range(4))
+    config = yaml.safe_load((root / "examples" /
+                             "serving-cluster.yaml").read_text())
+    config.update({
+        "cluster_name": "smoke-life", "state_port": state_port,
+        "telemetry_port": telemetry_port,
+        "provider": {"type": "virtual", "root_dir": str(tmp / "nodes")},
+        "auth": {"executor": "local"},
+        "runtime": {
+            "types": ["nodex", "prometheus", "serving"],
+            "nodex": {"port": nodex_port},
+            "prometheus": {"port": prom_port, "scrape_interval_s": 1.0},
+            "serving": {"model": load.serve_model, "device": load.device,
+                        "engine": True, "slots": load.slots,
+                        "max_len": load.max_len, "port": 0}}})
+    cfg_file = tmp / "cluster.yaml"
+    cfg_file.write_text(yaml.safe_dump(config))
+    plan = tmp / "plan.yaml"
+    plan.write_text(LIFECYCLE_PLAN)
+    drills = []
+    for i in (1, 2):
+        drill = dict(config, cluster_name=f"smoke-life-drill{i}",
+                     provider={"type": "virtual",
+                               "root_dir": str(tmp / f"drill{i}")})
+        drill["available_node_types"] = dict(config["available_node_types"])
+        drill["available_node_types"]["worker"] = dict(
+            config["available_node_types"]["worker"], min_workers=1)
+        drills.append(tmp / f"drill{i}.yaml")
+        drills[-1].write_text(yaml.safe_dump(drill))
+    pid_file = home / ".tik" / "run" / "node-services-smoke-life.pid"
+    steps = {}
+    free_before = free_bytes() if free_bytes else None
+    daemon = None
+    try:
+        text, steps["validate"] = _life_cli(env, "validate", str(cfg_file))
+        require("valid" in text, f"lifecycle: `validate` printed {text!r}")
+        _, steps["start"] = _life_cli(env, "start", str(cfg_file), "-y")
+        t0 = time.perf_counter()
+        daemon = int(_wait("the node-services pidfile",
+                           lambda: pid_file.exists()
+                           and pid_file.read_text().strip(), load.wait_s))
+        state = StateClient(TcpStateBackend("127.0.0.1", state_port,
+                                            timeout=5.0))
+        registry = ServiceRegistry(state, "smoke-life", "default")
+
+        def serving():
+            try:
+                listed = registry.query("serving")
+            except Exception:
+                return None
+            return listed and listed[0]
+
+        found = _wait("the serving service in discovery", serving,
+                      load.wait_s, poll_s=0.25)
+        steps["serving_up"] = time.perf_counter() - t0
+        text, steps["status"] = _life_cli(env, "status", str(cfg_file))
+        require("up-to-date" in text,
+                f"lifecycle: `status` printed {text!r}")
+        base = f"http://{found.get('ip') or '127.0.0.1'}:{found['port']}"
+
+        # ---- the requests, each in its own trace ----
+        served = {}
+        n_request = 0
+        for name, prompts, new, direct in asks:
+            got = [None] * len(prompts)
+
+            def ask(i, prompt):
+                got[i] = _traced_generate(base + "/v1/generate", prompt,
+                                          new, f"{n_request + i + 1:032x}")
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=ask, args=(i, p))
+                       for i, p in enumerate(prompts)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - t0
+            n_request += len(prompts)
+            require(all(g is not None for g in got),
+                    f"lifecycle: {name} went unanswered")
+            tokens = [g["tokens"][0] for g in got]
+            require([len(s) for s in tokens] == [new] * len(prompts),
+                    f"lifecycle: {name} answered {tokens}")
+            served[name] = {
+                "requests": got, "prompts": prompts, "tokens": tokens,
+                "wall_s": wall,
+                "tokens_per_s": sum(map(len, tokens)) / wall,
+                "equals_direct_generate": tokens == direct,
+                "first_difference": [
+                    next((j for j, (a, b) in enumerate(zip(s, d))
+                          if a != b), None)
+                    for s, d in zip(tokens, direct)]}
+        steps["requests"] = sum(s["wall_s"] for s in served.values())
+        traced = [g for s in served.values() for g in s["requests"]]
+
+        # ---- the job: this script's rank, submitted ----
+        spec, rank_out = tmp / "load.json", tmp / "rank.json"
+        spec.write_text(json.dumps(dataclasses.asdict(load.rank)))
+        tmux = shutil.which("tmux") is not None
+        t_submit = time.time()
+        _, steps["submit"] = _life_cli(
+            env, "submit", *(["--tmux"] if tmux else []), str(cfg_file),
+            str(root / "chip_smoke.py"), "--", "--runtime-rank", str(spec),
+            str(rank_out))
+
+        def rank_done():
+            try:
+                return json.loads(rank_out.read_text())
+            except (OSError, ValueError):
+                return None
+
+        r = _wait("the submitted rank's result", rank_done,
+                  load.rank.deadline_s + load.wait_s, poll_s=0.25)
+        steps["job"] = time.time() - t_submit
+        require(r["built"] == [] and r["compile_s"] == 0,
+                f"lifecycle: the job built {r['built']} (compile bucket "
+                f"{r['compile_s']} s) from the warm cache")
+        require(all(math.isfinite(x) for x in r["losses"]),
+                f"lifecycle: the job's losses {r['losses']}")
+        require(r["jax_modules"] == [],
+                f"lifecycle: the job loaded {r['jax_modules']}")
+        n = r["n_layers"] if on_card else 0
+        want_launches = {"flash_fwd": n, "flash_bwd_dq": n,
+                         "flash_bwd_dkv": n}
+        require(r["warmup_launches"] == {
+            k: v * load.rank.warmup for k, v in want_launches.items()}
+            and r["launches"] == {
+                k: v * load.rank.steps for k, v in want_launches.items()},
+            f"lifecycle: the job's launches {r['warmup_launches']} in "
+            f"{load.rank.warmup} warm-up and {r['launches']} in "
+            f"{load.rank.steps} measured steps, expected {want_launches} "
+            "a step")
+        if tmux:
+            _wait("the job's tmux session to end", lambda: subprocess.run(
+                ["tmux", "ls"], env=env, capture_output=True).returncode,
+                load.wait_s, poll_s=0.25)
+
+        # ---- one endpoint: each request's spans once, one count each ----
+        targets = json.loads((home / ".tik" / "prometheus" /
+                              "targets.json").read_text())
+        jobs = sorted(g["labels"]["job"] for g in targets)
+        require("telemetry" in jobs and "serving-telemetry" not in jobs,
+                f"lifecycle: the scrape targets' jobs {jobs}")
+        t0 = time.perf_counter()
+        out["spans"] = [_life_spans(env, tmp, g, telemetry_port)
+                        for g in traced]
+        steps["trace_export"] = time.perf_counter() - t0
+        _wait("the collector's count of the requests",
+              lambda: _collector_count(prom_port) >= n_request, load.wait_s,
+              poll_s=0.25)
+        time.sleep(2 * 1.0)      # two more scrapes
+        counted = _collector_count(prom_port)
+        require(counted == n_request,
+                f"lifecycle: the collector counts {counted} requests, "
+                f"{n_request} were answered")
+
+        # ---- the dump ----
+        dump = tmp / "dump.tar.gz"
+        _, steps["cluster_dump"] = _life_cli(
+            env, "cluster-dump", str(cfg_file), "-o", str(dump))
+        with tarfile.open(dump) as tar:
+            members = {m.name: m for m in tar.getmembers() if m.isfile()}
+            journals = [n for n in members if "/events/" in n]
+            recorded = [json.loads(line) for n in journals for line in
+                        tar.extractfile(members[n]).read().decode()
+                        .splitlines()]
+        names = [e.get("name") for e in recorded]
+        admitted = {str(e.get("traceparent", "")).split("-")[1:2][0]
+                    for e in recorded if e.get("name") ==
+                    "tik_serve_admission" and e.get("traceparent")}
+        require(any(n.endswith("/config/bootstrap-config.yaml")
+                    for n in members)
+                and any(n.endswith("/node-services.log") for n in members)
+                and "tik_node_services_start" in names
+                and {g["trace_id"] for g in traced} <= admitted,
+                f"lifecycle: the dump holds {sorted(members)[:40]}, its "
+                f"journals {journals} the events {sorted(set(names))} and "
+                f"admissions under {sorted(admitted)}")
+        out["dump"] = {"files": len(members), "journals": journals,
+                       "events": len(recorded),
+                       "admissions": names.count("tik_serve_admission")}
+
+        # ---- the chaos drill, twice with one seed ----
+        text, steps["chaos_validate"] = _life_cli(env, "chaos", "validate",
+                                                  str(plan))
+        require("Plan is valid (2 fault point(s))" in text,
+                f"lifecycle: `chaos validate` printed {text!r}")
+        runs = []
+        for drill in drills:
+            text, seconds = _life_cli(
+                env, "chaos", "run", str(plan), "--config", str(drill),
+                "--passes", str(load.chaos_passes), "--interval",
+                str(load.chaos_interval_s), "--json")
+            steps.setdefault("chaos_run", []).append(seconds)
+            runs.append(json.loads(text[text.index("{"):]))
+        fired = sorted((e["seam"], e["kind"]) for e in runs[0]["trace"])
+        require(runs[0]["trace"] == runs[1]["trace"] and fired == [
+            ("provider.create_node", "raise"),
+            ("provider.non_terminated_nodes", "latency")],
+            f"lifecycle: the drills' traces {runs[0]['trace']} and "
+            f"{runs[1]['trace']}")
+        out["chaos"] = {"trace": runs[0]["trace"],
+                        "errors": runs[0]["errors"],
+                        "summary": runs[0]["summary"]}
+        for drill in drills:
+            _life_cli(env, "stop", str(drill), "-y", "--hard")
+
+        # ---- stop, then a hard teardown: nothing left ----
+        _, steps["stop"] = _life_cli(env, "stop", str(cfg_file), "-y")
+        t0 = time.perf_counter()
+        _wait("the node services to exit",
+              lambda: not _pid_alive(daemon), load.wait_s)
+        steps["daemon_exit"] = time.perf_counter() - t0
+        _, steps["hard_teardown"] = _life_cli(env, "stop", str(cfg_file),
+                                              "-y", "--hard")
+        logged = [json.loads(line) for line in
+                  processes.read_text().splitlines()]
+        pids = {p["pid"] for p in logged}
+        require({daemon, r["pid"]} <= pids,
+                f"lifecycle: the node services {daemon} or the job "
+                f"{r['pid']} ran without the guard (logged: {logged})")
+        _wait("every process of the phase to exit",
+              lambda: not [p for p in pids if _pid_alive(p)], load.wait_s)
+        left = []
+        for path in [cfg_file] + drills:
+            c = yaml.safe_load(path.read_text())
+            left += create_node_provider(
+                c["provider"], c["cluster_name"]).non_terminated_nodes({})
+        require(left == [], f"lifecycle: nodes {left} left after stop")
+        if free_bytes:
+            _wait("the card's memory back", lambda: free_bytes()
+                  >= free_before - 2**30, load.wait_s, poll_s=0.25)
+            out["free_mib_lost"] = (free_before - free_bytes()) / 2**20
+        daemon = None
+
+        # ---- the answers, tie-aware (the engine's limit, as the engine
+        # phase holds it): each served token's logit against the largest
+        # at its position, teacher-forced on the same weights ----
+        backend = transformer_backend(load.serve_model, device=load.device)
+        for name, s in served.items():
+            s["tie_gap"] = max(check_tie_aware(
+                f"lifecycle: {name}", tie_gaps(
+                    backend.params, backend.cfg, prompt, tokens,
+                    load.device)) for prompt, tokens in zip(
+                        s["prompts"], s["tokens"]))
+        del backend
+        _collect(on_card)
+        out.update({
+            "served": {k: {kk: vv for kk, vv in v.items()
+                           if kk not in ("requests", "prompts")}
+                       for k, v in served.items()},
+            "traces": [g["trace_id"] for g in traced],
+            "collector_count": counted, "jobs": jobs,
+            "processes": len(logged), "steps": steps,
+            "rank": {k: r[k] for k in (
+                "model", "batch", "seq", "n_layers", "losses",
+                "ms_per_step", "tokens_per_s", "launches",
+                "warmup_launches", "peak_mem_gb")},
+            "launches": {k: r["warmup_launches"][k] + r["launches"][k]
+                         for k in want_launches}})
+    finally:
+        if daemon is not None and _pid_alive(daemon):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(daemon, 15)
+        subprocess.run([sys.executable, "-m",
+                        "cloudtik_tpu_torch.scripts.cli", "stop",
+                        str(cfg_file), "-y", "--hard"], cwd=str(root),
+                       env=env, capture_output=True, timeout=120)
+        subprocess.run(["tmux", "kill-server"], env=env,
+                       capture_output=True, timeout=60) \
+            if shutil.which("tmux") else None
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("lifecycle", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -9611,6 +10120,16 @@ def main() -> int:
         free_bytes=lambda: torch.cuda.mem_get_info(0)[0], nvidia_smi=smi)
     emit("control_phase", seconds=time.perf_counter() - t_ctl)
 
+    # ---- the README's quickstart through the port's CLI: the head's
+    # engine launches none of B1-B5, the submitted job its flash kernels
+    # (counts zeroed and read inside the job, around its warm-up and its
+    # measured step) ----
+    _collect(True)
+    t_life = time.perf_counter()
+    lifecycle = phase_lifecycle(
+        free_bytes=lambda: torch.cuda.mem_get_info(0)[0], nvidia_smi=smi)
+    emit("lifecycle_phase", seconds=time.perf_counter() - t_life)
+
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]
     launches = {k: inference[k] + train["launches"][k]
@@ -9619,7 +10138,7 @@ def main() -> int:
                 + moe_serve["launches"][k] + moe_train["launches"][k]
                 + parallel["launches"][k] + elastic["launches"][k]
                 + runtime["launches"][k] + observe["launches"][k]
-                + control["launches"][k]
+                + control["launches"][k] + lifecycle["launches"][k]
                 for k in inference}
 
     def bwd_err(grads):

@@ -18,21 +18,33 @@ runtime_config:
     telemetry_port: 9104       # the port's /metrics, /trace (0: off)
 
 The port's engine records its `tik_serve_*` metrics, spans and events in
-the port's own telemetry registry and flight recorder, which the
-reference's node-services process (the one that starts this runtime)
-neither serves nor installs.  So `start` also serves the port's registry
-on `telemetry_port` (`telemetry/http.py`), declared and registered as the
-http service `serving-telemetry`, which the prometheus runtimes and the
-discovery sync render as a scrape target; and it installs the port's
-flight recorder at `journal_path()`, beside the reference's journal and
-never on it.
+the process's telemetry registry and flight recorder.  Which endpoint
+serves them, and which journal takes them, depends on the process that
+starts this runtime:
+
+* Under the port's node services (`control/services.py`, the process
+  `tik start` boots on the head) the process already serves its registry
+  on the cluster's `telemetry_port` as the `telemetry` job, through
+  `serve_process_telemetry`, and journals to the flight recorder's
+  default path (`~/.tik/logs/events.jsonl`) from boot on.  The runtime
+  then serves and declares no endpoint of its own and installs no
+  journal: one answered request is one set of spans and one count at the
+  cluster's scrape, and its events land beside `tik_node_services_start`.
+* In a process that serves no registry of its own (a caller driving
+  `node_services` by hand), `start` serves the registry on
+  `telemetry_port` (`telemetry/http.py`), declared and registered as the
+  http service `serving-telemetry`, which the prometheus runtimes and the
+  discovery sync render as a scrape target; and where no journal is
+  installed it installs one at `journal_path()`.
+
+`tik cluster-dump` takes both journals, whichever exist.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from cloudtik_tpu_torch.runtimes.common.runtime_base import (
     HEAD, ServiceRuntimeBase)
@@ -49,22 +61,41 @@ TELEMETRY_SERVICE = "serving-telemetry"
 _servers: Dict[Tuple[str, str], Any] = {}
 # (telemetry server or None, the journal this runtime installed or None)
 _telemetry: Dict[Tuple[str, str], Tuple[Any, Any]] = {}
+# the endpoints serve_process_telemetry started and not yet stopped
+_process_telemetry: List[Any] = []
 
 
 def journal_path(runtime_config: Optional[Dict[str, Any]] = None) -> str:
-    """Where the serving process journals the port's events: the runtime
-    config's `events_path`, else the flight recorder's default path with
-    `-torch` before its suffix (`~/.tik/logs/events-torch.jsonl`).  The
-    reference's node-services process journals to the default path
-    itself, so the two journals never append to one file; the log agent
-    ships both (`*.jsonl` under the log dirs), and `tik events dump --path
-    <it>` reads this one."""
+    """Where a serving process without a journal of its own journals the
+    port's events (module docstring): the runtime config's `events_path`,
+    else the flight recorder's default path with `-torch` before its
+    suffix (`~/.tik/logs/events-torch.jsonl`).  The log agent ships it
+    (`*.jsonl` under the log dirs), `tik cluster-dump` copies it, and
+    `tik events dump --path <it>` reads it."""
     explicit = (runtime_config or {}).get("events_path")
     if explicit:
         return os.path.expanduser(explicit)
     from cloudtik_tpu_torch.telemetry import events
     root, ext = os.path.splitext(events.default_path())
     return f"{root}-torch{ext or '.jsonl'}"
+
+
+def serve_process_telemetry(port: int):
+    """Serve this process's telemetry registry on `port` as the process's
+    own endpoint (the node services' `telemetry` job): while it runs, a
+    `ServingRuntime` in this process serves and declares no
+    `serving-telemetry` beside it.  Stopping the server lifts that."""
+    from cloudtik_tpu_torch.telemetry import http as telemetry_http
+
+    class ProcessTelemetryServer(telemetry_http.TelemetryServer):
+        def stop(self) -> None:
+            if self in _process_telemetry:
+                _process_telemetry.remove(self)
+            super().stop()
+
+    server = ProcessTelemetryServer(port).start()
+    _process_telemetry.append(server)
+    return server
 
 
 class ServingRuntime(ServiceRuntimeBase):
@@ -130,8 +161,11 @@ class ServingRuntime(ServiceRuntimeBase):
                                             TELEMETRY_PORT))
 
     def _serves_telemetry(self) -> bool:
+        """Whether this runtime serves the registry itself: not where the
+        process already does (module docstring)."""
         from cloudtik_tpu_torch import telemetry
-        return bool(self.telemetry_port) and telemetry.enabled()
+        return bool(self.telemetry_port) and telemetry.enabled() \
+            and not _process_telemetry
 
     def _telemetry_registry(self, node_context: Dict[str, Any]):
         state_client = node_context.get("state_client")

@@ -320,9 +320,12 @@ def test_root_group_is_the_references():
         assert port[0] == ref[0] == 0
         if args == ["--version"]:
             assert port == ref
-    port_help = _both(["--help"])[1][1]
-    assert re.findall(r"^  (\w+) ", port_help, re.M) == [
-        "cluster", "events", "serve"]
+    ref_help, port_help = (out for _, out in _both(["--help"]))
+    assert re.findall(r"^  ([\w-]+) ", port_help, re.M) == \
+        re.findall(r"^  ([\w-]+) ", ref_help, re.M)
+    assert {"start", "stop", "submit", "status", "cluster-dump", "node",
+            "chaos", "cluster", "events", "serve"} <= set(
+        re.findall(r"^  ([\w-]+) ", port_help, re.M))
 
 
 def test_serve_requests_runs_where_jax_cannot_import(records):

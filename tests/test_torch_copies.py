@@ -10,11 +10,16 @@ helpers and delivery, the port's CLI and the control plane (the node
 agent with its native sampler and state server, the log agent, the
 updater, the launcher, the demand scheduler, quorum and membership, the
 scaler, the controller, the cluster operator, the provider factory, the
-virtual provider and GCP's load balancer) reach these modules at run time,
+virtual provider and GCP's load balancer) and the operator surface (the
+config pipeline, the public API, node services, cluster dumps,
+workspaces, proxies, chaos drills and the whole CLI) reach these modules
+at run time,
 and the port keeps its own copies of them (it imports nothing of the JAX
 package): each is the reference's source with `cloudtik_tpu` imports
 renamed to `cloudtik_tpu_torch`, and nothing else changed but the lines
-`ALLOWED_DIFFERENCES` names.  Through them the port engine emits the
+`ALLOWED_DIFFERENCES` names.  The templates are the reference's bytes,
+but for the TPU slice templates, which the port ships as their A3
+counterparts (`TEMPLATE_COUNTERPARTS`).  Through them the port engine emits the
 reference's `tik_serve_*` metrics and writes request records that the JAX
 package's ledger reader takes as its own.
 """
@@ -125,6 +130,15 @@ COPIES = (
     "providers/virtual/node_provider.py",
     "providers/virtual/workspace_provider.py",
     "providers/gcp/load_balancer_provider.py",
+    # the operator surface: the lifecycle's helpers, the config pipeline,
+    # the public API, node services, dumps, workspaces, proxies, chaos
+    # drills and the whole CLI
+    "utils/event_system.py", "utils/log_timer.py", "utils/fate_sharing.py",
+    "config/crypto.py", "config/schema.py", "config/loader.py",
+    "config/__init__.py", "core/storage_provider.py",
+    "core/database_provider.py", "core/api.py", "control/services.py",
+    "control/cluster_dump.py", "control/workspace_operator.py",
+    "control/proxy.py", "faults/chaos.py", "scripts/cli.py",
 )
 # sources the copies build at run time: the same bytes (they name no
 # package)
@@ -141,6 +155,34 @@ ALLOWED_DIFFERENCES = {
         "job serving-telemetry (runtimes/serving/runtime.py), where the "
         "reference's serve spans come from the head's telemetry job"),
 }
+_ONE_ENDPOINT = (
+    "the node-services process serves its registry through the serving "
+    "runtime's serve_process_telemetry, so a ServingRuntime it starts "
+    "serves no serving-telemetry endpoint of its own beside the head's "
+    "telemetry job: one answered request is one set of serve spans and "
+    "one count at the cluster's scrape")
+_TORCH_JOURNAL = (
+    "a dump also takes the port's events-torch.jsonl, the journal a "
+    "serving process without node services writes "
+    "(runtimes/serving/runtime.py journal_path), beside the default one")
+ALLOWED_DIFFERENCES.update({
+    ("control/services.py", 177): _ONE_ENDPOINT,
+    ("control/services.py", 178): _ONE_ENDPOINT,
+    **{("control/cluster_dump.py", line): _TORCH_JOURNAL
+       for line in range(52, 57)},
+})
+# The reference's templates the port ships with other contents: the TPU
+# slice templates, whose node types the port's GCP provider refuses
+# (providers/gcp/config.py bootstrap_gcp), each with its A3 counterpart in
+# the same role (providers/gcp/gpu.py GPU_MACHINES)
+TEMPLATE_COUNTERPARTS = {
+    "gcp/tpu-v5e-small.yaml": "gcp/h100-1g-small.yaml",
+    "gcp/tpu-v5p-small.yaml": "gcp/h100-small.yaml",
+    "gcp/tpu-v5p-pod.yaml": "gcp/h100-pod.yaml",
+}
+TEMPLATES = sorted(
+    str(p.relative_to(ROOT / "cloudtik_tpu" / "templates"))
+    for p in (ROOT / "cloudtik_tpu" / "templates").glob("*/*.yaml"))
 
 
 def _renamed(text):
@@ -155,6 +197,22 @@ def test_copy_is_the_reference_with_its_imports_renamed(path):
     differing = {(path, i + 1): line for i, (line, ref)
                  in enumerate(zip(got, want)) if line != ref}
     assert set(differing) <= set(ALLOWED_DIFFERENCES), differing
+
+
+@pytest.mark.parametrize("path", TEMPLATES)
+def test_template_is_the_references_or_its_a3_counterpart(path):
+    ref = (ROOT / "cloudtik_tpu" / "templates" / path).read_text()
+    port = ROOT / "cloudtik_tpu_torch" / "templates"
+    if path in TEMPLATE_COUNTERPARTS:
+        assert not (port / path).exists()
+        assert "machineType: a3-" in (
+            port / TEMPLATE_COUNTERPARTS[path]).read_text()
+    else:
+        assert (port / path).read_text() == ref
+    shipped = sorted(str(p.relative_to(port))
+                     for p in port.glob("*/*.yaml"))
+    assert shipped == sorted(TEMPLATE_COUNTERPARTS.get(p, p)
+                             for p in TEMPLATES)
 
 
 @pytest.mark.parametrize("path", BYTE_COPIES)

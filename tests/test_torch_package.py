@@ -276,7 +276,8 @@ def test_kernel_sources_ship_with_the_package():
     assert (PORT / "csrc" / "roi_align.cu").is_file()
     text = (ROOT / "pyproject.toml").read_text()
     assert 'cloudtik_tpu_torch = ["csrc/*.cu", "csrc/*.cuh", ' \
-        '"native/*.cpp"]' in text
+        '"native/*.cpp",\n                      "templates/*/*.yaml"]' \
+        in text
     # and the native sources the control plane builds with g++
     assert (PORT / "native" / "state_server.cpp").is_file()
     assert (PORT / "native" / "host_agent.cpp").is_file()
