@@ -258,7 +258,8 @@ run with a non-zero exit:
   elastic_2rank  elastic training: two ranks share card 0 over gloo,
            each one slice (per-slice layout data=1, fsdp=1), their
            coordinators agreeing through a FileStore in the phase's
-           directory.  tpu_1b at full width and depth, global batch 8 x
+           directory.  tpu_1b at full width, 8 of its 16 layers (the
+           depth cut for the script's time limit), global batch 8 x
            2048 (4 rows a rank at K=2, 8 at K=1), the train phase's
            configuration (bf16 params and moments, save_attn), a per-rank
            shard save every 2 steps; the step-4 save tears, slice 1 is
@@ -269,8 +270,8 @@ run with a non-zero exit:
            reference's story; the K=1 losses equal to a fresh one-card
            trainer restored from step 2 (within twice the checkpoint
            phase's probe gap when that probe was not bitwise); both
-           replicas' state bit for bit equal after the expand; 16 launches
-           of each of B1-B3 a step and rank at both K; the goodput buckets
+           replicas' state bit for bit equal after the expand; 8 launches
+           of each of B1-B3 a step and rank at both K (one a layer); the goodput buckets
            elastic_remesh and restart_replay > 0; room on disk for the
            shards.  ms/step at K=2 and K=1, the shrink's and the expand's
            seconds (wait, restore, the rest), the GB the shards write and
@@ -392,6 +393,23 @@ run with a non-zero exit:
            with equal traces; `stop` and a hard teardown: no process of
            the phase alive, the card's free memory back within 1 GiB, no
            node left
+  local_provider  the control phase's loop over the `local` provider: the
+           inventory is this machine (listed under the address its node
+           agent reports), its claims in a file store under the phase's
+           temporary directory, `auth.executor: local`.  No claim in the
+           ticks before the job; one claim of the host after it, one
+           `launch` decision; the worker's start command boots the host's
+           node services (`node start --node-id <host> --daemonize`),
+           whose agent advertises the card (`GPU` torch's count, an H100
+           `accelerator_type`) through the native sampler and holds no
+           CUDA context, then runs the control phase's rank (16 launches
+           of each of B1-B3 a step); the claim released for `idle_timeout`
+           after the rank's result, the store empty; the node services,
+           which the release leaves running, stopped through the executor
+           with `node stop`: every python process of the phase (each with
+           `import jax` raising) gone and the card's free memory back
+           within 1 GiB; a second provider over the same store claims the
+           host again and releases it
 
 Launch counts are zeroed just before each path (forward then serve; the
 engine; spec; lora; disagg; fabric; the measured train steps; the resumed
@@ -405,8 +423,9 @@ elastic_2rank, its `fit_elastic`; in each rank of zoo_2rank, the
 measured Mask R-CNN and DLRM steps; the serving runtime's start, request
 and stop; in the runtime's rank, its measured steps; the hosts phase; the
 observe phase's serving and its fit; in the control phase's rank, its
-warm-up and its measured step; in the lifecycle phase's submitted rank,
-its warm-up and its measured step) and read just after it.
+warm-up and its measured step; in the lifecycle phase's submitted rank
+and the local_provider phase's rank, its warm-up and its measured step)
+and read just after it.
 The `total` line gives the script's seconds; the last lines are the
 `nvidia-smi` name/power line, a `{"kernels": [...]}` summary and
 `{"ok": true, "device": ...}`.
@@ -6639,7 +6658,9 @@ class ElasticLoad:
     rules: dict = dataclasses.field(default_factory=dict)
 
 
-ELASTIC_LOAD = ElasticLoad()
+# the story at half of tpu_1b's 16 layers (full width): the depth cut that
+# keeps the whole script within 1,100 s of its 1,200 s limit
+ELASTIC_LOAD = ElasticLoad(n_layers=8)
 ELASTIC_REHEARSAL = ElasticLoad(model="tiny", device="cpu", seq=64,
                                 deadline_s=300.0)
 # F5: an expand under rules that split the embedding over `data` (rows
@@ -9012,7 +9033,8 @@ for line in proc.stdout:
 _SAMPLER_WARNING = "native host agent unavailable; using psutil"
 
 
-def _wait(what: str, predicate, timeout_s: float, poll_s: float = 0.05):
+def _wait(what: str, predicate, timeout_s: float, poll_s: float = 0.05,
+          phase: str = "control"):
     """predicate()'s first truthy value, polled until `timeout_s`."""
     deadline = time.time() + timeout_s
     while True:
@@ -9020,7 +9042,7 @@ def _wait(what: str, predicate, timeout_s: float, poll_s: float = 0.05):
         if got:
             return got
         require(time.time() < deadline,
-                f"control: no {what} within {timeout_s} s")
+                f"{phase}: no {what} within {timeout_s} s")
         time.sleep(poll_s)
 
 
@@ -9048,6 +9070,24 @@ def _group_alive(pgid: int) -> list:
     return alive
 
 
+def _stop_pidfile(path) -> None:
+    """SIGTERM to the port's process whose pid `path` holds, where it is
+    still alive (a pid of a process long gone may name another by now)."""
+    import signal
+
+    if path is None:
+        return
+    try:
+        pid = int(path.read_text())
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            ours = b"cloudtik_tpu_torch" in f.read()
+    except (OSError, ValueError):
+        return
+    if ours:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGTERM)
+
+
 def _reap(pid: int, timeout_s: float) -> None:
     """Wait for child `pid` (a process this one started) to be gone."""
     deadline = time.time() + timeout_s
@@ -9059,6 +9099,187 @@ def _reap(pid: int, timeout_s: float) -> None:
         if done:
             return
         time.sleep(0.05)
+
+
+def _head_env(site: Path, home: Path, processes: Path, tmp: Path,
+              on_card: bool) -> None:
+    """The environment of a control-plane phase, set in this process (the
+    head) and inherited by every process it starts: the guard's directory
+    first on PYTHONPATH, `home` as TIK_HOME, the native sampler, and the
+    kernel cache (the built libraries on the card; on the CPU an empty
+    file under each name, all `build_all()` looks for)."""
+    from cloudtik_tpu_torch.ops import _kernels
+
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITE_NO_JAX)
+    os.environ.pop("TIK_NODE_RESOURCES", None)
+    os.environ.update({
+        "PYTHONPATH": os.pathsep.join(
+            [str(site), str(Path(__file__).resolve().parent)]
+            + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+               if p]),
+        "TIK_HOME": str(home), "TIK_NATIVE_AGENT": "1",
+        "TIK_SMOKE_PROCESS_LOG": str(processes)})
+    if on_card:
+        os.environ["TIK_COMPILE_CACHE_DIR"] = str(_kernels.BUILD_DIR)
+    else:
+        cache = tmp / "cache"
+        cache.mkdir()
+        for name in _kernels._SIGNATURES:
+            (cache / _kernels._target(name).name).touch()
+        os.environ["TIK_COMPILE_CACHE_DIR"] = str(cache)
+
+
+def _native_head(home: Path, on_card: bool, phase: str) -> tuple:
+    """(the started native state server, seconds of each g++ build): the
+    state server and the host sampler built in parallel under TIK_HOME
+    (the agent finds its sampler there); on the CPU the sampler is wrapped
+    by `_QUIET_SAMPLER`.  TIK_STATE_PORT is set to the server's port."""
+    import threading
+
+    from cloudtik_tpu_torch import native
+
+    built = {}
+
+    def build(name, fn):
+        t0 = time.perf_counter()
+        built[name] = (fn(), time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=build, args=a) for a in (
+        ("state_server", native.ensure_built),
+        ("host_agent", native.ensure_agent_built))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    require(all(b for b, _ in built.values()),
+            f"{phase}: no C++ compiler built the native parts {built}")
+    if not on_card:
+        real = home / "native" / "tik-host-agent.real"
+        os.replace(native.agent_binary_path(), real)
+        quiet = Path(native.agent_binary_path())
+        quiet.write_text(_QUIET_SAMPLER.format(
+            python=sys.executable, binary=str(real)))
+        quiet.chmod(0o755)
+    server = native.NativeStateServer(host="127.0.0.1", port=0)
+    server.start()
+    os.environ["TIK_STATE_PORT"] = str(server.port)
+    return server, {k: s for k, (_, s) in built.items()}
+
+
+def _advertised(dev_root: str, proc_root: str, expect_gpus, phase: str
+                ) -> dict:
+    """What a node agent of this host advertises: the port's detection,
+    with a `dev_root` or `proc_root` other than the host's reaching the
+    agent through TIK_NODE_RESOURCES, as the bootstrapped start commands
+    carry it.  At least one card, and torch's count where given."""
+    from cloudtik_tpu_torch.utils.resource_spec import detect_node_resources
+
+    want = detect_node_resources(dev_root, None, proc_root)
+    if (dev_root, proc_root) != ("/dev", "/proc"):
+        os.environ["TIK_NODE_RESOURCES"] = subprocess.run(
+            [sys.executable, "-m", "cloudtik_tpu_torch.utils.resource_spec",
+             "--dev-root", dev_root, "--proc-root", proc_root],
+            cwd=str(Path(__file__).resolve().parent), capture_output=True,
+            text=True, check=True, timeout=60).stdout.strip()
+    require(want.get("GPU", 0) >= 1 and (
+        expect_gpus is None or want["GPU"] == expect_gpus),
+        f"{phase}: the host advertises {want}, torch sees {expect_gpus} "
+        "cards")
+    return want
+
+
+def _check_rank(r: dict, load: RuntimeLoad, on_card: bool, phase: str
+                ) -> dict:
+    """Holds a rank's result (`runtime_rank`'s JSON): nothing built from
+    the warm cache, finite losses, nothing of JAX loaded, and the tpu_1b
+    layers' launches of each of B1-B3 in every warm-up and measured step
+    (none on the CPU).  Returns the launches a step."""
+    require(r["built"] == [] and r["compile_s"] == 0,
+            f"{phase}: the rank built {r['built']} (compile bucket "
+            f"{r['compile_s']} s) from the warm cache")
+    require(all(math.isfinite(x) for x in r["losses"]),
+            f"{phase}: the rank's losses {r['losses']}")
+    require(r["jax_modules"] == [],
+            f"{phase}: the rank loaded {r['jax_modules']}")
+    n = r["n_layers"] if on_card else 0
+    per_step = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    require(r["warmup_launches"] == {
+        k: v * load.warmup for k, v in per_step.items()}
+        and r["launches"] == {
+            k: v * load.steps for k, v in per_step.items()},
+        f"{phase}: the rank's launches {r['warmup_launches']} in "
+        f"{load.warmup} warm-up and {r['launches']} in {load.steps} "
+        f"measured steps, expected {per_step} a step")
+    return per_step
+
+
+def _gated_rank(load: RuntimeLoad, spec: Path, rank_out: Path,
+                rank_log: Path, gate: Path, pidfile: Path) -> tuple:
+    """(the AI runtime's command for `runtime_rank` at `load`, a start
+    command that runs it): the rank starts once the phase has read the
+    card with the node's agent alive (the file `gate`), in the background
+    as a service starts, so the updater marks the node up to date; its
+    launcher's pid goes to `pidfile`."""
+    import shlex
+
+    from cloudtik_tpu_torch.runtimes.ai.runtime import AIRuntime
+
+    spec.write_text(json.dumps(dataclasses.asdict(load)))
+    cmd = AIRuntime({"python": sys.executable}).get_runnable_command(
+        str(Path(__file__).resolve().parent / "chip_smoke.py"),
+        ["--nproc-per-node", "1", "--deadline-s", str(load.deadline_s)])
+    cmd += ["--runtime-rank", str(spec), str(rank_out)]
+    start = (f"until [ -e {shlex.quote(str(gate))} ]; do sleep 0.05; "
+             f"done; nohup {shlex.join(cmd)} > "
+             f"{shlex.quote(str(rank_log))} 2>&1 < /dev/null & "
+             f"echo $! > {shlex.quote(str(pidfile))}")
+    return cmd, start
+
+
+def _h100_cluster(name: str, provider: dict, want: dict, load,
+                  start_commands: list, **extra) -> dict:
+    """A bootstrapped cluster config of a head that claims no host and one
+    `h100` worker type advertising `want`, released for idle after
+    `load.idle_timeout_s`, running the AI runtime; `extra` are more
+    top-level keys."""
+    from cloudtik_tpu_torch.control import cluster_operator
+
+    return cluster_operator.bootstrap_config({
+        "cluster_name": name, "workspace_name": "card",
+        "provider": provider, "head_node_type": "head", "max_workers": 1,
+        "idle_timeout_minutes": load.idle_timeout_s / 60.0,
+        "available_node_types": {
+            "head": {"node_config": {}, "min_workers": 0, "max_workers": 0,
+                     "resources": {"CPU": want["CPU"]}},
+            "h100": {"node_config": {}, "min_workers": 0, "max_workers": 1,
+                     "resources": dict(want)}},
+        "runtime": {"types": ["ai"]},
+        "file_mounts": {}, "initialization_commands": [],
+        "setup_commands": [], "worker_setup_commands": [],
+        "worker_start_commands": list(start_commands), **extra})
+
+
+def _scaler_decisions(journal: Path, node: str, t_job: float,
+                      t_result: float, phase: str) -> list:
+    """The scaler's decisions in the head's journal, held: one launch of
+    one `h100` host for demand after the job came, and one termination of
+    `node` for `idle_timeout` after the rank's result."""
+    from cloudtik_tpu_torch.telemetry import events
+
+    decisions = [e for e in events.read_events(str(journal))
+                 if e.get("name") == "tik_scaler_decision"]
+    launches = [e for e in decisions if e["action"] == "launch"]
+    stops = [e for e in decisions if e["action"] == "terminate"]
+    require([(e["reason"], e["node_type"], e["count"])
+             for e in launches] == [("demand", "h100", 1)]
+            and launches[0]["ts"] > t_job,
+            f"{phase}: launch decisions {launches}")
+    require([(e["reason"], e["node_id"]) for e in stops]
+            == [("idle_timeout", node)] and stops[0]["ts"] > t_result,
+            f"{phase}: terminate decisions {stops}, the rank's result at "
+            f"{t_result}")
+    return decisions
 
 
 def phase_control(load: ControlLoad = CONTROL_LOAD, expect_gpus: int = None,
@@ -9075,130 +9296,45 @@ def phase_control(load: ControlLoad = CONTROL_LOAD, expect_gpus: int = None,
     The flash launch counts are the rank's own, zeroed at its start."""
     import shlex
     import shutil
-    import signal
     import tempfile
-    import threading
 
-    from cloudtik_tpu_torch import native
-    from cloudtik_tpu_torch.control import cluster_operator
     from cloudtik_tpu_torch.control.controller import ClusterController
     from cloudtik_tpu_torch.control.state import (
         StateClient, TABLE_HEARTBEAT, TABLE_METRICS, TcpStateBackend)
     from cloudtik_tpu_torch.core.tags import (
         STATUS_UP_TO_DATE, TAG_NODE_STATUS, TAG_USER_NODE_TYPE)
-    from cloudtik_tpu_torch.ops import _kernels
     from cloudtik_tpu_torch.providers.factory import create_node_provider
-    from cloudtik_tpu_torch.runtimes.ai.runtime import AIRuntime
     from cloudtik_tpu_torch.runtimes.ai.scaling import AISliceScalingPolicy
     from cloudtik_tpu_torch.telemetry import core as telemetry_core
     from cloudtik_tpu_torch.telemetry import events
-    from cloudtik_tpu_torch.utils.resource_spec import detect_node_resources
 
     on_card = load.rank.device == "cuda"
     t_phase = time.perf_counter()
-    root = Path(__file__).resolve().parent
     out = {"nvidia_smi": nvidia_smi, "load": dataclasses.asdict(load)}
     tmp = Path(tempfile.mkdtemp(prefix="tik-control-"))
     site, home = tmp / "site", tmp / "home"
-    site.mkdir()
-    (site / "sitecustomize.py").write_text(_SITE_NO_JAX)
     processes = tmp / "processes.jsonl"
     gate, pidfile = tmp / "gate", tmp / "rank.pid"
     rank_out, rank_log = tmp / "rank.json", tmp / "rank.log"
     spec = tmp / "load.json"
-    spec.write_text(json.dumps(dataclasses.asdict(load.rank)))
     saved_env = dict(os.environ)
     was_enabled = telemetry_core.STATE.enabled
     server = controller = provider = None
     try:
-        os.environ.pop("TIK_NODE_RESOURCES", None)
-        os.environ.update({
-            "PYTHONPATH": os.pathsep.join(
-                [str(site), str(root)] + [p for p in os.environ.get(
-                    "PYTHONPATH", "").split(os.pathsep) if p]),
-            "TIK_HOME": str(home), "TIK_NATIVE_AGENT": "1",
-            "TIK_SMOKE_PROCESS_LOG": str(processes)})
-        if on_card:
-            os.environ["TIK_COMPILE_CACHE_DIR"] = str(_kernels.BUILD_DIR)
-        else:
-            # no library is built on the CPU: an empty file under each
-            # name is all `build_all()` looks for
-            cache = tmp / "cache"
-            cache.mkdir()
-            for name in _kernels._SIGNATURES:
-                (cache / _kernels._target(name).name).touch()
-            os.environ["TIK_COMPILE_CACHE_DIR"] = str(cache)
-
-        # ---- the native state server and host sampler, built by g++ under
-        # TIK_HOME (the agent finds its sampler there) ----
-        built = {}
-
-        def build(name, fn):
-            t0 = time.perf_counter()
-            built[name] = (fn(), time.perf_counter() - t0)
-
-        threads = [threading.Thread(target=build, args=a) for a in (
-            ("state_server", native.ensure_built),
-            ("host_agent", native.ensure_agent_built))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        require(all(b for b, _ in built.values()),
-                f"control: no C++ compiler built the native parts {built}")
-        out["native_build_s"] = {k: s for k, (_, s) in built.items()}
-        if not on_card:
-            real = home / "native" / "tik-host-agent.real"
-            os.replace(native.agent_binary_path(), real)
-            quiet = Path(native.agent_binary_path())
-            quiet.write_text(_QUIET_SAMPLER.format(
-                python=sys.executable, binary=str(real)))
-            quiet.chmod(0o755)
-        server = native.NativeStateServer(host="127.0.0.1", port=0)
-        server.start()
-        os.environ["TIK_STATE_PORT"] = str(server.port)
+        _head_env(site, home, processes, tmp, on_card)
+        server, out["native_build_s"] = _native_head(home, on_card,
+                                                     "control")
 
         # ---- what the agent will advertise, and the worker type that asks
         # for just that ----
-        want = detect_node_resources(dev_root, None, proc_root)
-        if (dev_root, proc_root) != ("/dev", "/proc"):
-            os.environ["TIK_NODE_RESOURCES"] = subprocess.run(
-                [sys.executable, "-m", "cloudtik_tpu_torch.utils."
-                 "resource_spec", "--dev-root", dev_root, "--proc-root",
-                 proc_root], cwd=str(root), capture_output=True, text=True,
-                check=True, timeout=60).stdout.strip()
-        require(want.get("GPU", 0) >= 1 and (
-            expect_gpus is None or want["GPU"] == expect_gpus),
-            f"control: the host advertises {want}, torch sees "
-            f"{expect_gpus} cards")
-        cmd = AIRuntime({"python": sys.executable}).get_runnable_command(
-            str(root / "chip_smoke.py"),
-            ["--nproc-per-node", "1", "--deadline-s",
-             str(load.rank.deadline_s)])
-        cmd += ["--runtime-rank", str(spec), str(rank_out)]
-        # the rank starts once the phase has read the card with the agent
-        # alive (the gate), in the background as a service starts, so the
-        # updater marks the node up to date
-        start = (f"until [ -e {shlex.quote(str(gate))} ]; do sleep 0.05; "
-                 f"done; nohup {shlex.join(cmd)} > "
-                 f"{shlex.quote(str(rank_log))} 2>&1 < /dev/null & "
-                 f"echo $! > {shlex.quote(str(pidfile))}")
-        config = cluster_operator.bootstrap_config({
-            "cluster_name": "smoke-control", "workspace_name": "card",
-            "provider": {"type": "virtual", "root_dir": str(tmp / "nodes"),
-                         "spawn_agents": True},
-            "head_node_type": "head", "max_workers": 1,
-            "idle_timeout_minutes": load.idle_timeout_s / 60.0,
-            "available_node_types": {
-                "head": {"node_config": {}, "min_workers": 0,
-                         "max_workers": 0,
-                         "resources": {"CPU": want["CPU"]}},
-                "h100": {"node_config": {}, "min_workers": 0,
-                         "max_workers": 1, "resources": dict(want)}},
-            "runtime": {"types": ["ai"]},
-            "file_mounts": {}, "initialization_commands": [],
-            "setup_commands": [], "worker_setup_commands": [],
-            "worker_start_commands": [start]})
+        want = _advertised(dev_root, proc_root, expect_gpus, "control")
+        cmd, start = _gated_rank(load.rank, spec, rank_out, rank_log, gate,
+                                 pidfile)
+        config = _h100_cluster(
+            "smoke-control", {"type": "virtual",
+                              "root_dir": str(tmp / "nodes"),
+                              "spawn_agents": True},
+            want, load, [start])
         provider = create_node_provider(config["provider"],
                                         config["cluster_name"])
         head = StateClient(TcpStateBackend("127.0.0.1", server.port))
@@ -9281,24 +9417,7 @@ def phase_control(load: ControlLoad = CONTROL_LOAD, expect_gpus: int = None,
             "status": "done", "time": time.time(),
             "command": shlex.join(cmd)})
         t_done = time.time()
-        require(r["built"] == [] and r["compile_s"] == 0,
-                f"control: the rank built {r['built']} (compile bucket "
-                f"{r['compile_s']} s) from the warm cache")
-        require(all(math.isfinite(x) for x in r["losses"]),
-                f"control: losses {r['losses']}")
-        require(r["jax_modules"] == [],
-                f"control: the rank loaded {r['jax_modules']}")
-        n = r["n_layers"] if on_card else 0
-        want_launches = {"flash_fwd": n, "flash_bwd_dq": n,
-                         "flash_bwd_dkv": n}
-        require(r["warmup_launches"] == {
-            k: v * load.rank.warmup for k, v in want_launches.items()}
-            and r["launches"] == {
-                k: v * load.rank.steps for k, v in want_launches.items()},
-            f"control: the rank's launches {r['warmup_launches']} in "
-            f"{load.rank.warmup} warm-up and {r['launches']} in "
-            f"{load.rank.steps} measured steps, expected {want_launches} "
-            "a step")
+        want_launches = _check_rank(r, load.rank, on_card, "control")
 
         # ---- idle: terminated, after the rank, for idle_timeout ----
         def terminated():
@@ -9322,18 +9441,8 @@ def phase_control(load: ControlLoad = CONTROL_LOAD, expect_gpus: int = None,
                 f"control: the agent fell back to psutil:\n{agent_log}")
         rank_cpu = [m["cpu_percent"] for t, m in sorted(samples.items())
                     if r["started_unix"] <= t <= t_result + 1.0]
-        decisions = [e for e in events.read_events(str(journal))
-                     if e.get("name") == "tik_scaler_decision"]
-        launches = [e for e in decisions if e["action"] == "launch"]
-        stops = [e for e in decisions if e["action"] == "terminate"]
-        require([(e["reason"], e["node_type"], e["count"])
-                 for e in launches] == [("demand", "h100", 1)]
-                and launches[0]["ts"] > t_job,
-                f"control: launch decisions {launches}")
-        require([(e["reason"], e["node_id"]) for e in stops]
-                == [("idle_timeout", node)] and stops[0]["ts"] > t_result,
-                f"control: terminate decisions {stops}, the rank's result at "
-                f"{t_result}")
+        decisions = _scaler_decisions(journal, node, t_job, t_result,
+                                      "control")
         _reap(agent_pid, CONTROL_WAIT_S)
         _wait("the agent's process group gone",
               lambda: not _group_alive(agent_pid), CONTROL_WAIT_S)
@@ -9379,9 +9488,7 @@ def phase_control(load: ControlLoad = CONTROL_LOAD, expect_gpus: int = None,
         if provider is not None:
             for node_id in provider.non_terminated_nodes({}):
                 provider.terminate_node(node_id)
-        if pidfile.exists():
-            with contextlib.suppress(ProcessLookupError, ValueError):
-                os.kill(int(pidfile.read_text()), signal.SIGTERM)
+        _stop_pidfile(pidfile)
         if server is not None:
             server.stop()
         events.uninstall()
@@ -9391,6 +9498,302 @@ def phase_control(load: ControlLoad = CONTROL_LOAD, expect_gpus: int = None,
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     emit("control", **out)
+    return out
+
+
+# --------------------------------------------------------- local_provider --
+
+def phase_local_provider(load: ControlLoad = CONTROL_LOAD,
+                         expect_gpus: int = None, dev_root: str = "/dev",
+                         proc_root: str = "/proc", free_bytes=None,
+                         nvidia_smi: str = None) -> dict:
+    """The control phase's loop with the `local` provider in place of the
+    virtual one (module docstring): the inventory is this machine, and
+    `auth.executor: local` runs the worker's commands on it.  The smoke
+    process is the head (the native state server and the port's
+    `ClusterController`) and claims no host; the worker's start command
+    boots the host's node services (`node start --daemonize`, the node id
+    its address), which heartbeat, then runs the control phase's rank.
+    The provider's release deletes the claim only, so the phase stops the
+    node services itself, through the executor, as `teardown_cluster`
+    stops a head's.  Arguments as `phase_control`'s."""
+    import shlex
+    import shutil
+    import tempfile
+
+    from cloudtik_tpu_torch.control.controller import ClusterController
+    from cloudtik_tpu_torch.control.executor.factory import (
+        make_command_executor)
+    from cloudtik_tpu_torch.control.node_agent import _local_ip
+    from cloudtik_tpu_torch.control.services import (
+        node_services_pid_file, write_bootstrap_config)
+    from cloudtik_tpu_torch.control.state import (
+        StateClient, TABLE_HEARTBEAT, TABLE_METRICS, TcpStateBackend)
+    from cloudtik_tpu_torch.core.tags import (
+        NODE_KIND_WORKER, STATUS_UP_TO_DATE, TAG_NODE_KIND, TAG_NODE_STATUS,
+        TAG_USER_NODE_TYPE)
+    from cloudtik_tpu_torch.providers.factory import create_node_provider
+    from cloudtik_tpu_torch.providers.local.node_provider import (
+        _CLAIMS_NS, LocalNodeProvider)
+    from cloudtik_tpu_torch.runtimes.ai.scaling import AISliceScalingPolicy
+    from cloudtik_tpu_torch.telemetry import core as telemetry_core
+    from cloudtik_tpu_torch.telemetry import events
+    from cloudtik_tpu_torch.utils.call_context import CallContext
+    from cloudtik_tpu_torch.utils.constants import (
+        TIK_BOOTSTRAP_CONFIG_REMOTE)
+
+    phase = "local_provider"
+    # the inventory's one host: this machine, listed under the address its
+    # node agent reports in each heartbeat, which is how the controller
+    # matches a host to its agent; the address is its node id
+    host = _local_ip()
+    on_card = load.rank.device == "cuda"
+    t_phase = time.perf_counter()
+    out = {"nvidia_smi": nvidia_smi, "load": dataclasses.asdict(load)}
+    tmp = Path(tempfile.mkdtemp(prefix="tik-local-"))
+    site, home = tmp / "site", tmp / "home"
+    tik_home, claims_root = home / ".tik", tmp / "claims"
+    processes = tmp / "processes.jsonl"
+    gate, pidfile = tmp / "gate", tmp / "rank.pid"
+    rank_out, rank_log = tmp / "rank.json", tmp / "rank.log"
+    spec, staged = tmp / "load.json", tmp / "bootstrap-config.yaml"
+    saved_env = dict(os.environ)
+    was_enabled = telemetry_core.STATE.enabled
+    server = controller = provider = None
+    services_pidfile = None
+
+    def claims() -> dict:
+        return {h: json.loads(provider.state.get(_CLAIMS_NS, h).decode())
+                for h in provider.state.keys(_CLAIMS_NS)}
+
+    try:
+        # the worker's `~/.tik` (the bootstrap config's mount point) is
+        # the phase's TIK_HOME
+        _head_env(site, tik_home, processes, tmp, on_card)
+        os.environ["HOME"] = str(home)
+        # the node services' pidfile, as their process names it (this
+        # process took its TIK_RUN_DIR at import)
+        services_pidfile = tik_home / "run" / Path(
+            node_services_pid_file("smoke-local")).name
+        server, out["native_build_s"] = _native_head(tik_home, on_card,
+                                                     phase)
+        want = _advertised(dev_root, proc_root, expect_gpus, phase)
+        cmd, rank_start = _gated_rank(load.rank, spec, rank_out, rank_log,
+                                      gate, pidfile)
+        node_start = [sys.executable, "-m", "cloudtik_tpu_torch.scripts.cli",
+                      "node", "start", "--node-id", host,
+                      "--head-ip", "127.0.0.1", "--daemonize"]
+        config = _h100_cluster(
+            "smoke-local", {"type": "local", "hosts": [host],
+                            "state_root": str(claims_root)},
+            want, load, [shlex.join(node_start), rank_start],
+            auth={"executor": "local"}, state_port=server.port,
+            telemetry_port=0)
+        config["file_mounts"] = {TIK_BOOTSTRAP_CONFIG_REMOTE: str(staged)}
+        write_bootstrap_config(config, str(staged))
+        provider = create_node_provider(config["provider"],
+                                        config["cluster_name"])
+        require(type(provider) is LocalNodeProvider,
+                f"{phase}: the factory gave {type(provider)}")
+        head = StateClient(TcpStateBackend("127.0.0.1", server.port))
+        reader = StateClient(TcpStateBackend("127.0.0.1", server.port))
+        policy = AISliceScalingPolicy(
+            config, "127.0.0.1", {"slice_resources": {"GPU": 1}},
+            state_client=head)
+        journal = tik_home / "logs" / "events-local.jsonl"
+        telemetry_core.enable()
+        events.install(str(journal))
+        controller = ClusterController(
+            config, provider, head, scaling_policies=[policy],
+            update_interval_s=load.update_interval_s)
+        free_before = free_bytes() if free_bytes else None
+        t0 = time.time()
+        controller.start()
+
+        # ---- no job, no claim ----
+        _wait(f"{CONTROL_QUIET_TICKS} controller ticks",
+              lambda: controller.ticks >= CONTROL_QUIET_TICKS, CONTROL_WAIT_S,
+              phase=phase)
+        out["quiet"] = {"ticks": controller.ticks,
+                        "seconds": time.time() - t0, "claims": claims()}
+        require(out["quiet"]["claims"] == {},
+                f"{phase}: {out['quiet']['claims']} claimed before any job")
+
+        # ---- one pending job: the host claimed ----
+        t_job = time.time()
+        reader.table_put("ai_jobs", "smoke-job", {
+            "status": "pending", "time": t_job,
+            "command": shlex.join(cmd)})
+        node = _wait("claim", lambda: provider.non_terminated_nodes({}),
+                     CONTROL_WAIT_S, phase=phase)[0]
+        claim = claims()
+        require(node == host and list(claim) == [host]
+                and claim[node]["cluster"] == "smoke-local"
+                and claim[node]["time"] > t_job
+                and claim[node]["tags"].get(TAG_USER_NODE_TYPE) == "h100",
+                f"{phase}: claims {claim} for the job at {t_job}")
+        t_claim = claim[node]["time"]
+        hb = _wait("heartbeat",
+                   lambda: reader.table_get(TABLE_HEARTBEAT, node),
+                   CONTROL_WAIT_S, poll_s=0.02, phase=phase)
+        daemon = int(_wait("the node-services pidfile",
+                           lambda: services_pidfile.exists()
+                           and services_pidfile.read_text().strip(),
+                           CONTROL_WAIT_S, phase=phase))
+        argv = Path(f"/proc/{daemon}/cmdline").read_bytes().split(b"\0")
+        out["services_device_mib"] = (
+            (free_before - free_bytes()) / 2**20 if free_bytes else None)
+        gate.touch()
+        t_gate = time.time()
+        require(b"--node-id" in argv and argv[argv.index(b"--node-id") + 1]
+                == host.encode(),
+                f"{phase}: the node services run {argv}")
+        require(out["services_device_mib"] is None
+                or out["services_device_mib"] < CONTEXT_MIB,
+                f"{phase}: the card lost {out['services_device_mib']} MiB "
+                f"with the node services alive: a CUDA context "
+                f"({CONTEXT_MIB} MiB allowed)")
+        _wait("up-to-date", lambda: provider.node_tags(node).get(
+            TAG_NODE_STATUS) == STATUS_UP_TO_DATE, CONTROL_WAIT_S,
+            phase=phase)
+        t_up = time.time()
+
+        # ---- the rank: the agent's metrics while it runs ----
+        samples = {}
+
+        def sample():
+            m = reader.table_get(TABLE_METRICS, node)
+            if m:
+                samples[m["time"]] = m
+
+        def rank_done():
+            sample()
+            try:
+                return json.loads(rank_out.read_text())
+            except (OSError, ValueError):
+                return None
+
+        r = _wait("rank result", rank_done,
+                  load.rank.deadline_s + CONTROL_WAIT_S, poll_s=0.25,
+                  phase=phase)
+        t_result = rank_out.stat().st_mtime
+        reader.table_put("ai_jobs", "smoke-job", {
+            "status": "done", "time": time.time(),
+            "command": shlex.join(cmd)})
+        t_done = time.time()
+        per_step = _check_rank(r, load.rank, on_card, phase)
+
+        # ---- idle: the claim released, after the rank, for idle_timeout ---
+        def released():
+            sample()
+            return provider.is_terminated(node)
+
+        _wait("release", released, load.idle_timeout_s + CONTROL_WAIT_S,
+              phase=phase)
+        t_release = time.time()
+        require(claims() == {}, f"{phase}: claims {claims()} after release")
+        decisions = _scaler_decisions(journal, node, t_job, t_result, phase)
+
+        # ---- what the agent advertised: the card, through the native
+        # sampler ----
+        native_rows = [m for m in samples.values() if m.get("native")]
+        require(native_rows, f"{phase}: no metrics from the native sampler "
+                f"in {len(samples)} rows")
+        total = native_rows[-1]["total_resources"]
+        models = [k for k in total if k.startswith("accelerator_type:")]
+        require(total == want and (expect_gpus is None
+                                   or total["GPU"] == expect_gpus)
+                and len(models) == 1 and "H100" in models[0],
+                f"{phase}: the agent advertises {total}, the host {want}, "
+                f"torch sees {expect_gpus} cards")
+        services_log = (tik_home / "logs" / "node-services.log").read_text()
+        require(_SAMPLER_WARNING not in services_log,
+                f"{phase}: the agent fell back to psutil:\n{services_log}")
+
+        # ---- the release leaves the host's node services running: stop
+        # them through the executor, as a teardown stops a head's ----
+        out["services_alive_after_release"] = _pid_alive(daemon)
+        executor = make_command_executor(
+            CallContext(), f"[{node}] ", node, provider, config["auth"],
+            config["cluster_name"])
+        t0 = time.perf_counter()
+        executor.run(f"{shlex.quote(sys.executable)} -m "
+                     "cloudtik_tpu_torch.scripts.cli node stop", timeout=60)
+        _wait("the node services to exit", lambda: not _pid_alive(daemon),
+              CONTROL_WAIT_S, phase=phase)
+        t_services = time.perf_counter() - t0
+        logged = [json.loads(line) for line in
+                  processes.read_text().splitlines()]
+        launcher_pid = int(pidfile.read_text())
+        pids = {p["pid"] for p in logged}
+        require({daemon, launcher_pid, r["pid"]} <= pids,
+                f"{phase}: the node services {daemon}, the launcher "
+                f"{launcher_pid} or the rank {r['pid']} ran without the "
+                f"guard (logged: {logged})")
+        _wait("every process of the phase to exit",
+              lambda: not [p for p in pids if _pid_alive(p)], CONTROL_WAIT_S,
+              phase=phase)
+        if free_bytes:
+            _wait("the card's memory back", lambda: free_bytes()
+                  >= free_before - 2**30, CONTROL_WAIT_S, poll_s=0.25,
+                  phase=phase)
+            out["free_mib_lost"] = (free_before - free_bytes()) / 2**20
+
+        # ---- the host free again: a second provider over the same claims
+        # claims it and releases it ----
+        again = LocalNodeProvider({"hosts": [host],
+                                   "state_root": str(claims_root)},
+                                  "smoke-local-again")
+        got = again.create_node({}, {TAG_NODE_KIND: NODE_KIND_WORKER}, 1)
+        require(list(got) == [host]
+                and again.non_terminated_nodes({}) == [host],
+                f"{phase}: a second provider claimed {got}")
+        require(again.terminate_node(host) == {host: "released"}
+                and again.state.keys(_CLAIMS_NS) == [],
+                f"{phase}: the second claim stays "
+                f"{again.state.keys(_CLAIMS_NS)}")
+        out.update({
+            "node": node, "resources": total, "native_rows": len(native_rows),
+            "metrics_rows": len(samples),
+            "heartbeat": {k: hb[k] for k in ("node_ip", "time")},
+            "services_argv": [a.decode() for a in argv[1:]],
+            "processes": logged, "decisions": decisions,
+            "rank": {k: r[k] for k in (
+                "model", "batch", "seq", "n_layers", "losses",
+                "ms_per_step", "tokens_per_s", "launches",
+                "warmup_launches", "peak_mem_gb")},
+            "timing": {
+                "job_to_claim_s": t_claim - t_job,
+                "claim_to_heartbeat_s": hb["time"] - t_claim,
+                "heartbeat_to_up_to_date_s": t_up - hb["time"],
+                "spawn_to_first_step_s": r["first_step_unix"] - t_gate,
+                "step_ms": r["ms_per_step"],
+                "heartbeat_to_result_s": t_result - hb["time"],
+                "done_to_release_s": t_release - t_done,
+                "heartbeat_to_release_s": t_release - hb["time"],
+                "node_stop_s": t_services},
+            "launches": {k: r["warmup_launches"][k] + r["launches"][k]
+                         for k in per_step}})
+    finally:
+        gate.touch()
+        if controller is not None:
+            controller.stop()
+            if controller._thread is not None:
+                controller._thread.join(timeout=10)
+        if provider is not None:
+            for node_id in provider.non_terminated_nodes({}):
+                provider.terminate_node(node_id)
+        for path in (services_pidfile, pidfile):
+            _stop_pidfile(path)
+        if server is not None:
+            server.stop()
+        events.uninstall()
+        telemetry_core.STATE.enabled = was_enabled
+        os.environ.clear()
+        os.environ.update(saved_env)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(phase, **out)
     return out
 
 
@@ -9716,24 +10119,7 @@ def phase_lifecycle(load: LifecycleLoad = LIFECYCLE_LOAD, free_bytes=None,
         r = _wait("the submitted rank's result", rank_done,
                   load.rank.deadline_s + load.wait_s, poll_s=0.25)
         steps["job"] = time.time() - t_submit
-        require(r["built"] == [] and r["compile_s"] == 0,
-                f"lifecycle: the job built {r['built']} (compile bucket "
-                f"{r['compile_s']} s) from the warm cache")
-        require(all(math.isfinite(x) for x in r["losses"]),
-                f"lifecycle: the job's losses {r['losses']}")
-        require(r["jax_modules"] == [],
-                f"lifecycle: the job loaded {r['jax_modules']}")
-        n = r["n_layers"] if on_card else 0
-        want_launches = {"flash_fwd": n, "flash_bwd_dq": n,
-                         "flash_bwd_dkv": n}
-        require(r["warmup_launches"] == {
-            k: v * load.rank.warmup for k, v in want_launches.items()}
-            and r["launches"] == {
-                k: v * load.rank.steps for k, v in want_launches.items()},
-            f"lifecycle: the job's launches {r['warmup_launches']} in "
-            f"{load.rank.warmup} warm-up and {r['launches']} in "
-            f"{load.rank.steps} measured steps, expected {want_launches} "
-            "a step")
+        want_launches = _check_rank(r, load.rank, on_card, "lifecycle")
         if tmux:
             _wait("the job's tmux session to end", lambda: subprocess.run(
                 ["tmux", "ls"], env=env, capture_output=True).returncode,
@@ -10130,6 +10516,17 @@ def main() -> int:
         free_bytes=lambda: torch.cuda.mem_get_info(0)[0], nvidia_smi=smi)
     emit("lifecycle_phase", seconds=time.perf_counter() - t_life)
 
+    # ---- the control loop over the `local` provider: this machine the
+    # inventory's one host, whose node services the worker's start command
+    # boots (counts zeroed and read inside the launched rank, around its
+    # warm-up and its measured step) ----
+    _collect(True)
+    t_local = time.perf_counter()
+    local = phase_local_provider(
+        expect_gpus=torch.cuda.device_count(),
+        free_bytes=lambda: torch.cuda.mem_get_info(0)[0], nvidia_smi=smi)
+    emit("local_provider_phase", seconds=time.perf_counter() - t_local)
+
     main_case = kernel[ATTN_CASES[0].name]
     train_case = kernel_bwd[BWD_CASES[0].name]
     launches = {k: inference[k] + train["launches"][k]
@@ -10139,7 +10536,7 @@ def main() -> int:
                 + parallel["launches"][k] + elastic["launches"][k]
                 + runtime["launches"][k] + observe["launches"][k]
                 + control["launches"][k] + lifecycle["launches"][k]
-                for k in inference}
+                + local["launches"][k] for k in inference}
 
     def bwd_err(grads):
         return max(r["errors"][g]["max_abs"] for r in kernel_bwd.values()

@@ -34,6 +34,19 @@ from cloudtik_tpu_torch.utils.resource_spec import accelerator_key
 
 REFERENCE_PROVIDER = "cloudtik_tpu.providers.gcp.node_provider:GCPNodeProvider"
 
+# Service-account roles the workspace provider grants, the reference's
+# without `roles/tpu.admin`: the port's hosts are Compute Engine A3 VMs,
+# which `roles/compute.admin` covers, and the port calls no TPU API.
+HEAD_SERVICE_ACCOUNT_ROLES = [
+    "roles/storage.objectAdmin",
+    "roles/compute.admin",
+    "roles/iam.serviceAccountUser",
+]
+WORKER_SERVICE_ACCOUNT_ROLES = [
+    "roles/storage.objectAdmin",
+    "roles/logging.logWriter",
+    "roles/monitoring.metricWriter",
+]
 DEFAULT_SCOPES = ["https://www.googleapis.com/auth/cloud-platform"]
 
 # Deep Learning VM image family with the NVIDIA 570 driver and CUDA 12.8,

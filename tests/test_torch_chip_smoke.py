@@ -1516,6 +1516,8 @@ def test_elastic_load_is_tpu_1b_at_full_width_and_depth():
     load = chip_smoke.ELASTIC_LOAD
     assert (load.model, load.seq, load.batch) == ("tpu_1b", 2048, 8)
     assert load.device == "cuda:0"
+    # depth cut to 8 of the preset's 16 layers for the script's limit
+    assert (load.n_layers, load.param_dtype) == (8, "bfloat16")
     assert (load.every, load.torn_at, load.lost_at, load.return_at,
             load.steps) == (2, 4, 4, 6, 8)
     split = chip_smoke.ELASTIC_SPLIT_LOAD
@@ -1831,6 +1833,54 @@ def test_control_phase_rehearsal(tmp_path, monkeypatch):
     assert t["heartbeat_to_termination_s"] >= \
         chip_smoke.CONTROL_REHEARSAL.idle_timeout_s
     assert len(out["processes"]) >= 3
+
+
+def test_local_provider_phase_rehearsal(tmp_path, monkeypatch):
+    """The local_provider phase on the CPU at tiny size against a fake
+    one-card host: no claim before the job, then one claim of this machine
+    by the `local` provider; the worker's start command boots the port's
+    node services under the claim's node id, whose agent advertises the
+    fake card through the native sampler, and runs the control phase's
+    rank (no kernel on the CPU); the claim is released for idle after the
+    rank's result and the store is empty; `node stop` through the executor
+    ends the node services the release left running, and every python
+    process of the phase, each with `import jax` raising; a second
+    provider claims the host again and releases it."""
+    for name in ("CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES",
+                 "TIK_NODE_RESOURCES"):
+        monkeypatch.delenv(name, raising=False)
+    dev, proc = _fake_host(tmp_path, 1)
+    env = dict(os.environ)
+    out = chip_smoke.phase_local_provider(
+        chip_smoke.CONTROL_REHEARSAL, expect_gpus=1, dev_root=dev,
+        proc_root=proc, nvidia_smi="fake, 0 W")
+    assert dict(os.environ) == env
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    res = out["resources"]
+    assert res["GPU"] == 1.0
+    assert res["accelerator_type:NVIDIA-H100-80GB-HBM3"] == 1.0
+    assert out["quiet"]["claims"] == {} and out["quiet"]["ticks"] >= 4
+    assert [(d["action"], d["reason"]) for d in out["decisions"]] == [
+        ("launch", "demand"), ("terminate", "idle_timeout")]
+    assert out["native_rows"] >= 1
+    assert out["services_device_mib"] is None
+    assert out["services_alive_after_release"] is True
+    argv = out["services_argv"]
+    assert argv[argv.index("--node-id") + 1] == out["node"] == \
+        out["heartbeat"]["node_ip"]
+    rank = out["rank"]
+    assert (rank["model"], rank["seq"], rank["batch"]) == ("tiny", 64, 4)
+    assert len(rank["losses"]) == 2
+    t = out["timing"]
+    assert 0 < t["job_to_claim_s"] and 0 < t["claim_to_heartbeat_s"]
+    assert t["heartbeat_to_result_s"] < t["heartbeat_to_release_s"]
+    assert t["heartbeat_to_release_s"] >= \
+        chip_smoke.CONTROL_REHEARSAL.idle_timeout_s
+    # `node start --daemonize`, the node services it spawned, `node stop`
+    commands = [p["argv"][1:] for p in out["processes"]]
+    assert commands.count(["-m", "cloudtik_tpu_torch.scripts.cli",
+                           "node"]) == 3
 
 
 def test_control_load_is_the_runtime_rank_at_tpu_1b():

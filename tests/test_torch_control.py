@@ -16,7 +16,7 @@ way, so its `MockProvider` is a port `NodeProvider` and raises the port's
 Then F6: the load-balancer sync daemon the port's runtime starts imports
 the provider factory, and starts (`--help`) in a process where `import
 jax` and `import cloudtik_tpu` raise; the factory gives the port's
-providers, and names the port module a provider type still lacks.
+providers, and loads every provider type it registers.
 """
 
 import ast
@@ -188,16 +188,10 @@ def test_factory_gives_the_ports_providers(tmp_path):
     assert gcp.__module__ == "cloudtik_tpu_torch.providers.gcp.node_provider"
 
 
-# The provider types whose port modules are still to come (ROADMAP A17):
-# each fails naming the module it lacks
-MISSING = {
-    "node": ("aws", "azure", "aliyun", "huaweicloud", "kubernetes", "local",
-             "onpremise"),
-    "workspace": ("gcp", "aws", "azure", "aliyun", "huaweicloud"),
-    "storage": ("gcp", "aws", "azure", "aliyun", "huaweicloud"),
-    "database": ("gcp", "aws", "azure", "aliyun", "huaweicloud"),
-    "load_balancer": ("aws", "azure", "aliyun", "huaweicloud"),
-}
+# The provider types whose port modules are missing: none since the other
+# providers were copied (ROADMAP A17), so every registered type loads
+MISSING = {kind: () for kind in ("node", "workspace", "storage", "database",
+                                 "load_balancer")}
 _REGISTRIES = {"node": F._NODE_PROVIDERS,
                "workspace": F._WORKSPACE_PROVIDERS,
                "storage": F._STORAGE_PROVIDERS,

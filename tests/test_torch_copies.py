@@ -12,8 +12,10 @@ updater, the launcher, the demand scheduler, quorum and membership, the
 scaler, the controller, the cluster operator, the provider factory, the
 virtual provider and GCP's load balancer) and the operator surface (the
 config pipeline, the public API, node services, cluster dumps,
-workspaces, proxies, chaos drills and the whole CLI) reach these modules
-at run time,
+workspaces, proxies, chaos drills and the whole CLI) and the other
+providers (local hosts, an on-premise pool, GCP's workspace, storage and
+database, AWS, Azure, Alibaba Cloud, Huawei Cloud and Kubernetes) reach
+these modules at run time,
 and the port keeps its own copies of them (it imports nothing of the JAX
 package): each is the reference's source with `cloudtik_tpu` imports
 renamed to `cloudtik_tpu_torch`, and nothing else changed but the lines
@@ -139,6 +141,36 @@ COPIES = (
     "core/database_provider.py", "core/api.py", "control/services.py",
     "control/cluster_dump.py", "control/workspace_operator.py",
     "control/proxy.py", "faults/chaos.py", "scripts/cli.py",
+    # the other providers: local hosts, an on-premise pool, GCP's
+    # workspace, storage and database, the other clouds and Kubernetes
+    "providers/local/__init__.py", "providers/local/node_provider.py",
+    "providers/onpremise/__init__.py", "providers/onpremise/node_provider.py",
+    "providers/onpremise/simulator.py", "providers/gcp/database_provider.py",
+    "providers/gcp/storage_provider.py", "providers/gcp/workspace_provider.py",
+    "providers/aws/__init__.py", "providers/aws/config.py",
+    "providers/aws/database_provider.py",
+    "providers/aws/load_balancer_provider.py",
+    "providers/aws/node_provider.py", "providers/aws/storage_provider.py",
+    "providers/aws/workspace_provider.py", "providers/azure/__init__.py",
+    "providers/azure/database_provider.py",
+    "providers/azure/load_balancer_provider.py",
+    "providers/azure/node_provider.py", "providers/azure/storage_provider.py",
+    "providers/azure/workspace_provider.py", "providers/aliyun/__init__.py",
+    "providers/aliyun/database_provider.py",
+    "providers/aliyun/load_balancer_provider.py",
+    "providers/aliyun/node_provider.py",
+    "providers/aliyun/storage_provider.py",
+    "providers/aliyun/workspace_provider.py",
+    "providers/huaweicloud/__init__.py",
+    "providers/huaweicloud/database_provider.py",
+    "providers/huaweicloud/load_balancer_provider.py",
+    "providers/huaweicloud/node_provider.py",
+    "providers/huaweicloud/storage_provider.py",
+    "providers/huaweicloud/workspace_provider.py",
+    "providers/kubernetes/__init__.py", "providers/kubernetes/cloud.py",
+    "providers/kubernetes/manifests.py",
+    "providers/kubernetes/node_provider.py",
+    "providers/kubernetes/operator.py",
 )
 # sources the copies build at run time: the same bytes (they name no
 # package)

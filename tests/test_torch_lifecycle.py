@@ -14,8 +14,9 @@ collected here under a `TestPort...` or `test_port_...` name.
 
 Then F7, the parity of every cluster example and template, a lifecycle on
 the CPU through the port's CLI, where the head's node services serve
-`tiny` through the port's `ServingRuntime`, and every command's `--help`
-in a process where `import jax` and `import cloudtik_tpu` raise.
+`tiny` through the port's `ServingRuntime`, every command's `--help` in a
+process where `import jax` and `import cloudtik_tpu` raise, and so the
+other providers' entry points and `chaos run` on an `onpremise` cluster.
 """
 
 from __future__ import annotations
@@ -326,6 +327,18 @@ _SITE_NO_JAX = ('import sys\nsys.modules["jax"] = None\n'
                 'sys.modules["cloudtik_tpu"] = None\n')
 
 
+def _no_jax_env(tmp_path):
+    """The environment of a process where `import jax` and `import
+    cloudtik_tpu` raise, with `tmp_path/home` as its home."""
+    site = tmp_path / "site"
+    site.mkdir(exist_ok=True)
+    (site / "sitecustomize.py").write_text(_SITE_NO_JAX)
+    return dict(os.environ, HOME=str(tmp_path / "home"),
+                TIK_HOME=str(tmp_path / "home" / ".tik"),
+                PYTHONPATH=os.pathsep.join([str(site), str(ROOT)]),
+                OMP_NUM_THREADS="1")
+
+
 def _cli(env, *args, timeout=180):
     out = subprocess.run(
         [sys.executable, "-m", "cloudtik_tpu_torch.scripts.cli", *args],
@@ -357,12 +370,8 @@ def test_lifecycle_on_the_cpu(tmp_path):
     from cloudtik_tpu_torch.models import generate as G
     from cloudtik_tpu_torch.serve.server import engine_backend
 
-    site, home = tmp_path / "site", tmp_path / "home"
-    site.mkdir()
-    (site / "sitecustomize.py").write_text(_SITE_NO_JAX)
-    env = dict(os.environ, HOME=str(home), TIK_HOME=str(home / ".tik"),
-               PYTHONPATH=os.pathsep.join([str(site), str(ROOT)]),
-               OMP_NUM_THREADS="1")
+    home = tmp_path / "home"
+    env = _no_jax_env(tmp_path)
     env.pop("TIK_EVENTS_PATH", None)
     serve_port, telemetry_port, state_port, prom_port = (
         _free_port() for _ in range(4))
@@ -503,6 +512,87 @@ def test_every_commands_help_runs_without_jax():
     assert len(helps) == len(commands) >= 60
     for args, (code, text) in helps.items():
         assert code == 0 and text.startswith(f"Usage: tik {args}"), args
+
+
+@pytest.mark.parametrize("module", ["providers.onpremise.simulator",
+                                    "providers.kubernetes.operator"])
+def test_provider_entry_points_help_runs_without_jax(module, tmp_path):
+    """`tik-simulator` and `tik-operator` with `--help`, the port's where
+    `import jax` and `import cloudtik_tpu` raise: neither main parses
+    options (the simulator opens its first argument as the machine file,
+    the operator needs the `kubernetes` client), so each ends as the
+    reference's does, and nothing of JAX is reached on the way."""
+    outs = {}
+    for package, env in (("cloudtik_tpu", dict(os.environ)),
+                         ("cloudtik_tpu_torch", _no_jax_env(tmp_path))):
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{package}.{module}", "--help"],
+            cwd=str(ROOT), env=env, capture_output=True, text=True,
+            timeout=60)
+        last = proc.stderr.strip().splitlines()[-1] if proc.stderr else ""
+        outs[package] = (proc.returncode, last)
+        assert "jax" not in proc.stderr, proc.stderr[-2000:]
+    assert outs["cloudtik_tpu_torch"] == outs["cloudtik_tpu"]
+
+
+def test_chaos_run_drills_an_onpremise_cluster_without_jax(tmp_path):
+    """The port's `chaos run` on an `onpremise` cluster
+    (`templates/onpremise/defaults.yaml`) against a `tik-simulator` pool of
+    two machines, each its own process where `import jax` and `import
+    cloudtik_tpu` raise: the planted launch failure fires once, the
+    launcher's retry brings both workers up, and the pool holds them."""
+    env = _no_jax_env(tmp_path)
+    (tmp_path / "machines.json").write_text(json.dumps(
+        [{"ip": "127.0.0.1"}, {"ip": "127.0.0.2"}]))
+    sim = subprocess.Popen(
+        [sys.executable, "-u", "-m",
+         "cloudtik_tpu_torch.providers.onpremise.simulator",
+         str(tmp_path / "machines.json"), "0"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        line = sim.stdout.readline()
+        assert line.startswith("tik-simulator serving 2 machines on :"), (
+            line, sim.stderr.read() if sim.poll() is not None else "")
+        port = int(line.rsplit(":", 1)[1])
+        (tmp_path / "plan.yaml").write_text(
+            "seed: 3\nname: onpremise-drill\nfaults:\n"
+            "  - seam: provider.create_node\n    kind: raise\n"
+            "    times: 1\n")
+        (tmp_path / "cluster.yaml").write_text(yaml.safe_dump({
+            "cluster_name": "drill", "from": "onpremise/defaults",
+            "provider": {"type": "onpremise",
+                         "cloud_simulator_address": f"127.0.0.1:{port}"},
+            "auth": {"executor": "local"}, "runtime": {"types": []},
+            "available_node_types": {
+                "head": {"node_config": {}, "resources": {"CPU": 2}},
+                "worker": {"node_config": {}, "resources": {"CPU": 2},
+                           "min_workers": 2, "max_workers": 2}},
+            "head_node_type": "head", "max_workers": 2}))
+        out = subprocess.run(
+            [sys.executable, "-m", "cloudtik_tpu_torch.scripts.cli",
+             "chaos", "run", str(tmp_path / "plan.yaml"), "--config",
+             str(tmp_path / "cluster.yaml"), "--passes", "3",
+             "--interval", "1.0", "--json"],
+            cwd=str(ROOT), env=env, capture_output=True, text=True,
+            timeout=120)
+        assert out.returncode == 0, out.stderr[-3000:]
+        result = json.loads(out.stdout)
+        assert [(e["seam"], e["fired"]) for e in result["trace"]] == [
+            ("provider.create_node", 1)]
+        assert result["errors"] == []
+        assert result["summary"]["workers_by_type"] == {"worker": 2}
+        request = urllib.request.Request(
+            f"http://127.0.0.1:{port}", method="POST",
+            data=json.dumps({"op": "list", "cluster": "drill"}).encode())
+        with urllib.request.urlopen(request, timeout=10) as resp:
+            machines = json.loads(resp.read())["machines"]
+        assert sorted(m["ip"] for m in machines) == ["127.0.0.1",
+                                                     "127.0.0.2"]
+        assert {m["tags"]["tik-node-kind"] for m in machines} == {"worker"}
+    finally:
+        sim.kill()
+        sim.wait(timeout=10)
 
 
 # ------------------------------------------------ the card by default ------
