@@ -1004,10 +1004,11 @@ class StepLogits:
         self._module, self._orig = E, E.decode_logits
 
         def decode_logits(params, tokens, kp, vp, tables, lengths, active,
-                          cfg, block_size, lora=None):
+                          cfg, block_size, lora=None, attn_timer=None):
             if kp is not self.engine._kp:
                 return self._orig(params, tokens, kp, vp, tables, lengths,
-                                  active, cfg, block_size, lora=lora)
+                                  active, cfg, block_size, lora=lora,
+                                  attn_timer=attn_timer)
             lanes = [(b, s.request.request_id, len(s.request.tokens))
                      for b, s in enumerate(self.engine._slots)
                      if s is not None and s.decoding]
@@ -1022,7 +1023,8 @@ class StepLogits:
                                      if moved[b])
                 lora = dict(lora, idx=rolled)
             out = self._orig(params, tokens, kp, vp, tables, lengths,
-                             active, cfg, block_size, lora=lora)
+                             active, cfg, block_size, lora=lora,
+                             attn_timer=attn_timer)
             self._steps.append((out.clone(), lanes))
             return out
 
@@ -1198,13 +1200,14 @@ class EngineRoutes:
             return out
 
         def decode(params, tokens, kp, vp, tables, lengths, active, cfg,
-                   block_size, lora=None):
+                   block_size, lora=None, attn_timer=None):
             lanes = [(b, s.request.request_id, len(s.request.tokens))
                      for b, s in enumerate(self.engine._slots)
                      if s is not None and s.decoding]
             current.clear()
             out = self._orig[2](params, tokens, kp, vp, tables, lengths,
-                                active, cfg, block_size, lora=lora)
+                                active, cfg, block_size, lora=lora,
+                                attn_timer=attn_timer)
             self.steps.append((lanes, list(current)))
             return out
 

@@ -91,7 +91,7 @@ from cloudtik_tpu_torch.serve import kvcache, migration, reqlog
 from cloudtik_tpu_torch.serve.adapters import (
     AdapterLoadError, AdapterPool, AdapterSlotsExhausted)
 from cloudtik_tpu_torch.serve.kvcache import BlockPool, BlockPoolExhausted
-from cloudtik_tpu_torch.telemetry import events, goodput
+from cloudtik_tpu_torch.telemetry import devtime, events, goodput
 from cloudtik_tpu_torch.telemetry import instruments as ti
 from cloudtik_tpu_torch.telemetry.core import STATE as _telemetry_state
 
@@ -303,7 +303,9 @@ def fire_verify_seam(request_id: int, width: int) -> None:
 def _decode_layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
                   ck: torch.Tensor, cv: torch.Tensor, tables: torch.Tensor,
                   lengths: torch.Tensor, active: torch.Tensor,
-                  block_size: int, lora=None) -> torch.Tensor:
+                  block_size: int, lora=None,
+                  attn_timer: Optional[devtime.DeviceTimer] = None
+                  ) -> torch.Tensor:
     """One layer, one token per slot, against the paged pool.
 
     x [B,1,d]; ck/cv [N,bs,Hkv,Dh] (this layer's pool plane, written in
@@ -316,7 +318,10 @@ def _decode_layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
 
     `lora` is the gathered batched-adapter triple (layer_planes, idx,
     scale) (models/lora.py): each lane gathers ITS adapter's low-rank pair
-    and applies the delta next to the base projection, pre-RoPE."""
+    and applies the delta next to the base projection, pre-RoPE.
+
+    `attn_timer` (tracing on a card) takes one event pair around the
+    paged attention, from the K/V scatter through the weighted sum."""
     B = x.shape[0]
     M = tables.shape[1]
     bs = block_size
@@ -325,6 +330,8 @@ def _decode_layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
     q, k, v = G._qkv(cfg, h, layer, lora)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
+    if attn_timer is not None:
+        attn_timer.begin()
     # per-slot scatter at each slot's own (block, offset); inactive
     # slots write the null block's garbage (always masked)
     rows = torch.arange(B, device=x.device)
@@ -349,6 +356,8 @@ def _decode_layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
     scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("bhst,bthd->bshd", probs, cv_h.float()).to(x.dtype)
+    if attn_timer is not None:
+        attn_timer.end()
     x = x + G._attn_out(cfg, o, layer, lora)
     h = _rms_norm(x, layer["ln_mlp"], cfg.norm_eps)
     return x + _mlp(h, layer, cfg)
@@ -358,17 +367,21 @@ def decode_logits(params: Params, tokens: torch.Tensor, kp: torch.Tensor,
                   vp: torch.Tensor, tables: torch.Tensor,
                   lengths: torch.Tensor, active: torch.Tensor,
                   cfg: TransformerConfig, block_size: int,
-                  lora=None) -> torch.Tensor:
+                  lora=None,
+                  attn_timer: Optional[devtime.DeviceTimer] = None
+                  ) -> torch.Tensor:
     """The decode step's forward: tokens [B] (each slot's last token),
     kp/vp [L,N,bs,Hkv,Dh] pools (written in place), tables [B,M],
     lengths/active [B] -> logits [B, vocab] f32.  `lora` as in
-    `generate.forward_step`: {"planes", "idx" [B], "scale"}."""
+    `generate.forward_step`: {"planes", "idx" [B], "scale"};
+    `attn_timer` times every layer's attention (`_decode_layer`)."""
     x = _embed_lookup(params["embed"], tokens[:, None], cfg)
     for i in range(cfg.n_layers):
         layer_lora = None if lora is None else (
             LO.layer_planes(lora["planes"], i), lora["idx"], lora["scale"])
         x = _decode_layer(cfg, x, layer_params(params, i), kp[i], vp[i],
-                          tables, lengths, active, block_size, layer_lora)
+                          tables, lengths, active, block_size, layer_lora,
+                          attn_timer)
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_f32(x, params, cfg)[:, 0, :]
 
@@ -379,7 +392,7 @@ def decode_step(params: Params, tokens: torch.Tensor, kp: torch.Tensor,
                 temps: Optional[torch.Tensor],
                 generator: Optional[torch.Generator],
                 cfg: TransformerConfig, block_size: int, top_k: int,
-                lora=None
+                lora=None, attn_timer: Optional[devtime.DeviceTimer] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
     """One token for every active slot, paged.
@@ -390,9 +403,9 @@ def decode_step(params: Params, tokens: torch.Tensor, kp: torch.Tensor,
     pools updated in place; inactive slots keep their state.  `lora`
     enables the gathered batched-adapter path (`decode_logits`): a batch
     mixing N adapters and base-model lanes on the null slot 0 is still
-    one step."""
+    one step; `attn_timer` times each layer's attention."""
     logits = decode_logits(params, tokens, kp, vp, tables, lengths, active,
-                           cfg, block_size, lora=lora)
+                           cfg, block_size, lora=lora, attn_timer=attn_timer)
     if top_k > 0:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits < kth, torch.full_like(logits, _NEG),
@@ -497,6 +510,11 @@ class DecodeEngine:
         # serve-side goodput: decode-step wall time split into busy
         # lanes vs slot_idle, anchored when the engine starts serving
         self._ledger = goodput.get_ledger("serve")
+        # traced device time (telemetry/devtime.py): event pairs on the
+        # spans of the decode steps and prefill chunks, read after the
+        # loop's own syncs (loop-thread only; none on the CPU)
+        self._make_event = devtime.event_maker(self.device)
+        self._timers: List[devtime.DeviceTimer] = []
 
         # -- multi-tenant LoRA adapters (serve/adapters.py) ----------------
         # heterogeneous-adapter lanes decode in ONE step: the stacked
@@ -1334,6 +1352,17 @@ class DecodeEngine:
                                  role=self._role)
         self._emit_tenant_queue_depth()
 
+    def _device_timer(self, sp, key: str
+                      ) -> Optional[devtime.DeviceTimer]:
+        """A timer of span `sp`'s device time under `key`, read after
+        the loop's next sync; None with telemetry off (one check) or on
+        a device that keeps no times."""
+        if sp is telemetry.NOOP_SPAN or self._make_event is None:
+            return None
+        timer = devtime.DeviceTimer(self._make_event, sp.attrs, key)
+        self._timers.append(timer)
+        return timer
+
     def _prefill_tick(self) -> None:
         """Run ONE prompt chunk for the oldest prefilling slot.  One
         chunk per loop iteration is the Sarathi interleave: a decode
@@ -1367,7 +1396,8 @@ class DecodeEngine:
                                         request=req.request_id,
                                         slot=slot_id,
                                         start=slot.prefill_pos,
-                                        chunk_len=chunk):
+                                        chunk_len=chunk,
+                                        device_ms=None) as sp:
                         padded = np.zeros((1, bucket), np.int64)
                         padded[0, :chunk] = req.prompt[
                             slot.prefill_pos:slot.prefill_pos + chunk]
@@ -1380,12 +1410,17 @@ class DecodeEngine:
                                         [slot.adapter_slot],
                                         device=self.device),
                                     "scale": self._adapters.lora_cfg.scale}
+                        table = torch.tensor(self._tables_np[slot_id],
+                                             device=self.device)
+                        ids = torch.tensor(padded, device=self.device)
+                        timer = self._device_timer(sp, "device_ms")
+                        if timer is not None:
+                            timer.begin()
                         _, _, logits = G.paged_prefill_chunk(
-                            self._params, self._kp, self._vp,
-                            torch.tensor(self._tables_np[slot_id],
-                                         device=self.device),
-                            torch.tensor(padded, device=self.device),
+                            self._params, self._kp, self._vp, table, ids,
                             slot.prefill_pos, self.cfg, lora=lora)
+                        if timer is not None:
+                            timer.end()
                         tok = logits[0, chunk - 1].argmax(-1)
                 slot.prefill_pos += chunk
                 req.prefill_chunks += 1
@@ -1394,6 +1429,8 @@ class DecodeEngine:
                     # prompt complete: the final chunk's last logits ARE
                     # the first generated token
                     first_tok = int(tok)
+                    if self._timers:
+                        self._timers = devtime.settle(self._timers, True)
                     if self.ec.prefix_cache:
                         self.pool.register_prefix(
                             req.prompt, slot.table,
@@ -1673,46 +1710,61 @@ class DecodeEngine:
         if n_active == 0:
             return
         seams.fire("serve.decode_step", active=n_active)
-        t_step = time.perf_counter()
-        with telemetry.span("serve.decode_step", active=n_active):
-            temps = np.array(
-                [s.request.temperature if decoding[i] else 0.0
-                 for i, s in enumerate(self._slots)], np.float32)
-            dev = self.device
-            params, lora = self._params, None
-            if self._adapters is not None:
-                active_ids = {self._slots[i].request.adapter_id
-                              for i, on in enumerate(decoding) if on}
-                if len(active_ids) == 1:
-                    # batch-HOMOGENEOUS step: every active lane wears the
-                    # same adapter — the pool's cached merged weights
-                    # ride the plain step, with no gather arithmetic
-                    self._merged_steps += 1
-                    params = self._adapters.merged(next(iter(active_ids)))
-                else:
-                    # heterogeneous adapters decode in ONE step: per-slot
-                    # plane indices gather each lane's low-rank pair
-                    self._gathered_steps += 1
-                    lora = {"planes": self._adapters.planes,
-                            "idx": torch.tensor(self._adapter_idx,
-                                                device=dev),
-                            "scale": self._adapters.lora_cfg.scale}
-            nxt, self._kp, self._vp, self._lengths = decode_step(
-                params, self._tokens, self._kp, self._vp,
-                torch.tensor(self._tables_np, device=dev), self._lengths,
-                torch.tensor(decoding, device=dev),
-                torch.tensor(temps, device=dev)
-                if (temps > 1e-5).any() else None,
-                self._generator, self.cfg, self.ec.block_size,
-                self.ec.top_k, lora=lora)
+        with telemetry.span("serve.decode_step", active=n_active,
+                            device_ms=None, attn_device_ms=None) as sp:
+            with telemetry.span("serve.decode.prepare"):
+                temps = np.array(
+                    [s.request.temperature if decoding[i] else 0.0
+                     for i, s in enumerate(self._slots)], np.float32)
+                dev = self.device
+                params, lora = self._params, None
+                if self._adapters is not None:
+                    active_ids = {self._slots[i].request.adapter_id
+                                  for i, on in enumerate(decoding) if on}
+                    if len(active_ids) == 1:
+                        # batch-HOMOGENEOUS step: every active lane wears
+                        # the same adapter — the pool's cached merged
+                        # weights ride the plain step, with no gather
+                        # arithmetic
+                        self._merged_steps += 1
+                        params = self._adapters.merged(
+                            next(iter(active_ids)))
+                    else:
+                        # heterogeneous adapters decode in ONE step:
+                        # per-slot plane indices gather each lane's
+                        # low-rank pair
+                        self._gathered_steps += 1
+                        lora = {"planes": self._adapters.planes,
+                                "idx": torch.tensor(self._adapter_idx,
+                                                    device=dev),
+                                "scale": self._adapters.lora_cfg.scale}
+                tables = torch.tensor(self._tables_np, device=dev)
+                active = torch.tensor(decoding, device=dev)
+                temps_t = torch.tensor(temps, device=dev) \
+                    if (temps > 1e-5).any() else None
+            step_timer = self._device_timer(sp, "device_ms")
+            attn_timer = self._device_timer(sp, "attn_device_ms")
+            with telemetry.span("serve.decode.launch"):
+                if step_timer is not None:
+                    step_timer.begin()
+                nxt, self._kp, self._vp, self._lengths = decode_step(
+                    params, self._tokens, self._kp, self._vp, tables,
+                    self._lengths, active, temps_t, self._generator,
+                    self.cfg, self.ec.block_size, self.ec.top_k, lora=lora,
+                    attn_timer=attn_timer)
+                if step_timer is not None:
+                    step_timer.end()
             self._tokens = nxt
-            host_tokens = nxt.tolist()      # the step's one host sync
+            with telemetry.span("serve.decode.wait"):
+                host_tokens = nxt.tolist()      # the step's one host sync
         ti.SERVE_TOKENS.inc(n_active)
-        if _telemetry_state.enabled:
-            # slot-idle accounting: a decode step's wall time splits
-            # into productive lanes (occupied slots) and idle lanes —
-            # the serve-side goodput view
-            dt = time.perf_counter() - t_step
+        if self._timers:
+            self._timers = devtime.settle(self._timers, True)
+        if sp is not telemetry.NOOP_SPAN:
+            # slot-idle accounting: a decode step's wall time (its
+            # span's) splits into productive lanes (occupied slots) and
+            # idle lanes — the serve-side goodput view
+            dt = sp.dur
             busy = dt * n_active / self.ec.slots
             self._ledger.attribute(goodput.BUCKET_STEP_COMPUTE, busy)
             self._ledger.attribute(goodput.BUCKET_SLOT_IDLE, dt - busy)
@@ -1781,3 +1833,7 @@ class DecodeEngine:
                 # slot/queue teardown happens HERE, on the thread that
                 # owns the slot state
                 self._teardown()
+                # device times left after the last sync: read those the
+                # stream has passed (no sync added)
+                if self._timers:
+                    self._timers = devtime.settle(self._timers, False)

@@ -488,7 +488,7 @@ NOOP_SPAN = _NoopSpan()
 
 class Span:
     __slots__ = ("name", "attrs", "span_id", "parent_id", "trace_id",
-                 "_t0", "_wall")
+                 "_t0", "_wall", "dur")
 
     def __init__(self, name: str, attrs: Dict[str, Any]):
         self.name = name
@@ -519,7 +519,7 @@ class Span:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        duration = time.perf_counter() - self._t0
+        self.dur = duration = time.perf_counter() - self._t0
         stack = _parent_stack()
         if stack and stack[-1][0] == self.span_id:
             stack.pop()

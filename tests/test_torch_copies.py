@@ -197,7 +197,13 @@ _TORCH_JOURNAL = (
     "a dump also takes the port's events-torch.jsonl, the journal a "
     "serving process without node services writes "
     "(runtimes/serving/runtime.py journal_path), beside the default one")
+_SPAN_DURATION = (
+    "a finished span keeps its duration as `dur`, so the port's decode "
+    "engine splits a step's time into busy and idle lanes on the span's "
+    "own clock instead of a second perf_counter pair")
 ALLOWED_DIFFERENCES.update({
+    ("telemetry/core.py", 491): _SPAN_DURATION,
+    ("telemetry/core.py", 522): _SPAN_DURATION,
     ("control/services.py", 177): _ONE_ENDPOINT,
     ("control/services.py", 178): _ONE_ENDPOINT,
     **{("control/cluster_dump.py", line): _TORCH_JOURNAL
