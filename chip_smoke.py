@@ -121,6 +121,15 @@ run with a non-zero exit:
            gradient, with the kernel forward, is `roi_align_grad`'s, which
            is held within 1e-5 to the plain gather form's autograd
            gradient; its ms beside the kernel forward's
+  kernel_paged  B6, the paged decode attention kernel, against its plain
+           version on the same inputs at the serving cell's shape (32
+           lanes, blocks of 16, 8 KV heads of 128, GQA group 4, 64 table
+           slots) at two length mixes (lanes of 103-986 positions, and all
+           1,024), in bf16 within one bf16 step; the append equal bit for
+           bit; kernel time from a CUDA graph of 20 calls, the eager
+           calls' time (the host's enqueue), the plain version's, and the
+           bound (the lanes' K/V read once at 3.35 TB/s); no PyTorch call
+           computes paged decode over a block table
   train_grads  tpu_1b width with 2 layers: the flash path's gradients
            against the reference attention path's, and the loss falling
            over 10 steps on one repeated batch
@@ -807,6 +816,151 @@ def phase_kernel_bwd() -> dict:
         emit("kernel_bwd", **row)
         results.append(row)
         del q, k, v, do, o, lse, dq, dk, dv, qs, ks, vs, delta
+        torch.cuda.empty_cache()
+    return {r["case"]: r for r in results}
+
+
+# ------------------------------------------------------------ kernel_paged --
+
+@dataclasses.dataclass(frozen=True)
+class PagedCase:
+    name: str
+    B: int
+    H: int
+    Hkv: int
+    D: int
+    bs: int
+    M: int
+    lengths: tuple        # each lane's appended position (attends 0..len)
+
+
+def _spread(lo: int, hi: int, n: int) -> tuple:
+    return tuple(lo + (hi - lo) * i // (n - 1) for i in range(n))
+
+
+# Mistral-7B in mistral7b-serve-chat: 32 lanes of 64 blocks of 16; lanes
+# holding 103-986 positions (its prompts and outputs), and all full
+PAGED_CASES = (
+    PagedCase("chat_spread", 32, 32, 8, 128, 16, 64, _spread(102, 985, 32)),
+    PagedCase("chat_full", 32, 32, 8, 128, 16, 64, (1023,) * 32),
+)
+# bf16 output: both versions round an f32 result once, from sums taken in
+# another order, so the rounding may move by one bf16 step (2**-7 of the
+# value at most), with a floor for values near 0
+PAGED_RTOL, PAGED_ATOL = 2.0 ** -7, 1e-5
+
+
+def paged_bound(c: PagedCase, elem_bytes: int = 2):
+    """Least time for what the inputs need: each lane's K/V of positions
+    0..len - 1 read once, q and the new k/v read, the append and the
+    output written, the tables, lengths and mask read."""
+    flops = 4 * sum(n + 1 for n in c.lengths) * c.H * c.D
+    kv = 2 * sum(c.lengths) * c.Hkv * c.D
+    nbytes = (elem_bytes * (kv + c.B * c.H * c.D * 2
+                            + 2 * 2 * c.B * c.Hkv * c.D)
+              + 8 * c.B * c.M + 9 * c.B)
+    t_ops = flops / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, bound_by, flops, nbytes
+
+
+def graph_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one fn() from a CUDA graph of `iters` calls, replayed
+    `reps` times between CUDA events: the kernels back to back, with no
+    host enqueue between them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def paged_inputs(c: PagedCase, gen):
+    """bf16 inputs of case `c`: each lane's own blocks from a shuffled
+    pool of B * M + 1, every lane active."""
+    import torch
+
+    N = c.B * c.M + 1
+
+    def t(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    tables = (torch.randperm(N - 1, generator=gen, device="cuda") + 1
+              ).reshape(c.B, c.M)
+    return (t(c.B, 1, c.H, c.D), t(c.B, 1, c.Hkv, c.D),
+            t(c.B, 1, c.Hkv, c.D), t(N, c.bs, c.Hkv, c.D),
+            t(N, c.bs, c.Hkv, c.D), tables,
+            torch.tensor(c.lengths, dtype=torch.int64, device="cuda"),
+            torch.ones(c.B, dtype=torch.bool, device="cuda"))
+
+
+def phase_kernel_paged(cases=PAGED_CASES) -> dict:
+    import torch
+
+    from cloudtik_tpu_torch.ops import paged_attention as PA
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    results = []
+    for c in cases:
+        args = paged_inputs(c, gen)
+        twin = [a.clone() for a in args]
+        before = PA.LAUNCHES
+        o = PA.paged_attention(*args, c.bs)
+        launches = PA.LAUNCHES - before
+        want = PA.paged_attention_reference(*twin, c.bs)
+        torch.cuda.synchronize()
+        err = (o.float() - want.float()).abs()
+        require(bool((err <= PAGED_ATOL + PAGED_RTOL
+                      * want.float().abs()).all()),
+                f"{c.name}: paged attention differs from the plain version "
+                f"(max abs {err.max().item()})")
+        require(torch.equal(args[3][1:], twin[3][1:])
+                and torch.equal(args[4][1:], twin[4][1:]),
+                f"{c.name}: the kernel's append differs from the plain "
+                "version's")
+        _, n_splits = PA.split_plan(c.B, c.Hkv, c.M * c.bs,
+                                    PA._sm_count(o.device))
+        require(launches == (1 if n_splits == 1 else 2),
+                f"{c.name}: {launches} launches for {n_splits} splits")
+        kernel_ms = graph_time_ms(lambda: PA.paged_attention(*args, c.bs))
+        eager_ms = time_ms(lambda: PA.paged_attention(*args, c.bs))
+        plain_ms = time_ms(lambda: PA.paged_attention_reference(
+            *twin, c.bs), iters=3)
+        bound_ms, bound_by, flops, nbytes = paged_bound(c)
+        row = {
+            "case": c.name, "lanes": c.B, "heads": c.H, "kv_heads": c.Hkv,
+            "head_dim": c.D, "block": c.bs, "table_slots": c.M,
+            "positions": [min(c.lengths) + 1, max(c.lengths) + 1],
+            "mean_positions": sum(c.lengths) / c.B + 1,
+            "splits": n_splits, "launches": launches,
+            "max_abs_err": err.max().item(),
+            "tolerance": {"rtol": PAGED_RTOL, "atol": PAGED_ATOL},
+            "kernel_ms": kernel_ms, "eager_ms": eager_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": nbytes, "tb_per_s": nbytes / kernel_ms / 1e9,
+        }
+        emit("kernel_paged", **row)
+        results.append(row)
+        del args, twin, o, want
         torch.cuda.empty_cache()
     return {r["case"]: r for r in results}
 
@@ -10326,6 +10480,7 @@ def main() -> int:
     kernel = phase_kernel()
     kernel_bwd = phase_kernel_bwd()
     kernel_det = phase_kernel_det()
+    kernel_paged = phase_kernel_paged()
 
     # ---- the inference path: counts zeroed just before, read just after --
     _zero_launch_counts()
@@ -10344,28 +10499,40 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- the engine path: counts zeroed just before, read just after ----
-    # its attention is the reference's einsums (no Pallas kernel there)
+    # its decode attention is B6 (no Pallas kernel there: the reference's
+    # einsums), its prefill chunks einsums as in the reference
+    from cloudtik_tpu_torch.ops import paged_attention as PA
+
     _zero_launch_counts()
     _zero_det_launch_counts()
+    PA.LAUNCHES = 0
     phase_engine(nvidia_smi=smi)
     engine_launches = {**_launch_counts(), **_det_launch_counts()}
-    emit("engine_path", launches=engine_launches)
+    paged_launches = PA.LAUNCHES
+    emit("engine_path", launches=engine_launches, paged_attn=paged_launches)
     require(not any(engine_launches.values()),
             f"the engine path launched {engine_launches}, expected none")
+    require(paged_launches > 0,
+            "the engine path never launched the paged attention kernel")
 
     # ---- the spec, lora, disagg and fabric paths, counts zeroed just
     # before each and read just after: the verify and the draft are
     # `forward_step`'s einsums, the LoRA delta is `gathered_delta`'s and
-    # migration's gather and scatter are indexing, as in the reference ----
+    # migration's gather and scatter are indexing, as in the reference;
+    # their decode steps launch B6 ----
     for name, phase in (("spec", phase_spec), ("lora", phase_lora),
                         ("disagg", phase_disagg), ("fabric", phase_fabric)):
         _zero_launch_counts()
         _zero_det_launch_counts()
+        PA.LAUNCHES = 0
         phase(nvidia_smi=smi)
         path_launches = {**_launch_counts(), **_det_launch_counts()}
-        emit(f"{name}_path", launches=path_launches)
+        emit(f"{name}_path", launches=path_launches, paged_attn=PA.LAUNCHES)
         require(not any(path_launches.values()),
                 f"the {name} path launched {path_launches}, expected none")
+        require(PA.LAUNCHES > 0,
+                f"the {name} path never launched the paged attention kernel")
+        paged_launches += PA.LAUNCHES
 
     # ---- the training path (counts zeroed and read inside) ----
     train = phase_train()
@@ -10618,6 +10785,23 @@ def main() -> int:
     }]
     require(all(r["bound_by"] == "bytes" for r in roi_main),
             "roi_align's main shapes are not bound by bytes")
+    # B6 at the chat cell's shape and length mix, launched by the engine,
+    # spec, lora, disagg and fabric paths
+    paged_main = kernel_paged[PAGED_CASES[0].name]
+    summary["kernels"].append({
+        "name": "paged_attn",
+        "route": "cuda",
+        "source": "cloudtik_tpu_torch/csrc/paged_attn.cu",
+        "replaces": "none: the reference's decode attention is XLA einsums "
+                    "(cloudtik_tpu/serve/engine.py _decode_layer)",
+        "launches": paged_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in kernel_paged.values()),
+        "ms": paged_main["kernel_ms"],
+        "plain_ms": paged_main["plain_ms"],
+        "bound_ms": paged_main["bound_ms"],
+        "bound_by": paged_main["bound_by"],
+        "library_ms": None,
+    })
     emit("total", seconds=time.perf_counter() - t_script)
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)

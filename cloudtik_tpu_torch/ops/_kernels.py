@@ -55,6 +55,10 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
         "tik_nms": ([_P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
         "tik_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "paged_attn": {
+        "tik_paged_attn": ([_I, _I] + [_P] * 11 + [_I] * 7 + [_F, _P], _I),
+        "tik_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
     "roi_align": {
         "tik_roi_align": ([_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I,
                            _I, _F, _P], _I),

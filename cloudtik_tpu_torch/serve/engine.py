@@ -8,10 +8,12 @@ request lifecycle, metric, span, event and request-ledger names:
   ordered block table; block 0 is the reserved null block that inactive
   lanes and unallocated table slots point at, so every gather/scatter
   index in the decode step is valid.
-* DECODE: one step for all slots.  Each lane scatters its new K/V at
-  `(table[length // bs], length % bs)` and attends over its table gathered
-  contiguous, in f32, as the reference's einsums do.  The pools are
-  updated in place (the reference threads them through its programs).
+* DECODE: one step for all slots.  Each lane appends its new K/V at
+  `(table[length // bs], length % bs)` and attends over its table in f32
+  (ops/paged_attention.py): on the card a hand-written kernel reads each
+  lane's K/V in place up to its length, on the CPU the reference's
+  gathered einsums run.  The pools are updated in place (the reference
+  threads them through its programs).
 * PREFILL is CHUNKED: at most one bucket-sized chunk per loop iteration
   through `models/generate.paged_prefill_chunk`, interleaved with decode
   steps.
@@ -87,6 +89,7 @@ from cloudtik_tpu_torch.models.generate import _NEG
 from cloudtik_tpu_torch.models.transformer import (
     TransformerConfig, _embed_lookup, _mlp, _rms_norm, _rope,
     layer_params, logits_f32)
+from cloudtik_tpu_torch.ops import paged_attention as PA
 from cloudtik_tpu_torch.serve import kvcache, migration, reqlog
 from cloudtik_tpu_torch.serve.adapters import (
     AdapterLoadError, AdapterPool, AdapterSlotsExhausted)
@@ -310,21 +313,18 @@ def _decode_layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
 
     x [B,1,d]; ck/cv [N,bs,Hkv,Dh] (this layer's pool plane, written in
     place); tables [B,M] physical block ids; lengths [B] int64 (per-slot
-    absolute position); active [B] bool.  Each lane scatters its new K/V
-    at (table[length // bs], length % bs) and attends over its gathered
-    table — inactive lanes all write block 0 at offset 0 (a duplicate
-    index, harmless because block 0 is garbage) and their output is
-    discarded by the caller.
+    absolute position); active [B] bool.  Each lane appends its new K/V
+    at (table[length // bs], length % bs) and attends over its table
+    (ops/paged_attention.py: the CUDA kernel on a card, the reference's
+    gathered einsums on the CPU); an inactive lane's output is discarded
+    by the caller.
 
     `lora` is the gathered batched-adapter triple (layer_planes, idx,
     scale) (models/lora.py): each lane gathers ITS adapter's low-rank pair
     and applies the delta next to the base projection, pre-RoPE.
 
     `attn_timer` (tracing on a card) takes one event pair around the
-    paged attention, from the K/V scatter through the weighted sum."""
-    B = x.shape[0]
-    M = tables.shape[1]
-    bs = block_size
+    paged attention, from the K/V append through the weighted sum."""
     positions = lengths[:, None]                      # [B,1]
     h = _rms_norm(x, layer["ln_attn"], cfg.norm_eps)
     q, k, v = G._qkv(cfg, h, layer, lora)
@@ -332,30 +332,8 @@ def _decode_layer(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
     k = _rope(k, positions, cfg.rope_theta)
     if attn_timer is not None:
         attn_timer.begin()
-    # per-slot scatter at each slot's own (block, offset); inactive
-    # slots write the null block's garbage (always masked)
-    rows = torch.arange(B, device=x.device)
-    blk_idx = torch.clamp(lengths // bs, 0, M - 1)
-    phys = torch.where(active, tables[rows, blk_idx], kvcache.NULL_BLOCK)
-    off = torch.where(active, lengths % bs, 0)
-    ck[phys, off] = k[:, 0].to(ck.dtype)
-    cv[phys, off] = v[:, 0].to(cv.dtype)
-    # attention: gather each slot's logical view; slot b may see
-    # logical positions <= lengths[b] (unallocated table slots gather
-    # the null block — finite garbage, masked to exactly 0 by softmax)
-    T = M * bs
-    ck_seq = ck[tables].reshape(B, T, ck.shape[-2], ck.shape[-1])
-    cv_seq = cv[tables].reshape(B, T, cv.shape[-2], cv.shape[-1])
-    groups = q.shape[2] // ck_seq.shape[2]
-    ck_h = ck_seq.repeat_interleave(groups, dim=2)
-    cv_h = cv_seq.repeat_interleave(groups, dim=2)
-    scores = torch.einsum("bshd,bthd->bhst", q.float(),
-                          ck_h.float()) * (q.shape[-1] ** -0.5)
-    mask = (torch.arange(T, device=x.device)[None, None, None, :]
-            <= lengths[:, None, None, None])
-    scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
-    probs = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bhst,bthd->bshd", probs, cv_h.float()).to(x.dtype)
+    o = PA.paged_attention(q, k, v, ck, cv, tables, lengths, active,
+                           block_size)
     if attn_timer is not None:
         attn_timer.end()
     x = x + G._attn_out(cfg, o, layer, lora)
@@ -1711,7 +1689,8 @@ class DecodeEngine:
             return
         seams.fire("serve.decode_step", active=n_active)
         with telemetry.span("serve.decode_step", active=n_active,
-                            device_ms=None, attn_device_ms=None) as sp:
+                            device_ms=None, attn_device_ms=None,
+                            paged_attn_launches=None) as sp:
             with telemetry.span("serve.decode.prepare"):
                 temps = np.array(
                     [s.request.temperature if decoding[i] else 0.0
@@ -1747,6 +1726,7 @@ class DecodeEngine:
             with telemetry.span("serve.decode.launch"):
                 if step_timer is not None:
                     step_timer.begin()
+                launched = PA.LAUNCHES
                 nxt, self._kp, self._vp, self._lengths = decode_step(
                     params, self._tokens, self._kp, self._vp, tables,
                     self._lengths, active, temps_t, self._generator,
@@ -1754,6 +1734,7 @@ class DecodeEngine:
                     attn_timer=attn_timer)
                 if step_timer is not None:
                     step_timer.end()
+                sp.set(paged_attn_launches=PA.LAUNCHES - launched)
             self._tokens = nxt
             with telemetry.span("serve.decode.wait"):
                 host_tokens = nxt.tolist()      # the step's one host sync

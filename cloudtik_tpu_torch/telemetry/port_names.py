@@ -21,6 +21,8 @@ SPAN_ATTRIBUTES: Dict[tuple, str] = {
         "the card's time from the step's first kernel to its last, ms",
     ("serve.decode_step", "attn_device_ms"):
         "the card's time in each layer's paged attention, summed, ms",
+    ("serve.decode_step", "paged_attn_launches"):
+        "paged-attention kernel launches the step made (0 on the CPU)",
     ("serve.prefill", "device_ms"):
         "the card's time for the chunk's forward, ms",
 }

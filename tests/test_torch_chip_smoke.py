@@ -317,6 +317,26 @@ def test_roi_bound_at_the_maskrcnn_shapes():
         assert bound_ms == pytest.approx(ms, abs=1e-4)
 
 
+def test_paged_cases_are_the_chat_cells_shape_and_bound_by_bytes():
+    """B6 at Mistral-7B in the chat cell: 32 lanes of 64 blocks of 16, 8
+    KV heads of 128 under 32 query heads; lanes of 103-986 positions, and
+    all 1,024; bound by the lanes' K/V at 3.35 TB/s."""
+    spread, full = chip_smoke.PAGED_CASES
+    for c in (spread, full):
+        assert (c.B, c.H, c.Hkv, c.D, c.bs, c.M) == (32, 32, 8, 128, 16, 64)
+        assert len(c.lengths) == c.B
+    assert (min(spread.lengths) + 1, max(spread.lengths) + 1) == (103, 986)
+    assert set(full.lengths) == {c.M * c.bs - 1}
+    bound_ms, bound_by, flops, nbytes = chip_smoke.paged_bound(full)
+    kv = 2 * 2 * 32 * 1023 * 8 * 128            # 134.1 MB of K and V
+    assert nbytes == kv + 2 * (2 * 32 * 32 * 128 + 4 * 32 * 8 * 128) \
+        + 8 * 32 * 64 + 9 * 32
+    assert flops == 4 * 32 * 1024 * 32 * 128
+    assert bound_by == "bytes"
+    assert bound_ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert chip_smoke.paged_bound(spread)[0] < bound_ms
+
+
 def test_nms_scan_work_counts_what_the_sorted_scan_reaches():
     """Order [0, 2, 3, 1]: with K=2 the scan stops at its second kept box
     (1 IoU); with one more to keep it reaches every candidate, each later

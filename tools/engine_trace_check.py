@@ -10,7 +10,9 @@ own spans checked and summarised (needs a CUDA card).
 the per-layer metrics); after it, in the same process, the engine's
 spans are taken from the ring and checked: for every decode step
 `launch + wait <= dur`, `device_ms <= launch + wait + 0.5 ms` and
-`attn_device_ms <= device_ms`; with no request preempted, the prefill
+`attn_device_ms <= device_ms`; every step carries one and the same
+nonzero `paged_attn_launches` (the paged-attention kernel's launches,
+one or two a layer); with no request preempted, the prefill
 chunks' `chunk_len` summed over the window equals `prompt_len -
 prefix_tokens` summed over the requests whose first token came.  The
 profiled stretch's kernels are laid over the spans through the one
@@ -56,6 +58,9 @@ def check_spans(spans, record) -> dict:
             by_parent.setdefault(s["parent"], {})[s["name"]] = s
     steps = [s for s in spans if s["name"] == "serve.decode_step"]
     bad = {"launch_wait": 0, "device": 0, "attn": 0, "no_device": 0}
+    launches = [st["attrs"].get("paged_attn_launches") for st in steps]
+    bad["paged_launches"] = sum(
+        1 for n in launches if not n or n != launches[0])
     worst_device_over_ms = None
     rows = {k: [] for k in ("dur", "prepare", "launch", "wait",
                             "device_ms", "attn_device_ms")}
@@ -90,6 +95,8 @@ def check_spans(spans, record) -> dict:
                       for r in record["requests"] if r["first"] is not None)
     return {
         "steps": len(steps), "bad": bad,
+        "paged_attn_launches": sorted({n for n in launches
+                                       if n is not None}),
         "worst_device_over_launch_wait_ms": worst_device_over_ms,
         "means_ms": {k: _mean(v) for k, v in rows.items()},
         "chunks": len(chunks), "chunks_timed": len(timed),
